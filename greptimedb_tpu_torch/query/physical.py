@@ -1,0 +1,842 @@
+"""Physical execution of the dense-grid path: SelectPlan → torch tensor
+code and the grid kernels → host result columns.
+
+Torch counterpart of the grid half of the reference's
+``query/physical.py``.  Per query, the device computes per-(series, time
+bucket) partials with ``bucket_reduce`` and merges series into tag groups
+with ``group_merge`` (the two hand-written CUDA kernels of
+``ops/grid_kernels.py``); the mean/NaN epilogue, ``__gmask__`` and the
+``__comps__``/``__bts__`` key decomposition are torch elementwise ops.
+The host then shapes the (small) result: decode tag codes, HAVING, ORDER
+BY, LIMIT, final projections (query/engine.py).
+
+Two layouts, as in the reference:
+
+- bucket-major (aligned windows): ``bucket_reduce`` builds the
+  ``[C, S, NB]`` partial sums and ``[S, NB]`` counts once per (region,
+  step class) into ``DerivedLayoutCache``; each query slices its buckets
+  and runs the series merge (``_bm_kernel_fn``).
+- dynamic slice (any other window): ``_build_grid_kernel`` reduces the
+  query window of the grid planes directly.
+
+Prepared closures are cached in a plain dict keyed as the reference keys
+its jitted kernels.  Not ported yet: the row path (``execute``), the
+stacked batch dispatch (``execute_grid_batch``), per-member series masks
+and sketches.
+"""
+
+from __future__ import annotations
+
+import dataclasses as _dataclasses
+import os
+import time as _time
+
+import numpy as np
+import torch
+
+from greptimedb_tpu_torch.errors import PlanError, Unsupported
+from greptimedb_tpu_torch.ops.grid_kernels import (
+    bucket_reduce, clamp_start, group_layout, group_merge,
+)
+from greptimedb_tpu_torch.ops.segment import combine_keys, decompose_keys
+from greptimedb_tpu_torch.query.ast import Column, Star
+from greptimedb_tpu_torch.query.exprs import compile_device
+from greptimedb_tpu_torch.query.planner import SelectPlan, referenced_columns
+from greptimedb_tpu_torch.utils.tracing import TRACER
+
+DENSE_LIMIT = 1 << 22
+
+
+@_dataclasses.dataclass
+class _GridGeom:
+    """Plan→grid geometry produced by Executor._grid_prologue: everything
+    the grid kernels need beyond the plan itself.  Shared by the solo
+    path and the cross-query stacked dispatch so window math has exactly
+    one definition."""
+
+    specs: list
+    where_fn: object
+    where_series: bool
+    ts_name: str
+    tag_keys: list
+    has_time: bool
+    r: int
+    pad_left: int
+    nb: int
+    nbw: int
+    w_raw: int
+    pad_l: int
+    pad_r: int
+    step_q: int
+    bts0: int
+    b_lo: int
+    s0: int
+    aligned: bool
+    lo: int | None
+    hi: int | None
+    cards_tag: list
+    ngt: int
+    dict_ver: tuple
+    tag_order: tuple
+
+
+_GRID_OPS = {"avg": "mean", "mean": "mean", "sum": "sum", "count": "count",
+             "min": "min", "max": "max"}
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def timed_kernel_call(call, miss: bool, metrics: dict | None, device):
+    """Invoke a prepared kernel closure.  With a ``metrics`` sink (or the
+    tracer on) it records whether the closure was cached (``jit_cache``,
+    the reference's key) and the device wait after the launches, which
+    needs a synchronize; otherwise the launches stay asynchronous until
+    the result copy."""
+    out = call()
+    if metrics is not None:
+        metrics["device_dispatches"] = metrics.get("device_dispatches", 0) + 1
+        metrics["jit_cache"] = "miss" if miss else "hit"
+    if metrics is not None or TRACER.enabled:
+        t0 = _time.perf_counter()
+        with TRACER.stage("device_execute"):
+            _sync(device)
+        if metrics is not None:
+            metrics["device_wait_ms"] = round(
+                metrics.get("device_wait_ms", 0.0)
+                + (_time.perf_counter() - t0) * 1000, 3)
+    return out
+
+
+def grid_plan_candidate(plan) -> bool:
+    """Cheap pre-build eligibility for the dense-grid executor: structure
+    and referenced columns only (grid step/shape checks need the built
+    grid and happen in execute_grid).  Called BEFORE the provider builds a
+    grid, so an obviously ineligible plan never pays the build."""
+    from greptimedb_tpu_torch.storage.grid import grid_float_fields
+
+    ctx = plan.ctx
+    if not plan.is_agg:
+        return False
+    time_keys = 0
+    for k in plan.group_keys:
+        if k.kind == "time":
+            time_keys += 1
+        elif k.kind != "tag":
+            return False
+    if time_keys > 1:
+        return False
+    ts = ctx.schema.time_index
+    if ts is None:
+        return False
+    gridcols = set(grid_float_fields(ctx.schema))
+    tags = {c.name for c in ctx.schema.tag_columns}
+    ok_refs = gridcols | tags | {ts.name}
+    for agg in plan.aggs:
+        op = _GRID_OPS.get(agg.name)
+        if op is None or agg.distinct:
+            return False
+        if not agg.args or isinstance(agg.args[0], Star):
+            if agg.name != "count":
+                return False
+            continue
+        if len(agg.args) > 1:
+            return False
+        refs: set = set()
+        try:
+            referenced_columns(agg.args[0], ctx, refs)
+        except Exception:  # noqa: BLE001
+            return False
+        # tag refs inside numeric aggregates would aggregate dictionary
+        # codes; the row path rejects them too — fall back for parity
+        if not refs <= ok_refs or (refs & tags):
+            return False
+    if plan.where is not None:
+        refs = set()
+        try:
+            referenced_columns(plan.where, ctx, refs)
+        except Exception:  # noqa: BLE001
+            return False
+        if not refs <= ok_refs:
+            return False
+    return True
+
+_I64_MAX = np.int64(np.iinfo(np.int64).max)
+_I64_MIN = np.int64(np.iinfo(np.int64).min)
+
+
+def decode_codes(values: list, raw: np.ndarray, null=None) -> np.ndarray:
+    """Dictionary codes → values (object array); out-of-range/poisoned
+    codes become ``null``.  The one decode path for tag and string-field
+    group keys."""
+    lookup = np.array(list(values) + [null], dtype=object)
+    codes = raw.astype(np.int64)
+    codes = np.where((codes < 0) | (codes >= len(values)), len(values), codes)
+    return lookup[codes]
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(int(n) - 1, 0).bit_length() if n > 1 else 1
+
+
+def _as_tensor(v, device) -> torch.Tensor:
+    if isinstance(v, torch.Tensor):
+        return v.to(device)
+    return torch.as_tensor(v, device=device)
+
+
+def _series_group_ids(tag_codes, tag_cols, cards_tag, ngt, spad, device):
+    """Series → dense tag-group ids, poison codes (-1 pads, unknown)
+    routed to the overflow segment ``ngt``.  The ONE routing shared by
+    the dynamic-slice and bucket-major grid kernels so the two layouts
+    can never disagree on grouping."""
+    if tag_cols:
+        codes = [tag_codes[c] for c in tag_cols]
+        gid_s, _tot = combine_keys(codes, cards_tag)
+    else:
+        gid_s = torch.zeros(spad, dtype=torch.int64, device=device)
+    return torch.where(
+        (gid_s >= 0) & (gid_s < ngt), gid_s, torch.full_like(gid_s, ngt)
+    ).to(torch.int32)
+
+
+def _layout_memo(tag_cols, cards_tag, ngt):
+    """Per-closure cache of the series→group CSR routing: the ids are
+    fixed per (grid, GROUP BY), so the stable sort runs once per resident
+    tag-code set, not per query."""
+    memo: list = [None, None]
+
+    def get(tag_codes: dict, tag_arrays: tuple, spad: int, device):
+        src = memo[0]
+        if src is None or len(src) != len(tag_arrays) or any(
+                a is not b for a, b in zip(src, tag_arrays)):
+            ids = _series_group_ids(tag_codes, tag_cols, cards_tag, ngt,
+                                    spad, device)
+            memo[0], memo[1] = tag_arrays, group_layout(ids, ngt)
+        return memo[1]
+
+    return get
+
+
+def _grid_key_outputs(tag_cols, cards_tag, ngt, nb, bts0, step_q, has_time,
+                      device):
+    """__comps__/__bts__ materialization: arithmetic decomposition over
+    the (tags…, bucket) grid.  Shared by both grid kernels (one
+    definition of the flatten order)."""
+    ng = ngt * nb
+    comps = decompose_keys(
+        torch.arange(ng, dtype=torch.int64, device=device),
+        list(cards_tag) + [nb],
+    )
+    out = {
+        "__comps__": torch.stack(comps[:-1]) if tag_cols else (
+            torch.zeros((0, ng), dtype=torch.int32, device=device)
+        ),
+    }
+    if has_time:
+        out["__bts__"] = int(bts0) + comps[-1].to(torch.int64) * int(step_q)
+    return out
+
+
+def _where_count(c, x):
+    return torch.where(c > 0, x, float("nan")).reshape(-1)
+
+
+def _mean(c, s):
+    return torch.where(
+        c > 0, s / torch.clamp(c, min=1).to(torch.float32), float("nan")
+    ).reshape(-1)
+
+
+class Executor:
+    """Caches prepared grid kernel closures by the reference's
+    (fingerprint, shape-class) keys."""
+
+    def __init__(self):
+        self._cache: dict[tuple, object] = {}
+        # resident bucket-major partials per (region, step class): the
+        # aligned-window range path reuses them across warm queries
+        from greptimedb_tpu_torch.storage.cache import DerivedLayoutCache
+
+        self.layout_cache = DerivedLayoutCache()
+
+    # ---- aggregate path ----------------------------------------------
+    def _time_key_params(
+        self, key: GroupKey, plan: SelectPlan, ts_bounds: tuple[int, int]
+    ) -> tuple[int, int, int]:
+        lo, hi = plan.time_range
+        data_lo, data_hi = ts_bounds
+        lo = data_lo if lo is None else max(lo, data_lo)
+        hi = data_hi + 1 if hi is None else min(hi, data_hi + 1)
+        if hi <= lo:
+            hi = lo + 1
+        step = key.step or 1
+        origin = key.origin
+        start = origin + ((lo - origin) // step) * step
+        nb = max(1, -(-(hi - start) // step))
+        return step, start, _pow2(nb)
+
+    def execute_grid(
+        self, plan: SelectPlan, grid, ts_bounds: tuple[int, int],
+        metrics: dict | None = None,
+    ) -> tuple[dict[str, np.ndarray], int] | None:
+        """Aggregate over a GridTable: reshape+reduce per time bucket, then
+        a tiny series-axis segment merge — no row scatter at any scale.
+
+        Returns None when this plan/grid combination is ineligible (query
+        bucket not a multiple of the grid step, unsupported agg shape…);
+        the caller falls back to the row-oriented DeviceTable path.
+
+        Reference counterpart: RangeSelectExec + the hash aggregate
+        (src/query/src/range_select/plan.rs:273) — here the time bucketing
+        is a tensor reshape because the data layout already IS the range
+        grid (SURVEY.md §5.7, §7.1)."""
+        g = self._grid_prologue(plan, grid, ts_bounds)
+        if g is None:
+            return None
+        return self._execute_grid_geom(plan, grid, g, metrics)
+
+    def _grid_prologue(self, plan: SelectPlan, grid,
+                       ts_bounds: tuple[int, int]):
+        """Plan→grid geometry shared by the solo path and the cross-query
+        stacked dispatch (execute_grid_batch): agg specs, WHERE shape,
+        time-bucket geometry and window slicing.  Returns None when the
+        plan/grid combination is ineligible for the grid path; otherwise
+        a _GridGeom whose fields feed either kernel family."""
+        ctx = plan.ctx
+        ts_name = ctx.schema.time_index.name
+        tag_keys = [k for k in plan.group_keys if k.kind == "tag"]
+        time_keys = [k for k in plan.group_keys if k.kind == "time"]
+        if len(time_keys) > 1:
+            return None
+        gridcols = set(grid.field_names)
+
+        # agg specs: (out_name, op, arg_fn|None, no_nan_plain, plain_ci)
+        # plain_ci is the grid field index when the argument is exactly
+        # one stored column — the bucket-major layout path addresses the
+        # resident partial sums by it
+        specs: list[tuple] = []
+        try:
+            for agg in plan.aggs:
+                op = _GRID_OPS.get(agg.name)
+                if op is None or agg.distinct:
+                    return None
+                if not agg.args or isinstance(agg.args[0], Star):
+                    specs.append((str(agg), "count", None, True, None))
+                    continue
+                arg = agg.args[0]
+                refs: set = set()
+                referenced_columns(arg, ctx, refs)
+                if not refs <= gridcols | {ts_name}:
+                    return None
+                no_nan_plain = False
+                plain_ci = None
+                if isinstance(arg, Column):
+                    real = ctx.resolve(arg.name)
+                    if real in gridcols:
+                        ci = grid.field_names.index(real)
+                        plain_ci = ci
+                        no_nan_plain = bool(
+                            grid.no_nan[ci] if ci < len(grid.no_nan) else False
+                        )
+                specs.append(
+                    (str(agg), op, compile_device(arg, ctx), no_nan_plain,
+                     plain_ci)
+                )
+            where_fn = None
+            where_series = False
+            if plan.where is not None:
+                refs = set()
+                referenced_columns(plan.where, ctx, refs)
+                tags = {c.name for c in ctx.schema.tag_columns}
+                if not refs <= gridcols | tags | {ts_name}:
+                    return None
+                # tag-only predicates reduce to a per-series [S] mask that
+                # multiplies the already-reduced [S, NB] partials — the
+                # big [S, T] reduce itself stays mask-free
+                where_series = refs <= tags
+                where_fn = compile_device(plan.where, ctx)
+        except (PlanError, Unsupported):
+            return None
+
+        # time-bucket geometry: R grid points per query bucket, left pad
+        # so every R-block lies in exactly one bucket (pad_left static per
+        # (start, step) alignment class; rolling windows keep it constant)
+        g_step = grid.step
+        lo, hi = plan.time_range
+        if time_keys:
+            step_q, start, _nb = self._time_key_params(
+                time_keys[0], plan, ts_bounds
+            )
+            if g_step <= 0 or step_q % g_step != 0:
+                return None
+            r = step_q // g_step
+            q = (grid.ts0 - start) // g_step  # python floor division: exact
+            pad_left = int(q % r)
+            nb = -(-(pad_left + grid.tpad) // r)
+            bts0 = np.int64(start + (q // r) * step_q)
+        else:
+            r = grid.tpad
+            pad_left = 0
+            nb = 1
+            step_q = 0
+            bts0 = np.int64(0)
+
+        # window slicing: restrict the reduce to the buckets the query's
+        # time range touches.  The slice START is a traced argument (so
+        # rolling windows reuse one compiled kernel); the slice WIDTH is
+        # static per window-length class.  Only an in-bounds, bucket-
+        # aligned slice qualifies — otherwise the kernel pads the full
+        # axis exactly as before.
+        b_lo = 0
+        s0 = 0
+        aligned = False
+        nbw, w_raw, pad_l, pad_r = nb, grid.tpad, pad_left, (
+            nb * r - pad_left - grid.tpad
+        )
+        if time_keys and lo is not None and hi is not None and step_q > 0:
+            cand_lo = max(0, int((lo - int(bts0)) // step_q))
+            cand_hi = min(nb, int(-(-(hi - int(bts0)) // step_q)))
+            if cand_hi <= cand_lo:
+                cand_hi = cand_lo + 1
+            raw0 = cand_lo * r - pad_left
+            raw1 = (cand_hi - cand_lo) * r + raw0
+            if raw0 >= 0 and raw1 <= grid.tpad:
+                b_lo, s0 = cand_lo, raw0
+                nbw, w_raw = cand_hi - cand_lo, raw1 - raw0
+                pad_l = pad_r = 0
+                # bucket-ALIGNED window (the TSBS/dashboard shape: range
+                # endpoints on bucket boundaries): the ts-range indicator
+                # is all-ones over the slice, so the bucket reduce runs
+                # unweighted and the resident bucket-major partials
+                # apply.  Alignment is a static kernel-class property:
+                # rolling windows advance by whole buckets and stay in
+                # this class.
+                aligned = (
+                    lo == int(bts0) + cand_lo * step_q
+                    and hi == int(bts0) + cand_hi * step_q
+                )
+
+        cards_tag = [
+            _pow2(max(len(ctx.encoders[k.column]), 1)) for k in tag_keys
+        ]
+        ngt = 1
+        for c in cards_tag:
+            ngt *= c
+        if ngt * nbw > DENSE_LIMIT:
+            return None
+        if r >= (1 << 24):
+            # per-(series, bucket) counts ride an f32 einsum, exact only
+            # below 2^24; absurdly wide buckets take the row path
+            return None
+
+        dict_ver = tuple(
+            len(ctx.encoders[c.name]) for c in ctx.schema.tag_columns
+        )
+        tag_order = tuple(sorted(grid.tag_codes))
+        return _GridGeom(
+            specs=specs, where_fn=where_fn, where_series=where_series,
+            ts_name=ts_name, tag_keys=tag_keys, has_time=bool(time_keys),
+            r=r, pad_left=pad_left, nb=nb, nbw=nbw, w_raw=w_raw,
+            pad_l=pad_l, pad_r=pad_r, step_q=step_q, bts0=int(bts0),
+            b_lo=b_lo, s0=s0, aligned=aligned, lo=lo, hi=hi,
+            cards_tag=cards_tag, ngt=ngt, dict_ver=dict_ver,
+            tag_order=tag_order,
+        )
+
+    def _execute_grid_geom(
+        self, plan: SelectPlan, grid, g: "_GridGeom",
+        metrics: dict | None,
+    ) -> tuple[dict[str, np.ndarray], int]:
+        specs = g.specs
+        where_fn, where_series = g.where_fn, g.where_series
+        ts_name = g.ts_name
+        tag_keys, cards_tag = g.tag_keys, g.cards_tag
+        r, pad_left, nb, nbw = g.r, g.pad_left, g.nb, g.nbw
+        w_raw, pad_l, pad_r = g.w_raw, g.pad_l, g.pad_r
+        step_q, bts0, b_lo, s0 = g.step_q, g.bts0, g.b_lo, g.s0
+        aligned, lo, hi = g.aligned, g.lo, g.hi
+        dict_ver, tag_order = g.dict_ver, g.tag_order
+        g_step = grid.step
+        device = grid.device
+
+        # resident bucket-major layout: ALIGNED windows whose aggregates
+        # all resolve to the per-(series, bucket) partials skip the
+        # window reduce entirely — per-query work is a bucket-axis slice
+        # of the cached [C, S, NB] sums plus the series-axis merge
+        out = None
+        layout = self._aligned_layout(
+            grid, r, pad_left, nb, specs, aligned, g.has_time,
+            where_fn, where_series, metrics,
+        )
+        if layout is not None:
+            bm_key = (
+                "grid_bm", plan.fingerprint(), grid.spad,
+                grid.field_names, r, nbw, nb, step_q, tuple(cards_tag),
+                dict_ver, tag_order, where_series, str(device),
+            )
+            kernel = self._cache.get(bm_key)
+            miss = kernel is None
+            if kernel is None:
+                kernel = self._bm_kernel_fn(
+                    tag_order, [k.column for k in tag_keys], cards_tag,
+                    nbw, step_q, where_fn if where_series else None,
+                    [(name, op, ci) for name, op, _fn, _nn, ci in specs],
+                )
+                self._cache[bm_key] = kernel
+            out = timed_kernel_call(
+                lambda: kernel(
+                    layout[0], layout[1],
+                    tuple(grid.tag_codes[t] for t in tag_order),
+                    b_lo, int(bts0) + b_lo * step_q,
+                ), miss, metrics, device)
+        if out is None:
+            cache_key = (
+                "grid", plan.fingerprint(), grid.spad, grid.tpad,
+                grid.field_names, grid.ts0, g_step, r, nbw, w_raw, pad_l,
+                pad_r, tuple(cards_tag), dict_ver, grid.no_nan,
+                g.has_time, tag_order, where_series, aligned, str(device),
+            )
+            kernel = self._cache.get(cache_key)
+            miss = kernel is None
+            if kernel is None:
+                kernel = self._build_grid_kernel(
+                    grid.field_names, ts_name, tag_order,
+                    [k.column for k in tag_keys], cards_tag,
+                    g.has_time, r, nbw, w_raw, pad_l, pad_r, step_q,
+                    where_fn, where_series, specs, grid.ts0, g_step,
+                    aligned,
+                )
+                self._cache[cache_key] = kernel
+            ts_lo = int(lo) if lo is not None else int(_I64_MIN)
+            ts_hi = int(hi) if hi is not None else int(_I64_MAX)
+            out = timed_kernel_call(
+                lambda: kernel(
+                    grid.values, grid.valid,
+                    tuple(grid.tag_codes[t] for t in tag_order),
+                    ts_lo, ts_hi, int(bts0) + b_lo * step_q, s0,
+                ), miss, metrics, device)
+        # THE one host materialization per grid dispatch
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        return self._grid_env(plan, specs, out)
+
+    @staticmethod
+    def _grid_env(plan: SelectPlan, specs, out: dict) -> tuple[dict, int]:
+        """Kernel outputs → host result env: one definition shared by the
+        solo grid path and the stacked batch dispatch, so a batched
+        member's result shaping can never diverge from solo."""
+        ctx = plan.ctx
+        gmask = out.pop("__gmask__").astype(bool)
+        n = int(gmask.sum())
+        env: dict[str, np.ndarray] = {}
+        # internal flatten order: tag keys (in appearance order) then the
+        # time bucket; emit per original plan key index
+        comps_src = out["__comps__"]
+        tag_pos = 0
+        for i, k in enumerate(plan.group_keys):
+            if k.kind == "tag":
+                raw = comps_src[tag_pos][gmask]
+                col = decode_codes(ctx.encoders[k.column].values(), raw)
+                tag_pos += 1
+            else:
+                raw = out["__bts__"][gmask]
+                col = raw
+            env[k.name] = col
+            env[str(k.expr)] = col
+        for name, _op, _fn, _nn, _ci in specs:
+            env[name] = out[name][gmask]
+        return env, n
+
+    # ---- resident bucket-major layout (aligned windows) ---------------
+    def _aligned_layout(
+        self, grid, r, pad_left, nb, specs, aligned, has_time,
+        where_fn, where_series, metrics,
+    ):
+        """Per-(series, bucket) partial arrays for the aligned-window
+        path, from the DerivedLayoutCache (built on miss, admission
+        permitting).  Returns (sums [C, S, NB], cnts [S, NB]) or None —
+        None routes the query to the dynamic-slice kernel.
+
+        Eligibility mirrors exactly the subset whose per-query math is
+        window-independent: a bucket-aligned time window (every bucket
+        fully covered by the ts range), aggregates that reduce to plain
+        per-bucket sums/counts over finite stored columns, and a WHERE
+        that is absent or tag-only (applied AFTER the bucket reduce).
+        Everything else falls back, so the two layouts can never diverge
+        semantically."""
+        if metrics is not None:
+            metrics["layout"] = "dynamic_slice"
+        eligible = (
+            aligned
+            and has_time
+            and os.environ.get("GREPTIME_LAYOUT_CACHE", "auto") != "off"
+            and (where_fn is None or where_series)
+            and all(
+                (op == "count" and (fn is None or nn))
+                or (op in ("sum", "mean") and nn and ci is not None)
+                for _name, op, fn, nn, ci in specs
+            )
+        )
+        if not eligible:
+            return None
+        step_class = (r, pad_left, nb)
+        arrays = self.layout_cache.lookup(
+            grid.region_id, step_class, grid.dicts_version
+        )
+        state = "hit"
+        if arrays is None:
+            est = (len(grid.field_names) + 1) * grid.spad * nb * 4
+            if not self.layout_cache.admit(est):
+                # over budget even after LRU reclaim: dynamic-slice path
+                # (correct, just slower) rather than risking device OOM
+                if metrics is not None:
+                    metrics["layout_cache"] = "reject"
+                return None
+            arrays = self._bucket_major_partials(grid, r, pad_left, nb)
+            self.layout_cache.store(
+                grid.region_id, step_class, grid.dicts_version, arrays,
+                sum(int(a.nbytes) for a in arrays),
+            )
+            state = "miss"
+        if metrics is not None:
+            metrics["layout"] = "bucket_major"
+            metrics["layout_cache"] = state
+        return arrays
+
+    def _bucket_major_partials(self, grid, r, pad_left, nb):
+        """Contract the grid once on device to per-(series, bucket)
+        partials: sums [C, S, NB] and validity counts [S, NB] (f32 — exact
+        below 2^24, guarded by the r-width check in _grid_prologue), both
+        with ``bucket_reduce`` over identical r-element blocks."""
+        pad_rt = nb * r - pad_left - grid.tpad
+        sums = bucket_reduce(grid.values, "sum", r=r, nb=nb, pad_l=pad_left,
+                             pad_r=pad_rt)
+        cnts = bucket_reduce(grid.valid, "sum", r=r, nb=nb, pad_l=pad_left,
+                             pad_r=pad_rt)
+        _sync(grid.device)
+        return (sums, cnts)
+
+    def _bm_kernel_fn(
+        self, tag_order, tag_cols, cards_tag, nbw, step_q, where_fn,
+        bm_specs,
+    ):
+        """Aligned-window kernel over the resident bucket-major partials:
+        slice the window's buckets (start clamped like JAX's dynamic
+        slice), apply the tag-only WHERE as a per-series multiplier, merge
+        the series axis into tag groups with ``group_merge``.  Output
+        contract matches _build_grid_kernel exactly (__gmask__/__comps__/
+        __bts__ + one array per aggregate) so the host-side result shaping
+        is shared."""
+        ngt = 1
+        for c in cards_tag:
+            ngt *= c
+        nb = nbw
+        layout_of = _layout_memo(tag_cols, cards_tag, ngt)
+        # the planes the sum/mean aggregates read, in first-use order
+        planes = []
+        for _name, op, ci in bm_specs:
+            if op != "count" and ci not in planes:
+                planes.append(ci)
+
+        def kernel(sums, cnts, tag_arrays, b_lo, bts0):
+            device = cnts.device
+            spad = cnts.shape[0]
+            tag_codes = dict(zip(tag_order, tag_arrays))
+            b0 = clamp_start(b_lo, nbw, cnts.shape[1])
+            s_w = sums.narrow(2, b0, nbw)
+            c_w = cnts.narrow(1, b0, nbw)
+            smf = None
+            if where_fn is not None:
+                env_s = {t: codes for t, codes in tag_codes.items()}
+                smf = torch.broadcast_to(
+                    _as_tensor(where_fn(env_s), device), (spad,)
+                ).to(torch.float32)
+                c_w = c_w * smf[:, None]
+            lay = layout_of(tag_codes, tag_arrays, spad, device)
+            cnt_all = group_merge(c_w.to(torch.int64), lay, "sum")  # [ngt, NB]
+            merged = {}
+            if planes:
+                x = s_w if planes == list(range(s_w.shape[0])) else (
+                    s_w.index_select(0, torch.as_tensor(planes,
+                                                         device=device)))
+                sg_all = group_merge(x, lay, "sum", factor=smf)
+                merged = {ci: sg_all[i] for i, ci in enumerate(planes)}
+            out = {}
+            for name, op, ci in bm_specs:
+                if op == "count":
+                    out[name] = cnt_all.reshape(-1)
+                elif op == "sum":
+                    out[name] = _where_count(cnt_all, merged[ci])
+                else:  # mean
+                    out[name] = _mean(cnt_all, merged[ci])
+            out["__gmask__"] = (cnt_all > 0).reshape(-1)
+            out.update(_grid_key_outputs(
+                tag_cols, cards_tag, ngt, nb, bts0, step_q, True, device))
+            return out
+
+        return kernel
+
+    def _build_grid_kernel(
+        self, field_names, ts_name, tag_order, tag_cols, cards_tag, has_time,
+        r, nbw, w_raw, pad_l, pad_r, step_q, where_fn, where_series, specs,
+        ts0, g_step, aligned=False,
+    ):
+        """Kernel over the sliced query window [s0, s0 + w_raw).
+
+        The reduce reads only the window's buckets (start clamped like
+        JAX's dynamic slice); zero-filled invalid cells (storage/grid.py)
+        mean the values plane is read once with NO elementwise mask in the
+        common case (plain no-NaN columns, tag-only or absent WHERE) — the
+        ts-range indicator rides a [w_raw] weight.  NaN-bearing columns,
+        min/max and WHERE clauses touching fields or the time index go
+        through the materialized liveness mask ``v2``."""
+        ngt = 1
+        for c in cards_tag:
+            ngt *= c
+        nb = nbw
+        layout_of = _layout_memo(tag_cols, cards_tag, ngt)
+        geo = dict(r=r, nb=nb, pad_l=pad_l, pad_r=pad_r, w_raw=w_raw)
+
+        def kernel(values, valid, tag_arrays, ts_lo, ts_hi, bts0, s0):
+            device = valid.device
+            spad, tpad = valid.shape
+            tag_codes = dict(zip(tag_order, tag_arrays))
+            s0c = clamp_start(s0, w_raw, tpad)
+            valid_w = valid.narrow(1, s0c, w_raw)
+            ts_axis = ts0 + (
+                int(s0) + torch.arange(w_raw, dtype=torch.int64,
+                                       device=device)
+            ) * g_step
+            env = {
+                name: values[ci].narrow(1, s0c, w_raw)  # [S, W] view
+                for ci, name in enumerate(field_names)
+            }
+            for tname, codes in tag_codes.items():
+                env[tname] = codes[:, None]
+            env[ts_name] = ts_axis[None, :]
+            tmask = (ts_axis >= ts_lo) & (ts_axis < ts_hi)  # [W]
+            # aligned windows: the ts-range indicator is all-ones over the
+            # slice, so the reduce runs unweighted
+            w4 = None if aligned else tmask.to(torch.float32)
+
+            # tag-only WHERE: one [S] mask applied to the reduced [S, NB]
+            # partials — the big reduce stays mask-free
+            smf = None
+            elementwise = False
+            if where_fn is not None:
+                if where_series:
+                    env_s = {t: c for t, c in tag_codes.items()}
+                    smf = torch.broadcast_to(
+                        _as_tensor(where_fn(env_s), device), (spad,)
+                    ).to(torch.float32)
+                else:
+                    elementwise = True
+
+            v2 = None
+
+            def get_v2():
+                """Elementwise liveness mask [S, W]; built only for paths
+                that cannot ride the mask-free reduce (WHERE touching
+                fields/ts, NaN-bearing columns, min/max)."""
+                nonlocal v2
+                if v2 is None:
+                    m = valid_w & tmask[None, :]
+                    if elementwise:
+                        m = m & torch.broadcast_to(
+                            _as_tensor(where_fn(env), device), m.shape)
+                    elif smf is not None:
+                        m = m & (smf > 0)[:, None]
+                    v2 = m
+                return v2
+
+            def arg_plane(arg_fn, ci):
+                """(tensor, slice start) of an aggregate argument: a stored
+                column is read from its grid plane in place; an expression
+                is evaluated over the window."""
+                if ci is not None:
+                    return values[ci], s0
+                x = torch.broadcast_to(
+                    _as_tensor(arg_fn(env), device).to(torch.float32),
+                    (spad, w_raw))
+                return x, 0
+
+            lay = layout_of(tag_codes, tag_arrays, spad, device)
+
+            # shared count: per-(series, bucket) counts are ≤ R < 2^24 so
+            # f32 accumulation is exact; the series merge runs in int64
+            if elementwise:
+                cnt_all_sb = bucket_reduce(get_v2(), "sum", **geo)
+            else:
+                cnt_all_sb = bucket_reduce(valid, "sum", s0=s0, weight=w4,
+                                           **geo)
+                if smf is not None:
+                    cnt_all_sb = cnt_all_sb * smf[:, None]
+            cnt_all = group_merge(cnt_all_sb.to(torch.int64), lay, "sum")
+
+            out = {}
+            cnts: dict[str, torch.Tensor] = {}
+            sums: dict[str, torch.Tensor] = {}
+            cnt_items = []
+            for name, op, arg_fn, no_nan_plain, ci in specs:
+                if op == "count" and (arg_fn is None or no_nan_plain):
+                    continue  # resolves to the shared cnt_all
+                x, xs0 = arg_plane(arg_fn, ci)
+                if op in ("sum", "mean"):
+                    if no_nan_plain and not elementwise:
+                        # fast path: zero-filled invalid cells contribute
+                        # +0 — raw plane straight into the reduce
+                        sb = bucket_reduce(x, "sum", s0=xs0, weight=w4,
+                                           **geo)
+                        sums[name] = group_merge(sb, lay, "sum", factor=smf)
+                    else:
+                        sb = bucket_reduce(
+                            x, "sum", s0=xs0, mask=get_v2(), mask_s0=0,
+                            skip_nan=not no_nan_plain, **geo)
+                        sums[name] = group_merge(sb, lay, "sum")
+                elif op in ("min", "max"):
+                    red = bucket_reduce(
+                        x, op, s0=xs0, mask=get_v2(), mask_s0=0,
+                        skip_nan=not no_nan_plain, **geo)
+                    out[name] = group_merge(red, lay, op)
+                if not no_nan_plain:
+                    cnt_items.append((name, x, xs0))
+
+            for name, x, xs0 in cnt_items:
+                cnts[name] = group_merge(
+                    bucket_reduce(x, "count", s0=xs0, mask=get_v2(),
+                                  mask_s0=0, skip_nan=True, **geo
+                                  ).to(torch.int64), lay, "sum")
+
+            for name, op, arg_fn, no_nan_plain, _ci in specs:
+                if op in ("min", "max"):
+                    out[name] = _where_count(cnts.get(name, cnt_all),
+                                             out[name])
+                elif op == "count":
+                    c = cnt_all if (arg_fn is None or no_nan_plain) else (
+                        cnts[name]
+                    )
+                    out[name] = c.reshape(-1)
+                elif op == "sum":
+                    # SQL: SUM over zero rows is NULL (global aggregates;
+                    # grouped empties are gmask-filtered anyway)
+                    c = cnt_all if no_nan_plain else cnts[name]
+                    out[name] = _where_count(c, sums[name])
+                else:  # mean
+                    c = cnt_all if no_nan_plain else cnts[name]
+                    out[name] = _mean(c, sums[name])
+
+            if not tag_cols and not has_time:
+                # global aggregate: SQL returns exactly one row even when
+                # zero rows matched (count()=0, min/max=NULL)
+                out["__gmask__"] = torch.ones(1, dtype=torch.bool,
+                                              device=device)
+            else:
+                out["__gmask__"] = (cnt_all > 0).reshape(-1)
+            out.update(_grid_key_outputs(
+                tag_cols, cards_tag, ngt, nb, bts0, step_q, has_time,
+                device))
+            return out
+
+        return kernel

@@ -69,3 +69,7 @@ def pytest_configure(config):
         "tier-1, like the chaos tier)")
     config.addinivalue_line(
         "markers", "slow: long soak cases excluded from tier-1")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA CUDA card (the PyTorch port's kernels have no "
+        "CPU mode); skipped without one")
