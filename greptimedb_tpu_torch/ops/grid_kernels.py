@@ -23,52 +23,30 @@ headers, so the build takes seconds).
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
 import threading
 from dataclasses import dataclass
-from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
+from greptimedb_tpu_torch.ops import cuda_build
+from greptimedb_tpu_torch.ops.cuda_build import check as _check
+from greptimedb_tpu_torch.ops.cuda_build import stream_ptr as _stream_ptr
+
 _OPS = {"sum": 0, "count": 1, "min": 2, "max": 3}
-_REPO = Path(__file__).resolve().parents[2]
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "grid_kernels.cu"
-LIBRARY = _REPO / "build" / "kernels" / "libgreptime_grid.so"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+SOURCE = cuda_build.CSRC / "grid_kernels.cu"
+LIBRARY = cuda_build.BUILD_DIR / "libgreptime_grid.so"
+NVCC_FLAGS = cuda_build.BASE_FLAGS
 
 _lib = None
 _lib_lock = threading.Lock()
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return os.path.join(cuda_home, "bin", "nvcc")
-
-
-def build(force: bool = False) -> Path:
+def build(force: bool = False):
     """Compile ``csrc/grid_kernels.cu`` into ``build/kernels/`` (skipped
     when the library is newer than its source).  Raises on a failed
     build, with nvcc's output."""
-    if (not force and LIBRARY.exists()
-            and LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime):
-        return LIBRARY
-    LIBRARY.parent.mkdir(parents=True, exist_ok=True)
-    tmp = LIBRARY.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, LIBRARY)
-    return LIBRARY
+    return cuda_build.build_many([(SOURCE, LIBRARY, NVCC_FLAGS)], force)[0]
 
 
 def _load():
@@ -92,16 +70,6 @@ def _load():
         lib.gt_group_merge_i64.restype = i
         _lib = lib
         return lib
-
-
-def _check(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what}: CUDA error {rc} "
-                           f"({torch.cuda.get_device_name()})")
-
-
-def _stream_ptr(t: torch.Tensor):
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def clamp_start(start: int, width: int, size: int) -> int:

@@ -1,8 +1,9 @@
 """Standalone database: the port's components wired in one process.
 
 Trimmed counterpart of the reference's ``standalone.py``: ``GreptimeDB``
-with ``sql()`` for CREATE TABLE, INSERT, SELECT (dense-grid aggregation)
-and DESCRIBE over single-region tables, on the storage, metadata and
+with ``sql()`` for CREATE TABLE, INSERT, SELECT (dense-grid aggregation),
+TQL EVAL (PromQL, ``promql/engine.py``) and DESCRIBE over single-region
+tables, on the storage, metadata and
 query modules of this package.  Method and attribute names are the
 reference's, so code written against it runs here unchanged apart from
 the import.  The device comes from ``device.resolve_device``: the card
@@ -28,12 +29,15 @@ from greptimedb_tpu_torch.meta.catalog import DEFAULT_DB, CatalogManager
 from greptimedb_tpu_torch.meta.kv import FileKv, KvBackend, MemoryKv
 from greptimedb_tpu_torch.query.ast import (
     CreateDatabase, CreateTable, DescribeTable, Insert, Select, Statement,
+    Tql,
 )
 from greptimedb_tpu_torch.query.engine import QueryEngine, QueryResult, TableProvider
 from greptimedb_tpu_torch.query.exprs import TableContext
 from greptimedb_tpu_torch.query.parser import parse_sql
 from greptimedb_tpu_torch.query.planner import SelectPlan
-from greptimedb_tpu_torch.storage.cache import RegionCacheManager
+from greptimedb_tpu_torch.storage.cache import (
+    PromLayoutCache, RegionCacheManager,
+)
 from greptimedb_tpu_torch.storage.region import RegionEngine, RegionOptions
 
 
@@ -129,6 +133,10 @@ class GreptimeDB(TableProvider):
         self.engine = QueryEngine(self)
         # a region leaving residency drops its derived bucket-major layouts
         self.cache.derived_layouts = self.engine.executor.layout_cache
+        # resident PromQL evaluation state (selections, sort layouts,
+        # group ids); a region leaving residency drops it too
+        self.promql_cache = PromLayoutCache()
+        self.cache.promql_derived = self.promql_cache
         self.current_db = DEFAULT_DB
         # the storage engine is single-writer (region sequence assignment
         # and memtable mutation are unsynchronized); statements serialize
@@ -231,6 +239,8 @@ class GreptimeDB(TableProvider):
                 if db.lower() in ("information_schema", "pg_catalog"):
                     raise Unsupported("system tables not ported yet")
             return self.engine.execute_select(stmt)
+        if isinstance(stmt, Tql):
+            return self._execute_tql(stmt)
         if isinstance(stmt, CreateTable):
             return self._create_table(stmt)
         if isinstance(stmt, CreateDatabase):
@@ -241,6 +251,11 @@ class GreptimeDB(TableProvider):
         if isinstance(stmt, DescribeTable):
             return self._describe(stmt)
         raise Unsupported(f"statement {type(stmt).__name__} not ported yet")
+
+    def _execute_tql(self, stmt: Tql) -> QueryResult:
+        from greptimedb_tpu_torch.promql.engine import execute_tql
+
+        return execute_tql(self, stmt)
 
     # ---- DDL (journaled procedures, reference ddl_manager.rs:99) -------
     def _create_table(self, stmt: CreateTable) -> QueryResult:

@@ -1,13 +1,15 @@
-"""Device-resident region cache: the grid half of the reference's
-``storage/cache.py``.
+"""Device-resident region cache: the grid and device-table halves of the
+reference's ``storage/cache.py``.
 
-A region's dense grid (storage/grid.py) is built once and reused across
-queries; the derived bucket-major layouts of the aligned-window path live
-in ``DerivedLayoutCache``.  Invalidation is by region version: the port
-rebuilds the grid whenever the region's base version or append position
-moved (the reference extends it in place — not ported yet; same results,
-higher cost).  ``DeviceTable`` and ``PromLayoutCache`` wait for their
-slices.
+A region's dense grid (storage/grid.py) and its canonical row table
+(``DeviceTable``, the PromQL path's input) are built once and reused
+across queries; the derived bucket-major layouts of the aligned-window
+path live in ``DerivedLayoutCache`` and the PromQL evaluation state
+(selections, sort layouts, group ids) in ``PromLayoutCache``.
+Invalidation is by region version: the port rebuilds a grid whenever the
+region's base version or append position moved and a device table
+whenever its generation moved (the reference extends both in place — not
+ported yet; same results, higher cost).
 
 Capacity: simple LRU by bytes; eviction drops device references and lets
 the torch caching allocator reuse the memory.
@@ -18,9 +20,14 @@ from __future__ import annotations
 import collections
 import threading
 import weakref
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
-from greptimedb_tpu_torch.storage.memtable import TSID
+import numpy as np
+import torch
+
+from greptimedb_tpu_torch.datatypes.batch import pad_rows
+from greptimedb_tpu_torch.datatypes.schema import Schema
+from greptimedb_tpu_torch.storage.memtable import SEQ, TAGCODE_PREFIX, TSID
 from greptimedb_tpu_torch.utils.telemetry import REGISTRY
 
 # Registry mirrors of the per-instance cache counters (reference: the
@@ -93,27 +100,131 @@ def _chunks_since(region, pos: int) -> "list | None":
 
 
 @dataclass
-class _Entry:
-    # DeviceTable, GridTable, or None (negative grid-eligibility cache)
-    table: object
-    delta_pos: int | None = None  # consumed append-log position (absolute)
-    live_rows: int = 0
-    # grid catch-up validity keys (see get_grid): the SST set the table
-    # was built from and the region's content-mutation epoch at build time
-    sst_ids: frozenset | None = None
-    mutation_epoch: int = -1
+class DeviceTable:
+    """A region's query-ready resident tensors (a plain dataclass of
+    tensors on the cache manager's device).
+
+    columns: ts (int64), fields (f32/ints), per-tag code columns (int32),
+    plus __tsid__ (int32). Sorted by (tsid, ts); rows padded to a
+    shape-class bucket (``row_mask`` False on padding).
+    """
+
+    columns: dict[str, torch.Tensor]
+    row_mask: torch.Tensor
+    num_series: int
+    dicts: dict[str, list] = field(default_factory=dict)
+    # monotonic per-build version: derived state (the PromQL sort
+    # layouts) keys its cache on it
+    dicts_version: int = 0
+
+    @property
+    def padded_rows(self) -> int:
+        return int(self.row_mask.shape[0])
+
+    def nbytes(self) -> int:
+        total = self.row_mask.numel() * self.row_mask.element_size()
+        for v in self.columns.values():
+            total += v.numel() * v.element_size()
+        return total
+
+
+def _canonical_column(
+    schema: Schema, encoders: dict, name: str, arr: np.ndarray,
+    dicts: dict[str, list],
+) -> np.ndarray:
+    """One column of host scan output → device encoding (unpadded): tags →
+    region dictionary codes (int32); string FIELDs → ad-hoc dictionary
+    codes seeded from ``dicts`` (NULL becomes ""); numerics → device dtype
+    (DOUBLE → float32); internal columns pass through.  ``dicts`` is
+    updated in place."""
+    if name == TSID:
+        return arr.astype(np.int32)
+    if schema.has_column(name):
+        c = schema.column(name)
+        if c.is_tag:
+            enc = encoders[name]
+            uniq, inv = np.unique(arr.astype(object), return_inverse=True)
+            codes = np.fromiter(
+                (enc.get(v) for v in uniq), dtype=np.int32, count=len(uniq)
+            )
+            dicts[name] = enc.values()
+            return codes[inv]
+        if c.dtype.is_string_like:
+            from greptimedb_tpu_torch.datatypes.batch import DictionaryEncoder
+
+            enc = DictionaryEncoder(dicts.get(name, []))
+            # NULL string fields become "" (np.unique cannot order None)
+            arr = np.array(["" if v is None else v for v in arr],
+                           dtype=object)
+            uniq, inv = np.unique(arr, return_inverse=True)
+            codes = np.fromiter(
+                (enc.get_or_insert(v) for v in uniq), dtype=np.int32,
+                count=len(uniq),
+            )
+            dicts[name] = enc.values()
+            return codes[inv]
+        return arr.astype(c.dtype.to_device_dtype())
+    return arr  # internal numeric column (e.g. __op__)
+
+
+def _pad_value(schema: Schema, name: str, dtype: np.dtype):
+    """Padding-row fill for a canonicalized column: poison code -1 for
+    tag/string-dict columns, NaN for floats, 0 otherwise."""
+    if name != TSID and schema.has_column(name):
+        c = schema.column(name)
+        if c.is_tag or c.dtype.is_string_like:
+            return -1
+    return np.nan if np.issubdtype(dtype, np.floating) else 0
+
+
+def build_device_table(region, *, device) -> DeviceTable:
+    """Scan, canonicalize, pad and upload one region's data.
+
+    Regions that scan on the CODE path hand string tags over as
+    ``__tagcode_<name>__`` int32 companions already in region code space,
+    so canonicalization is a rename; others re-encode the raw values."""
+    from greptimedb_tpu_torch.storage.scan import stream_to_device
+
+    if getattr(region, "scan_supports_codes", False):
+        host = region.scan_host(with_tag_codes=True)
+    else:
+        host = region.scan_host()
+    schema = region.schema
+    n = len(host[TSID])
+    padded = pad_rows(n)
+    dev_cols: dict[str, torch.Tensor] = {}
+    dicts: dict[str, list] = {}
+    for name, arr in host.items():
+        if name == SEQ:
+            continue  # sequences are a storage concern; queries never see them
+        if name.startswith(TAGCODE_PREFIX):
+            name = name[len(TAGCODE_PREFIX):-2]
+            vals = arr.astype(np.int32, copy=False)
+            dicts[name] = region.encoders[name].values()
+        else:
+            vals = _canonical_column(schema, region.encoders, name, arr,
+                                     dicts)
+        out = np.full(padded, _pad_value(schema, name, vals.dtype),
+                      dtype=vals.dtype)
+        out[:n] = vals
+        dev_cols[name] = stream_to_device(out, device)
+    mask = np.zeros(padded, dtype=bool)
+    mask[:n] = True
+    return DeviceTable(dev_cols, stream_to_device(mask, device),
+                       region.num_series, dicts, next_dicts_version())
 
 
 @dataclass
 class _Entry:
-    # GridTable, or None (negative grid-eligibility cache)
+    # DeviceTable, GridTable, or None (negative grid-eligibility cache)
     table: object
     delta_pos: int | None = None  # consumed append-log position (absolute)
     live_rows: int = 0
 
 
 class RegionCacheManager:
-    """LRU of resident GridTables keyed by (region, base_version)."""
+    """LRU of resident GridTables keyed by (region, base_version) and
+    DeviceTables keyed by (region, generation)."""
 
     def __init__(self, capacity_bytes: int = 8 << 30, *, device):
         # delta volume beyond max(min_extend_rows, fraction * resident
@@ -126,6 +237,11 @@ class RegionCacheManager:
         # by GreptimeDB): a region leaving residency drops its derived
         # bucket-major layouts too
         self.derived_layouts = None
+        # optional PromLayoutCache chained the same way (set by
+        # GreptimeDB): sort layouts key on a DeviceTable's dicts_version,
+        # which the next build bumps — a device table leaving residency
+        # strands them
+        self.promql_derived = None
         self._lru: "collections.OrderedDict[tuple, _Entry]" = (
             collections.OrderedDict()
         )
@@ -135,6 +251,35 @@ class RegionCacheManager:
         self.hits = 0
         self.misses = 0
         _export_cache_gauges("region_device", self)
+
+    def get(self, region) -> DeviceTable:
+        """The region's resident DeviceTable; any data mutation since the
+        build (the region's ``generation`` moved) rebuilds it in full."""
+        key = (region.region_id, "table", region.generation)
+        entry = self._lru.get(key)
+        if entry is not None:
+            M_CACHE_EVENTS.labels("region_device", "table", "hit").inc()
+            with self._struct_lock:
+                self.hits += 1
+                if key in self._lru:
+                    self._lru.move_to_end(key)
+            return entry.table
+        with self._struct_lock:
+            self.misses += 1
+        M_CACHE_EVENTS.labels("region_device", "table", "miss").inc()
+        gen = region.generation
+        table = build_device_table(region, device=self.device)
+        if region.generation != gen:
+            return table  # raced a write mid-build: serve it uncached
+        with self._struct_lock:
+            for k in [k for k in self._lru
+                      if k[0] == key[0] and k[1:2] == ("table",)
+                      and k != key]:
+                self._evict(k)
+            self._lru[key] = _Entry(table)
+            self._bytes += table.nbytes()
+            self._shrink()
+        return table
 
     def get_grid(self, region):
         """Dense-grid resident table for a region (storage/grid.py), or
@@ -230,6 +375,8 @@ class RegionCacheManager:
             # next grid build bumps dicts_version, so they could never hit
             # again — drop them now instead of holding device bytes
             self.derived_layouts.invalidate_region(key[0])
+        if self.promql_derived is not None and key[1:2] == ("table",):
+            self.promql_derived.invalidate_region(key[0])
 
     def invalidate_region(self, region_id: int) -> None:
         with self._struct_lock:
@@ -237,6 +384,8 @@ class RegionCacheManager:
                 self._evict(k)
         if self.derived_layouts is not None:
             self.derived_layouts.invalidate_region(region_id)
+        if self.promql_derived is not None:
+            self.promql_derived.invalidate_region(region_id)
 
 
 @dataclass
@@ -389,3 +538,59 @@ class DerivedLayoutCache(_ByteLRUCache):
     def store(self, region_id: int, step_class: tuple, version: int,
               arrays: tuple, nbytes: int) -> None:
         self._store_entry((region_id, step_class), version, arrays, nbytes)
+
+
+class PromLayoutCache(_ByteLRUCache):
+    """Resident derived state of the PromQL evaluation hot path, three
+    kinds of entries:
+
+    - ``selection``: per (region, matcher set) the matched tsid vector and
+      its padded device copy, so repeated evaluations skip the inverted-
+      index walk;
+    - ``sort``: per (region, field column) the composite (tsid, ts)-key
+      sort of the resident table (``ops/promql_kernels.sort_layout``);
+    - ``group``: per (selection, by/without grouping) the device group-id
+      vector and its CSR layout.
+
+    Every entry stores the version it was derived from (the region's
+    ``series_generation`` for selection/group, the DeviceTable's
+    ``dicts_version`` for sort) and a mismatch at lookup evicts and
+    rebuilds.  Capacity is LRU by bytes with reject-to-fallback: a
+    rejected build serves its evaluation uncached from the same code, so
+    results are equal either way.  (The reference's fourth kind,
+    ``bounds``, feeds the count geometry, which is not ported.)
+    """
+
+    KINDS = ("selection", "sort", "group")
+    metric_cache = "promql"
+
+    def _kind_of(self, key: tuple) -> str:
+        return key[1]
+
+    def __init__(self, capacity_bytes: int | None = None):
+        super().__init__(capacity_bytes, "GREPTIME_PROMQL_CACHE_BYTES")
+        self.hits = dict.fromkeys(self.KINDS, 0)
+        self.misses = dict.fromkeys(self.KINDS, 0)
+
+    def lookup(self, kind: str, region_id: int, key: tuple, version):
+        """Payload for (kind, region, key) at ``version``, or None."""
+        payload = self._lookup_entry((region_id, kind, key), version)
+        self.hits[kind] += payload is not None
+        self.misses[kind] += payload is None
+        M_CACHE_EVENTS.labels(
+            "promql", kind, "hit" if payload is not None else "miss").inc()
+        return payload
+
+    def store(self, kind: str, region_id: int, key: tuple, version,
+              payload, nbytes: int) -> None:
+        self._store_entry((region_id, kind, key), version, payload, nbytes)
+
+    def stats(self) -> dict:
+        """Flat counters for status lines."""
+        out = {"bytes": self._bytes, "entries": len(self._lru),
+               "rejects": self.rejects, "builds": self.builds,
+               "evictions": self.evictions}
+        for kind in self.KINDS:
+            out[f"{kind}_hits"] = self.hits[kind]
+            out[f"{kind}_misses"] = self.misses[kind]
+        return out

@@ -138,6 +138,53 @@ def test_port_opens_reference_data_home(flush, tmp_path):
         port.close()
 
 
+PROM_DDL = ("CREATE TABLE http_requests_total (pod STRING, container STRING, "
+            "ts TIMESTAMP(3) TIME INDEX, val DOUBLE, "
+            "PRIMARY KEY (pod, container))")
+PROM_T0 = 1_700_000_000_000
+PROM_TQL = [
+    f"TQL EVAL ({(PROM_T0 + 300_000) / 1000}, {(PROM_T0 + 585_000) / 1000}, "
+    f"15) sum by (pod) (rate(http_requests_total[5m]))",
+    f"TQL EVAL ({PROM_T0 / 1000}, {(PROM_T0 + 600_000) / 1000}, 60) "
+    f"increase(http_requests_total{{pod=\"pod-3\"}}[2m])",
+]
+
+
+@pytest.mark.parametrize("flush", [True, False])
+def test_port_opens_reference_promql_home(flush, tmp_path):
+    """Counters written and flushed by the reference are served by the
+    port on the CPU with the reference's TQL rows."""
+    home = str(tmp_path / "prom")
+    ref = RefDB(home)
+    ref.sql(PROM_DDL)
+    region = ref._region_of("http_requests_total")
+    rng = np.random.default_rng(5)
+    n = 12 * 3
+    pods = np.array([f"pod-{i}" for i in range(12)], dtype=object)
+    conts = np.array(["a", "b", "c"], dtype=object)
+    c = rng.uniform(0, 100, n)
+    for k in range(40):
+        c = c + rng.uniform(100, 200, n)
+        c = np.where(rng.random(n) < 0.05, rng.uniform(0, 10, n), c)
+        region.write({"pod": pods[np.arange(n) // 3],
+                      "container": conts[np.arange(n) % 3],
+                      "ts": np.full(n, PROM_T0 + k * 15_000, np.int64),
+                      "val": np.where(rng.random(n) < 0.02, np.nan, c)})
+        if flush and k == 20:
+            region.flush()
+    want = [ref.sql(q) for q in PROM_TQL]
+    ref.close(flush=True)
+    port = GreptimeDB(home, device="cpu")
+    try:
+        for q, w in zip(PROM_TQL, want):
+            got = port.sql(q)
+            assert w.num_rows > 0
+            assert got.column_names == w.column_names
+            _rows_match(got.rows, w.rows)
+    finally:
+        port.close()
+
+
 def test_port_imports_neither_jax_nor_reference():
     code = (
         "import sys\n"
@@ -146,12 +193,18 @@ def test_port_imports_neither_jax_nor_reference():
         "import greptimedb_tpu_torch.ops.grid_kernels\n"
         "import greptimedb_tpu_torch.storage.grid\n"
         "import greptimedb_tpu_torch.meta.ddl\n"
+        "import greptimedb_tpu_torch.ops.promql_kernels\n"
+        "import greptimedb_tpu_torch.promql.engine\n"
+        "import greptimedb_tpu_torch.compile.fused\n"
+        "import greptimedb_tpu_torch.storage.inverted\n"
         "db = greptimedb_tpu_torch.standalone.GreptimeDB(device='cpu')\n"
         "db.sql(\"CREATE TABLE t (h STRING, ts TIMESTAMP(3) TIME INDEX, "
         "v DOUBLE, PRIMARY KEY (h))\")\n"
         "db.sql(\"INSERT INTO t VALUES ('a', 0, 1.0), ('a', 10, 3.0)\")\n"
         "assert db.sql('SELECT h, avg(v) FROM t GROUP BY h').rows == "
         "[['a', 2.0]]\n"
+        "r = db.sql('TQL EVAL (0, 0.01, 0.01) sum by (h) (increase(t[1s]))')\n"
+        "assert r.column_names == ['h', 'ts', 'val'] and r.num_rows == 1\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'greptimedb_tpu' or "
         "m.startswith('greptimedb_tpu.'))\n"
