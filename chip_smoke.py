@@ -19,6 +19,7 @@ Phases, each printing its own lines:
    queries, each checked against a numpy computation on the generated
    arrays: (a) double-groupby-all over a 12 h aligned window, (b) the
    window shifted by 5 min with min/max, (c) (a) with a tag-only WHERE.
+   Its db stays open for phases 6 and 7, which run next.
 4. PromQL main path: a port GreptimeDB ingests bench_promql.py's table
    (http_requests_total, 100,000 pods x 10 containers = 1 M series, one
    region.write per 15 s scrape; counters rise 100-200 per scrape, 1 % of
@@ -32,7 +33,25 @@ Phases, each printing its own lines:
 5. The PromQL kernels against their plain versions, timed as in phase 2,
    on phase 4's resident table (41.9 M padded rows; 2^20 selected series,
    1 and 20 steps): its real shapes and data.
-6. One JSON line with every kernel's numbers, then the last line
+6. SQL row path, on phase 3's table before its db closes (run between
+   phases 3 and 4): (d) query (a) with GREPTIME_GRID=off, once under
+   GREPTIME_SORTED_SEGMENTS=auto (the sorted path, sorted_segment_reduce)
+   and once under =off (the scatter path, segment_reduce's wide mode),
+   each equal to (a)'s grid rows and to numpy; (e) TSBS lastpoint
+   (last_value of the 10 metrics by hostname), exactly the last step's
+   values; (f) TSBS high-cpu-all (SELECT * WHERE usage_user > 90 over the
+   12 h window, through compact), its row count exact and its sum of
+   usage_user within the golden bound; (g) a decile expression key
+   (compact_groups: radix_argsort + rank_scatter) and
+   count(DISTINCT hostname) WHERE usage_user > 99.  Per query: first and warm-median latency, the
+   stage split and the profiler's device-busy share.  The row kernels'
+   launch counts are zeroed before the queries and read after them.
+7. The row-path kernels against their plain versions and one library
+   call, timed as in phase 2, on phase 3's resident table with the ids,
+   masks and keys the row path gives them; and min/max of signed f32 and
+   f64 values with -0.0, +0.0 and +-inf entries through both reductions,
+   exactly equal to their plain versions.
+8. One JSON line with every kernel's numbers, then the last line
    {"ok": true, "device": {...}}.
 
 Cuts, printed when taken: --hours 12 (SQL path), --scrapes 20 (PromQL).
@@ -74,6 +93,11 @@ SOURCES = {
     "prefix_scan": "greptimedb_tpu_torch/csrc/promql_kernels.cu",
     "sort_layout": "greptimedb_tpu_torch/csrc/promql_kernels.cu",
     "counter_window": "greptimedb_tpu_torch/csrc/promql_kernels.cu",
+    "segment_reduce": "greptimedb_tpu_torch/csrc/segment_kernels.cu",
+    "sorted_segment_reduce": "greptimedb_tpu_torch/csrc/segment_kernels.cu",
+    "compact": "greptimedb_tpu_torch/csrc/segment_kernels.cu",
+    "rank_scatter": "greptimedb_tpu_torch/csrc/segment_kernels.cu",
+    "radix_argsort": "greptimedb_tpu_torch/csrc/segment_kernels.cu",
 }
 REPLACES = {
     "bucket_reduce": "greptimedb_tpu/query/physical.py:1129",
@@ -81,6 +105,11 @@ REPLACES = {
     "prefix_scan": "greptimedb_tpu/promql/engine.py:410",
     "sort_layout": "greptimedb_tpu/promql/engine.py:257",
     "counter_window": "greptimedb_tpu/promql/engine.py:383",
+    "segment_reduce": "greptimedb_tpu/ops/segment.py:79",
+    "sorted_segment_reduce": "greptimedb_tpu/ops/segment.py:272",
+    "compact": "greptimedb_tpu/ops/masks.py:37",
+    "rank_scatter": "greptimedb_tpu/ops/segment.py:368",
+    "radix_argsort": "greptimedb_tpu/ops/segment.py:353",
 }
 PROM_T0 = 1700000000000   # bench_promql.py's epoch
 SCRAPE_MS = 15_000
@@ -180,7 +209,7 @@ def device_busy(fn, top_n: int = 3, sessions: int = 3):
 # phase 1
 # ---------------------------------------------------------------------------
 
-def phase_device(gk, pk) -> tuple[str, bool]:
+def phase_device(gk, pk, sk) -> tuple[str, bool]:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -198,13 +227,14 @@ def phase_device(gk, pk) -> tuple[str, bool]:
     from greptimedb_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
+    mods = (gk, pk, sk)
     cuda_build.build_many([(m.SOURCE, m.LIBRARY, m.NVCC_FLAGS)
-                           for m in (gk, pk)], force=True)
-    gk._load()
-    pk._load()
-    log(f"build: nvcc {gk.SOURCE.name} -> {gk.LIBRARY.name}, "
-        f"{pk.SOURCE.name} -> {pk.LIBRARY.name} (in parallel) in "
-        f"{time.perf_counter() - t0:.3f} s")
+                           for m in mods], force=True)
+    for m in mods:
+        m._load()
+    log(f"build: nvcc " + ", ".join(f"{m.SOURCE.name} -> {m.LIBRARY.name}"
+                                    for m in mods)
+        + f" (in parallel) in {time.perf_counter() - t0:.3f} s")
     return card, has_arrow
 
 
@@ -352,6 +382,11 @@ def ingest(db, hours: int, has_arrow: bool):
     k = 30  # 5 min of 10 s steps
     stats = {n: np.zeros((hours, SCALE, len(METRICS)))
              for n in ("sum", "min_a", "min_b", "max_a", "max_b")}
+    # what the row-path checks need (phase 6), from the f32 values stored
+    stats["hot_count"] = np.zeros(hours, np.int64)   # usage_user > 90
+    stats["hot_sum"] = np.zeros(hours)
+    stats["decile"] = np.zeros((hours, 11), np.int64)
+    stats["over99"] = np.zeros(SCALE, bool)
     t_write = 0.0
     for hour in range(hours):
         ts = T0 + (hour * STEPS_PER_HOUR + np.repeat(
@@ -373,6 +408,15 @@ def ingest(db, hours: int, has_arrow: bool):
         stats["min_b"][hour] = v32[k:].min(0)
         stats["max_a"][hour] = v32[:k].max(0)
         stats["max_b"][hour] = v32[k:].max(0)
+        user = v32[:, :, 0]
+        hot = user > 90.0
+        stats["hot_count"][hour] = int(hot.sum())
+        stats["hot_sum"][hour] = user[hot].astype(np.float64).sum()
+        stats["decile"][hour] = np.bincount(
+            np.floor(user / np.float32(10)).astype(np.int64).reshape(-1),
+            minlength=11)[:11]
+        stats["over99"] |= (user > 99.0).any(0)
+        stats["last"] = v32[-1]
         t0 = time.perf_counter()
         region.write(data)
         if has_arrow:
@@ -413,6 +457,7 @@ def phase_main_path(gk, hours: int, has_arrow: bool, card: str) -> dict:
     if hours < 24:
         log(f"cut: {hours} h of data instead of 24 h (time limit)")
     home = tempfile.mkdtemp(prefix="chip_smoke_")
+    db = None
     try:
         db = GreptimeDB(
             home,
@@ -478,12 +523,15 @@ def phase_main_path(gk, hours: int, has_arrow: bool, card: str) -> dict:
             "c": (len(some_hosts) * window_h, want_avg),
         }
         report = {}
+        a_rows = None
         for name, sql in queries.items():
             t0 = time.perf_counter()
             res = db.sql(sql)
             torch.cuda.synchronize()
             first_ms = (time.perf_counter() - t0) * 1e3
             worst = check_rows(name, res.rows, *checks[name])
+            if name == "a":
+                a_rows = res.rows
             warm = []
             for _ in range(10):
                 t0 = time.perf_counter()
@@ -521,10 +569,382 @@ def phase_main_path(gk, hours: int, has_arrow: bool, card: str) -> dict:
         if report["a"]["layout"] != "bucket_major" or (
                 report["b"]["layout"] != "dynamic_slice"):
             raise AssertionError(f"unexpected routes {report}")
-        db.close()
-        return launches
-    finally:
+        return launches, db, home, dict(
+            stats=stats, q_start=q_start, q_end=q_end, h0=h0,
+            window_h=window_h, a_sql=queries["a"], a_rows=a_rows,
+            want_avg=want_avg)
+    except BaseException:
+        if db is not None:
+            db.close()
         shutil.rmtree(home, ignore_errors=True)
+        raise
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the SQL row path on phase 3's table
+# ---------------------------------------------------------------------------
+
+def timed_query(db, sql: str, card: str, label: str, check) -> dict:
+    """First run (checked), warm runs (10, or 3 when one run takes over
+    2 s), the stage split of one more run and the profiler's device-busy
+    share; prints one line and returns the numbers."""
+    from greptimedb_tpu_torch.query.parser import parse_sql
+
+    t0 = time.perf_counter()
+    res = db.sql(sql)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    detail = check(res)
+    warm = []
+    reps = 10
+    while len(warm) < reps:
+        t0 = time.perf_counter()
+        db.sql(sql)
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t0) * 1e3)
+        if warm[0] > 2000:
+            reps = 3
+    if reps == 3:
+        log(f"query {label}: one run takes over 2 s, so 3 warm runs")
+    metrics: dict = {}
+    db.engine.execute_select(parse_sql(sql)[0], metrics=metrics)
+    stages = {k: metrics[k] for k in (
+        "plan_ms", "scan_cache_ms", "device_exec_ms", "device_wait_ms",
+        "shape_ms") if k in metrics}
+    busy_ms, wall_ms, top = device_busy(lambda: db.sql(sql), sessions=2)
+    out = dict(rows=len(res.rows), first_ms=first_ms,
+               warm_median_ms=float(np.median(warm)), stages=stages,
+               segments=metrics.get("segments"), busy_ms=busy_ms,
+               wall_ms=wall_ms)
+    log(f"query {label}: {len(res.rows):,} rows correct ({detail}); first "
+        f"{first_ms:.3f} ms, warm median {out['warm_median_ms']:.3f} ms "
+        f"({len(warm)} runs); segments={out['segments']}; stages {stages}; "
+        f"profiler: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall "
+        f"({100 * busy_ms / max(wall_ms, 1e-9):.2f} %); top device ops {top}"
+        f" — {card}")
+    return out
+
+
+def phase_row_path(sk, db, ctx: dict, card: str) -> dict:
+    """(d) query (a) with GREPTIME_GRID=off under GREPTIME_SORTED_SEGMENTS
+    auto (sorted, K5) and off (scatter, K4 wide); (e) TSBS lastpoint;
+    (f) TSBS high-cpu-all over the 12 h window; (g) a decile expression
+    key (compact_groups) and count(DISTINCT hostname).  Every result is
+    checked against numpy on the generated data.  Returns the kernels'
+    launch counts over these queries."""
+    from greptimedb_tpu_torch.query import physical
+
+    stats, q_start, q_end = ctx["stats"], ctx["q_start"], ctx["q_end"]
+    h0, window_h = ctx["h0"], ctx["window_h"]
+    sk.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    report = {}
+
+    def by_key(rows):
+        return {(r[0], int(r[1])): r[2:] for r in rows}
+
+    grid_a = by_key(ctx["a_rows"])
+
+    def check_d(res):
+        worst = check_rows("d", res.rows, SCALE * window_h, ctx["want_avg"])
+        got = by_key(res.rows)
+        if got.keys() != grid_a.keys():
+            raise AssertionError("d: groups differ from the grid's")
+        for key, vals in got.items():
+            for g, w in zip(vals, grid_a[key]):
+                if abs(g - w) > REL_TOL * max(1.0, abs(w)):
+                    raise AssertionError(f"d: {key} {g} vs grid {w}")
+        return f"max |diff| to numpy {worst:.3g}; equal to (a)'s grid rows"
+
+    os.environ["GREPTIME_GRID"] = "off"
+    try:
+        for mode, want_route in (("auto", "sorted"), ("off", "scatter")):
+            os.environ["GREPTIME_SORTED_SEGMENTS"] = mode
+            before = dict(physical.DISPATCH_STATS)
+            report[f"d_{mode}"] = timed_query(
+                db, ctx["a_sql"], card,
+                f"d (a) GREPTIME_GRID=off, GREPTIME_SORTED_SEGMENTS={mode}",
+                check_d)
+            moved = {k: physical.DISPATCH_STATS[k] - before[k]
+                     for k in before}
+            if report[f"d_{mode}"]["segments"] != want_route or (
+                    moved[want_route] == 0 or sum(moved.values())
+                    != moved[want_route]):
+                raise AssertionError(f"d under {mode}: route {moved}")
+    finally:
+        os.environ.pop("GREPTIME_GRID", None)
+        os.environ.pop("GREPTIME_SORTED_SEGMENTS", None)
+
+    lasts = ", ".join(f"last_value({m})" for m in METRICS)
+    lastpoint = f"SELECT hostname, {lasts} FROM cpu GROUP BY hostname"
+
+    def check_e(res):
+        if len(res.rows) != SCALE:
+            raise AssertionError(f"e: {len(res.rows)} rows")
+        for row in res.rows:
+            host = int(row[0].split("_")[1])
+            for j, v in enumerate(row[1:]):
+                if v != float(stats["last"][host, j]):
+                    raise AssertionError(f"e: host {host} col {j}: {v}")
+        return "exactly the f32 values of the last step"
+
+    report["e"] = timed_query(db, lastpoint, card, "e lastpoint", check_e)
+
+    hot = (f"SELECT * FROM cpu WHERE usage_user > 90.0 AND ts >= {q_start} "
+           f"AND ts < {q_end}")
+    hours = slice(h0, h0 + window_h)
+    want_n = int(stats["hot_count"][hours].sum())
+    want_sum = float(stats["hot_sum"][hours].sum())
+
+    def check_f(res):
+        if len(res.rows) != want_n:
+            raise AssertionError(f"f: {len(res.rows)} rows, want {want_n}")
+        col = res.column_names.index("usage_user")
+        got = float(sum(r[col] for r in res.rows))
+        diff = abs(got - want_sum)
+        if diff > REL_TOL * max(1.0, abs(want_sum)):
+            raise AssertionError(f"f: sum {got} vs {want_sum}")
+        return f"row count exact, sum(usage_user) |diff| {diff:.3g}"
+
+    report["f"] = timed_query(db, hot, card, "f high-cpu-all", check_f)
+
+    decile = (f"SELECT floor(usage_user / 10) AS decile, count(*) FROM cpu "
+              f"WHERE ts >= {q_start} AND ts < {q_end} GROUP BY decile")
+    want_dec = stats["decile"][hours].sum(0)
+
+    def check_g1(res):
+        got = {int(d): int(c) for d, c in res.rows}
+        want = {d: int(c) for d, c in enumerate(want_dec) if c}
+        if got != want:
+            raise AssertionError(f"g decile: {got} vs {want}")
+        return "counts exact"
+
+    report["g_decile"] = timed_query(db, decile, card, "g decile key",
+                                     check_g1)
+    distinct = "SELECT count(DISTINCT hostname) FROM cpu WHERE usage_user > 99"
+
+    def check_g2(res):
+        want = int(stats["over99"].sum())
+        if res.rows != [[want]]:
+            raise AssertionError(f"g distinct: {res.rows} vs {want}")
+        return f"{want} hosts, exact"
+
+    report["g_distinct"] = timed_query(db, distinct, card,
+                                       "g count(DISTINCT)", check_g2)
+    launches = {"segment_reduce": sk.segment_reduce.launches,
+                "sorted_segment_reduce": sk.sorted_segment_reduce.launches,
+                "compact": sk.compact.launches,
+                "rank_scatter": sk.rank_scatter.launches,
+                "radix_argsort": sk.radix_argsort.launches}
+    log(f"row path: launches {launches}, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} B")
+    for kname, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{kname} never launched on the row path")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the row-path kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def phase_row_kernels(sk, db, ctx: dict, card: str) -> dict:
+    """Each row-path kernel on phase 3's resident DeviceTable (its real
+    shapes and data), with the ids, masks and keys the row path gives it,
+    against its plain version and one library call."""
+    from greptimedb_tpu_torch.ops.segment import combine_keys
+    from greptimedb_tpu_torch.ops.time import bucket_index
+
+    table = db.cache.get(db._region_of("cpu"))
+    cols, row_mask = table.columns, table.row_mask
+    n = row_mask.shape[0]
+    ts = cols["ts"]
+    window = row_mask & (ts >= ctx["q_start"]) & (ts < ctx["q_end"])
+    results = {}
+
+    def report(name, variant, ms, plain, bound, by, lib, err):
+        lib_s = "null" if lib is None else f"{lib:.4f}"
+        log(f"kernel {name}[{variant}]: {ms:.4f} ms (plain {plain:.4f} ms, "
+            f"library {lib_s} ms, bound {bound:.4f} ms by {by}), "
+            f"max_abs_err {err:.3g} — {card}")
+
+    def keep(name, **kw):
+        if name in results:
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
+                                               kw["max_abs_err"])
+        else:
+            results[name] = kw
+
+    # -- segment_reduce: the wide [N, 10] pass of (d) under off; the
+    #    group grid is (hostname card) x (window buckets), both pow2 --
+    hcard = 1 << (SCALE - 1).bit_length()
+    nbw = 1 << (ctx["window_h"] - 1).bit_length()
+    V = [cols[m] for m in METRICS]  # the wide pass reads them in place
+    hosts = cols["hostname"]
+    bucket = bucket_index(ts, 3_600_000, ctx["q_start"])
+    ns = hcard * nbw
+    gid, _tot = combine_keys([hosts, bucket], [hcard, nbw])
+    gid = gid.to(torch.int32)
+    got = sk.segment_reduce(V, gid, ns, "sum", window)
+    want = sk.segment_reduce_plain(V, gid, ns, "sum", window)
+    err = max(max_err(got[0], want[0], exact=False),
+              max_err(got[1], want[1], exact=True))
+    ms = time_ms(lambda: sk.segment_reduce(V, gid, ns, "sum", window))
+    plain = time_ms(lambda: sk.segment_reduce_plain(V, gid, ns, "sum",
+                                                    window), reps=5)
+    live = window & (gid >= 0) & (gid < ns)
+    stacked = torch.stack(V, dim=1)
+    vz = torch.where(live[:, None] & ~torch.isnan(stacked), stacked, 0.0)
+    idx = torch.where(live, gid.long(), ns)
+    buf = torch.zeros((ns + 1, len(METRICS)), device=ts.device)
+    lib = time_ms(lambda: buf.index_add_(0, idx, vz))
+    # the result needs every mask byte, and the id and values of the live
+    # rows only
+    n_live = int(live.sum())
+    bnd, by = bound_ms(nbytes(window, *got) + n_live * (
+        gid.element_size() + sum(v.element_size() for v in V)),
+        n_live * len(V))
+    report("segment_reduce", f"wide sum [{n:,},10] -> {ns:,}", ms, plain,
+           bnd, by, lib, err)
+    keep("segment_reduce", ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+         library_ms=lib, max_abs_err=err)
+    # lastpoint's first pass: int64 max of ts per host
+    hid = hosts.to(torch.int32)
+    got = sk.segment_reduce(ts, hid, hcard, "max", row_mask)
+    want = sk.segment_reduce_plain(ts, hid, hcard, "max", row_mask)
+    err = max(max_err(got[0], want[0], exact=True),
+              max_err(got[1], want[1], exact=True))
+    ms = time_ms(lambda: sk.segment_reduce(ts, hid, hcard, "max", row_mask))
+    plain = time_ms(lambda: sk.segment_reduce_plain(ts, hid, hcard, "max",
+                                                    row_mask), reps=5)
+    n_live = int(row_mask.sum())
+    bnd, by = bound_ms(nbytes(row_mask, *got) + n_live * (
+        ts.element_size() + hid.element_size()), n_live)
+    report("segment_reduce", f"int64 max of ts -> {hcard:,} (lastpoint "
+           "pass 1)",
+           ms, plain, bnd, by, None, err)
+    keep("segment_reduce", max_abs_err=err)
+    del vz, idx, buf
+
+    # -- sorted_segment_reduce: the wide pass of (d) under auto --
+    sb = torch.where(row_mask, torch.clamp(bucket, 0, nbw - 1), nbw)
+    sid, _tot = combine_keys([hosts, sb], [hcard, nbw])
+    sid = torch.where((sid < 0) | (sid >= ns), ns, sid).to(torch.int32)
+    got = sk.sorted_segment_reduce(V, sid, ns, "sum", window)
+    want = sk.sorted_segment_reduce_plain(V, sid, ns, "sum", window)
+    err = max(max_err(got[0], want[0], exact=False),
+              max_err(got[1], want[1], exact=True))
+    ms = time_ms(lambda: sk.sorted_segment_reduce(V, sid, ns, "sum", window))
+    plain = time_ms(lambda: sk.sorted_segment_reduce_plain(
+        V, sid, ns, "sum", window), reps=5)
+    starts, ends = sk.segment_bounds_plain(sid, ns)
+    lengths = torch.cat([ends - starts, (n - ends[-1:])])
+    vz = torch.where(window[:, None] & ~torch.isnan(stacked), stacked, 0.0)
+    lib = time_ms(lambda: torch.segment_reduce(vz, "sum", lengths=lengths,
+                                               axis=0, unsafe=True))
+    # the mask, the live rows' values, the segment bounds and the outputs:
+    # the ids are only binary-searched
+    n_live = int(window.sum())
+    bnd, by = bound_ms(nbytes(window, starts, ends, *got) + n_live * sum(
+        v.element_size() for v in V), n_live * len(V))
+    report("sorted_segment_reduce", f"wide sum [{n:,},10] -> {ns:,}", ms,
+           plain, bnd, by, lib, err)
+    keep("sorted_segment_reduce", ms=ms, plain_ms=plain, bound_ms=bnd,
+         bound_by=by, library_ms=lib, max_abs_err=err)
+    del V, vz, stacked
+
+    # -- min and max of signed values with -0.0, +0.0 and +-inf, in f32 and
+    #    f64, through both reductions (exact): the sign-flip branches of the
+    #    order-preserving atomic keys --
+    gen = torch.Generator(device=ts.device).manual_seed(5)
+    special = torch.tensor([-0.0, 0.0, float("inf"), float("-inf")],
+                           device=ts.device)
+    pick = torch.rand(n, generator=gen, device=ts.device) < 0.01
+    which = torch.randint(0, 4, (n,), generator=gen, device=ts.device)
+    signed = torch.where(pick, special[which], cols["usage_user"] - 50.0)
+    for vals in (signed, signed.double()):
+        for name, fn, plain_fn, ids in (
+                ("segment_reduce", sk.segment_reduce,
+                 sk.segment_reduce_plain, gid),
+                ("sorted_segment_reduce", sk.sorted_segment_reduce,
+                 sk.sorted_segment_reduce_plain, sid)):
+            for op in ("min", "max"):
+                got = fn(vals, ids, ns, op, window)
+                want = plain_fn(vals, ids, ns, op, window)
+                err = max(max_err(got[0], want[0], exact=True),
+                          max_err(got[1], want[1], exact=True))
+                keep(name, max_abs_err=err)
+    log(f"kernel segment_reduce, sorted_segment_reduce: min and max of "
+        f"signed {{f32, f64}} values with {int(pick.sum()):,} -0.0/+0.0/"
+        f"+-inf entries -> {ns:,} equal to their plain versions — {card}")
+    del signed, got, want
+
+    # -- compact: (f)'s 12 columns under its mask --
+    hot = window & (cols["usage_user"] > 90.0)
+    ccols = {k: cols[k] for k in ["hostname", "ts", *METRICS]}
+    got, kept = sk.compact(ccols, hot)
+    want, wkept = sk.compact_plain(ccols, hot)
+    if kept != wkept:
+        raise AssertionError(f"compact keeps {kept} rows, plain {wkept}")
+    err = max(max_err(got[k], want[k], exact=True) for k in ccols)
+    ms = time_ms(lambda: sk.compact(ccols, hot))
+    plain = time_ms(lambda: sk.compact_plain(ccols, hot), reps=5)
+
+    def lib_compact():
+        rows = torch.nonzero(hot).squeeze(1)
+        return [c.index_select(0, rows) for c in ccols.values()]
+
+    lib = time_ms(lib_compact)
+    # the mask, and the kept rows of each column read and written
+    bnd, by = bound_ms(nbytes(hot) + 2 * kept * sum(
+        c.element_size() for c in ccols.values()), 0)
+    report("compact", f"12 columns N={n:,}, {kept:,} kept", ms,
+           plain, bnd, by, lib, err)
+    keep("compact", ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+         library_ms=lib, max_abs_err=err)
+    del got, want
+
+    # -- radix_argsort: (g)'s decile keys, and its distinct sweep --
+    keys = torch.floor(cols["usage_user"] / 10).to(torch.int64)
+    got = sk.radix_argsort(keys, window)
+    want = sk.radix_argsort_plain(keys, window)
+    err = max_err(got, want, exact=True)
+    ms = time_ms(lambda: sk.radix_argsort(keys, window))
+    plain = time_ms(lambda: sk.radix_argsort_plain(keys, window), reps=5)
+    masked = torch.where(window, keys, sk.I64_MAX)
+    lib = time_ms(lambda: torch.sort(masked, stable=True))
+    bnd, by = bound_ms(nbytes(keys, window) + n * 4, 0)
+    report("radix_argsort", f"decile keys N={n:,} (4 bits)", ms, plain, bnd,
+           by, lib, err)
+    keep("radix_argsort", ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+         library_ms=lib, max_abs_err=err)
+
+    # -- rank_scatter: (g)'s decile ranks, as compact_groups gives them --
+    order = got
+    got = sk.rank_scatter(masked, order, window, n)
+    want = sk.rank_scatter_plain(masked, order, window, n)
+    err = max(max_err(g, w, exact=True) for g, w in zip(got, want))
+    ms = time_ms(lambda: sk.rank_scatter(masked, order, window, n))
+    plain = time_ms(lambda: sk.rank_scatter_plain(masked, order, window, n),
+                    reps=5)
+    bnd, by = bound_ms(nbytes(masked, order, window, *got), 0)
+    report("rank_scatter", f"decile keys N={n:,} -> {n:,} groups", ms, plain,
+           bnd, by, None, err)
+    keep("rank_scatter", ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+         library_ms=None, max_abs_err=err)
+    del got, want, order
+    over = row_mask & (cols["usage_user"] > 99.0)
+    got = sk.radix_argsort(hosts, over)
+    err = max_err(got, sk.radix_argsort_plain(hosts.to(torch.int64), over),
+                  exact=True)
+    ms = time_ms(lambda: sk.radix_argsort(hosts, over))
+    plain = time_ms(lambda: sk.radix_argsort_plain(hosts.to(torch.int64),
+                                                   over), reps=5)
+    bnd, by = bound_ms(nbytes(hosts, over) + n * 4, 0)
+    report("radix_argsort", f"hostname codes N={n:,} (distinct value sweep)",
+           ms, plain, bnd, by, None, err)
+    keep("radix_argsort", max_abs_err=err)
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -970,11 +1390,23 @@ def main() -> int:
         return 2
     from greptimedb_tpu_torch.ops import grid_kernels as gk
     from greptimedb_tpu_torch.ops import promql_kernels as pk
+    from greptimedb_tpu_torch.ops import segment_kernels as sk
 
     t_start = time.perf_counter()
-    card, has_arrow = phase_device(gk, pk)
+    card, has_arrow = phase_device(gk, pk, sk)
     kernels = phase_kernels(gk, card)
-    launches = phase_main_path(gk, args.hours, has_arrow, card)
+    launches, db, home, ctx = phase_main_path(gk, args.hours, has_arrow,
+                                              card)
+    log(f"elapsed: {time.perf_counter() - t_start:.3f} s")
+    try:
+        row_launches = phase_row_path(sk, db, ctx, card)
+        log(f"elapsed: {time.perf_counter() - t_start:.3f} s")
+        kernels.update(phase_row_kernels(sk, db, ctx, card))
+    finally:
+        db.close()
+        shutil.rmtree(home, ignore_errors=True)
+    del ctx
+    torch.cuda.empty_cache()
     log(f"elapsed: {time.perf_counter() - t_start:.3f} s")
     prom_launches, db, home = phase_promql(gk, pk, args.scrapes, args.seed,
                                            has_arrow, card)
@@ -983,12 +1415,16 @@ def main() -> int:
     finally:
         db.close()
         shutil.rmtree(home, ignore_errors=True)
-    log(f"launches: SQL path {launches}, PromQL path {prom_launches}")
+    log(f"launches: SQL grid path {launches}, SQL row path {row_launches}, "
+        f"PromQL path {prom_launches}")
+    launches.update(row_launches)
     for name, n in prom_launches.items():
         launches[name] = launches.get(name, 0) + n
     line = {"kernels": []}
     for name in ("bucket_reduce", "group_merge", "prefix_scan",
-                 "sort_layout", "counter_window"):
+                 "sort_layout", "counter_window", "segment_reduce",
+                 "sorted_segment_reduce", "compact", "rank_scatter",
+                 "radix_argsort"):
         k = kernels[name]
         line["kernels"].append({
             "name": name, "route": "cuda", "source": SOURCES[name],

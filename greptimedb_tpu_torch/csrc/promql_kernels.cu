@@ -16,17 +16,10 @@
 //   Replaces the cumulative sums of the JAX reference's window body
 //   (greptimedb_tpu/promql/engine.py:405-425, `_window_body`: the f64
 //   cumsum of counter-reset drops) and serves the split counts of the
-//   radix sort below.  Deterministic inclusive scan in a fixed tree order,
-//   three phases: (1) each block reduces a tile of 4096 elements
-//   (256 threads x 16, coalesced loads, a shared-memory tree); (2) one
-//   block of 1024 threads turns the tile sums into exclusive tile offsets
-//   (contiguous runs per thread, then a Hillis-Steele block scan); (3) each
-//   block stages its tile in shared memory, every thread scans its 16
-//   contiguous elements, a block scan adds the thread prefixes and the
-//   tile offset.  Element sources are fused prologues: the counter drop
-//   (f64) drop[i] = (tsid[i] == tsid[i-1] && valid[i] && valid[i-1] &&
-//   val[i-1] > val[i]) ? val[i-1] : 0, and the radix "bit is zero" flag
-//   (int32) of an int64 key.
+//   radix sort below.  It runs scan.cuh's launch_scan (the one scan of
+//   the csrc/ libraries) with a fused prologue: the counter drop (f64)
+//   drop[i] = (tsid[i] == tsid[i-1] && valid[i] && valid[i-1] &&
+//   val[i-1] > val[i]) ? val[i-1] : 0.
 //   Bound: bytes.  The f64 mode reads val f32 + tsid i32 + valid u8 twice
 //   (phases 1 and 3: 18 B/row) and writes 8 B/row; at N = 41.9 M padded rows
 //   ~1.1 GB, ~0.33 ms at 3.35 TB/s against a 0.44 GB one-pass bound.
@@ -41,8 +34,8 @@
 //   (max_tsid + 1) * kp, above every valid key, so a stable sort puts them
 //   last in row order, exactly where the reference's I64_MAX ties land.
 //   radix_split: a stable LSD radix sort of (key, row index), one bit per
-//   pass, each pass a "bit is zero" prefix_scan plus a scatter
-//   (dst = zero ? zeros_before : total_zeros + ones_before); only as many
+//   pass, each pass scan.cuh's radix_pass (a "bit is zero" scan plus a scatter:
+//   dst = zero ? zeros_before : total_zeros + ones_before); only as many
 //   passes run as the invalid-row key has bits (40 at 1 M series x 585 s).
 //   layout_gather writes key_s (I64_MAX on invalid rows), ts_s, val_s,
 //   tsid_s and valid_s in one launch.
@@ -72,18 +65,9 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "scan.cuh"
+
 namespace {
-
-constexpr int kScanThreads = 256;
-constexpr int kScanItems = 16;
-constexpr int kScanTile = kScanThreads * kScanItems;  // 4096
-constexpr int kTopThreads = 1024;
-constexpr int kThreads = 256;
-constexpr long long kI64Max = 0x7fffffffffffffffLL;
-
-// The launch just made was refused (or an earlier fault is pending): 0 or
-// the cudaError_t, checked right after every launch.
-inline int last_error() { return (int)cudaGetLastError(); }
 
 // ---------------------------------------------------------------------------
 // prefix_scan
@@ -101,118 +85,6 @@ struct DropSrc {  // counter-reset drop of the sorted layout, as f64
     return (prev_same && pv > val[i]) ? (double)pv : 0.0;
   }
 };
-
-struct BitZeroSrc {  // 1 where bit `shift` of key[i] is 0
-  const long long* key;
-  int shift;
-  __device__ int operator()(long long i) const {
-    return ((key[i] >> shift) & 1LL) == 0 ? 1 : 0;
-  }
-};
-
-// Exclusive scan over the block's threads (Hillis-Steele, fixed order);
-// `total` receives the block's sum.  `sm` holds blockDim.x elements.
-template <typename T>
-__device__ T block_exclusive_scan(T v, T* sm, T& total) {
-  const int tid = threadIdx.x;
-  sm[tid] = v;
-  __syncthreads();
-  for (int off = 1; off < blockDim.x; off <<= 1) {
-    const T add = tid >= off ? sm[tid - off] : T(0);
-    __syncthreads();
-    sm[tid] += add;
-    __syncthreads();
-  }
-  const T excl = tid > 0 ? sm[tid - 1] : T(0);
-  total = sm[blockDim.x - 1];
-  __syncthreads();
-  return excl;
-}
-
-template <typename T, typename Src>
-__global__ void scan_reduce_kernel(Src src, long long n, T* tile_sums) {
-  __shared__ T sm[kScanThreads];
-  const long long base = (long long)blockIdx.x * kScanTile;
-  T acc = T(0);
-  for (int j = 0; j < kScanItems; ++j) {
-    const long long i = base + (long long)j * kScanThreads + threadIdx.x;
-    if (i < n) acc += src(i);
-  }
-  sm[threadIdx.x] = acc;
-  __syncthreads();
-  for (int off = kScanThreads / 2; off > 0; off >>= 1) {
-    if (threadIdx.x < off) sm[threadIdx.x] += sm[threadIdx.x + off];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) tile_sums[blockIdx.x] = sm[0];
-}
-
-template <typename T>
-__global__ void scan_top_kernel(T* tile_sums, long long ntiles) {
-  __shared__ T sm[kTopThreads];
-  const long long per = (ntiles + kTopThreads - 1) / kTopThreads;
-  const long long k0 = (long long)threadIdx.x * per;
-  const long long k1 = k0 + per < ntiles ? k0 + per : ntiles;
-  T acc = T(0);
-  for (long long k = k0; k < k1; ++k) acc += tile_sums[k];
-  T total;
-  T run = block_exclusive_scan(acc, sm, total);
-  for (long long k = k0; k < k1; ++k) {
-    const T v = tile_sums[k];
-    tile_sums[k] = run;
-    run += v;
-  }
-}
-
-// Shared-memory slot of tile element k: one pad slot every 16 elements
-// keeps a thread's 16 contiguous elements off its neighbours' banks.
-__device__ __forceinline__ int sidx(int k) { return k + (k >> 4); }
-
-template <typename T, typename Src>
-__global__ void scan_apply_kernel(Src src, long long n, const T* tile_offsets,
-                                  T* out) {
-  __shared__ T tile[kScanTile + kScanTile / 16];
-  __shared__ T sm[kScanThreads];
-  const long long base = (long long)blockIdx.x * kScanTile;
-  for (int j = 0; j < kScanItems; ++j) {
-    const int k = j * kScanThreads + threadIdx.x;
-    const long long i = base + k;
-    tile[sidx(k)] = i < n ? src(i) : T(0);
-  }
-  __syncthreads();
-  const int k0 = threadIdx.x * kScanItems;
-  T acc = T(0);
-  for (int j = 0; j < kScanItems; ++j) {
-    acc += tile[sidx(k0 + j)];
-    tile[sidx(k0 + j)] = acc;
-  }
-  T total;
-  const T pre = tile_offsets[blockIdx.x] + block_exclusive_scan(acc, sm, total);
-  for (int j = 0; j < kScanItems; ++j) {
-    tile[sidx(k0 + j)] = pre + tile[sidx(k0 + j)];
-  }
-  __syncthreads();
-  for (int j = 0; j < kScanItems; ++j) {
-    const int k = j * kScanThreads + threadIdx.x;
-    const long long i = base + k;
-    if (i < n) out[i] = tile[sidx(k)];
-  }
-}
-
-template <typename T, typename Src>
-int launch_scan(Src src, long long n, T* tile_sums, T* out, cudaStream_t st) {
-  if (n <= 0) return (int)cudaGetLastError();
-  const long long ntiles = (n + kScanTile - 1) / kScanTile;
-  scan_reduce_kernel<T, Src><<<(unsigned)ntiles, kScanThreads, 0, st>>>(
-      src, n, tile_sums);
-  if (int e = last_error()) return e;
-  scan_top_kernel<T><<<1, kTopThreads, 0, st>>>(tile_sums, ntiles);
-  if (int e = last_error()) return e;
-  scan_apply_kernel<T, Src><<<(unsigned)ntiles, kScanThreads, 0, st>>>(
-      src, n, tile_sums, out);
-  if (int e = last_error()) return e;
-  return 0;
-}
 
 // ---------------------------------------------------------------------------
 // sort_layout
@@ -282,21 +154,6 @@ __global__ void layout_key_kernel(const long long* ts, const float* val,
   idx[i] = (int32_t)i;
 }
 
-__global__ void radix_scatter_kernel(const long long* key_in,
-                                     const int32_t* idx_in,
-                                     const int32_t* zeros_incl, long long n,
-                                     int shift, long long* key_out,
-                                     int32_t* idx_out) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const long long k = key_in[i];
-  const long long zero = ((k >> shift) & 1LL) == 0 ? 1 : 0;
-  const long long zeros_before = (long long)zeros_incl[i] - zero;
-  const long long dst =
-      zero ? zeros_before : (long long)zeros_incl[n - 1] + (i - zeros_before);
-  key_out[dst] = k;
-  idx_out[dst] = idx_in[i];
-}
 
 __global__ void layout_gather_kernel(
     const long long* key_sorted, const int32_t* idx, const long long* ts,
@@ -315,9 +172,6 @@ __global__ void layout_gather_kernel(
   valid_s[i] = ok ? 1 : 0;
 }
 
-unsigned blocks_for(long long n) {
-  return (unsigned)((n + kThreads - 1) / kThreads);
-}
 
 // ---------------------------------------------------------------------------
 // counter_window
@@ -477,15 +331,8 @@ int gt_layout_key(const long long* ts, const float* val, const int32_t* tsid,
 int gt_radix_pass(const long long* key_in, const int32_t* idx_in, long long n,
                   int shift, int32_t* zeros, int32_t* tile_sums,
                   long long* key_out, int32_t* idx_out, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (n <= 0) return (int)cudaGetLastError();
-  const int rc = launch_scan<int32_t, BitZeroSrc>(BitZeroSrc{key_in, shift}, n,
-                                                  tile_sums, zeros, st);
-  if (rc != 0) return rc;
-  radix_scatter_kernel<<<blocks_for(n), kThreads, 0, st>>>(
-      key_in, idx_in, zeros, n, shift, key_out, idx_out);
-  if (int e = last_error()) return e;
-  return 0;
+  return radix_pass(key_in, idx_in, n, shift, zeros, tile_sums, key_out,
+                    idx_out, (cudaStream_t)stream);
 }
 
 int gt_layout_gather(const long long* key_sorted, const int32_t* idx,

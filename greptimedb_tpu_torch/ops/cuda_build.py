@@ -3,7 +3,8 @@
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface under the repository's ``.gitignore``d
 ``build/kernels/`` and is bound with ctypes: no PyTorch headers, so a
-build takes seconds.  A library newer than its source is reused.
+build takes seconds.  A library newer than its source and every shared
+header of ``csrc/`` (``*.cuh``) is reused.
 ``build_many`` starts one ``nvcc`` per stale source, all at once.
 """
 
@@ -33,13 +34,14 @@ def nvcc() -> str:
 
 def build_many(specs, force: bool = False) -> list[Path]:
     """Compile each ``(source, library, flags)`` whose library is missing
-    or older than its source (every one with ``force``), one ``nvcc``
-    process per source, all started together.  Raises on a failed build,
-    with nvcc's output."""
+    or older than its source or a ``csrc/*.cuh`` header (every one with
+    ``force``), one ``nvcc`` process per source, all started together.
+    Raises on a failed build, with nvcc's output."""
     procs = []
+    headers = [h.stat().st_mtime for h in CSRC.glob("*.cuh")]
     for source, library, flags in specs:
-        if (not force and library.exists()
-                and library.stat().st_mtime >= source.stat().st_mtime):
+        if (not force and library.exists() and library.stat().st_mtime
+                >= max([source.stat().st_mtime, *headers])):
             continue
         library.parent.mkdir(parents=True, exist_ok=True)
         tmp = library.with_suffix(f".{os.getpid()}.tmp.so")
@@ -69,3 +71,19 @@ def check(rc: int, what: str) -> None:
 
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def on_cpu(what: str, *tensors) -> bool:
+    """True for CPU tensors (the plain version), False for CUDA tensors all
+    on one device (the kernel); raises otherwise.  ``None`` entries are
+    skipped."""
+    tensors = [t for t in tensors if t is not None]
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{what}: tensors on {dev} and {t.device}")
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {dev}")
+    return False

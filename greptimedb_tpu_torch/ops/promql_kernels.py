@@ -30,6 +30,7 @@ import torch
 
 from greptimedb_tpu_torch.ops import cuda_build
 from greptimedb_tpu_torch.ops.cuda_build import check as _check
+from greptimedb_tpu_torch.ops.cuda_build import on_cpu as _on_cpu
 from greptimedb_tpu_torch.ops.cuda_build import stream_ptr as _stream_ptr
 
 SOURCE = cuda_build.CSRC / "promql_kernels.cu"
@@ -83,20 +84,6 @@ def _load():
 
 def _ptr(t: torch.Tensor | None):
     return t.data_ptr() if t is not None else None
-
-
-def _on_cpu(what: str, *tensors) -> bool:
-    """True for CPU tensors (plain version), False for CUDA tensors all on
-    one device (kernel); raises otherwise."""
-    dev = tensors[0].device
-    for t in tensors:
-        if t.device != dev:
-            raise ValueError(f"{what}: tensors on {dev} and {t.device}")
-    if dev.type == "cpu":
-        return True
-    if dev.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {dev}")
-    return False
 
 
 def _flat(what: str, t: torch.Tensor, dtype, n: int | None = None):

@@ -1,19 +1,24 @@
-"""QueryEngine: executes Select statements over the dense grid and
-shapes results.
+"""QueryEngine: executes Select statements and shapes results.
 
-Torch counterpart of the reference's ``query/engine.py`` for the grid
-route: planning and result shaping on host, the aggregate middle on the
-device via ``query.physical`` (the ``bucket_reduce``/``group_merge``
-kernels).  Post-aggregation shaping (HAVING → ORDER BY → LIMIT →
-projection) mirrors the standard SQL operator order.
+Torch counterpart of the reference's ``query/engine.py``: planning and
+result shaping on host, the middle on the device via ``query.physical``.
+Routes, in the reference's order: the dense grid (the
+``bucket_reduce``/``group_merge`` kernels) for the aggregates it can
+serve, then the row path over the resident ``DeviceTable`` (the
+``segment_reduce``/``sorted_segment_reduce``/``compact``/
+``radix_argsort`` kernels) for every other aggregate and every raw
+SELECT.  ``GREPTIME_GRID=off`` forces the row path.  Post-aggregation
+shaping (HAVING → ORDER BY → LIMIT → projection) mirrors the standard SQL
+operator order.
 
-When the grid refuses a plan the port raises ``Unsupported("row path not
-ported yet")`` — it never silently runs something else.  Joins,
-subqueries and the stacked batch dispatch wait for later slices.
+Not ported yet: joins, subqueries, the stacked batch dispatch, the mesh
+route and the expression-key host fold (``_execute_expr_key_agg``; its
+plans take the row path, as the reference's do when it declines).
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -59,6 +64,10 @@ class TableProvider:
 
     def grid_table(self, table: str, plan: SelectPlan):
         """Returns (GridTable | None, ts_bounds)."""
+        raise NotImplementedError
+
+    def device_table(self, table: str, plan: SelectPlan):
+        """Returns (DeviceTable, ts_bounds): the row path's input."""
         raise NotImplementedError
 
 
@@ -113,21 +122,29 @@ class QueryEngine:
         t = mark("plan_ms", t)
         # dense time-grid path: regular-cadence metric tables lower
         # (tags × time bucket) aggregation to the bucket reduce and the
-        # series→group merge — the only route this port has so far
+        # series→group merge; everything else takes the row path
         res = None
-        grid = None
-        if grid_plan_candidate(plan):
+        scanned = 0
+        if (os.environ.get("GREPTIME_GRID", "auto") != "off"
+                and grid_plan_candidate(plan)):
             grid, ts_bounds = self.provider.grid_table(sel.table, plan)
             if grid is not None:
                 t = mark("scan_cache_ms", t)
                 with TRACER.stage("execute"):
                     res = self.executor.execute_grid(
                         plan, grid, ts_bounds, metrics=metrics)
+                if res is not None:
+                    scanned = grid.spad * grid.tpad
+                    if metrics is not None:
+                        metrics["grid"] = True
         if res is None:
-            raise Unsupported("row path not ported yet")
+            table, ts_bounds = self.provider.device_table(sel.table, plan)
+            t = mark("scan_cache_ms", t)
+            with TRACER.stage("execute"):
+                res = self.executor.execute(plan, table, ts_bounds,
+                                            metrics=metrics)
+            scanned = table.padded_rows
         env, n = res
-        if metrics is not None:
-            metrics["grid"] = True
         t = mark("device_exec_ms", t)
         with TRACER.stage("materialize"):
             if plan.sliding is not None:
@@ -136,7 +153,7 @@ class QueryEngine:
         mark("shape_ms", t)
         if metrics is not None:
             metrics["output_rows"] = len(result.rows)
-            metrics["scanned_rows_padded"] = grid.spad * grid.tpad
+            metrics["scanned_rows_padded"] = scanned
         return result
 
     def _execute_tableless(self, sel: Select) -> QueryResult:

@@ -24,10 +24,12 @@ from greptimedb_tpu_torch.datatypes.schema import Schema
 from greptimedb_tpu_torch.errors import (
     ColumnNotFound, PlanError, Unsupported,
 )
-from greptimedb_tpu_torch.ops.time import date_trunc_bucket, time_bucket
+from greptimedb_tpu_torch.ops.time import (
+    date_part_of, date_trunc_bucket, time_bucket,
+)
 from greptimedb_tpu_torch.query.ast import (
     Between, BinaryOp, Case, Cast, Column, Expr, FuncCall, InList, IntervalLit,
-    IsNull, Literal, Star, UnaryOp, WindowFunc,
+    IsNull, Literal, Star, TupleIn, UnaryOp, WindowFunc,
 )
 from greptimedb_tpu_torch.query.parser import parse_timestamp_str
 
@@ -478,8 +480,8 @@ def _code_set(values, pred) -> np.ndarray:
 
 
 def _codes_isin_fn(codes: np.ndarray, real: str, negate: bool):
-    """The ONE code-set membership closure shared by tag comparisons
-    (negation excludes padding/poison codes < 0)."""
+    """The ONE code-set membership closure shared by tag and string-FIELD
+    comparisons (negation excludes padding/poison codes < 0)."""
 
     def fn(env, codes=codes, real=real, negate=negate):
         col = env[real]
@@ -510,11 +512,14 @@ def compile_device(e: Expr, ctx: TableContext):
     """Compile to fn(env) -> torch tensor (or Python scalar); env maps
     column name → device tensor.
 
-    The port covers what dense-grid plans use: column refs and literals,
-    arithmetic, comparisons, AND/OR/NOT, BETWEEN, tag predicates lowered
-    to dictionary code sets (=, !=, IN, LIKE/ILIKE, regex), time-index
-    comparisons with timestamp literals, and date_trunc/date_bin.  Any
-    other node raises ``Unsupported``.  Tag columns evaluate to their code
+    Column refs and literals, arithmetic, comparisons, AND/OR/NOT,
+    BETWEEN, IS NULL, CASE, IN lists and tuple IN, tag and string-FIELD
+    predicates lowered to dictionary code sets (=, !=, IN, LIKE/ILIKE,
+    regex; string fields through the resident table's dictionaries,
+    ``ctx.table_dicts``, so on the row path only), tag = tag through a
+    code translation, time-index comparisons with timestamp literals, and
+    the functions of ``compile_device_func``.  Vector-search and full-text
+    functions raise ``Unsupported``.  Tag columns evaluate to their code
     arrays (comparisons are rewritten to code space).
     """
     if isinstance(e, Literal):
@@ -550,6 +555,27 @@ def compile_device(e: Expr, ctx: TableContext):
         if e.op == "-":
             return lambda env: -inner(env)
         raise Unsupported(f"unary {e.op}")
+
+    if isinstance(e, IsNull):
+        if isinstance(e.expr, Column):
+            real = ctx.resolve(e.expr.name)
+            col = ctx.schema.column(real)
+            if col.is_tag:
+                fn = lambda env: env[real] < 0  # noqa: E731
+            elif col.dtype.is_float:
+                fn = lambda env: torch.isnan(env[real])  # noqa: E731
+            else:
+                fn = lambda env: torch.zeros(  # noqa: E731
+                    env[real].shape, dtype=torch.bool,
+                    device=env[real].device)
+        else:
+            inner = compile_device(e.expr, ctx)
+            fn = lambda env: torch.isnan(  # noqa: E731
+                _as_tensor(inner(env)).to(torch.float32))
+        if e.negated:
+            pos = fn
+            return lambda env: ~pos(env)
+        return fn
 
     if isinstance(e, Between):
         lo = BinaryOp(">=", e.expr, e.low)
@@ -603,6 +629,28 @@ def compile_device(e: Expr, ctx: TableContext):
 
         return fn
 
+    if isinstance(e, TupleIn):
+        return _compile_tuple_in(e, ctx)
+
+    if isinstance(e, Case):
+        if e.operand is not None:
+            whens = tuple(
+                (BinaryOp("=", e.operand, c), v) for c, v in e.whens
+            )
+        else:
+            whens = e.whens
+        conds = [compile_device(c, ctx) for c, _ in whens]
+        vals = [compile_device(v, ctx) for _, v in whens]
+        els = compile_device(e.else_, ctx) if e.else_ is not None else None
+
+        def case_fn(env):
+            out = els(env) if els is not None else float("nan")
+            for c, v in zip(reversed(conds), reversed(vals)):
+                out = torch.where(_as_tensor(c(env)), v(env), out)
+            return out
+
+        return case_fn
+
     if isinstance(e, BinaryOp):
         op = e.op.upper()
         # --- tag-column string semantics resolved at compile time ---
@@ -637,8 +685,73 @@ def compile_device(e: Expr, ctx: TableContext):
                     codes = _code_set(
                         enc, lambda v: rx.search(str(v)) is not None)
                 return _codes_isin_fn(codes, real, op == "!~")
-            raise Unsupported("tag comparison against a non-literal on "
-                              "device: not ported yet")
+            if isinstance(other, Column) and ctx.is_tag(other.name):
+                # tag = tag is sound only through one dictionary: translate
+                # the left codes into the right column's code space
+                r1 = ctx.resolve(tag_side.name)
+                r2 = ctx.resolve(other.name)
+                e1, e2 = ctx.encoders[r1], ctx.encoders[r2]
+                trans = np.array([e2.get(v) for v in e1.values()],
+                                 dtype=np.int32)
+
+                def tag_eq(env, trans=trans, r1=r1, r2=r2, eq=(op == "=")):
+                    c1 = env[r1]
+                    if trans.shape[0]:
+                        t = torch.as_tensor(trans, device=c1.device)
+                        mapped = torch.where(
+                            (c1 >= 0) & (c1 < t.shape[0]),
+                            t[torch.clamp(c1, 0, t.shape[0] - 1)], -2)
+                    else:
+                        mapped = torch.full(c1.shape, -2, dtype=torch.int32,
+                                            device=c1.device)
+                    res = mapped == env[r2]
+                    return res if eq else ~res
+
+                return tag_eq
+        # --- dictionary-encoded string FIELD comparisons -------------
+        # string fields ride the DeviceTable's ad-hoc dictionaries
+        # (table_dicts, set by the row-path executor); =/!=/LIKE/regex
+        # lower to code-set membership exactly like tags
+        if tag_side is None and op in ("=", "!=", "LIKE", "ILIKE",
+                                       "~", "!~"):
+            # LIKE/regex are not commutative: only col OP literal; =/!=
+            # match either side
+            if op in ("=", "!="):
+                pairs = ((e.left, e.right), (e.right, e.left))
+            else:
+                pairs = ((e.left, e.right),)
+            field_side = other_f = None
+            for side, oth in pairs:
+                if (isinstance(side, Column)
+                        and isinstance(oth, Literal)
+                        and isinstance(oth.value, str)
+                        and not ctx.is_tag(side.name)):
+                    try:
+                        cs = ctx.schema.column(ctx.resolve(side.name))
+                    except Exception:  # noqa: BLE001
+                        cs = None
+                    if cs is not None and cs.dtype.is_string_like:
+                        field_side, other_f = side, oth
+                        break
+            if field_side is not None:
+                real = ctx.resolve(field_side.name)
+                vocab = getattr(ctx, "table_dicts", {}).get(real)
+                if vocab is None:
+                    raise Unsupported(
+                        f"string field {real}: comparison needs the "
+                        "resident dictionary (row path only)")
+                if op in ("=", "!="):
+                    pred = lambda v, w=other_f.value: str(v) == w  # noqa: E731
+                elif op in ("LIKE", "ILIKE"):
+                    rx = re.compile(
+                        _like_to_regex(other_f.value),
+                        re.IGNORECASE if op == "ILIKE" else 0)
+                    pred = lambda v, rx=rx: rx.match(str(v)) is not None  # noqa: E731
+                else:
+                    rx = re.compile(other_f.value)
+                    pred = lambda v, rx=rx: rx.search(str(v)) is not None  # noqa: E731
+                return _codes_isin_fn(_code_set(vocab, pred), real,
+                                      op in ("!=", "!~"))
         # --- time-index comparisons with string timestamps ---
         ts_side = None
         if isinstance(e.left, Column) and ctx.is_ts(e.left.name):
@@ -682,8 +795,93 @@ def compile_device(e: Expr, ctx: TableContext):
     if isinstance(e, FuncCall):
         return compile_device_func(e, ctx)
 
-    raise Unsupported(
-        f"cannot compile {type(e).__name__} for device: not ported yet")
+    raise Unsupported(f"cannot compile {type(e).__name__} for device")
+
+
+def _compile_tuple_in(e: TupleIn, ctx: TableContext):
+    """Row-tuple membership on device, O((n + T)·log T): factorize each key
+    column against the tuples' per-column distinct values with
+    searchsorted (tag literals become dictionary codes — absent literals
+    can never match), combine the positions into one int64 code, and probe
+    the sorted tuple-code table."""
+    k = len(e.exprs)
+    if k == 0 or not e.rows:
+        neg = e.negated
+        return lambda env: torch.full(
+            next(iter(env.values())).shape, bool(neg),
+            device=next(iter(env.values())).device)
+
+    col_fns = []
+    col_vals: list[np.ndarray] = []
+    for i, x in enumerate(e.exprs):
+        vals = [r[i] for r in e.rows]
+        if isinstance(x, Column) and ctx.is_tag(x.name):
+            real = ctx.resolve(x.name)
+            enc = ctx.encoders[real]
+            arr = np.array([enc.get(v) for v in vals], dtype=np.int64)
+            col_fns.append(
+                lambda env, real=real: env[real].to(torch.int64))
+        else:
+            # native-dtype comparison: int-typed columns (incl. timestamps)
+            # compare in exact int64, never through a float downcast
+            int_col = False
+            if isinstance(x, Column):
+                try:
+                    cs = ctx.schema.column(ctx.resolve(x.name))
+                    int_col = not (cs.is_tag or cs.dtype.is_float
+                                   or cs.dtype.is_string_like)
+                except Exception:  # noqa: BLE001 — unknown: float compare
+                    pass
+            f = compile_device(x, ctx)
+            try:
+                if int_col and all(
+                        float(v).is_integer() if isinstance(v, float)
+                        else True for v in vals):
+                    arr = np.array([int(v) for v in vals], dtype=np.int64)
+                    col_fns.append(
+                        lambda env, f=f: _as_tensor(f(env)).to(torch.int64))
+                else:
+                    arr = np.array([float(v) for v in vals],
+                                   dtype=np.float64)
+                    col_fns.append(
+                        lambda env, f=f: _as_tensor(f(env)).to(
+                            torch.float64))
+            except (TypeError, ValueError):
+                raise Unsupported(
+                    "tuple IN: non-numeric values on a non-tag column")
+        col_vals.append(arr)
+
+    uniqs, invs = [], []
+    prod = 1
+    for arr in col_vals:
+        u, inv = np.unique(arr, return_inverse=True)
+        uniqs.append(u)
+        invs.append(inv.astype(np.int64))
+        prod *= max(len(u), 1)
+    if prod >= (1 << 62):
+        raise Unsupported("tuple IN: combined key space too large")
+    comb = np.zeros(len(e.rows), dtype=np.int64)
+    for u, inv in zip(uniqs, invs):
+        comb = comb * len(u) + inv
+    tcodes = np.unique(comb)
+    neg = e.negated
+
+    def fn(env):
+        ok = None
+        code = None
+        for u, f in zip(uniqs, col_fns):
+            v = f(env)
+            ua = torch.as_tensor(u, device=v.device)
+            posc = torch.clamp(torch.searchsorted(ua, v), 0, len(u) - 1)
+            found = ua[posc] == v
+            ok = found if ok is None else (ok & found)
+            code = posc if code is None else code * len(u) + posc
+        tc = torch.as_tensor(tcodes, device=code.device)
+        p = torch.clamp(torch.searchsorted(tc, code), 0, len(tcodes) - 1)
+        hit = ok & (tc[p] == code)
+        return ~hit if neg else hit
+
+    return fn
 
 
 VEC_FUNCS = ("vec_cos_distance", "vec_l2sq_distance", "vec_dot_product")
@@ -765,7 +963,70 @@ def compile_device_func(e: FuncCall, ctx: TableContext):
                             factor)
 
         return fn
-    raise Unsupported(f"device function {name}: not ported yet")
+    if name in VEC_FUNCS:
+        raise Unsupported(f"{name}: vector search not ported yet")
+    if name in FT_FUNCS:
+        raise Unsupported(f"{name}: full-text search not ported yet")
+    if name == "abs":
+        inner = compile_device(e.args[0], ctx)
+        return lambda env: torch.abs(_as_tensor(inner(env)))
+    if name in _MATH:
+        inner = compile_device(e.args[0], ctx)
+        f = _MATH[name]
+        return lambda env: f(_as_tensor(inner(env)))
+    if name == "clamp":
+        a = compile_device(e.args[0], ctx)
+        lo = compile_device(e.args[1], ctx)
+        hi = compile_device(e.args[2], ctx)
+        return lambda env: torch.clamp(_as_tensor(a(env)), lo(env), hi(env))
+    if name in ("power", "pow"):
+        a = compile_device(e.args[0], ctx)
+        b = compile_device(e.args[1], ctx)
+        return lambda env: torch.pow(
+            _as_tensor(a(env)).to(torch.float64), b(env))
+    if name == "coalesce":
+        parts = [compile_device(a, ctx) for a in e.args]
+
+        def coalesce(env):
+            out = parts[-1](env)
+            for p in reversed(parts[:-1]):
+                v = _as_tensor(p(env))
+                out = torch.where(torch.isnan(v), out, v)
+            return out
+
+        return coalesce
+    if name == "to_unixtime":
+        inner = compile_device(e.args[0], ctx)
+        factor = ctx.ts_unit_ms_factor() * 1000.0
+        # in float64: torch computes int64 / float in float32, which on
+        # epoch timestamps loses whole minutes
+        return lambda env: (_as_tensor(inner(env)).to(torch.float64)
+                            / factor).to(torch.int64)
+    if name in ("date_part", "datepart"):
+        if len(e.args) != 2 or not isinstance(e.args[0], Literal):
+            raise PlanError("date_part(unit, ts)")
+        part = str(e.args[0].value).lower()
+        inner = compile_device(e.args[1], ctx)
+        factor = ctx.ts_unit_ms_factor()
+        try:
+            date_part_of(torch.zeros(1, dtype=torch.int64), part)
+        except ValueError as exc:
+            raise Unsupported(str(exc))
+        return lambda env: date_part_of(_to_ms(inner(env), factor), part)
+    if name == "now":
+        import time as _time
+
+        v = int(_time.time() * 1000 * ctx.ts_unit_ms_factor())
+        return lambda env: v
+    raise Unsupported(f"device function {name}")
+
+
+_MATH = {
+    "ln": torch.log, "log": torch.log10, "log2": torch.log2,
+    "log10": torch.log10, "sqrt": torch.sqrt, "exp": torch.exp,
+    "floor": torch.floor, "ceil": torch.ceil, "round": torch.round,
+    "sin": torch.sin, "cos": torch.cos, "tan": torch.tan,
+}
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Physical execution of the dense-grid path: SelectPlan → torch tensor
-code and the grid kernels → host result columns.
+"""Physical execution: SelectPlan → torch tensor code and the hand-written
+kernels → host result columns.
 
 Torch counterpart of the grid half of the reference's
 ``query/physical.py``.  Per query, the device computes per-(series, time
@@ -20,9 +20,20 @@ Two layouts, as in the reference:
   query window of the grid planes directly.
 
 Prepared closures are cached in a plain dict keyed as the reference keys
-its jitted kernels.  Not ported yet: the row path (``execute``), the
-stacked batch dispatch (``execute_grid_batch``), per-member series masks
-and sketches.
+its jitted kernels.
+
+The row path (``execute``: ``_execute_agg`` / ``_execute_raw``) runs on
+the resident ``DeviceTable``: WHERE mask → group ids (dense
+``combine_keys``, or ``compact_groups`` ranks for sparse keys) → segment
+aggregates (``ops/segment.py`` over the ``segment_reduce`` /
+``sorted_segment_reduce`` kernels, one wide ``[N, C]`` pass for plain
+float sum/avg/count) → ``compact`` of the groups that have rows → host.
+A raw SELECT compacts the matching rows with the ``compact`` kernel and
+the host shapes them (ORDER BY, LIMIT, DISTINCT, windows).  The row path
+builds its closures per call: there is nothing to compile.  Not ported
+yet: the stacked batch dispatch (``execute_grid_batch``), per-member
+series masks, sketches and the device top-k of ``_topk_spec`` (the host
+sorts the compacted rows instead).
 """
 
 from __future__ import annotations
@@ -38,13 +49,26 @@ from greptimedb_tpu_torch.errors import PlanError, Unsupported
 from greptimedb_tpu_torch.ops.grid_kernels import (
     bucket_reduce, clamp_start, group_layout, group_merge,
 )
-from greptimedb_tpu_torch.ops.segment import combine_keys, decompose_keys
-from greptimedb_tpu_torch.query.ast import Column, Star
+from greptimedb_tpu_torch.ops import segment_kernels as sk
+from greptimedb_tpu_torch.ops.masks import compact_rows
+from greptimedb_tpu_torch.ops.segment import (
+    combine_keys, compact_groups, decompose_keys, segment_distinct_count,
+    segment_first_last, segment_reduce, sorted_segment_reduce,
+)
+from greptimedb_tpu_torch.ops.time import bucket_index
+from greptimedb_tpu_torch.query.ast import Column, FuncCall, Star
 from greptimedb_tpu_torch.query.exprs import compile_device
-from greptimedb_tpu_torch.query.planner import SelectPlan, referenced_columns
+from greptimedb_tpu_torch.query.planner import (
+    GroupKey, SelectPlan, referenced_columns,
+)
 from greptimedb_tpu_torch.utils.tracing import TRACER
 
 DENSE_LIMIT = 1 << 22
+
+# diagnostics: every row-path aggregate dispatch, by the segment strategy
+# it used (the reference's DISPATCH_STATS keys of the row path)
+DISPATCH_STATS = {"sorted": 0, "scatter": 0}
+_SKETCH_AGGS = ("hll", "uddsketch_state", "hll_merge", "uddsketch_merge")
 
 
 @_dataclasses.dataclass
@@ -840,3 +864,463 @@ class Executor:
             return out
 
         return kernel
+
+    # ---- row path ------------------------------------------------------
+    def execute(
+        self, plan: SelectPlan, table, ts_bounds: tuple[int, int],
+        metrics: dict | None = None,
+    ) -> tuple[dict[str, np.ndarray], int]:
+        """Run the device part of the row path over a resident
+        ``DeviceTable``; returns (host env of result columns, nrows)."""
+        if plan.is_agg:
+            return self._execute_agg(plan, table, ts_bounds, metrics=metrics)
+        return self._execute_raw(plan, table, metrics=metrics)
+
+    def _execute_agg(
+        self, plan: SelectPlan, table, ts_bounds: tuple[int, int],
+        metrics: dict | None = None,
+    ) -> tuple[dict[str, np.ndarray], int]:
+        ctx = plan.ctx
+        ctx.table_dicts = table.dicts  # string-dict exprs
+        ts_name = ctx.schema.time_index.name if ctx.schema.time_index else None
+        device = table.row_mask.device
+
+        key_specs: list[tuple] = []
+        dense_ok = True
+        cards: list[int] = []
+        for k in plan.group_keys:
+            if k.kind == "tag":
+                card = _pow2(max(len(ctx.encoders[k.column]), 1))
+                key_specs.append(("tag", k.column, card))
+                cards.append(card)
+            elif k.kind == "time":
+                step, start, nb = self._time_key_params(k, plan, ts_bounds)
+                key_specs.append(("time", (step, start, nb)))
+                cards.append(nb)
+            else:
+                key_specs.append(("expr", compile_device(k.expr, ctx)))
+                dense_ok = False
+        grid = 1
+        for c in cards:
+            grid *= c
+        if key_specs and (not dense_ok or grid > DENSE_LIMIT):
+            dense_ok = False
+
+        # sorted fast path (scatter-free reductions): at most one tag key,
+        # whose codes are monotone and bijective with the series runs of
+        # the resident layout, plus only time keys — then the tag-major
+        # combined id is nondecreasing in row order
+        tag_keys = [s for s in key_specs if s[0] == "tag"]
+        time_keys = [s for s in key_specs if s[0] == "time"]
+        sorted_eligible = bool(
+            dense_ok
+            and key_specs
+            and len(tag_keys) <= 1
+            and len(tag_keys) + len(time_keys) == len(key_specs)
+            and all(s[1] in table.sorted_tags for s in tag_keys)
+        )
+        if sorted_eligible and not tag_keys and len(ctx.schema.tag_columns):
+            # pure time bucketing over multi-series data: ts is not sorted
+            # across series — scatter path
+            sorted_eligible = False
+        # GREPTIME_SORTED_SEGMENTS: auto takes the sorted path on the card
+        # (the reference's non-CPU branch) and the scatter path on the CPU;
+        # force/off pin it for A/B runs and parity tests
+        mode = os.environ.get("GREPTIME_SORTED_SEGMENTS", "auto")
+        if mode == "force":
+            use_sorted = sorted_eligible
+        elif mode == "off":
+            use_sorted = False
+        elif mode == "auto":
+            use_sorted = sorted_eligible and device.type != "cpu"
+        else:
+            raise PlanError(
+                f"GREPTIME_SORTED_SEGMENTS must be auto|force|off, got {mode!r}"
+            )
+        DISPATCH_STATS["sorted" if use_sorted else "scatter"] += 1
+        if metrics is not None:
+            metrics["segments"] = "sorted" if use_sorted else "scatter"
+
+        where_fn = compile_device(plan.where, ctx) if plan.where is not None else None
+        seg_fn = sorted_segment_reduce if use_sorted else segment_reduce
+        # plain float sum/avg/count columns run in ONE wide [N, C] pass
+        batched: list[tuple[str, str, str]] = []  # (out_name, op, column)
+        agg_specs = []
+        for agg in plan.aggs:
+            op = {"avg": "mean", "mean": "mean", "sum": "sum",
+                  "count": "count"}.get(agg.name)
+            col = None
+            if (op is not None and not agg.distinct and len(agg.args) == 1
+                    and isinstance(agg.args[0], Column)):
+                try:
+                    cs = ctx.schema.column(ctx.resolve(agg.args[0].name))
+                    # float columns only: the wide pass accumulates in f32,
+                    # which would break exact int64 sums
+                    if cs.dtype.is_float and not cs.is_tag:
+                        col = cs.name
+                except Exception:  # noqa: BLE001
+                    col = None
+            if col is not None:
+                batched.append((str(agg), op, col))
+            else:
+                agg_specs.append((str(agg),
+                                  self._compile_agg(agg, ctx, ts_name, seg_fn)))
+
+        num_groups = (grid if (dense_ok and key_specs)
+                      else (1 if not key_specs else table.padded_rows))
+        kernel = self._build_agg_kernel(
+            key_specs, dense_ok, num_groups, cards, where_fn, agg_specs,
+            ts_name, use_sorted, batched)
+        lo, hi = plan.time_range
+        ts_lo = int(lo) if lo is not None else int(_I64_MIN)
+        ts_hi = int(hi) if hi is not None else int(_I64_MAX)
+        starts = tuple(int(spec[1][1])
+                       for spec in key_specs if spec[0] == "time")
+
+        def run():
+            out = kernel(table, ts_lo, ts_hi, starts)
+            gmask = out.pop("__gmask__")
+            cnt_all = out.pop("__cnt_all__", None)
+            # the groups that have rows, in group order, to the front: only
+            # they cross to the host
+            packed, n = compact_rows(out, gmask)
+            return packed, n, cnt_all
+
+        packed, n, cnt_all_g = timed_kernel_call(run, False, metrics, device)
+        # THE one host materialization per dispatch
+        out = {k: v.cpu().numpy() for k, v in packed.items()}
+        env: dict[str, np.ndarray] = {}
+        for i, k in enumerate(plan.group_keys):
+            raw = out[f"__key{i}__"]
+            if k.kind == "tag":
+                col = decode_codes(ctx.encoders[k.column].values(), raw)
+            else:
+                col = raw
+                # string-FIELD group keys come back as the DeviceTable's
+                # ad-hoc dictionary codes — decode, never leak codes
+                if isinstance(k.expr, Column):
+                    try:
+                        cs = ctx.schema.column(ctx.resolve(k.expr.name))
+                    except Exception:  # noqa: BLE001
+                        cs = None
+                    if (cs is not None and not cs.is_tag
+                            and cs.dtype.is_string_like
+                            and cs.name in table.dicts):
+                        col = decode_codes(table.dicts[cs.name], raw)
+            env[k.name] = col
+            env[str(k.expr)] = col
+        for name, _ in agg_specs:
+            env[name] = out[name]
+        for name, _op, _col in batched:
+            env[name] = out[name]
+        if cnt_all_g is not None and int(cnt_all_g[0]) == 0:
+            # zero-row global aggregate: every non-count aggregate is NULL;
+            # int aggregates came back as 0/sentinel fills — NULL them here
+            for agg in plan.aggs:
+                if agg.name not in ("count", "count_distinct",
+                                    "approx_distinct"):
+                    env[str(agg)] = np.array([None], dtype=object)
+        return env, n
+
+    def _compile_agg(self, agg: FuncCall, ctx, ts_name: str | None,
+                     seg_fn=segment_reduce):
+        name = agg.name
+        if name in _SKETCH_AGGS:
+            raise Unsupported(f"{name}: sketches not ported yet")
+        if name == "approx_distinct":
+            # exact on device: the sort-unique segment count
+            if not agg.args or isinstance(agg.args[0], Star):
+                raise PlanError("approx_distinct needs a column argument")
+            arg_fn = compile_device(agg.args[0], ctx)
+            return lambda env, gid, ng, mask: segment_distinct_count(
+                arg_fn(env), gid, ng, mask)
+        if agg.distinct or name == "count_distinct":
+            if name not in ("count", "count_distinct"):
+                raise Unsupported(f"DISTINCT is only supported for count()"
+                                  f", got {name}")
+            if not agg.args or isinstance(agg.args[0], Star):
+                raise PlanError("count(DISTINCT) needs a column argument")
+            if len(agg.args) > 1:
+                raise Unsupported("count(DISTINCT a, b): multi-column distinct")
+            # string/tag columns are dictionary codes on device — distinct
+            # over codes IS distinct over values (dictionaries are bijective)
+            arg_fn = compile_device(agg.args[0], ctx)
+            return lambda env, gid, ng, mask: segment_distinct_count(
+                arg_fn(env), gid, ng, mask)
+        if name == "count" and (not agg.args or isinstance(agg.args[0], Star)):
+            def count_rows(env, gid, ng, mask):
+                return seg_fn(_ones(mask), gid, ng, "count", mask)
+            return count_rows
+        if not agg.args:
+            raise PlanError(f"{name}() needs an argument")
+        arg = agg.args[0]
+        if isinstance(arg, Column) and name != "count":
+            try:
+                col_schema = ctx.schema.column(ctx.resolve(arg.name))
+            except Exception:  # noqa: BLE001
+                col_schema = None
+            if col_schema is not None and (
+                col_schema.is_tag or col_schema.dtype.is_string_like
+            ):
+                # string columns (tags AND fields) are dictionary codes on
+                # device: numeric aggregation would aggregate codes
+                raise Unsupported(f"{name}() over string column {arg.name}")
+        arg_fn = compile_device(arg, ctx)
+        if name == "count":
+            return lambda env, gid, ng, mask: seg_fn(
+                arg_fn(env), gid, ng, "count", mask)
+        if name in ("sum", "min", "max"):
+            return lambda env, gid, ng, mask, op=name: seg_fn(
+                arg_fn(env), gid, ng, op, mask)
+        if name in ("avg", "mean"):
+            return lambda env, gid, ng, mask: seg_fn(
+                arg_fn(env), gid, ng, "mean", mask)
+        if name in ("first_value", "last_value"):
+            if ts_name is None:
+                raise PlanError(f"{name} needs a time index")
+            last = name == "last_value"
+
+            def first_last(env, gid, ng, mask, last=last):
+                _ts, val = segment_first_last(
+                    env[ts_name], arg_fn(env), gid, ng, mask, last=last)
+                return val
+
+            return first_last
+        if name in ("stddev", "stddev_pop", "var", "var_pop"):
+            pop = name.endswith("_pop")
+
+            def spread(env, gid, ng, mask, pop=pop,
+                       std=name.startswith("std")):
+                v = arg_fn(env)
+                m = seg_fn(v, gid, ng, "mean", mask)
+                cnt = seg_fn(v, gid, ng, "count", mask)
+                centered = (v - m[torch.clamp(gid, 0, ng - 1)]) ** 2
+                ss = seg_fn(centered, gid, ng, "sum", mask)
+                denom = cnt if pop else torch.clamp(cnt - 1, min=1)
+                var = torch.where(cnt > (0 if pop else 1), ss / denom,
+                                  float("nan"))
+                return torch.sqrt(var) if std else var
+
+            return spread
+        raise Unsupported(f"aggregate {name}")
+
+    def _build_agg_kernel(
+        self, key_specs, dense_ok, num_groups, cards, where_fn, agg_specs,
+        ts_name, use_sorted=False, batched=(),
+    ):
+        # map key_specs index -> ordinal into the time_starts tuple
+        time_ordinal = {
+            i: t for t, i in enumerate(
+                i for i, s in enumerate(key_specs) if s[0] == "time")
+        }
+
+        def kernel(table, ts_lo, ts_hi, time_starts):
+            env = dict(table.columns)
+            pad_mask = table.row_mask  # padding rows, pre-WHERE
+            mask = table.row_mask
+            if ts_name is not None:
+                mask = mask & (env[ts_name] >= ts_lo) & (env[ts_name] < ts_hi)
+            if where_fn is not None:
+                # bool & int8 (BOOLEAN columns) is int8 0/1, as in the
+                # reference; the kernels take the bool
+                mask = (mask & where_fn(env)).to(torch.bool)
+            n = mask.shape[0]
+            device = mask.device
+
+            order = ()
+            ordered_cards: list[int] = []
+            if not key_specs:
+                gid = torch.zeros(n, dtype=torch.int32, device=device)
+                ng = 1
+                gmask_init = None
+            elif dense_ok:
+                # the sorted path combines tag-major (tag runs are series
+                # runs, ts ascends within each) so the combined id is sorted
+                order = (
+                    sorted(range(len(key_specs)),
+                           key=lambda i: 0 if key_specs[i][0] == "tag" else 1)
+                    if use_sorted else range(len(key_specs))
+                )
+                codes = []
+                for i in order:
+                    spec = key_specs[i]
+                    if spec[0] == "tag":
+                        codes.append(env[spec[1]])
+                    else:
+                        step, _start, nb = spec[1]
+                        idx = bucket_index(env[ts_name], step,
+                                           time_starts[time_ordinal[i]])
+                        if use_sorted:
+                            # WHERE-excluded rows clamp (keeps ids sorted,
+                            # they are mask-neutral); padding rows still
+                            # poison — they trail
+                            idx = torch.where(pad_mask,
+                                              torch.clamp(idx, 0, nb - 1), nb)
+                        codes.append(idx)
+                    ordered_cards.append(cards[i])
+                combined, _tot = combine_keys(codes, ordered_cards)
+                gid = combined.to(torch.int32)
+                ng = num_groups
+                gmask_init = None
+            else:
+                # iterative collision-free ranking
+                combined = None
+                for i, spec in enumerate(key_specs):
+                    if spec[0] == "tag":
+                        vals = env[spec[1]].to(torch.int64)
+                    elif spec[0] == "time":
+                        step, _start, _nb = spec[1]
+                        vals = bucket_index(env[ts_name], step,
+                                            time_starts[time_ordinal[i]])
+                    else:
+                        # constant expressions compile to scalars —
+                        # broadcast to rows
+                        vals = _rows(spec[1](env), n, device).to(torch.int64)
+                    if combined is None:
+                        combined = vals
+                    else:
+                        prev_rank, _gk, _gm = compact_groups(
+                            combined, mask, num_groups)
+                        r2, _gk2, _gm2 = compact_groups(vals, mask,
+                                                        num_groups)
+                        combined = (prev_rank.to(torch.int64)
+                                    * (num_groups + 1) + r2)
+                gid_r, _gkeys, gmask_sp = compact_groups(combined, mask,
+                                                         num_groups)
+                gid = gid_r.to(torch.int32)
+                ng = num_groups
+                gmask_init = gmask_sp
+
+            count_fn = sorted_segment_reduce if use_sorted else segment_reduce
+            cnt_all = count_fn(_ones(mask), gid, ng, "count", mask)
+            if not key_specs:
+                # global aggregate: exactly one row even when zero rows
+                # matched; the matched-row count ships out so the host can
+                # NULL int aggregates too
+                out = {"__gmask__": torch.ones(1, dtype=torch.bool,
+                                               device=device),
+                       "__cnt_all__": cnt_all}
+            else:
+                gmask = cnt_all > 0
+                if gmask_init is not None:
+                    gmask = gmask & gmask_init
+                out = {"__gmask__": gmask}
+            if key_specs and dense_ok:
+                # dense grid: keys decompose arithmetically from the group
+                # index — no gather, no scatter
+                comps = decompose_keys(
+                    torch.arange(ng, dtype=torch.int64, device=device),
+                    ordered_cards)
+                for pos, i in enumerate(order):
+                    spec = key_specs[i]
+                    if spec[0] == "tag":
+                        out[f"__key{i}__"] = comps[pos]
+                    else:
+                        step, _start, _nb = spec[1]
+                        out[f"__key{i}__"] = (
+                            comps[pos].to(torch.int64) * step
+                            + time_starts[time_ordinal[i]])
+            elif key_specs:
+                # sparse path: representative row per group (the lowest
+                # matching row index)
+                ridx = torch.arange(n, dtype=torch.int64, device=device)
+                rep, _cnt = sk.segment_reduce(ridx, gid, ng, "min", mask)
+                safe_rep = torch.where(rep < _I64_MAX, rep, 0)
+                for i, spec in enumerate(key_specs):
+                    if spec[0] == "tag":
+                        kv = env[spec[1]][safe_rep]
+                    elif spec[0] == "time":
+                        step, _start, _nb = spec[1]
+                        start = time_starts[time_ordinal[i]]
+                        bucket = bucket_index(env[ts_name], step, start)
+                        kv = (bucket * step + start)[safe_rep]
+                    else:
+                        kv = _rows(spec[1](env), n, device).to(
+                            torch.int64)[safe_rep]
+                    out[f"__key{i}__"] = kv
+            for name, fn in agg_specs:
+                out[name] = fn(env, gid, ng, mask)
+
+            if batched:
+                # one wide pass for all plain sum/avg/count aggregates; the
+                # kernels read the f32 columns in place (no [N, C] stack)
+                V = [env[c].to(torch.float32) for _n, _o, c in batched]
+                if use_sorted:
+                    ids_b = torch.where((gid < 0) | (gid >= ng), ng,
+                                        gid).to(torch.int32)
+                    S, CNT = sk.sorted_segment_reduce(V, ids_b, ng, "sum",
+                                                      mask)
+                else:
+                    S, CNT = sk.segment_reduce(V, gid, ng, "sum", mask)
+                nan = float("nan")
+                for j, (name, op, _c) in enumerate(batched):
+                    if op == "sum":
+                        out[name] = torch.where(CNT[:, j] > 0, S[:, j], nan)
+                    elif op == "count":
+                        out[name] = CNT[:, j]
+                    else:  # mean
+                        out[name] = torch.where(
+                            CNT[:, j] > 0,
+                            S[:, j] / torch.clamp(CNT[:, j], min=1).to(
+                                S.dtype), nan)
+            return out
+
+        return kernel
+
+    def _execute_raw(
+        self, plan: SelectPlan, table, metrics: dict | None = None,
+    ) -> tuple[dict[str, np.ndarray], int]:
+        ctx = plan.ctx
+        ctx.table_dicts = table.dicts  # string-dict exprs
+        ts_name = ctx.schema.time_index.name if ctx.schema.time_index else None
+        where_fn = compile_device(plan.where, ctx) if plan.where is not None else None
+        lo, hi = plan.time_range
+
+        needed: set[str] = set()
+        if any(isinstance(i.expr, Star) for i in plan.items):
+            needed = {c.name for c in ctx.schema}
+        for item in plan.items:
+            if not isinstance(item.expr, Star):
+                referenced_columns(item.expr, ctx, needed)
+        for o in plan.order_by:
+            referenced_columns(o.expr, ctx, needed)
+        cols = sorted(needed & set(table.columns.keys()))
+        ts_lo = int(lo) if lo is not None else int(_I64_MIN)
+        ts_hi = int(hi) if hi is not None else int(_I64_MAX)
+
+        def run():
+            env = dict(table.columns)
+            mask = table.row_mask
+            if ts_name is not None:
+                mask = mask & (env[ts_name] >= ts_lo) & (env[ts_name] < ts_hi)
+            if where_fn is not None:
+                mask = (mask & where_fn(env)).to(torch.bool)
+            # the matching rows, in row order, to the front: the host sorts
+            # and limits them (the device top-k is not ported)
+            return compact_rows({c: env[c] for c in cols}, mask)
+
+        packed, n = timed_kernel_call(run, False, metrics, table.row_mask.device)
+        env: dict[str, np.ndarray] = {}
+        for c in cols:
+            arr = packed[c].cpu().numpy()
+            col = ctx.schema.column(c) if ctx.schema.has_column(c) else None
+            if col is not None and col.is_tag:
+                env[c] = decode_codes(ctx.encoders[c].values(), arr)
+            elif c in table.dicts:  # dictionary-encoded string FIELD
+                env[c] = decode_codes(table.dicts[c], arr)
+            else:
+                env[c] = arr
+        return env, n
+
+
+def _ones(mask: torch.Tensor) -> torch.Tensor:
+    """int32 ones shaped like ``mask`` without materializing them: counts
+    of integer values read only the mask and the ids."""
+    return torch.ones(1, dtype=torch.int32, device=mask.device).expand(
+        mask.shape[0])
+
+
+def _rows(v, n: int, device) -> torch.Tensor:
+    """A compiled expression's value as an [n] tensor (scalars broadcast)."""
+    return torch.broadcast_to(torch.as_tensor(v, device=device),
+                              (n,)).contiguous()

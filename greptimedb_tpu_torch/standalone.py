@@ -1,7 +1,7 @@
 """Standalone database: the port's components wired in one process.
 
 Trimmed counterpart of the reference's ``standalone.py``: ``GreptimeDB``
-with ``sql()`` for CREATE TABLE, INSERT, SELECT (dense-grid aggregation),
+with ``sql()`` for CREATE TABLE, INSERT, SELECT (dense grid and row path),
 TQL EVAL (PromQL, ``promql/engine.py``) and DESCRIBE over single-region
 tables, on the storage, metadata and
 query modules of this package.  Method and attribute names are the
@@ -208,9 +208,16 @@ class GreptimeDB(TableProvider):
         view = self._table_view(table)
         return TableContext(view.schema, view.encoders, self.timezone)
 
+    def device_table(self, table: str, plan: SelectPlan):
+        """The row path's resident DeviceTable (storage/cache.py) and the
+        region's ts bounds."""
+        view = self._table_view(table)
+        return self.cache.get(view), view.ts_bounds() or (0, 0)
+
     def grid_table(self, table: str, plan: SelectPlan):
         """Dense time-grid resident table (storage/grid.py) for eligible
-        single-region tables; (None, bounds) otherwise."""
+        single-region tables; (None, bounds) otherwise — the engine then
+        takes the row path."""
         view = self._table_view(table)
         gt = self.cache.get_grid(view)
         return gt, view.ts_bounds() or (0, 0)

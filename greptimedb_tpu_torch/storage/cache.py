@@ -116,6 +116,9 @@ class DeviceTable:
     # monotonic per-build version: derived state (the PromQL sort
     # layouts) keys its cache on it
     dicts_version: int = 0
+    # tag columns whose codes are nondecreasing in row order and change
+    # exactly where the series does: the sorted segment path's eligibility
+    sorted_tags: tuple = ()
 
     @property
     def padded_rows(self) -> int:
@@ -193,6 +196,7 @@ def build_device_table(region, *, device) -> DeviceTable:
     n = len(host[TSID])
     padded = pad_rows(n)
     dev_cols: dict[str, torch.Tensor] = {}
+    host_canon: dict[str, np.ndarray] = {}
     dicts: dict[str, list] = {}
     for name, arr in host.items():
         if name == SEQ:
@@ -207,11 +211,31 @@ def build_device_table(region, *, device) -> DeviceTable:
         out = np.full(padded, _pad_value(schema, name, vals.dtype),
                       dtype=vals.dtype)
         out[:n] = vals
+        host_canon[name] = vals
         dev_cols[name] = stream_to_device(out, device)
     mask = np.zeros(padded, dtype=bool)
     mask[:n] = True
     return DeviceTable(dev_cols, stream_to_device(mask, device),
-                       region.num_series, dicts, next_dicts_version())
+                       region.num_series, dicts, next_dicts_version(),
+                       detect_sorted_tags(schema, host_canon, n))
+
+
+def detect_sorted_tags(schema: Schema, host_canon: dict, n: int) -> tuple:
+    """Monotone tag detection on the host copies (reading the device
+    columns back would cost a second transfer): rows are (tsid, ts)-sorted,
+    and a tag qualifies for sorted segment reductions when its codes are
+    nondecreasing AND bijective with series runs (each code run is exactly
+    one tsid run, so ts — and any time bucket — ascends within it)."""
+    if n == 0:
+        return ()
+    tsid_runs = 1 + int((np.diff(host_canon[TSID]) != 0).sum())
+    out = []
+    for c in schema.tag_columns:
+        if c.name in host_canon:
+            d = np.diff(host_canon[c.name])
+            if bool((d >= 0).all()) and 1 + int((d != 0).sum()) == tsid_runs:
+                out.append(c.name)
+    return tuple(out)
 
 
 @dataclass

@@ -349,12 +349,13 @@ def test_bucket_reduce_plain_padding_weight_and_mask():
 
 
 def test_unported_device_nodes_raise_unsupported():
+    # IS NULL and the math functions came with the row path; vector
+    # search, full text and the string functions are still to port
     _rctx, pctx = contexts({"host": ["h0"], "dc": ["d0"]})
-    with pytest.raises(Unsupported):
-        compile_device(port_ast.IsNull(port_ast.Column("a")), pctx)
-    with pytest.raises(Unsupported):
-        compile_device(port_ast.FuncCall("sqrt", (port_ast.Column("a"),)),
-                       pctx)
+    for name in ("vec_cos_distance", "matches", "upper"):
+        with pytest.raises(Unsupported):
+            compile_device(port_ast.FuncCall(
+                name, (port_ast.Column("a"), port_ast.Literal("[1]"))), pctx)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,396 @@
+"""Port parity: ops/segment.py and ops/masks.py against the JAX reference.
+
+The same inputs, made with numpy from a seed, go through the reference
+(``greptimedb_tpu.ops.segment`` / ``.masks``) and the port on the CPU,
+where every function runs the plain versions of the row-path kernels
+(``ops/segment_kernels.py``).  Inputs are fuzzed: poisoned ``-1`` and
+out-of-range segment ids, NaNs, empty segments, all-invalid input, one
+segment, int64 values near +-2^62, tied extreme timestamps, -0.0 beside
+0.0.  Integers, counts, keys, masks, min/max and first/last must be equal
+exactly; float sums and means within the golden comparer's bound
+``|a-b| <= 1e-5*max(1,|b|)`` (tests/test_golden.py).  The ``cuda``-marked
+cases hold each kernel against its plain version on the card.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from greptimedb_tpu.ops import masks as ref_masks
+from greptimedb_tpu.ops import segment as ref_seg
+from greptimedb_tpu_torch.ops import masks as port_masks
+from greptimedb_tpu_torch.ops import segment as port_seg
+from greptimedb_tpu_torch.ops import segment_kernels as sk
+
+N = 257
+SEEDS = range(4)
+REL = 1e-5
+
+
+def _data(seed, ns, dtype="f32", n=N, poison=True, nan=True,
+          all_invalid=False):
+    """(values, ids, mask) as numpy: ids sometimes -1 or >= ns, a random
+    mask, NaNs in float values, segment ns - 1 often empty."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, max(ns - 1, 1), n).astype(np.int32)
+    if poison:
+        ids[rng.random(n) < 0.1] = -1
+        ids[rng.random(n) < 0.05] = ns + rng.integers(0, 3)
+    if dtype == "f32":
+        v = (rng.normal(0, 50, n)).astype(np.float32)
+        if nan:
+            v[rng.random(n) < 0.1] = np.nan
+    elif dtype == "i64":
+        v = rng.integers(-(1 << 62), 1 << 62, n, dtype=np.int64)
+        v[:3] = [(1 << 62) - 1, -(1 << 62), 0]
+    else:
+        v = rng.integers(-1000, 1000, n).astype(np.int32)
+    mask = rng.random(n) < 0.8
+    if all_invalid:
+        mask[:] = False
+    return v, ids, mask
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _j(a):
+    return jnp.asarray(a)
+
+
+def _same(got, want, exact):
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    if exact or want.dtype.kind in "iub":
+        np.testing.assert_array_equal(got, want)
+        return
+    assert (np.isnan(got) == np.isnan(want)).all()
+    ok = ~np.isnan(want)
+    diff = np.abs(got[ok].astype(np.float64) - want[ok])
+    assert (diff <= REL * np.maximum(1.0, np.abs(want[ok]))).all(), diff.max()
+
+
+def _cases():
+    out = []
+    for seed in SEEDS:
+        for ns in (1, 7, 40):
+            for dtype in ("f32", "i64", "i32"):
+                out.append((seed, ns, dtype))
+    return out
+
+
+@pytest.mark.parametrize("op", ["count", "sum", "mean", "min", "max"])
+@pytest.mark.parametrize("seed,ns,dtype", _cases())
+def test_segment_reduce_matches_reference(seed, ns, dtype, op):
+    v, ids, mask = _data(seed, ns, dtype)
+    use_mask = seed % 2 == 0
+    want = ref_seg.segment_reduce(_j(v), _j(ids), ns, op,
+                                  _j(mask) if use_mask else None)
+    got = port_seg.segment_reduce(_t(v), _t(ids), ns, op,
+                                  _t(mask) if use_mask else None)
+    assert got.numpy().dtype == np.asarray(want).dtype
+    _same(got, want, exact=op in ("count", "min", "max") or dtype != "f32")
+
+
+@pytest.mark.parametrize("op", ["count", "sum", "mean", "min", "max"])
+@pytest.mark.parametrize("dtype", ["f32", "i64"])
+def test_segment_reduce_all_invalid_and_int64_ids(op, dtype):
+    v, ids, mask = _data(5, 9, dtype, all_invalid=True)
+    want = ref_seg.segment_reduce(_j(v), _j(ids), 9, op, _j(mask))
+    got = port_seg.segment_reduce(_t(v), _t(ids), 9, op, _t(mask))
+    _same(got, want, exact=True)
+    # int64 ids beyond int32 must not wrap into range
+    ids64 = ids.astype(np.int64)
+    ids64[::5] = (1 << 32) + 2
+    want = ref_seg.segment_reduce(_j(v), _j(ids64), 9, op)
+    got = port_seg.segment_reduce(_t(v), _t(ids64), 9, op)
+    _same(got, want, exact=op != "mean" and dtype != "f32" or op in (
+        "count", "min", "max"))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_segment_mean_and_count(seed):
+    v, ids, mask = _data(seed, 11, "i32")
+    _same(port_seg.segment_mean(_t(v), _t(ids), 11, _t(mask)),
+          ref_seg.segment_mean(_j(v), _j(ids), 11, _j(mask)), exact=False)
+    _same(port_seg.segment_count(_t(v), _t(ids), 11),
+          ref_seg.segment_count(_j(v), _j(ids), 11), exact=True)
+
+
+@pytest.mark.parametrize("last", [True, False])
+@pytest.mark.parametrize("seed,ns,dtype", [c for c in _cases()
+                                           if c[2] != "i32"])
+def test_segment_first_last_ties(seed, ns, dtype, last):
+    v, ids, mask = _data(seed, ns, dtype)
+    rng = np.random.default_rng(seed + 100)
+    # few distinct timestamps: the extreme ts ties inside most segments
+    ts = (1_451_606_400_000 + rng.integers(0, 4, N) * 10_000).astype(
+        np.int64)
+    want = ref_seg.segment_first_last(_j(ts), _j(v), _j(ids), ns, _j(mask),
+                                      last=last)
+    got = port_seg.segment_first_last(_t(ts), _t(v), _t(ids), ns, _t(mask),
+                                      last=last)
+    _same(got[0], want[0], exact=True)
+    _same(got[1], want[1], exact=True)
+    assert got[1].dtype == _t(v).dtype
+
+
+@pytest.mark.parametrize("seed,ns,dtype", _cases())
+def test_segment_distinct_count(seed, ns, dtype):
+    v, ids, mask = _data(seed, ns, dtype)
+    rng = np.random.default_rng(seed + 7)
+    if dtype == "f32":
+        # few distinct values, -0.0 beside 0.0 (one value to SQL)
+        v = rng.choice(np.array([0.0, -0.0, 1.5, -2.25, np.nan, 7.0],
+                                dtype=np.float32), N)
+    else:
+        v = (v % 13).astype(v.dtype)
+    want = ref_seg.segment_distinct_count(_j(v), _j(ids), ns, _j(mask))
+    got = port_seg.segment_distinct_count(_t(v), _t(ids), ns, _t(mask))
+    _same(got, want, exact=True)
+
+
+def _sorted_data(seed, ns, dtype, wide=0):
+    """Nondecreasing ids (empty segments included) with trailing padding
+    rows poisoned to -1, as the resident table's sorted-path ids are."""
+    rng = np.random.default_rng(seed)
+    live = N - 20
+    ids = np.sort(rng.integers(0, ns, live)).astype(np.int32)
+    ids = np.concatenate([ids, np.full(N - live, -1, np.int32)])
+    if dtype == "f32":
+        shape = (N, wide) if wide else (N,)
+        v = rng.normal(0, 100, shape).astype(np.float32)
+        v[rng.random(shape) < 0.1] = np.nan
+    else:
+        v = rng.integers(-(1 << 62), 1 << 62, N, dtype=np.int64)
+    mask = rng.random(N) < 0.85
+    mask[live:] = False
+    return v, ids, mask
+
+
+@pytest.mark.parametrize("op", ["count", "sum", "mean", "min", "max"])
+@pytest.mark.parametrize("seed,ns,dtype", [(s, ns, d) for s in SEEDS
+                                           for ns in (1, 5, 64)
+                                           for d in ("f32", "i64")])
+def test_sorted_segment_reduce_matches_reference(seed, ns, dtype, op):
+    v, ids, mask = _sorted_data(seed, ns, dtype)
+    want = ref_seg.sorted_segment_reduce(_j(v), _j(ids), ns, op, _j(mask))
+    got = port_seg.sorted_segment_reduce(_t(v), _t(ids), ns, op, _t(mask))
+    _same(got, want, exact=op in ("count", "min", "max") or dtype == "i64")
+    # the scatter path agrees on the same data
+    got_scatter = port_seg.segment_reduce(_t(v), _t(ids), ns, op, _t(mask))
+    _same(got, got_scatter.numpy(), exact=op != "sum" and op != "mean"
+          or dtype == "i64")
+
+
+@pytest.mark.parametrize("wide", [0, 3])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_segmented_sum_scan(seed, wide):
+    ns = 9
+    v, ids, mask = _sorted_data(seed, ns, "f32", wide)
+    m = mask[:, None] & ~np.isnan(v) if wide else mask & ~np.isnan(v)
+    vz = np.where(m, v, 0).astype(np.float32)
+    ids_r = np.where(ids < 0, ns, ids).astype(np.int32)
+    grid = np.arange(ns, dtype=np.int32)
+    starts = np.searchsorted(ids_r, grid, "left")
+    ends = np.searchsorted(ids_r, grid, "right")
+    want = ref_seg.segmented_sum_scan(_j(vz), _j(ids_r), _j(starts),
+                                      _j(ends))
+    # the port's sorted kernel computes the reference's range sums itself
+    got, _cnt = sk.sorted_segment_reduce(_t(vz), _t(ids_r), ns, "sum")
+    _same(got, want, exact=False)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("num_groups", [N, 5])
+def test_compact_groups(seed, num_groups):
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, 12, N).astype(np.int64) * 1000 - 3
+    keys[rng.random(N) < 0.1] = -1
+    mask = rng.random(N) < 0.8
+    want = ref_seg.compact_groups(_j(keys), _j(mask), num_groups)
+    got = port_seg.compact_groups(_t(keys), _t(mask), num_groups)
+    for g, w in zip(got, want):
+        _same(g, w, exact=True)
+    assert got[0].dtype == torch.int32
+
+
+def test_compact_groups_all_invalid():
+    keys = np.arange(N, dtype=np.int64)
+    mask = np.zeros(N, bool)
+    want = ref_seg.compact_groups(_j(keys), _j(mask), N)
+    got = port_seg.compact_groups(_t(keys), _t(mask), N)
+    for g, w in zip(got, want):
+        _same(g, w, exact=True)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_masks(seed):
+    v, _ids, mask = _data(seed, 3, "f32")
+    _same(port_masks.valid_mask(_t(v), _t(mask)),
+          ref_masks.valid_mask(_j(v), _j(mask)), exact=True)
+    for op in ("count", "sum", "min", "max", "mean"):
+        _same(port_masks.masked_reduce(_t(v), _t(mask), op),
+              ref_masks.masked_reduce(_j(v), _j(mask), op),
+              exact=op not in ("sum", "mean"))
+    cols = {"v": v, "i": np.arange(N, dtype=np.int64),
+            "c": (np.arange(N) % 7).astype(np.int32)}
+    want, wmask = ref_masks.compact_rows({k: _j(a) for k, a in cols.items()},
+                                         _j(mask))
+    got, n = port_masks.compact_rows({k: _t(a) for k, a in cols.items()},
+                                     _t(mask))
+    # the reference keeps the shape: its first n rows are the kept ones
+    assert n == int(mask.sum())
+    _same(np.asarray(wmask)[:n], np.ones(n, bool), exact=True)
+    assert not np.asarray(wmask)[n:].any()
+    for k in cols:
+        _same(got[k], np.asarray(want[k])[:n], exact=True)
+
+
+def test_radix_argsort_plain_orders_floats_and_invalid_rows():
+    v = np.array([3.0, -0.0, np.nan, 0.0, -1.5, 3.0, -np.inf, 2.0],
+                 dtype=np.float32)
+    valid = ~np.isnan(v)
+    valid[7] = False
+    order = sk.radix_argsort(_t(v), _t(valid)).numpy()
+    # stable: -0.0 and 0.0 tie, as do the two 3.0s; invalid rows last
+    assert order.tolist() == [6, 4, 1, 3, 0, 5, 2, 7]
+    assert order.dtype == np.int32
+
+
+# ---------------------------------------------------------------------------
+# the kernels against their plain versions, on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _close(got, want, exact):
+    got, want = got.cpu(), want.cpu()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if exact or not got.is_floating_point():
+        assert torch.equal(got, want)
+    else:
+        g, w = got.double(), want.double()
+        fin = torch.isfinite(w)
+        assert torch.equal(torch.isfinite(g), fin)
+        assert torch.equal(g[~fin], w[~fin])
+        assert bool(((g[fin] - w[fin]).abs()
+                     <= REL * w[fin].abs().clamp(min=1)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,ns", [(1, 1), (5000, 1), (100_003, 37),
+                                  (300_000, 70_000)])
+def test_cuda_segment_kernels_match_plain(cuda_device, n, ns):
+    rng = np.random.default_rng(n)
+    ids_sorted = np.sort(rng.integers(-1, ns + 1, n)).astype(np.int32)
+    ids_rand = rng.integers(-2, ns + 2, n).astype(np.int32)
+    mask = _t(rng.random(n) < 0.9)
+    # non-negative, like the metrics the row path sums: a relative bound on
+    # an f32 sum of mean-zero values would measure cancellation, which both
+    # summation orders suffer alike
+    f32 = rng.uniform(0, 100, (n, 10)).astype(np.float32)
+    f32[rng.random((n, 10)) < 0.05] = np.nan
+    i64 = rng.integers(-(1 << 62), 1 << 62, n, dtype=np.int64)
+    wide = np.concatenate([f32, f32[:, ::-1] * 2], axis=1)  # 20 columns
+
+    def on_card(a):
+        if isinstance(a, list):
+            return [c.to(cuda_device) for c in a]
+        return a.to(cuda_device) if isinstance(a, torch.Tensor) else a
+
+    # signed values with -0.0, +0.0 and +-inf for min and max (exact
+    # checks): they take the sign-flip branches of the ordered atomic keys
+    signed = rng.normal(0, 50, n).astype(np.float32)
+    special = np.array([-0.0, 0.0, np.inf, -np.inf, np.nan], np.float32)
+    pick = rng.random(n) < 0.2
+    signed[pick] = rng.choice(special, int(pick.sum()))
+    cases = ((_t(f32[:, 0]), False), (_t(f32), False), (_t(wide), False),
+             ([_t(f32[:, c].copy()) for c in range(10)], False),
+             (_t(i64), True), (_t(f32[:, 0].astype(np.float64)), False),
+             (None, True))
+    minmax = (_t(signed), _t(signed.astype(np.float64)),
+              _t(np.stack([signed, -signed], axis=1)))
+    for ids in (ids_sorted, ids_rand):
+        for v in minmax:
+            for op in ("min", "max"):
+                args = [v, _t(ids), ns, op, mask]
+                want = sk.segment_reduce(*args)
+                got = sk.segment_reduce(*(on_card(a) for a in args))
+                _close(got[1], want[1], exact=True)
+                _close(got[0], want[0], exact=True)
+        for v, exact_sum in cases:
+            for op in ("sum", "min", "max"):
+                args = [v, _t(ids), ns, op, mask]
+                want = sk.segment_reduce(*args)
+                got = sk.segment_reduce(*(on_card(a) for a in args))
+                _close(got[1], want[1], exact=True)
+                if v is not None:
+                    _close(got[0], want[0], exact=op != "sum" or exact_sum)
+    # sorted: ids routed as the callers route them (padding past the end)
+    ids_s = np.where((ids_sorted < 0) | (ids_sorted >= ns), ns,
+                     ids_sorted).astype(np.int32)
+    ids_s = np.sort(ids_s)
+    for v in minmax:
+        for op in ("min", "max"):
+            args = [v, _t(ids_s), ns, op, mask]
+            want = sk.sorted_segment_reduce(*args)
+            got = sk.sorted_segment_reduce(*(on_card(a) for a in args))
+            _close(got[1], want[1], exact=True)
+            _close(got[0], want[0], exact=True)
+    for v, exact_sum in cases:
+        for op in ("sum", "min", "max"):
+            args = [v, _t(ids_s), ns, op, mask]
+            want = sk.sorted_segment_reduce(*args)
+            got = sk.sorted_segment_reduce(*(on_card(a) for a in args))
+            _close(got[1], want[1], exact=True)
+            if v is not None:
+                _close(got[0], want[0], exact=op != "sum" or exact_sum)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 4097, 250_000])
+def test_cuda_compact_and_argsort_match_plain(cuda_device, n):
+    rng = np.random.default_rng(n)
+    mask = rng.random(n) < 0.3
+    cols = {"f": rng.normal(size=n).astype(np.float32),
+            "i": rng.integers(-5, 5, n).astype(np.int64),
+            "c": rng.integers(0, 9, n).astype(np.int32),
+            "b": rng.random(n) < 0.5}
+    want, wn = sk.compact({k: _t(a) for k, a in cols.items()}, _t(mask))
+    got, gn = sk.compact({k: _t(a).to(cuda_device) for k, a in cols.items()},
+                         _t(mask).to(cuda_device))
+    assert gn == wn == int(mask.sum())
+    for k in cols:
+        _close(got[k], want[k], exact=True)
+    keys = [rng.integers(0, 11, n).astype(np.int64),
+            rng.integers(-(1 << 62), 1 << 62, n, dtype=np.int64),
+            np.array([-(1 << 63), (1 << 63) - 1] * (n // 2) + [0] * (n % 2),
+                     dtype=np.int64),
+            rng.choice(np.array([0.0, -0.0, 1.0, -3.5, np.inf],
+                                dtype=np.float32), n)]
+    for k in keys:
+        for valid in (None, _t(rng.random(n) < 0.7)):
+            want = sk.radix_argsort(_t(k), valid)
+            got = sk.radix_argsort(_t(k).to(cuda_device),
+                                   valid.to(cuda_device)
+                                   if valid is not None else None)
+            _close(got, want, exact=True)
+    key = _t(np.where(mask, rng.integers(0, 50, n), sk.I64_MAX))
+    order = sk.radix_argsort(key, _t(mask))
+    for ng in (n, 7):
+        want = sk.rank_scatter(key, order, _t(mask), ng)
+        got = sk.rank_scatter(key.to(cuda_device), order.to(cuda_device),
+                              _t(mask).to(cuda_device), ng)
+        for g, w in zip(got, want):
+            _close(g, w, exact=True)
+    torch.cuda.synchronize()

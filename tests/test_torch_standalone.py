@@ -116,11 +116,17 @@ def test_describe_matches_reference(dbs):
 
 
 def test_row_path_is_refused_not_faked(dbs):
-    _ref, port = dbs
-    with pytest.raises(Unsupported, match="row path not ported yet"):
-        port.sql("SELECT * FROM cpu LIMIT 3")
+    """The row path is ported: a raw SELECT answers with the reference's
+    rows.  What is not ported is refused, never run as something else."""
+    ref, port = dbs
+    sql = "SELECT * FROM cpu ORDER BY ts DESC, hostname LIMIT 3"
+    got, want = port.sql(sql), ref.sql(sql)
+    assert got.column_names == want.column_names
+    _rows_match(got.rows, want.rows)
     with pytest.raises(Unsupported):
         port.sql("DROP TABLE cpu")
+    with pytest.raises(Unsupported, match="joins"):
+        port.sql("SELECT * FROM cpu a JOIN cpu b ON a.ts = b.ts")
 
 
 @pytest.mark.parametrize("flush", [True, False])
@@ -197,12 +203,18 @@ def test_port_imports_neither_jax_nor_reference():
         "import greptimedb_tpu_torch.promql.engine\n"
         "import greptimedb_tpu_torch.compile.fused\n"
         "import greptimedb_tpu_torch.storage.inverted\n"
+        "import greptimedb_tpu_torch.ops.segment\n"
+        "import greptimedb_tpu_torch.ops.segment_kernels\n"
+        "import greptimedb_tpu_torch.ops.masks\n"
         "db = greptimedb_tpu_torch.standalone.GreptimeDB(device='cpu')\n"
         "db.sql(\"CREATE TABLE t (h STRING, ts TIMESTAMP(3) TIME INDEX, "
         "v DOUBLE, PRIMARY KEY (h))\")\n"
         "db.sql(\"INSERT INTO t VALUES ('a', 0, 1.0), ('a', 10, 3.0)\")\n"
         "assert db.sql('SELECT h, avg(v) FROM t GROUP BY h').rows == "
         "[['a', 2.0]]\n"
+        "assert db.sql('SELECT h, last_value(v) FROM t GROUP BY h').rows == "
+        "[['a', 3.0]]\n"
+        "assert db.sql('SELECT v FROM t WHERE v > 2').rows == [[3.0]]\n"
         "r = db.sql('TQL EVAL (0, 0.01, 0.01) sum by (h) (increase(t[1s]))')\n"
         "assert r.column_names == ['h', 'ts', 'val'] and r.num_rows == 1\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
