@@ -32,7 +32,8 @@ Phases, each printing its own lines:
    read just after it.
 5. The PromQL kernels against their plain versions, timed as in phase 2,
    on phase 4's resident table (41.9 M padded rows; 2^20 selected series,
-   1 and 20 steps): its real shapes and data.
+   1 and 20 steps) and on the engine's [S, T, K] subquery matrices of
+   that table: their real shapes and data.
 6. SQL row path, on phase 3's table before its db closes (run between
    phases 3 and 4): (d) query (a) with GREPTIME_GRID=off, once under
    GREPTIME_SORTED_SEGMENTS=auto (the sorted path, sorted_segment_reduce)
@@ -98,6 +99,13 @@ SOURCES = {
     "compact": "greptimedb_tpu_torch/csrc/segment_kernels.cu",
     "rank_scatter": "greptimedb_tpu_torch/csrc/segment_kernels.cu",
     "radix_argsort": "greptimedb_tpu_torch/csrc/segment_kernels.cu",
+    "window_stats": "greptimedb_tpu_torch/csrc/promql_kernels.cu",
+    "minmax_window": "greptimedb_tpu_torch/csrc/promql_kernels.cu",
+    "window_count_max": "greptimedb_tpu_torch/csrc/promql_kernels.cu",
+    "window_matrix": "greptimedb_tpu_torch/csrc/promql_kernels.cu",
+    "window_matrix_dense": "greptimedb_tpu_torch/csrc/promql_kernels.cu",
+    "subquery_counter": "greptimedb_tpu_torch/csrc/promql_kernels.cu",
+    "segment_select": "greptimedb_tpu_torch/csrc/segment_kernels.cu",
 }
 REPLACES = {
     "bucket_reduce": "greptimedb_tpu/query/physical.py:1129",
@@ -110,6 +118,13 @@ REPLACES = {
     "compact": "greptimedb_tpu/ops/masks.py:37",
     "rank_scatter": "greptimedb_tpu/ops/segment.py:368",
     "radix_argsort": "greptimedb_tpu/ops/segment.py:353",
+    "window_stats": "greptimedb_tpu/promql/engine.py:455",
+    "minmax_window": "greptimedb_tpu/promql/engine.py:500",
+    "window_count_max": "greptimedb_tpu/promql/engine.py:541",
+    "window_matrix": "greptimedb_tpu/promql/engine.py:555",
+    "window_matrix_dense": "greptimedb_tpu/promql/engine.py:1416",
+    "subquery_counter": "greptimedb_tpu/promql/engine.py:1342",
+    "segment_select": "greptimedb_tpu/promql/engine.py:1610",
 }
 PROM_T0 = 1700000000000   # bench_promql.py's epoch
 SCRAPE_MS = 15_000
@@ -151,10 +166,10 @@ def bound_ms(bytes_moved: int, flops: int,
 
 
 def max_err(got: torch.Tensor, want: torch.Tensor, exact: bool,
-            rel_tol: float = REL_TOL) -> float:
+            rel_tol: float = REL_TOL, abs_tol=0.0) -> float:
     """Largest |got - want|; raises if it breaks the stated tolerance
-    (exact, or ``rel_tol * max(1, |want|)``, by default the golden
-    comparer's relative bound)."""
+    (exact, or ``rel_tol * max(1, |want|) + abs_tol``, by default the
+    golden comparer's relative bound)."""
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"shape/dtype {tuple(got.shape)} {got.dtype} "
                              f"vs {tuple(want.shape)} {want.dtype}")
@@ -164,7 +179,8 @@ def max_err(got: torch.Tensor, want: torch.Tensor, exact: bool,
     diff = torch.where(both_nan | same_inf, 0.0, (g - w).abs())
     diff = torch.nan_to_num(diff, nan=float("inf"))
     err = float(diff.max()) if diff.numel() else 0.0
-    bad = diff > 0 if exact else diff > rel_tol * torch.clamp(w.abs(), min=1.0)
+    bad = diff > 0 if exact else diff > (
+        rel_tol * torch.clamp(w.abs(), min=1.0) + abs_tol)
     bad = bad & ~(both_nan | same_inf)
     if bool(bad.any()):
         raise AssertionError(f"mismatch: max |diff| {err}")
@@ -1002,22 +1018,30 @@ def prom_ingest(db, scrapes: int, seed: int, has_arrow: bool):
     return held
 
 
-def np_series_rates(held: np.ndarray, t_end: int) -> np.ndarray:
+def np_series_rates(held: np.ndarray, t_end: int,
+                    range_ms: int = RANGE_MS) -> np.ndarray:
     """numpy float64 reference: Prometheus' extrapolated rate over
-    (t_end - 5m, t_end] of every series (counter resets add the value
+    (t_end - range, t_end] of every series (counter resets add the value
     before the drop; NaN samples are absent).  Returns [PROM_SERIES] (NaN
     for a series with fewer than two samples in the window)."""
     ts_k = PROM_T0 + SCRAPE_MS * np.arange(held.shape[0], dtype=np.int64)
-    ks = np.flatnonzero((ts_k > t_end - RANGE_MS) & (ts_k <= t_end))
-    w = held[ks].astype(np.float64)
+    ks = np.flatnonzero((ts_k > t_end - range_ms) & (ts_k <= t_end))
+    return np_rate_of(held[ks].astype(np.float64), ts_k[ks], t_end,
+                      range_ms)
+
+
+def np_rate_of(w: np.ndarray, ts: np.ndarray, t_end: int,
+               range_ms: int) -> np.ndarray:
+    """The extrapolated rate of samples ``w`` [k, S] (NaN = absent) taken
+    at ``ts`` [k] ms, over the window (t_end - range, t_end]."""
     valid = ~np.isnan(w)
-    nk, cols = len(ks), np.arange(w.shape[1])
+    nk, cols = w.shape[0], np.arange(w.shape[1])
     cnt = valid.sum(0)
     first = np.argmax(valid, axis=0)
     last = nk - 1 - np.argmax(valid[::-1], axis=0)
     fv, lv = w[first, cols], w[last, cols]
-    ft = ts_k[ks][first].astype(np.float64)
-    lt = ts_k[ks][last].astype(np.float64)
+    ft = ts[first].astype(np.float64)
+    lt = ts[last].astype(np.float64)
     # previous valid sample of each sample, for the reset drops
     upto = np.maximum.accumulate(
         np.where(valid, np.arange(nk)[:, None], -1), axis=0)
@@ -1027,7 +1051,7 @@ def np_series_rates(held: np.ndarray, t_end: int) -> np.ndarray:
     delta = lv - fv + drops
     sampled = (lt - ft) / 1000.0
     avg_dur = sampled / np.maximum(cnt - 1, 1)
-    dts = (ft - (t_end - RANGE_MS)) / 1000.0
+    dts = (ft - (t_end - range_ms)) / 1000.0
     dte = (t_end - lt) / 1000.0
     thr = avg_dur * 1.1
     dts = np.where(dts >= thr, avg_dur / 2, dts)
@@ -1037,7 +1061,30 @@ def np_series_rates(held: np.ndarray, t_end: int) -> np.ndarray:
                        np.inf)
         dts = np.minimum(dts, dtz)
         factor = (sampled + dts + dte) / np.maximum(sampled, 1e-30)
-    return np.where(cnt >= 2, delta * factor / (RANGE_MS / 1000), np.nan)
+    return np.where(cnt >= 2, delta * factor / (range_ms / 1000), np.nan)
+
+
+def np_instant(held: np.ndarray, t: int,
+               lookback_ms: int = RANGE_MS) -> np.ndarray:
+    """Every series' instant value at t: its last non-NaN sample in
+    (t - lookback, t] (NaN where there is none).  Returns [PROM_SERIES]."""
+    w, _ts = np_window(held, t, lookback_ms)
+    valid = ~np.isnan(w)
+    last = w.shape[0] - 1 - np.argmax(valid[::-1], axis=0)
+    return np.where(valid.any(0), w[last, np.arange(w.shape[1])], np.nan)
+
+
+def np_quantile(w: np.ndarray, q: float) -> np.ndarray:
+    """Prometheus' quantile of samples ``w`` [k, S] along k (NaN = absent):
+    linear interpolation between the order statistics at q * (n - 1)."""
+    srt = np.sort(w, axis=0)  # NaN last
+    n = (~np.isnan(w)).sum(0)
+    rank = q * np.maximum(n - 1, 0)
+    lo = np.floor(rank).astype(np.int64)[None]
+    hi = np.ceil(rank).astype(np.int64)[None]
+    vlo = np.take_along_axis(srt, lo, 0)[0]
+    vhi = np.take_along_axis(srt, hi, 0)[0]
+    return np.where(n > 0, vlo + (vhi - vlo) * (rank - lo[0]), np.nan)
 
 
 def np_pod_rates(held: np.ndarray, t_end: int) -> np.ndarray:
@@ -1048,21 +1095,318 @@ def np_pod_rates(held: np.ndarray, t_end: int) -> np.ndarray:
     return np.where(some, np.nansum(per_pod, axis=1), np.nan)
 
 
-def check_pod_values(name: str, got: np.ndarray, want: np.ndarray) -> float:
-    """Golden bound on [PODS] (or [steps, PODS]) values; NaN must match."""
+def check_pod_values(name: str, got: np.ndarray, want: np.ndarray,
+                     exact: bool = False) -> float:
+    """Golden bound (or exact) on equal-shaped grids of values, e.g. [PODS]
+    or [steps, PODS]; NaN must match."""
     if got.shape != want.shape:
         raise AssertionError(f"{name}: shape {got.shape} vs {want.shape}")
     if (np.isnan(got) != np.isnan(want)).any():
-        raise AssertionError(f"{name}: absent groups differ")
+        raise AssertionError(f"{name}: absent cells differ")
     ok = ~np.isnan(want)
     diff = np.abs(got[ok] - want[ok])
-    if (diff > REL_TOL * np.maximum(1.0, np.abs(want[ok]))).any():
-        i = int(np.argmax(diff / np.maximum(1.0, np.abs(want[ok]))))
+    lim = 0.0 if exact else REL_TOL * np.maximum(1.0, np.abs(want[ok]))
+    if (diff > lim).any():
+        i = int(np.argmax(diff - lim))
         raise AssertionError(f"{name}: {got[ok][i]} vs {want[ok][i]}")
     return float(diff.max()) if diff.size else 0.0
 
 
-def phase_promql(gk, pk, scrapes: int, seed: int, has_arrow: bool,
+# ---------------------------------------------------------------------------
+# phase 4, continued: the rest of the PromQL surface at full width
+# ---------------------------------------------------------------------------
+
+def np_window(held: np.ndarray, t: int, range_ms: int = RANGE_MS):
+    """The samples of (t - range, t] of every series: [k, S] f64 (NaN =
+    absent) and their timestamps [k]."""
+    ts_k = PROM_T0 + SCRAPE_MS * np.arange(held.shape[0], dtype=np.int64)
+    ks = np.flatnonzero((ts_k > t - range_ms) & (ts_k <= t))
+    return held[ks].astype(np.float64), ts_k[ks]
+
+
+def np_per_pod(x: np.ndarray, how: str) -> np.ndarray:
+    """[S] per-series values → [PODS] sum or max over each pod's
+    containers, absent series skipped (NaN where all are absent)."""
+    per = x.reshape(PODS, CONTAINERS)
+    some = ~np.isnan(per).all(1)
+    with np.errstate(all="ignore"):
+        red = np.nansum(per, 1) if how == "sum" else np.nanmax(
+            np.where(np.isnan(per), -np.inf, per), 1)
+    return np.where(some, red, np.nan)
+
+
+def np_series_fn(w: np.ndarray, ts: np.ndarray, fn: str, start: int):
+    """One series' window function over its valid samples (Prometheus
+    semantics, float64)."""
+    ok = ~np.isnan(w)
+    v, t = w[ok], ts[ok]
+    if fn == "changes":
+        return float((v[1:] != v[:-1]).sum()) if len(v) else np.nan
+    if fn == "irate":
+        if len(v) < 2:
+            return np.nan
+        dv = v[-1] - v[-2]
+        dv = v[-1] if dv < 0 else dv
+        return dv / ((t[-1] - t[-2]) / 1000.0)
+    if fn == "deriv":
+        if len(v) < 2:
+            return np.nan
+        x = (t - start) / 1000.0
+        return float(np.polyfit(x, v, 1)[0])
+    if fn == "quantile":
+        if not len(v):
+            return np.nan
+        srt = np.sort(v)
+        rank = 0.9 * (len(srt) - 1)
+        lo, hi = int(np.floor(rank)), int(np.ceil(rank))
+        return srt[lo] + (srt[hi] - srt[lo]) * (rank - lo)
+    raise ValueError(fn)
+
+
+def prom_timed(label: str, run, check, card: str, warm_n: int = 5) -> dict:
+    """First run (checked), ``warm_n`` warm runs, the stage split of the
+    last and the profiler's device-busy share of one more; prints one
+    line.  ``run`` returns (result, stage_ms)."""
+    t0 = time.perf_counter()
+    out, _stages = run()
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    detail = check(out)
+    warm = []
+    for _ in range(warm_n):
+        t0 = time.perf_counter()
+        _out, stages = run()
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t0) * 1e3)
+    busy, wall, top = device_busy(run, top_n=4, sessions=2)
+    warm_ms = float(np.median(warm))
+    log(f"promql {label}: {detail}; first {first_ms:.3f} ms, warm median "
+        f"{warm_ms:.3f} ms ({warm_n} runs); stages {stages}; profiler: "
+        f"device busy {busy:.3f} ms of {wall:.3f} ms wall; top device ops "
+        f"{top} — {card}")
+    return dict(first_ms=first_ms, warm_ms=warm_ms, busy_ms=busy,
+                wall_ms=wall)
+
+
+def _promql_surface(db, held: np.ndarray, start: int, steps: int,
+                    card: str) -> dict:
+    """The rest of the PromQL surface on the full-width table, 20 steps of
+    15 s and 5 m windows, each query checked against numpy on the
+    generated data: gauge windows and min/max windows fused and unfused,
+    changes/irate/deriv/quantile_over_time of one pod, topk over all 2^20
+    series (ng == 1), quantile by pod, one binary expression and one
+    subquery."""
+    from greptimedb_tpu_torch.compile.fused import FUSED_DISPATCHES
+    from greptimedb_tpu_torch.promql.engine import PromEvaluator
+    from greptimedb_tpu_torch.promql.parser import parse_promql
+
+    end = start + (steps - 1) * SCRAPE_MS
+    step_ts = start + SCRAPE_MS * np.arange(steps, dtype=np.int64)
+    metric = "http_requests_total"
+    report = {}
+
+    def evaluator(expr):
+        def run():
+            ev = PromEvaluator(db, start / 1000.0, end / 1000.0, 15.0)
+            res = ev.eval(parse_promql(expr))
+            torch.cuda.synchronize()
+            return res, dict(ev.stage_ms)
+        return run
+
+    def tql(expr):
+        sql = f"TQL EVAL ({start / 1000}, {end / 1000}, 15) {expr}"
+
+        def run():
+            db.stage_sink = {}
+            try:
+                res = db.sql(sql)
+                return res, {k: v for k, v in db.stage_sink.items()
+                             if k.endswith("_ms")}
+            finally:
+                db.stage_sink = None
+        return run
+
+    # numpy per step: [T, S] window statistics of every series
+    series_rate = np.stack([np_series_rates(held, t) for t in step_ts])
+    avg_w, max_w = [], []
+    for t in step_ts:
+        w, _ts = np_window(held, int(t))
+        with np.errstate(all="ignore"):
+            avg_w.append(np.nanmean(w, 0))
+            max_w.append(np.where(np.isnan(w).all(0), np.nan,
+                                  np.nanmax(np.where(np.isnan(w), -np.inf,
+                                                     w), 0)))
+    avg_w, max_w = np.stack(avg_w), np.stack(max_w)
+    pod_avg = np.stack([np_per_pod(a, "sum") for a in avg_w])  # [T, PODS]
+
+    def pod_grid(res) -> np.ndarray:
+        if res.num_series != PODS:
+            raise AssertionError(f"{res.num_series} groups, expected {PODS}")
+        pods = np.array([int(res.labels[g]["pod"][4:])
+                         for g in range(res.num_series)])
+        grid = np.full((steps, PODS), np.nan)
+        grid[:, pods] = res.values.cpu().numpy().T
+        return grid
+
+    # gauge and min/max windows under an aggregation, fused and unfused
+    for name, expr, want, how in (
+            ("avg_over_time", f"sum by (pod) (avg_over_time({metric}[5m]))",
+             pod_avg, "sum"),
+            ("max_over_time", f"max by (pod) (max_over_time({metric}[5m]))",
+             np.stack([np_per_pod(m, "max") for m in max_w]), "max")):
+        fused_before = FUSED_DISPATCHES["count"]
+        fused_res = {}
+
+        def check_fused(res, name=name, want=want, how=how):
+            fused_res["res"] = res
+            err = check_pod_values(name, pod_grid(res), want,
+                                   exact=how == "max")
+            return f"{PODS:,} groups x {steps} steps correct (max |diff| " \
+                   f"{err:.3g})"
+
+        report[f"{name} fused"] = prom_timed(
+            f"{expr} (fused)", evaluator(expr), check_fused, card)
+        if FUSED_DISPATCHES["count"] == fused_before:
+            raise AssertionError(f"{name}: the fused route was not taken")
+        os.environ["GREPTIME_PLAN_FUSION"] = "off"
+        try:
+            def check_unfused(res, name=name):
+                f = fused_res["res"]
+                if not torch.equal(torch.nan_to_num(res.values, nan=-1.0),
+                                   torch.nan_to_num(f.values, nan=-1.0)):
+                    raise AssertionError(f"{name}: unfused values differ "
+                                         f"from the fused values")
+                if list(res.labels) != list(f.labels):
+                    raise AssertionError(f"{name}: unfused labels differ")
+                return "rows equal to the fused route's"
+
+            report[f"{name} unfused"] = prom_timed(
+                f"{expr} (GREPTIME_PLAN_FUSION=off)", evaluator(expr),
+                check_unfused, card)
+        finally:
+            os.environ.pop("GREPTIME_PLAN_FUSION", None)
+
+    # window functions of one pod through TQL EVAL
+    pod = 7
+    cols = np.arange(pod * CONTAINERS, (pod + 1) * CONTAINERS)
+    for fn, expr in (
+            ("changes", f'changes({metric}{{pod="pod-{pod}"}}[5m])'),
+            ("irate", f'irate({metric}{{pod="pod-{pod}"}}[5m])'),
+            ("deriv", f'deriv({metric}{{pod="pod-{pod}"}}[5m])'),
+            ("quantile", f'quantile_over_time(0.9, '
+                         f'{metric}{{pod="pod-{pod}"}}[5m])')):
+        want = np.full((steps, CONTAINERS), np.nan)
+        for j, t in enumerate(step_ts):
+            w, ts = np_window(held[:, cols], int(t))
+            for c in range(CONTAINERS):
+                want[j, c] = np_series_fn(w[:, c], ts, fn, start)
+
+        def check_pod(res, fn=fn, want=want):
+            got = np.full((steps, CONTAINERS), np.nan)
+            step_of = {int(t): j for j, t in enumerate(step_ts)}
+            for r in res.rows:
+                lab = dict(zip(res.column_names, r))
+                if lab["pod"] != f"pod-{pod}":
+                    raise AssertionError(f"{fn}: row of {lab['pod']}")
+                got[step_of[lab["ts"]], int(lab["container"][1:])] = \
+                    lab["val"]
+            err = check_pod_values(fn, got, want, exact=fn == "changes")
+            return f"{len(res.rows)} rows correct (max |diff| {err:.3g})"
+
+        report[fn] = prom_timed(expr, tql(expr), check_pod, card)
+
+    # topk over every series (ng == 1): the kept cells are the top 5 rates
+    def check_topk(res):
+        v = res.values.cpu().numpy()  # [S, T]
+        if res.num_series != PROM_SERIES:
+            raise AssertionError(f"topk: {res.num_series} series")
+        for j in range(steps):
+            r = series_rate[j]
+            kth = np.sort(r[~np.isnan(r)])[-5]
+            kept = np.flatnonzero(~np.isnan(v[:, j]))
+            must = np.flatnonzero(r > kth + REL_TOL * max(1.0, abs(kth)))
+            if len(kept) < 5 or not np.isin(must, kept).all() or (
+                    r[kept] < kth - REL_TOL * max(1.0, abs(kth))).any():
+                raise AssertionError(f"topk: step {j} keeps {kept}")
+            check_pod_values("topk", v[kept, j], r[kept])
+        return f"top 5 of {PROM_SERIES:,} series x {steps} steps correct"
+
+    expr = f"topk(5, rate({metric}[5m]))"
+    report["topk"] = prom_timed(expr, evaluator(expr), check_topk, card)
+
+    # quantile by pod over the 10 containers' rates
+    per = series_rate.reshape(steps, PODS, CONTAINERS)
+    with np.errstate(all="ignore"):
+        srt = np.sort(per, axis=2)  # NaN last
+        n = (~np.isnan(per)).sum(2)
+        rank = 0.99 * np.maximum(n - 1, 0)
+        lo = np.floor(rank).astype(np.int64)
+        hi = np.ceil(rank).astype(np.int64)
+        vlo = np.take_along_axis(srt, lo[..., None], 2)[..., 0]
+        vhi = np.take_along_axis(srt, hi[..., None], 2)[..., 0]
+        q_want = np.where(n > 0, vlo + (vhi - vlo) * (rank - lo), np.nan)
+    expr = f"quantile by (pod) (0.99, rate({metric}[5m]))"
+    report["quantile by pod"] = prom_timed(
+        expr, evaluator(expr), lambda res: (
+            f"{PODS:,} groups correct (max |diff| "
+            f"{check_pod_values('quantile', pod_grid(res), q_want):.3g})"),
+        card)
+
+    # a binary expression: one-to-one matching of two aggregations
+    pod_rate = np.stack([np_per_pod(r, "sum") for r in series_rate])
+    with np.errstate(all="ignore"):
+        ratio = pod_rate / pod_avg
+    expr = (f"sum by (pod) (rate({metric}[5m])) / "
+            f"sum by (pod) (avg_over_time({metric}[5m]))")
+    report["binary"] = prom_timed(
+        expr, evaluator(expr), lambda res: (
+            f"{PODS:,} matched groups correct (max |diff| "
+            f"{check_pod_values('binary', pod_grid(res), ratio):.3g})"),
+        card)
+
+    # subqueries over 1 m-aligned inner evaluations: max and quantile over
+    # rate(m[1m]) (window_matrix_dense), and rate over the raw metric's
+    # instant values (subquery_counter)
+    sub_ms = 60_000
+    t0 = ((start - RANGE_MS) // sub_ms + 1) * sub_ms
+    inner = np.arange(t0, end + 1, sub_ms, dtype=np.int64)
+    inner_rate = np.stack([np_series_rates(held, int(t), 60_000)
+                           for t in inner])
+    inner_val = np.stack([np_instant(held, int(t)) for t in inner])
+    sub_max = np.full((steps, PROM_SERIES), np.nan)
+    sub_q = np.full((steps, PROM_SERIES), np.nan)
+    sub_rate = np.full((steps, PROM_SERIES), np.nan)
+    for j, t in enumerate(step_ts):
+        pick = (inner > t - RANGE_MS) & (inner <= t)
+        w = inner_rate[pick]
+        with np.errstate(all="ignore"):
+            sub_max[j] = np.where(np.isnan(w).all(0), np.nan, np.nanmax(
+                np.where(np.isnan(w), -np.inf, w), 0))
+            sub_q[j] = np_quantile(w, 0.9)
+        sub_rate[j] = np_rate_of(inner_val[pick], inner[pick], int(t),
+                                 RANGE_MS)
+
+    def check_sub(res, name, want):
+        if res.num_series != PROM_SERIES:
+            raise AssertionError(f"{name}: {res.num_series} series")
+        err = check_pod_values(name, res.values.cpu().numpy().T, want)
+        return f"{PROM_SERIES:,} series x {steps} steps correct (max " \
+               f"|diff| {err:.3g})"
+
+    for name, expr, want in (
+            ("subquery", f"max_over_time(rate({metric}[1m])[5m:1m])",
+             sub_max),
+            ("subquery quantile",
+             f"quantile_over_time(0.9, rate({metric}[1m])[5m:1m])", sub_q),
+            ("subquery rate", f"rate({metric}[5m:1m])", sub_rate)):
+        report[name] = prom_timed(
+            expr, evaluator(expr),
+            lambda res, name=name, want=want: check_sub(res, name, want),
+            card)
+    return report
+
+
+def phase_promql(gk, pk, sk, scrapes: int, seed: int, has_arrow: bool,
                  card: str):
     """Returns (launches, db, home): the db stays open for phase 5, which
     holds the kernels against their plain versions on its resident
@@ -1076,7 +1420,8 @@ def phase_promql(gk, pk, scrapes: int, seed: int, has_arrow: bool,
     db = GreptimeDB(home, region_options=RegionOptions(
         wal_enabled=False, flush_threshold_bytes=1 << 40))
     try:
-        return _promql_path(gk, pk, db, scrapes, seed, has_arrow, card), \
+        return _promql_path(gk, pk, sk, db, scrapes, seed, has_arrow,
+                            card), \
             db, home
     except BaseException:
         db.close()
@@ -1084,7 +1429,7 @@ def phase_promql(gk, pk, scrapes: int, seed: int, has_arrow: bool,
         raise
 
 
-def _promql_path(gk, pk, db, scrapes, seed, has_arrow, card) -> dict:
+def _promql_path(gk, pk, sk, db, scrapes, seed, has_arrow, card) -> dict:
     from greptimedb_tpu_torch.promql.engine import PromEvaluator
     from greptimedb_tpu_torch.promql.parser import parse_promql
 
@@ -1094,6 +1439,7 @@ def _promql_path(gk, pk, db, scrapes, seed, has_arrow, card) -> dict:
     held = prom_ingest(db, scrapes, seed, has_arrow)
     gk.reset_launch_counts()
     pk.reset_launch_counts()
+    sk.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     expr = parse_promql(PROM_QUERY)
     t_end = PROM_T0 + (scrapes - 1) * SCRAPE_MS
@@ -1221,10 +1567,18 @@ def _promql_path(gk, pk, db, scrapes, seed, has_arrow, card) -> dict:
         f"({range_samples:,} samples in range); stages {stages}; profiler: "
         f"device busy {busy_r:.3f} ms of {wall_r:.3f} ms wall; top device "
         f"ops {top_r} — {card}")
+    _promql_surface(db, held, start, steps, card)
     launches = {"prefix_scan": pk.prefix_scan.launches,
                 "sort_layout": pk.sort_layout.launches,
                 "counter_window": pk.counter_window.launches,
-                "group_merge": gk.group_merge.launches}
+                "group_merge": gk.group_merge.launches,
+                "window_stats": pk.window_stats.launches,
+                "minmax_window": pk.minmax_window.launches,
+                "window_count_max": pk.window_count_max.launches,
+                "window_matrix": pk.window_matrix.launches,
+                "window_matrix_dense": pk.window_matrix_dense.launches,
+                "subquery_counter": pk.subquery_counter.launches,
+                "segment_select": sk.segment_select.launches}
     peak = torch.cuda.max_memory_allocated()
     log(f"promql path: launches {launches}, max_memory_allocated {peak} B, "
         f"promql cache {db.promql_cache.stats()}")
@@ -1238,10 +1592,12 @@ def _promql_path(gk, pk, db, scrapes, seed, has_arrow, card) -> dict:
 # phase 5: PromQL kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def phase_promql_kernels(gk, pk, db, card: str) -> dict:
+def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
     """Each PromQL kernel on the PromQL path's resident table (its real
     shapes and data) against its plain version, and group_merge at the
     path's shape (the K12 group sum)."""
+    from greptimedb_tpu_torch.promql.engine import PromEvaluator
+    from greptimedb_tpu_torch.promql.parser import parse_promql
     from greptimedb_tpu_torch.storage.memtable import TSID
 
     table = db.cache.get(db._region_of("http_requests_total"))
@@ -1353,6 +1709,263 @@ def phase_promql_kernels(gk, pk, db, card: str) -> dict:
             results["counter_window"]["max_abs_err"] = max(
                 results["counter_window"]["max_abs_err"], err)
 
+    # -- window_stats (K10's gauge_window, counter_rc, regression, irate) --
+    geo = dict(step_ms=SCRAPE_MS, num_steps=20, range_ms=RANGE_MS)
+    cells = s_pad * 20
+    lo, hi, wcnt, _has, sel_ok = pk.window_bounds_plain(
+        key_s, ts_min, kp, sel, start, SCRAPE_MS, 20, RANGE_MS)
+    # the rows the 20 overlapping windows of a series cover, each once
+    union = int(torch.where(sel_ok, hi[:, -1] - lo[:, 0], 0).sum())
+    samples = int(wcnt[sel_ok].sum())
+    del lo, hi
+    exact_keys = ("count", "first_ts", "last_ts", "last", "first", "resets",
+                  "changes", "prev_ts", "last_val", "prev_val")
+    # bytes per covered row (val, and ts where read) and per window output
+    row_b = {"gauge_window": 12, "counter_rc": 4, "regression": 12,
+             "irate": 12}
+    out_b = {"gauge_window": 4 * 6 + 8 * 2, "counter_rc": 12,
+             "regression": 12 + 8, "irate": 8 * 2 + 4 * 2}
+    # f64 operations per window sample, on top of two binary searches
+    per_sample = {"gauge_window": 3, "counter_rc": 2, "regression": 8,
+                  "irate": 0}
+    lib = time_ms(lambda: torch.cumsum(val_s.double(), 0))
+    for kind in ("gauge_window", "counter_rc", "regression", "irate"):
+        out = pk.window_stats(got, sel, start, kind=kind, **geo)
+        ref = pk.window_stats_plain(kind, want, sel, start, **geo)
+        slack = pk.var_slack(val_s, valid_s, wcnt, ref["sum"]) \
+            if kind == "gauge_window" else 0.0
+        # the kernel sums each window directly, the plain version by
+        # differences of table-wide f64 prefix sums: the golden bound, and
+        # for var the prefix sums' own rounding on top (see var_slack)
+        err = max(max_err(out[k], ref[k], exact=k in exact_keys,
+                          abs_tol=slack if k == "var" else 0.0)
+                  for k in pk.KIND_KEYS[kind])
+        ms = time_ms(lambda: pk.window_stats(got, sel, start, kind=kind,
+                                             **geo))
+        plain = time_ms(lambda: pk.window_stats_plain(kind, want, sel, start,
+                                                      **geo), reps=5)
+        ops = cells * 2 * n.bit_length() + samples * per_sample[kind]
+        bnd, by = bound_ms(nbytes(sel) + union * row_b[kind]
+                           + cells * out_b[kind], ops, F64_FLOPS)
+        report("window_stats", f"{kind} S={s_pad:,} T=20, {samples:,} "
+               f"window samples (library: one f64 torch.cumsum of val_s)",
+               ms, plain, bnd, by, lib, err)
+        if kind == "gauge_window":
+            results["window_stats"] = dict(
+                ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                library_ms=lib, max_abs_err=err)
+        else:
+            results["window_stats"]["max_abs_err"] = max(
+                results["window_stats"]["max_abs_err"], err)
+        del out, ref
+
+    # -- minmax_window (K13) --
+    out = pk.minmax_window(got, sel, start, **geo)
+    ref = pk.minmax_window_plain(want, sel, start, **geo)
+    err = max(max_err(out[k], ref[k], exact=True) for k in ("min", "max"))
+    ms = time_ms(lambda: pk.minmax_window(got, sel, start, **geo))
+    plain = time_ms(lambda: pk.minmax_window_plain(want, sel, start, **geo),
+                    reps=5)
+    # library: one scatter_reduce of every window sample into its window
+    lo, _hi, wcnt, has, _ok = pk.window_bounds_plain(
+        key_s, ts_min, kp, sel, start, SCRAPE_MS, 20, RANGE_MS)
+    width = int(wcnt.max())
+    j = torch.arange(width, device=ts.device)
+    take = (j < wcnt.reshape(-1, 1)) & has.reshape(-1, 1)
+    win_id = torch.arange(cells, device=ts.device)[:, None].expand(
+        cells, width)[take]
+    win_val = val_s[(lo.reshape(-1, 1) + j)[take]]
+    del lo, _hi, take
+    lib_buf = torch.empty(cells, device=ts.device)
+
+    def lib_minmax():
+        lib_buf.fill_(float("inf"))
+        return lib_buf.scatter_reduce_(0, win_id, win_val, "amin")
+
+    lib = time_ms(lib_minmax)
+    del win_id, win_val, lib_buf
+    bnd, by = bound_ms(nbytes(sel) + union * 4 + cells * 8, samples * 2)
+    report("minmax_window", f"min+max S={s_pad:,} T=20 (library: "
+           f"scatter_reduce amin of the gathered window samples)", ms, plain,
+           bnd, by, lib, err)
+    results["minmax_window"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd,
+                                    bound_by=by, library_ms=lib,
+                                    max_abs_err=err)
+    del out, ref
+
+    # -- window_count_max + window_matrix (K14) --
+    cm = pk.window_count_max(got, sel, start, **geo)
+    cm_plain = pk.window_count_max_plain(want, sel, start, **geo)
+    if cm != cm_plain:
+        raise AssertionError(f"window_count_max: {cm} vs {cm_plain}")
+    ms = time_ms(lambda: pk.window_count_max(got, sel, start, **geo))
+    plain = time_ms(lambda: pk.window_count_max_plain(want, sel, start,
+                                                      **geo), reps=5)
+    skey = sel.clamp(min=0).long()[:, None] * kp
+    steps_t = start + SCRAPE_MS * torch.arange(20, device=ts.device)
+    lo_keys = (skey + (steps_t - RANGE_MS + 1 - ts_min).clamp(
+        min=0)).reshape(-1)
+    hi_keys = (skey + (steps_t - ts_min)).reshape(-1)
+    lib = time_ms(lambda: (torch.searchsorted(key_s, lo_keys),
+                           torch.searchsorted(key_s, hi_keys, right=True)))
+    bnd, by = bound_ms(nbytes(sel) + 4, cells * 2 * n.bit_length(),
+                       F64_FLOPS)
+    report("window_count_max", f"S={s_pad:,} T=20 -> {cm} (library: "
+           f"searchsorted geometry)", ms, plain, bnd, by, lib, 0.0)
+    results["window_count_max"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd,
+                                       bound_by=by, library_ms=lib,
+                                       max_abs_err=0.0)
+    lmax = max(2, 1 << (max(cm, 1) - 1).bit_length())
+    lo, _hi, wcnt, _has, _ok = pk.window_bounds_plain(
+        key_s, ts_min, kp, sel, start, SCRAPE_MS, 20, RANGE_MS)
+    j = torch.arange(lmax, device=ts.device)
+    mat = torch.where(j < wcnt.reshape(-1, 1),
+                      val_s[(lo.reshape(-1, 1) + j).clamp(max=n - 1)],
+                      float("inf"))
+    del lo, _hi
+    lib = time_ms(lambda: torch.sort(mat, dim=1), reps=5)
+    del mat
+    ones = torch.ones(20, device=ts.device)
+    params = {"quantile": (ones * 0.9, ones), "mad": (ones, ones),
+              "holt": (ones * 0.5, ones * 0.3)}
+    sort_ops = cells * (lmax // 2) * (lmax.bit_length() - 1) * \
+        lmax.bit_length() // 2
+    for kind, (a1, a2) in params.items():
+        kw = dict(lmax=lmax, kind=kind, a1=a1, a2=a2, **geo)
+        out = pk.window_matrix(got, sel, start, **kw)
+        ref = pk.window_matrix_plain(want, sel, start, **kw)
+        err = max_err(out, ref, exact=False)
+        del ref
+        torch.cuda.empty_cache()
+        ms = time_ms(lambda: pk.window_matrix(got, sel, start, **kw))
+        plain = time_ms(lambda: pk.window_matrix_plain(want, sel, start,
+                                                       **kw), reps=3)
+        torch.cuda.empty_cache()
+        ops = cells * 2 * n.bit_length() + (
+            sort_ops * (2 if kind == "mad" else 1) if kind != "holt"
+            else samples * 6)
+        bnd, by = bound_ms(nbytes(sel, a1, a2, out) + union * 4, ops)
+        report("window_matrix", f"{kind} S={s_pad:,} T=20 lmax={lmax} "
+               f"(library: torch.sort of the gathered [S*T, lmax] "
+               f"matrix)", ms, plain, bnd, by, lib, err)
+        if kind == "quantile":
+            results["window_matrix"] = dict(
+                ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                library_ms=lib, max_abs_err=err)
+        else:
+            results["window_matrix"]["max_abs_err"] = max(
+                results["window_matrix"]["max_abs_err"], err)
+        del out
+
+    # -- window_matrix_dense + subquery_counter on the subquery path's
+    #    [S, T, K] window matrices (the engine's own _subquery_matrix) --
+    ev = PromEvaluator(db, start / 1000.0, (start + 19 * SCRAPE_MS) / 1000.0,
+                       15.0)
+    win, m, _ts_tk, _steps, _lab = ev._subquery_matrix(parse_promql(
+        "rate(http_requests_total[1m])[5m:1m]"))
+    wq = torch.where(m, win, float("nan")).to(torch.float32).contiguous()
+    del win, m
+    S_sub, T_sub, K_sub = wq.shape
+    q = torch.full((T_sub,), 0.9, device=ts.device)
+    width = 1 << max(K_sub - 1, 1).bit_length()
+    sort_ops = S_sub * T_sub * (width // 2) * (width.bit_length() - 1) * \
+        width.bit_length() // 2
+    lib = time_ms(lambda: torch.sort(wq, dim=-1), reps=5)
+    for kind in ("quantile", "mad"):
+        out = pk.window_matrix_dense(wq, kind, q)
+        err = max_err(out, pk.window_matrix_dense_plain(wq, kind, q),
+                      exact=False)
+        ms = time_ms(lambda: pk.window_matrix_dense(wq, kind, q))
+        plain = time_ms(lambda: pk.window_matrix_dense_plain(wq, kind, q),
+                        reps=5)
+        bnd, by = bound_ms(nbytes(wq, q, out),
+                           sort_ops * (2 if kind == "mad" else 1))
+        report("window_matrix_dense", f"{kind} [S, T, K] = [{S_sub:,}, "
+               f"{T_sub}, {K_sub}] of rate(m[1m])[5m:1m] (library: "
+               f"torch.sort along K)", ms, plain, bnd, by, lib, err)
+        if kind == "quantile":
+            results["window_matrix_dense"] = dict(
+                ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                library_ms=lib, max_abs_err=err)
+        else:
+            results["window_matrix_dense"]["max_abs_err"] = max(
+                results["window_matrix_dense"]["max_abs_err"], err)
+        del out
+    del wq
+    win, m, ts_tk, steps_np, _lab = ev._subquery_matrix(parse_promql(
+        "http_requests_total[5m:1m]"))
+    wr = torch.where(m, win, float("nan")).to(torch.float32).contiguous()
+    del win, m
+    ts_tk = torch.as_tensor(ts_tk, device=ts.device)
+    steps_t = torch.as_tensor(steps_np, device=ts.device)
+    rkw = dict(kind="rate", func="rate", range_s=RANGE_MS / 1000)
+    out = pk.subquery_counter(wr, ts_tk, steps_t, **rkw)
+    err = max_err(out, pk.subquery_counter_plain(wr, ts_tk, steps_t, **rkw),
+                  exact=False)
+    pair = pk.subquery_counter(wr, ts_tk, steps_t, kind="pair")
+    pair_want = pk.subquery_counter_plain(wr, ts_tk, steps_t, kind="pair")
+    for k in pair:
+        max_err(pair[k], pair_want[k], exact=True)
+    del pair, pair_want
+    ms = time_ms(lambda: pk.subquery_counter(wr, ts_tk, steps_t, **rkw))
+    plain = time_ms(lambda: pk.subquery_counter_plain(wr, ts_tk, steps_t,
+                                                      **rkw), reps=5)
+    S_sub, T_sub, K_sub = wr.shape
+    # one pass over K samples, then the f64 epilogue (~30 operations)
+    bnd, by = bound_ms(nbytes(wr, ts_tk, steps_t, out),
+                       S_sub * T_sub * (2 * K_sub + 30), F64_FLOPS)
+    report("subquery_counter", f"rate [S, T, K] = [{S_sub:,}, {T_sub}, "
+           f"{K_sub}] of m[5m:1m] (pair mode exact; library: none)", ms,
+           plain, bnd, by, None, err)
+    results["subquery_counter"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd,
+                                       bound_by=by, library_ms=None,
+                                       max_abs_err=err)
+    del wr, out
+
+    # -- segment_select (K12's sorts) on the 20-step rates --
+    rate = pk.counter_window(got, gd, sel, start, step_ms=SCRAPE_MS,
+                             num_steps=20, range_ms=RANGE_MS, kind="rate",
+                             func="rate", range_s=RANGE_MS / 1000)
+    rate = rate[:PROM_SERIES].contiguous()
+    work = torch.where(torch.isnan(rate), float("-inf"), rate)
+    order = torch.arange(PROM_SERIES, dtype=torch.int32, device=ts.device)
+    one = torch.tensor([0, PROM_SERIES], dtype=torch.int64, device=ts.device)
+    ranks = torch.full((1, 1, 20), PROM_SERIES - 5, dtype=torch.int32,
+                       device=ts.device)
+    out = sk.segment_select(work, order, one, ranks)
+    err = max_err(out, sk.segment_select_plain(work, order, one, ranks),
+                  exact=True)
+    ms = time_ms(lambda: sk.segment_select(work, order, one, ranks))
+    plain = time_ms(lambda: sk.segment_select_plain(work, order, one, ranks),
+                    reps=5)
+    lib = time_ms(lambda: torch.topk(work, 5, dim=0))
+    bnd, by = bound_ms(nbytes(work, order, one, ranks, out), 0)
+    report("segment_select", f"topk: 5th largest of {PROM_SERIES:,} rates "
+           f"x 20 steps, ng = 1 (library: torch.topk)", ms, plain, bnd, by,
+           lib, err)
+    results["segment_select"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd,
+                                     bound_by=by, library_ms=lib,
+                                     max_abs_err=err)
+    offs = torch.arange(0, PROM_SERIES + 1, CONTAINERS, dtype=torch.int64,
+                        device=ts.device)
+    cnt = (~torch.isnan(rate)).reshape(PODS, CONTAINERS, 20).sum(1)
+    rank = 0.99 * torch.clamp(cnt.float() - 1, min=0)
+    ranks = torch.stack([torch.floor(rank), torch.ceil(rank)]).to(
+        torch.int32)
+    out = sk.segment_select(rate, order, offs, ranks)
+    err = max_err(out, sk.segment_select_plain(rate, order, offs, ranks),
+                  exact=True)
+    ms = time_ms(lambda: sk.segment_select(rate, order, offs, ranks))
+    plain = time_ms(lambda: sk.segment_select_plain(rate, order, offs,
+                                                    ranks), reps=5)
+    lib = time_ms(lambda: torch.sort(rate.view(PODS, CONTAINERS, 20), 1))
+    bnd, by = bound_ms(nbytes(rate, order, offs, ranks, out), 0)
+    report("segment_select", f"quantile by pod: 2 ranks of {PODS:,} groups "
+           f"of 10 x 20 steps (library: torch.sort)", ms, plain, bnd, by,
+           lib, err)
+    results["segment_select"]["max_abs_err"] = max(
+        results["segment_select"]["max_abs_err"], err)
+
     # -- group_merge at the PromQL shape: the 20-step rates of 2^20
     #    selected series (padding routed to the overflow id) into 100,000
     #    pod groups; tsids follow write order, so pod = tsid // 10 --
@@ -1408,10 +2021,10 @@ def main() -> int:
     del ctx
     torch.cuda.empty_cache()
     log(f"elapsed: {time.perf_counter() - t_start:.3f} s")
-    prom_launches, db, home = phase_promql(gk, pk, args.scrapes, args.seed,
-                                           has_arrow, card)
+    prom_launches, db, home = phase_promql(gk, pk, sk, args.scrapes,
+                                           args.seed, has_arrow, card)
     try:
-        kernels.update(phase_promql_kernels(gk, pk, db, card))
+        kernels.update(phase_promql_kernels(gk, pk, sk, db, card))
     finally:
         db.close()
         shutil.rmtree(home, ignore_errors=True)
@@ -1424,7 +2037,9 @@ def main() -> int:
     for name in ("bucket_reduce", "group_merge", "prefix_scan",
                  "sort_layout", "counter_window", "segment_reduce",
                  "sorted_segment_reduce", "compact", "rank_scatter",
-                 "radix_argsort"):
+                 "radix_argsort", "window_stats", "minmax_window",
+                 "window_count_max", "window_matrix", "window_matrix_dense",
+                 "subquery_counter", "segment_select"):
         k = kernels[name]
         line["kernels"].append({
             "name": name, "route": "cuda", "source": SOURCES[name],

@@ -1,22 +1,25 @@
 """The fused PromQL selection→window→group chain.
 
 Counterpart of the reference's ``compile/fused.py`` (K11, one jitted XLA
-program per shape class).  Here the chain is the counter-drop
-``prefix_scan`` over the sorted layout, then one ``counter_window`` launch
-in rate mode — window geometry, first/last gathers, the counter-reset
-adjusted delta and the ``_extrapolated`` epilogue in one kernel over the
-padded selection — then the group reduce (``group_merge``), with the
-padding rows routed to the dead overflow group ``ng`` that the merge
-never visits.  A bare instant selector runs ``counter_window``'s instant
-mode alone.
+program per shape class).  Here the chain is the window statistics of the
+function's kind over the padded selection — for rate/increase/delta the
+counter-drop ``prefix_scan`` and one ``counter_window`` launch in rate
+mode (window geometry, first/last gathers, the counter-reset adjusted
+delta and the ``_extrapolated`` epilogue in one kernel), for the other
+kinds ``window_stats`` or ``minmax_window`` and the evaluator's own
+epilogue (``engine.window_function``) — then the group reduce
+(``group_merge``), with the padding rows routed to the dead overflow
+group ``ng`` that the merge never visits.  A bare instant selector runs
+``counter_window``'s instant mode.
 
 Equality contract: the window statistics, epilogue and group arithmetic
 are the evaluator's own (``ops/promql_kernels`` plain versions on the
 CPU), so fused and unfused rows are equal; padding rows carry NaN and
-contribute nothing.  Anything outside the fused surface (other functions
-or aggregations, subqueries, nested expressions) returns None and the
-evaluator takes the multi-step path, which ``GREPTIME_PLAN_FUSION=off``
-restores wholesale.
+contribute nothing.  Anything outside the fused surface (pinned ``@``
+selectors, the window-matrix functions, stddev/stdvar/quantile/topk/
+bottomk, subqueries, nested expressions) returns None and the evaluator
+takes the multi-step path, which ``GREPTIME_PLAN_FUSION=off`` restores
+wholesale.
 """
 
 from __future__ import annotations
@@ -27,32 +30,34 @@ import torch
 
 from greptimedb_tpu_torch.errors import TableNotFound
 from greptimedb_tpu_torch.ops import grid_kernels as gk
+from greptimedb_tpu_torch.promql.engine import (
+    WINDOW_FUNC_KIND, window_function,
+)
 from greptimedb_tpu_torch.utils.tracing import TRACER
 
 # diagnostics: fused dispatches this process (tests read it)
 FUSED_DISPATCHES = {"count": 0}
 
 # function → window kind, mirroring eval_function's routing; None = a bare
-# instant selector under the aggregation.  The reference's other window
-# kinds (irate, counter_rc, gauge_window, minmax, regression) are not
-# ported yet.
-_FUNC_KIND = {
-    None: "instant",
-    "rate": "counter", "increase": "counter", "delta": "counter",
-}
-# stddev/stdvar stay off the fused surface (their v²−mean² form cancels
-# catastrophically, so contraction choices would show in the floats); in
-# the port they are not ported at all
+# instant selector under the aggregation
+_FUNC_KIND = {None: "instant", "rate": "counter", "increase": "counter",
+              "delta": "counter", **WINDOW_FUNC_KIND}
+# stddev/stdvar stay off the fused surface: their v²−mean² form cancels
+# catastrophically, so any change in the order of the sums would show in
+# the floats; quantile/topk/bottomk need the rows, not a merge
 _FUSED_AGGS = {"sum", "avg", "count", "group", "min", "max"}
 
 
 def _apply_func(ev, func, layout, sel_dev, p, start, range_s):
     """The window statistics and function epilogue over the padded
-    selection: rate mode of ``counter_window`` for rate/increase/delta, the
-    staleness-windowed last sample for an instant selector."""
-    if func is None:
-        return ev._window(layout, sel_dev, p, start)["last"]
-    return ev._window(layout, sel_dev, p, start, func=func, range_s=range_s)
+    selection: rate mode of ``counter_window`` for rate/increase/delta,
+    else the statistics of the function's kind and the evaluator's own
+    epilogue (the staleness-windowed last sample for an instant
+    selector)."""
+    if func in ("rate", "increase", "delta"):
+        return ev._window(layout, sel_dev, p, start, func=func,
+                          range_s=range_s)
+    return window_function(func, ev._window(layout, sel_dev, p, start))
 
 
 def try_fused_aggregation(ev, e):
@@ -86,7 +91,7 @@ def try_fused_aggregation(ev, e):
         prep = ev._prep_window(sel, _FUNC_KIND[func])
     except TableNotFound:
         return None  # unknown metric: unfused produces the empty vector
-    layout, sel_dev, p, tsids, labels, start = prep
+    layout, sel_dev, p, tsids, labels, start, _pinned = prep
     if len(tsids) == 0:
         return None
     t0 = time.perf_counter()

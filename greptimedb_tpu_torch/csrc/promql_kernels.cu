@@ -61,6 +61,75 @@
 //   kernel is latency-bound far above its byte bound.  The top levels of
 //   the search stay in L2; a per-series range search is later work.
 
+//
+// window_stats
+//   Replaces K10's other kinds of `_window_body` (engine.py:455-499):
+//   gauge_window (sum, avg, var, first/last), counter_rc (resets and
+//   changes), regression (least-squares slope and intercept, time in
+//   seconds from the grid's start) and irate (the last two samples).  One
+//   thread per (selected series, step): the same two binary searches as
+//   counter_window, then a loop over the window's rows [lo, hi) that sums
+//   in f64 directly, where the reference differences five full-table f64
+//   prefix sums (cs_v, cs_v2, cs_t, cs_tv, cs_t2; 1.7 GB at 41.9 M rows).
+//   The function is the same; the direct sum does not cancel against the
+//   table's running total, so it is at least as exact (the tests hold the
+//   two within 1e-5 * max(1, |b|); counts and timestamps exactly).  gauge's
+//   mean comes from the f32-rounded sum and var subtracts it from the f64
+//   square sum, in the reference's order; counter_rc counts the pairs
+//   (j-1, j) for j in lo+1 .. hi-1 (exact integers).
+//   Bound: bytes.  Each window reads its rows once (ts i64 + val f32) and
+//   writes its outputs; windows overlap (range/step = 20 at 5 m / 15 s),
+//   so the rows come from L2 after their first read.  Compulsory: the
+//   selected rows once plus the S x T outputs.
+//
+// minmax_window
+//   Replaces K13, the `minmax` kind's fori_loop of range/step + 1 scatter-
+//   min/max passes over the whole table into [S*T + 1] (engine.py:500-535).
+//   One thread per window loops over [lo, hi) from the same bounds: each
+//   sample meets exactly the windows it would have been scattered into, so
+//   the extremes are equal (exact, in any order).  A window without
+//   samples, or whose extreme is infinite, is NaN, as the reference's
+//   isfinite test makes it.  Bound: bytes, as window_stats.
+//
+// window_count_max + window_matrix
+//   Replace K14: `_count_max_kernel` (engine.py:541; the largest window
+//   count, an atomicMax per warp) and `_matrix_kernel` (:555), which
+//   gathers [S*T, lmax] windows (2.7 GB at 1 M series x 20 steps x 32) and
+//   sorts each row.  Here a warp finds the bounds of 32 windows at once
+//   (one a lane), then takes them in turn and keeps each in its own buffer
+//   only: the samples as scan.cuh's order-preserving 32-bit sort keys (NaN
+//   canonical and last; -0.0 below +0.0), padded to a power of two with an
+//   all-ones key above +inf, then scan.cuh's warp bitonic sort.  The buffer
+//   lies in shared memory up to 16,384 keys a window; wider windows sort
+//   in a global scratch the wrapper allocates, one slot per launched warp,
+//   the warps striding over the windows.  quantile reads the two
+//   straddling order statistics and interpolates with the reference's f32
+//   formula `vlo + (vhi - vlo) * (rank - lo)`; mad sorts |x - median| a
+//   second time in the same buffer; holt runs its f32 scan in time order,
+//   one lane per window.
+//   -fmad=false keeps every other step rounded as the reference rounds it;
+//   the fused multiply-adds that XLA's CPU backend contracts the reference
+//   into (gauge's var = q - mean * mean, Holt's two updates) are explicit
+//   fma/fmaf calls here and fma64/fma32 in the plain versions.
+//   Bound: bytes (the window's rows once, the S x T output); the sort is
+//   log2(L) (log2(L) + 1) / 2 compare-exchange stages per window.
+//
+// window_matrix_dense
+//   The same sorts over a subquery's [S, T, K] window matrix (NaN = not a
+//   sample) instead of the sort layout: the quantile and mad reducers of
+//   `_eval_subquery_window` (engine.py:1415-1437), one warp per window.
+//   Bound: bytes (the matrix once, the S x T output) or the sort's
+//   compare-exchanges, whichever is larger.
+//
+// subquery_counter
+//   Replaces `_eval_subquery_counter` (engine.py:1309-1363): the first /
+//   last gathers, the K-step counter-drop fori_loop (:1342-1354) and the
+//   `_extrapolated` epilogue (the same device function as counter_window's
+//   rate mode) for rate/increase/delta over a subquery; for irate/idelta
+//   the last two samples.  One thread per window, one pass in window
+//   order; the drop sum is a sequential f32 sum, bit for bit the
+//   reference's.  Bound: bytes (the matrix once, the outputs once).
+
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -204,6 +273,42 @@ __device__ __forceinline__ long long clampll(long long x, long long lo,
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
+struct Geometry {  // the window grid over one sort layout
+  const long long* key_s;
+  long long n;
+  const long long* ts_min_p;
+  const long long* kp_p;
+  const int32_t* sel;
+  long long S, T, start_ms, step_ms, range_ms;
+};
+
+struct Bounds {
+  long long lo, hi;
+  int cnt;
+  bool sel_ok, has;
+};
+
+// Window w = s * T + t of the grid: the sorted-row range [lo, hi) of
+// (step - range, step], engine.py:330-345.
+__device__ __forceinline__ Bounds window_bounds(const Geometry& g,
+                                                long long w) {
+  const long long s = w / g.T;
+  const long long step = g.start_ms + g.step_ms * (w - s * g.T);
+  const long long ts_min = *g.ts_min_p;
+  const long long kp = *g.kp_p;
+  const int sel_t = g.sel[s];
+  Bounds b;
+  b.sel_ok = sel_t >= 0;
+  const long long skey = (b.sel_ok ? (long long)sel_t : 0LL) * kp;
+  const long long rel_lo = clampll(step - g.range_ms + 1 - ts_min, 0, kp - 1);
+  const long long rel_hi = clampll(step - ts_min, -1, kp - 1);
+  b.lo = search_left(g.key_s, g.n, skey + rel_lo);
+  b.hi = search_right(g.key_s, g.n, skey + rel_hi);
+  b.cnt = (int)(b.hi - b.lo > 0 ? b.hi - b.lo : 0);
+  b.has = b.cnt > 0 && b.sel_ok;
+  return b;
+}
+
 struct WindowOut {
   float* count;
   long long* first_ts;
@@ -216,31 +321,57 @@ struct WindowOut {
   float* rate;
 };
 
-__global__ void counter_window_kernel(
-    const long long* key_s, const long long* ts_s, const float* val_s,
-    const double* gdrop, long long n, const long long* ts_min_p,
-    const long long* kp_p, const int32_t* sel, long long S, long long T,
-    long long start_ms, long long step_ms, long long range_ms, int mode,
-    int counter, int is_rate, double range_s, WindowOut o) {
+// engine.py:1839 `_extrapolated`, operation for operation, for one window:
+// its first and last sample timestamps (ms), its end (ms), its sample
+// count, its first value and its counter-adjusted and raw deltas.  Shared
+// by counter_window's rate mode and subquery_counter.
+__device__ float extrapolated_rate(long long ft_i, long long lt_i,
+                                   double range_end, float fcount,
+                                   float fv, float d_adj, float d_raw,
+                                   int counter, int is_rate,
+                                   double range_s) {
+  const double rng_ms = range_s * 1000.0;
+  const double ft = (double)ft_i;
+  const double lt = (double)lt_i;
+  const double range_start = range_end - rng_ms;
+  const double sampled = (lt - ft) / 1000.0;
+  const float cm1 = fcount - 1.0f;
+  const double avg_dur = sampled / (double)(cm1 > 1.0f ? cm1 : 1.0f);
+  double dur_to_start = (ft - range_start) / 1000.0;
+  double dur_to_end = (range_end - lt) / 1000.0;
+  const double threshold = avg_dur * 1.1;
+  if (dur_to_start >= threshold) dur_to_start = avg_dur / 2;
+  if (dur_to_end >= threshold) dur_to_end = avg_dur / 2;
+  const double d64 = (double)(counter ? d_adj : d_raw);
+  if (counter) {
+    const double fv64 = (double)fv;
+    const double dur_to_zero =
+        d64 > 0 ? sampled * (fv64 / (d64 > 1e-30 ? d64 : 1e-30)) : INFINITY;
+    if (isnan(dur_to_zero) || dur_to_zero < dur_to_start) {
+      dur_to_start = dur_to_zero;
+    }
+  }
+  const double factor = (sampled + dur_to_start + dur_to_end) /
+                        (sampled > 1e-30 ? sampled : 1e-30);
+  double result = d64 * factor;
+  if (is_rate) result = result / range_s;
+  return fcount >= 2.0f ? (float)result : NAN;
+}
+
+__global__ void counter_window_kernel(Geometry g, const long long* ts_s,
+                                      const float* val_s, const double* gdrop,
+                                      int mode, int counter, int is_rate,
+                                      double range_s, WindowOut o) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= S * T) return;
-  const long long s = i / T;
-  const long long t = i - s * T;
-  const long long ts_min = *ts_min_p;
-  const long long kp = *kp_p;
-  const int sel_t = sel[s];
-  const bool sel_ok = sel_t >= 0;
-  const long long skey = (sel_ok ? (long long)sel_t : 0LL) * kp;
-  const long long step = start_ms + step_ms * t;
-  const long long rel_lo = clampll(step - range_ms + 1 - ts_min, 0, kp - 1);
-  const long long rel_hi = clampll(step - ts_min, -1, kp - 1);
-  const long long lo = search_left(key_s, n, skey + rel_lo);
-  const long long hi = search_right(key_s, n, skey + rel_hi);
-  const int cnt = (int)(hi - lo > 0 ? hi - lo : 0);
-  const bool has = cnt > 0 && sel_ok;
-  const bool has2 = cnt >= 2 && sel_ok;
-  const long long fi = clampll(lo, 0, n - 1);
-  const long long li = clampll(hi - 1, 0, n - 1);
+  if (i >= g.S * g.T) return;
+  const Bounds b = window_bounds(g, i);
+  const long long n = g.n;
+  const long long step = g.start_ms + g.step_ms * (i % g.T);
+  const int cnt = b.cnt;
+  const bool has = b.has;
+  const bool has2 = cnt >= 2 && b.sel_ok;
+  const long long fi = clampll(b.lo, 0, n - 1);
+  const long long li = clampll(b.hi - 1, 0, n - 1);
   const float fcount = has ? (float)cnt : 0.0f;
   if (mode == MODE_INSTANT) {
     o.count[i] = fcount;
@@ -267,34 +398,365 @@ __global__ void counter_window_kernel(
     o.delta_raw[i] = d_raw;
     return;
   }
-  // MODE_RATE: engine.py:1839 `_extrapolated`, operation for operation.
-  const double rng_ms = range_s * 1000.0;
-  const double ft = (double)ft_i;
-  const double lt = (double)lt_i;
-  const double range_end = (double)step;
-  const double range_start = range_end - rng_ms;
-  const double sampled = (lt - ft) / 1000.0;
-  const float cm1 = fcount - 1.0f;
-  const double avg_dur = sampled / (double)(cm1 > 1.0f ? cm1 : 1.0f);
-  double dur_to_start = (ft - range_start) / 1000.0;
-  double dur_to_end = (range_end - lt) / 1000.0;
-  const double threshold = avg_dur * 1.1;
-  if (dur_to_start >= threshold) dur_to_start = avg_dur / 2;
-  if (dur_to_end >= threshold) dur_to_end = avg_dur / 2;
-  const double d64 = (double)(counter ? d_adj : d_raw);
-  if (counter) {
-    const double fv64 = (double)fv;
-    const double dur_to_zero =
-        d64 > 0 ? sampled * (fv64 / (d64 > 1e-30 ? d64 : 1e-30)) : INFINITY;
-    if (isnan(dur_to_zero) || dur_to_zero < dur_to_start) {
-      dur_to_start = dur_to_zero;
+  o.rate[i] = extrapolated_rate(ft_i, lt_i, (double)step, fcount, fv, d_adj,
+                                d_raw, counter, is_rate, range_s);
+}
+
+// ---------------------------------------------------------------------------
+// window_stats, minmax_window, window_count_max, window_matrix
+// ---------------------------------------------------------------------------
+
+enum StatsKind {
+  KIND_GAUGE = 0, KIND_COUNTER_RC = 1, KIND_REGRESSION = 2, KIND_IRATE = 3
+};
+
+struct StatsOut {
+  float* count;
+  float* sum;
+  float* avg;
+  float* var;
+  float* last;
+  float* first;
+  long long* first_ts;
+  long long* last_ts;
+  float* resets;
+  float* changes;
+  float* slope;
+  float* intercept;
+  long long* prev_ts;
+  float* last_val;
+  float* prev_val;
+};
+
+__global__ void window_stats_kernel(Geometry g, const long long* ts_s,
+                                    const float* val_s, int kind,
+                                    StatsOut o) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= g.S * g.T) return;
+  const Bounds b = window_bounds(g, i);
+  const long long n = g.n;
+  const long long fi = clampll(b.lo, 0, n - 1);
+  const long long li = clampll(b.hi - 1, 0, n - 1);
+  const bool has = b.has;
+  const bool has2 = b.cnt >= 2 && b.sel_ok;
+  if (kind == KIND_IRATE) {
+    const long long pi = clampll(b.hi - 2, 0, n - 1);
+    o.last_ts[i] = has2 ? ts_s[li] : 0;
+    o.prev_ts[i] = has2 ? ts_s[pi] : 0;
+    o.last_val[i] = has2 ? val_s[li] : NAN;
+    o.prev_val[i] = has2 ? val_s[pi] : NAN;
+    return;
+  }
+  const float fcnt = (float)b.cnt;
+  o.count[i] = has ? fcnt : 0.0f;
+  if (kind == KIND_COUNTER_RC) {
+    int resets = 0, changes = 0;
+    if (has) {
+      float prev = val_s[b.lo];
+      for (long long j = b.lo + 1; j < b.hi; ++j) {
+        const float v = val_s[j];
+        resets += prev > v ? 1 : 0;
+        changes += prev != v ? 1 : 0;
+        prev = v;
+      }
+    }
+    o.resets[i] = has ? (float)resets : NAN;
+    o.changes[i] = has ? (float)changes : NAN;
+    return;
+  }
+  double sw = 0.0, s2 = 0.0, st = 0.0, stv = 0.0, st2 = 0.0;
+  if (has) {
+    const long long start_ms = g.start_ms;
+    for (long long j = b.lo; j < b.hi; ++j) {
+      const double v = (double)val_s[j];
+      sw += v;
+      if (kind == KIND_GAUGE) {
+        s2 += v * v;
+      } else {
+        const double tsec = (double)(ts_s[j] - start_ms) / 1000.0;
+        st += tsec;
+        stv += tsec * v;
+        st2 += tsec * tsec;
+      }
     }
   }
-  const double factor = (sampled + dur_to_start + dur_to_end) /
-                        (sampled > 1e-30 ? sampled : 1e-30);
-  double result = d64 * factor;
-  if (is_rate) result = result / range_s;
-  o.rate[i] = fcount >= 2.0f ? (float)result : NAN;
+  if (kind == KIND_GAUGE) {
+    const float s = (float)sw;
+    const double c = (double)(b.cnt > 1 ? b.cnt : 1);
+    const double mean = (double)s / c;
+    double var = fma(-mean, mean, s2 / c);
+    if (var < 0.0) var = 0.0;  // jnp.maximum(var, 0): NaN stays NaN
+    o.sum[i] = has ? s : NAN;
+    o.avg[i] = has ? s / (fcnt > 1.0f ? fcnt : 1.0f) : NAN;
+    o.var[i] = has ? (float)var : NAN;
+    o.last[i] = has ? val_s[li] : NAN;
+    o.first[i] = has ? val_s[fi] : NAN;
+    o.first_ts[i] = has ? ts_s[fi] : 0;
+    o.last_ts[i] = has ? ts_s[li] : 0;
+    return;
+  }
+  // KIND_REGRESSION
+  const double cn = (double)b.cnt;
+  const double denom = cn * st2 - st * st;
+  const double slope = denom != 0.0 ? (cn * stv - st * sw) / denom : NAN;
+  const double intercept = cn > 0.0 ? (sw - slope * st) / cn : NAN;
+  o.slope[i] = has2 ? (float)slope : NAN;
+  o.intercept[i] = has2 ? (float)intercept : NAN;
+  o.last_ts[i] = has ? ts_s[li] : 0;
+}
+
+__global__ void minmax_window_kernel(Geometry g, const float* val_s,
+                                     float* out_min, float* out_max) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= g.S * g.T) return;
+  const Bounds b = window_bounds(g, i);
+  float mn = INFINITY, mx = -INFINITY;
+  if (b.sel_ok) {
+    for (long long j = b.lo; j < b.hi; ++j) {
+      const float v = val_s[j];
+      mn = v < mn ? v : mn;
+      mx = v > mx ? v : mx;
+    }
+  }
+  out_min[i] = isfinite(mn) ? mn : NAN;
+  out_max[i] = isfinite(mx) ? mx : NAN;
+}
+
+__global__ void window_count_max_kernel(Geometry g, int* out) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  int c = 0;
+  if (i < g.S * g.T) {
+    const Bounds b = window_bounds(g, i);
+    c = b.sel_ok ? b.cnt : 0;
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    const int o = __shfl_down_sync(0xffffffffu, c, off);
+    c = o > c ? o : c;
+  }
+  if ((threadIdx.x & 31) == 0 && c > 0) atomicMax(out, c);
+}
+
+// The reference's q_of: rank = q * max(cnt - 1, 0) in f32, the two
+// straddling order statistics (indices clipped to [0, top]), linear
+// interpolation.  A NaN rank reads index 0; its result is NaN anyway.
+__device__ float q_of(const uint32_t* sorted, float q, int cnt, int top) {
+  const float rank = q * (float)(cnt - 1 > 0 ? cnt - 1 : 0);
+  int lo_r = 0, hi_r = 0;
+  if (!isnan(rank)) {
+    const float fl = floorf(rank), ce = ceilf(rank);
+    lo_r = fl <= 0.0f ? 0 : (fl >= (float)top ? top : (int)fl);
+    hi_r = ce <= 0.0f ? 0 : (ce >= (float)top ? top : (int)ce);
+  }
+  const float vlo = f32_of_key(sorted[lo_r]);
+  const float vhi = f32_of_key(sorted[hi_r]);
+  return vlo + (vhi - vlo) * (rank - (float)lo_r);
+}
+
+enum MatrixMode { MODE_QUANTILE = 0, MODE_MAD = 1, MODE_HOLT = 2 };
+
+// The window's samples as keys in buf[0, L), ascending, then quantile or
+// mad.  `load(j)` gives sample j's key (j < cnt); the rest are padding.
+template <typename Load>
+__device__ float sorted_reducer(uint32_t* buf, int L, int lane, int cnt,
+                                int mode, float q, int top, Load load) {
+  for (int j = lane; j < L; j += 32) buf[j] = load(j);
+  __syncwarp();
+  warp_bitonic_sort(buf, L, lane);
+  if (mode == MODE_QUANTILE) {
+    const float r = q_of(buf, q, cnt, top);
+    return q < 0.0f ? -INFINITY : (q > 1.0f ? INFINITY : r);
+  }
+  // mad: |x - median| over the same samples (the sorted buffer holds
+  // them), sorted again
+  const float med = q_of(buf, 0.5f, cnt, top);
+  __syncwarp();
+  for (int j = lane; j < cnt; j += 32) {
+    buf[j] = f32_sort_key(fabsf(f32_of_key(buf[j]) - med));
+  }
+  __syncwarp();
+  warp_bitonic_sort(buf, L, lane);
+  return q_of(buf, 0.5f, cnt, top);
+}
+
+// Each warp's sort buffer of L keys: in shared memory (scratch null), or
+// for windows wider than shared memory holds, its slot of the global
+// scratch (one slot per launched warp).
+__device__ __forceinline__ uint32_t* warp_buffer(uint32_t* smem,
+                                                 uint32_t* scratch,
+                                                 long long gwarp, int warp,
+                                                 int L) {
+  return scratch != nullptr ? scratch + gwarp * (long long)L
+                            : smem + (size_t)warp * L;
+}
+
+// Warps stride over groups of 32 consecutive windows of the sort layout's
+// grid: lane i finds the bounds of window w0 + i (32 binary searches in
+// flight at once), then the warp sorts the windows one after another; for
+// holt each lane scans its own window.  `lmax` is the reference's padded
+// width: the rank clip and the Holt scan follow it.
+__global__ void window_matrix_kernel(Geometry g, const float* val_s, int lmax,
+                                     int mode, const float* a1,
+                                     const float* a2, uint32_t* scratch,
+                                     float* out) {
+  extern __shared__ uint32_t smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long W = g.S * g.T;
+  const long long n = g.n;
+  const long long gwarp = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+  const long long nwarps = (long long)gridDim.x * (blockDim.x >> 5);
+  uint32_t* buf = warp_buffer(smem, scratch, gwarp, warp, lmax);
+  for (long long w0 = gwarp * 32; w0 < W; w0 += nwarps * 32) {  // warp-uniform
+    const long long mine = w0 + lane;
+    Bounds b{0, 0, 0, false, false};
+    if (mine < W) b = window_bounds(g, mine);
+    if (mode == MODE_HOLT) {
+      if (mine >= W) continue;
+      const long long t = mine % g.T;
+      const float sf = a1[t], tf = a2[t];
+      float s = val_s[clampll(b.lo, 0, n - 1)];
+      float bb = val_s[clampll(b.lo + 1, 0, n - 1)] - s;
+      for (int i = 1; i < b.cnt && i < lmax; ++i) {
+        const float x = val_s[b.lo + i];
+        const float s1 = fmaf(sf, x, (1.0f - sf) * (s + bb));
+        const float b1 = fmaf(1.0f - tf, bb, tf * (s1 - s));
+        s = s1;
+        bb = b1;
+      }
+      const bool param_ok = sf > 0.0f && sf < 1.0f && tf > 0.0f && tf < 1.0f;
+      const float res = b.cnt >= 2 && param_ok ? s : NAN;
+      out[mine] = b.cnt > 0 && b.has ? res : NAN;
+      continue;
+    }
+    const int count = W - w0 < 32 ? (int)(W - w0) : 32;
+    for (int i = 0; i < count; ++i) {
+      const long long lo = __shfl_sync(0xffffffffu, b.lo, i);
+      const int cnt = __shfl_sync(0xffffffffu, b.cnt, i);
+      const int has = __shfl_sync(0xffffffffu, b.has ? 1 : 0, i);
+      const long long w = w0 + i;
+      const float res = sorted_reducer(
+          buf, lmax, lane, cnt, mode, a1[w % g.T], lmax - 1, [&](int j) {
+            return j < cnt ? f32_sort_key(val_s[lo + j]) : kPadKey;
+          });
+      if (lane == 0) out[w] = cnt > 0 && has ? res : NAN;
+      __syncwarp();  // every lane is done with buf before the next window
+    }
+  }
+}
+
+// Warps stride over the windows of a subquery's [S*T, K] window matrix (NaN
+// = not a sample), one window at a time; buffer width L (a power of two
+// >= K).
+__global__ void window_matrix_dense_kernel(const float* win, long long W,
+                                           long long K, long long T, int L,
+                                           int mode, const float* a1,
+                                           uint32_t* scratch, float* out) {
+  extern __shared__ uint32_t smem[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long gwarp = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
+  const long long nwarps = (long long)gridDim.x * (blockDim.x >> 5);
+  uint32_t* buf = warp_buffer(smem, scratch, gwarp, warp, L);
+  for (long long w = gwarp; w < W; w += nwarps) {  // warp-uniform
+    const float* x = win + w * K;
+    int cnt = 0;
+    for (long long k = lane; k < K; k += 32) cnt += isnan(x[k]) ? 0 : 1;
+    for (int off = 16; off > 0; off >>= 1) {
+      cnt += __shfl_xor_sync(0xffffffffu, cnt, off);
+    }
+    // absent entries sort last: as +inf in the reference, only ranks below
+    // cnt are read for q in [0, 1]
+    const float res = sorted_reducer(
+        buf, L, lane, cnt, mode, a1[w % T], (int)K - 1, [&](int j) {
+          const float v = j < K ? x[j] : NAN;
+          return isnan(v) ? kPadKey : f32_sort_key(v);
+        });
+    if (lane == 0) out[w] = cnt > 0 ? res : NAN;
+    __syncwarp();  // every lane is done with buf before the next window
+  }
+}
+
+// Launch shape of the two sorting kernels: with no scratch, blocks of up to
+// 8 warps whose buffers fit 48 KB of shared memory (one warp past that,
+// with the opt-in attribute set), enough blocks for every task once; with a
+// global scratch, one warp per block and one block per scratch slot.
+struct MatrixLaunch {
+  unsigned blocks;
+  int threads;
+  size_t smem;
+};
+
+MatrixLaunch matrix_launch(long long tasks, int L, int scratch_warps) {
+  if (scratch_warps > 0) return {(unsigned)scratch_warps, 32, 0};
+  const long long per = (long long)L * 4;
+  const long long fit = 49152 / (per > 0 ? per : 1);
+  const int warps = fit >= 8 ? 8 : (fit >= 1 ? (int)fit : 1);
+  return {(unsigned)((tasks + warps - 1) / warps), warps * 32,
+          (size_t)warps * (size_t)L * 4};
+}
+
+template <typename Kernel>
+int opt_in_smem(Kernel k, size_t bytes) {
+  if (bytes <= 49152) return 0;
+  return (int)cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// ---------------------------------------------------------------------------
+// subquery_counter
+// ---------------------------------------------------------------------------
+
+enum SubqueryMode { SUBQ_RATE = 0, SUBQ_PAIR = 1 };
+
+// One thread per window w = s * T + t of a subquery's [S*T, K] window
+// matrix (NaN = not a sample; sample k of step t was taken at ts_tk[t, k]):
+// one pass in window order counts the samples, finds the first, last and
+// second-to-last, and sums the counter-reset drops (the fori_loop of
+// engine.py:1342-1354, a sequential f32 sum).  Indices clip as the
+// reference's take_along_axis gathers clip them.  SUBQ_RATE then finishes
+// rate/increase/delta with extrapolated_rate against the step's end
+// steps[t]; SUBQ_PAIR writes the last two samples for irate/idelta.
+__global__ void subquery_counter_kernel(
+    const float* win, long long W, long long K, long long T,
+    const long long* ts_tk, const long long* steps, int mode, int counter,
+    int is_rate, double range_s, float* rate, float* count,
+    long long* last_ts, long long* prev_ts, float* last_val,
+    float* prev_val) {
+  const long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= W) return;
+  const long long t = w % T;
+  const float* x = win + w * K;
+  const long long* ts = ts_tk + t * K;
+  int cnt = 0;
+  long long first_k = K, last_k = -1, prev_k = -1;
+  float prev = 0.0f, drops = 0.0f;
+  for (long long k = 0; k < K; ++k) {
+    const float v = x[k];
+    if (isnan(v)) continue;
+    if (cnt > 0 && prev > v) drops = drops + prev;
+    prev = v;
+    if (cnt == 0) first_k = k;
+    prev_k = last_k;
+    last_k = k;
+    ++cnt;
+  }
+  const long long fk = clampll(first_k, 0, K - 1);
+  const long long lk = clampll(last_k, 0, K - 1);
+  const float fcount = (float)cnt;
+  if (mode == SUBQ_PAIR) {
+    const long long pk = clampll(prev_k, 0, K - 1);
+    count[w] = fcount;
+    last_ts[w] = ts[lk];
+    prev_ts[w] = ts[pk];
+    last_val[w] = x[lk];
+    prev_val[w] = x[pk];
+    return;
+  }
+  const float fv = x[fk];
+  const float d_raw = x[lk] - fv;
+  const float d_adj = d_raw + drops;
+  rate[w] = extrapolated_rate(ts[fk], ts[lk], (double)steps[t], fcount, fv,
+                              d_adj, d_raw, counter, is_rate, range_s);
 }
 
 }  // namespace
@@ -363,12 +825,110 @@ int gt_counter_window(const long long* key_s, const long long* ts_s,
   if (total <= 0 || n <= 0) return (int)cudaGetLastError();
   WindowOut o{count, first_ts, last_ts, first_val, last_val,
               delta_adj, delta_raw, last, rate};
+  Geometry g{key_s, n, ts_min, kp, sel, S, T, start_ms, step_ms, range_ms};
   counter_window_kernel<<<blocks_for(total), kThreads, 0,
-                                  (cudaStream_t)stream>>>(
-      key_s, ts_s, val_s, gdrop, n, ts_min, kp, sel, S, T, start_ms, step_ms,
-      range_ms, mode, counter, is_rate, range_s, o);
+                          (cudaStream_t)stream>>>(
+      g, ts_s, val_s, gdrop, mode, counter, is_rate, range_s, o);
   if (int e = last_error()) return e;
   return 0;
+}
+
+int gt_window_stats(const long long* key_s, const long long* ts_s,
+                    const float* val_s, long long n, const long long* ts_min,
+                    const long long* kp, const int32_t* sel, long long S,
+                    long long T, long long start_ms, long long step_ms,
+                    long long range_ms, int kind, float* count, float* sum,
+                    float* avg, float* var, float* last, float* first,
+                    long long* first_ts, long long* last_ts, float* resets,
+                    float* changes, float* slope, float* intercept,
+                    long long* prev_ts, float* last_val, float* prev_val,
+                    void* stream) {
+  const long long total = S * T;
+  if (total <= 0 || n <= 0) return (int)cudaGetLastError();
+  Geometry g{key_s, n, ts_min, kp, sel, S, T, start_ms, step_ms, range_ms};
+  StatsOut o{count, sum, avg, var, last, first, first_ts, last_ts, resets,
+             changes, slope, intercept, prev_ts, last_val, prev_val};
+  window_stats_kernel<<<blocks_for(total), kThreads, 0,
+                        (cudaStream_t)stream>>>(g, ts_s, val_s, kind, o);
+  return last_error();
+}
+
+int gt_minmax_window(const long long* key_s, const float* val_s, long long n,
+                     const long long* ts_min, const long long* kp,
+                     const int32_t* sel, long long S, long long T,
+                     long long start_ms, long long step_ms,
+                     long long range_ms, float* out_min, float* out_max,
+                     void* stream) {
+  const long long total = S * T;
+  if (total <= 0 || n <= 0) return (int)cudaGetLastError();
+  Geometry g{key_s, n, ts_min, kp, sel, S, T, start_ms, step_ms, range_ms};
+  minmax_window_kernel<<<blocks_for(total), kThreads, 0,
+                         (cudaStream_t)stream>>>(g, val_s, out_min, out_max);
+  return last_error();
+}
+
+int gt_window_count_max(const long long* key_s, long long n,
+                        const long long* ts_min, const long long* kp,
+                        const int32_t* sel, long long S, long long T,
+                        long long start_ms, long long step_ms,
+                        long long range_ms, int* out, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (int e = (int)cudaMemsetAsync(out, 0, sizeof(int), st)) return e;
+  const long long total = S * T;
+  if (total <= 0 || n <= 0) return (int)cudaGetLastError();
+  Geometry g{key_s, n, ts_min, kp, sel, S, T, start_ms, step_ms, range_ms};
+  window_count_max_kernel<<<blocks_for(total), kThreads, 0, st>>>(g, out);
+  return last_error();
+}
+
+int gt_window_matrix(const long long* key_s, const float* val_s, long long n,
+                     const long long* ts_min, const long long* kp,
+                     const int32_t* sel, long long S, long long T,
+                     long long start_ms, long long step_ms,
+                     long long range_ms, int lmax, int mode, const float* a1,
+                     const float* a2, uint32_t* scratch, int scratch_warps,
+                     float* out, void* stream) {
+  const long long total = S * T;
+  if (total <= 0 || n <= 0) return (int)cudaGetLastError();
+  Geometry g{key_s, n, ts_min, kp, sel, S, T, start_ms, step_ms, range_ms};
+  // holt keeps no buffer; the sorts take 32 windows per warp
+  const long long groups = (total + 31) / 32;
+  MatrixLaunch l = mode == MODE_HOLT ? MatrixLaunch{
+      (unsigned)((groups + 7) / 8), 256, 0}
+      : matrix_launch(groups, lmax, scratch_warps);
+  if (mode == MODE_HOLT) scratch = nullptr;
+  if (int e = opt_in_smem(window_matrix_kernel, l.smem)) return e;
+  window_matrix_kernel<<<l.blocks, l.threads, l.smem,
+                         (cudaStream_t)stream>>>(g, val_s, lmax, mode, a1, a2,
+                                                 scratch, out);
+  return last_error();
+}
+
+int gt_window_matrix_dense(const float* win, long long W, long long K,
+                           long long T, int L, int mode, const float* a1,
+                           uint32_t* scratch, int scratch_warps, float* out,
+                           void* stream) {
+  if (W <= 0) return (int)cudaGetLastError();
+  const MatrixLaunch l = matrix_launch(W, L, scratch_warps);
+  if (int e = opt_in_smem(window_matrix_dense_kernel, l.smem)) return e;
+  window_matrix_dense_kernel<<<l.blocks, l.threads, l.smem,
+                               (cudaStream_t)stream>>>(win, W, K, T, L, mode,
+                                                       a1, scratch, out);
+  return last_error();
+}
+
+int gt_subquery_counter(const float* win, long long W, long long K,
+                        long long T, const long long* ts_tk,
+                        const long long* steps, int mode, int counter,
+                        int is_rate, double range_s, float* rate,
+                        float* count, long long* last_ts, long long* prev_ts,
+                        float* last_val, float* prev_val, void* stream) {
+  if (W <= 0 || K <= 0) return (int)cudaGetLastError();
+  subquery_counter_kernel<<<blocks_for(W), kThreads, 0,
+                            (cudaStream_t)stream>>>(
+      win, W, K, T, ts_tk, steps, mode, counter, is_rate, range_s, rate,
+      count, last_ts, prev_ts, last_val, prev_val);
+  return last_error();
 }
 
 }  // extern "C"

@@ -17,10 +17,16 @@
 // radix_pass: one stable one-bit split of (key, row index) pairs: a "bit is
 // zero" scan, then a scatter (dst = zero ? zeros_before : total_zeros +
 // ones_before).  Keys are 64-bit patterns; the shift selects the bit.
+//
+// f32_key / f32_sort_key / warp_bitonic_sort: the order-preserving 32-bit
+// keys of floats and the warp-wide bitonic sort that window_matrix (promql)
+// and segment_select (segment) sort windows and groups with, and that the
+// f32 min/max reductions of segment_reduce compare by.
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -181,6 +187,50 @@ int radix_pass(const long long* key_in, const int32_t* idx_in, long long n,
   radix_scatter_kernel<<<blocks_for(n), kThreads, 0, st>>>(
       key_in, idx_in, zeros, n, shift, key_out, idx_out);
   return last_error();
+}
+
+// Order-preserving 32-bit key of a float: negative values flip every bit,
+// the rest set the sign bit, so -0.0 orders below +0.0 and -inf / +inf sit
+// at the ends.  f32_of_key inverts it.
+__device__ __forceinline__ uint32_t f32_key(float f) {
+  const uint32_t u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float f32_of_key(uint32_t k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// The sort key: f32_key with every NaN made the canonical positive NaN, so
+// NaN orders above +inf (last, as lax.sort puts it).  kPadKey orders above
+// every sort key.
+constexpr uint32_t kPadKey = 0xffffffffu;
+
+__device__ __forceinline__ uint32_t f32_sort_key(float x) {
+  return f32_key(isnan(x) ? __uint_as_float(0x7fc00000u) : x);
+}
+
+// Ascending bitonic sort of buf[0, L) (L a power of two; shared or global
+// memory) by one warp; every stage ends with __syncwarp, so each lane sees
+// the others' writes and the caller sees the sorted buffer.
+__device__ void warp_bitonic_sort(uint32_t* buf, int L, int lane) {
+  for (int k = 2; k <= L; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = lane; i < L; i += 32) {
+        const int p = i ^ j;
+        if (p > i) {
+          const uint32_t x = buf[i];
+          const uint32_t y = buf[p];
+          const bool up = (i & k) == 0;
+          if (up ? x > y : x < y) {
+            buf[i] = y;
+            buf[p] = x;
+          }
+        }
+      }
+      __syncwarp();
+    }
+  }
 }
 
 }  // namespace

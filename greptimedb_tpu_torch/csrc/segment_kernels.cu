@@ -86,6 +86,31 @@
 //   span all 2^64 values the wrapper instead runs 64 passes and then one
 //   pass on the invalid flag.  Bound: bytes; each pass moves ~44 B/row
 //   against the one-pass bound of 8 B in + 4 B out per row.
+//
+// segment_select
+//   Replaces K12's sorts: the two-key lax.sort of (group id, value) per
+//   step column in the PromQL aggregations quantile (engine.py:1601-1624)
+//   and topk/bottomk (:1625-1651; for ng == 1 a full column sort).  Given
+//   group-contiguous rows (row_order, offsets) of a [S, T] f32 matrix it
+//   returns, per (rank set r, group g, step t), the value at rank
+//   ranks[r, g, t] of the group's column in ascending order, NaN last and
+//   -0.0 below +0.0 (the keys are the bits of the value, so the result is
+//   the value itself, bit for bit).  Only order statistics are read, so no
+//   column is sorted in full:
+//   - groups of up to kSelSmall rows: one warp per (group, step) sorts the
+//     group's keys in shared memory (bitonic, padded to a power of two)
+//     and reads every rank set;
+//   - larger groups (up to ng == 1 over 2^20 series): a radix select per
+//     (rank set, group, step) over the sign-flipped 32-bit keys, 8 bits per
+//     pass: a histogram of the keys that match the digits chosen so far
+//     (many blocks per task, shared-memory bins, one atomicAdd per bin and
+//     block), then one thread per task walks its 256 bins to the digit
+//     that holds the rank.  Four passes fix the key.  The wrapper hands
+//     the large groups' columns over as one [T, rows] slab, so each pass
+//     reads them contiguously.
+//   Bound: bytes.  The small path reads each group's column once (row ids
+//   and values) and writes R values per (group, step); the large path
+//   reads the slab 4 x R times, against a one-read bound.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -124,13 +149,6 @@ Cols<T> make_cols(const void* const* ptrs, int C, long long ld) {
   return cols;
 }
 
-__device__ __forceinline__ unsigned int f2key(float f) {
-  const unsigned int u = __float_as_uint(f);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-__device__ __forceinline__ float key2f(unsigned int k) {
-  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
-}
 __device__ __forceinline__ unsigned long long d2key(double f) {
   const unsigned long long u = (unsigned long long)__double_as_longlong(f);
   return (u & 0x8000000000000000ull) ? ~u : (u | 0x8000000000000000ull);
@@ -183,9 +201,9 @@ struct RedKeyF {
   using Acc = unsigned int;
   static constexpr bool kKeyed = true;
   __device__ static Acc identity() {
-    return f2key(OP == OP_MIN ? INFINITY : -INFINITY);
+    return f32_key(OP == OP_MIN ? INFINITY : -INFINITY);
   }
-  __device__ static Acc lift(float v) { return f2key(v); }
+  __device__ static Acc lift(float v) { return f32_key(v); }
   __device__ static Acc combine(Acc a, Acc b) {
     return OP == OP_MIN ? (a < b ? a : b) : (a > b ? a : b);
   }
@@ -253,7 +271,7 @@ __global__ void seg_decode_kernel(typename Red<T, OP>::Acc* acc, int ns,
   const long long s = k / C, c = k - s * C;
   const long long at = s * ldo + c;
   if constexpr (sizeof(typename Red<T, OP>::Acc) == 4) {
-    reinterpret_cast<float*>(acc)[at] = key2f((unsigned int)acc[at]);
+    reinterpret_cast<float*>(acc)[at] = f32_of_key((unsigned int)acc[at]);
   } else {
     reinterpret_cast<double*>(acc)[at] =
         key2d((unsigned long long)acc[at]);
@@ -789,9 +807,163 @@ __global__ void argsort_key_kernel(const long long* __restrict__ key,
   idx[i] = (int32_t)i;
 }
 
+// ---------------------------------------------------------------------------
+// segment_select
+// ---------------------------------------------------------------------------
+
+constexpr int kSelSmall = 1024;   // largest group the warp sort takes
+constexpr int kSelWarps = 8;
+constexpr int kSelBins = 256;
+
+// values [S, T]; groups: the small groups' ids; ranks / out [R, ng, T].
+__global__ void select_small_kernel(const float* values, long long T,
+                                    const int32_t* row_order,
+                                    const long long* offsets,
+                                    const int32_t* groups, long long n_groups,
+                                    const int32_t* ranks, int R, long long ng,
+                                    float* out) {
+  __shared__ uint32_t sm[kSelWarps][kSelSmall];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long long task = (long long)blockIdx.x * kSelWarps + warp;
+  if (task >= n_groups * T) return;  // warp-uniform
+  const long long gi = task / T;
+  const long long t = task - gi * T;
+  const long long g = groups[gi];
+  const long long off = offsets[g];
+  const int size = (int)(offsets[g + 1] - off);
+  int P = 1;
+  while (P < size) P <<= 1;
+  uint32_t* buf = sm[warp];
+  for (int j = lane; j < P; j += 32) {
+    buf[j] = j < size
+                 ? f32_sort_key(values[(long long)row_order[off + j] * T + t])
+                 : kPadKey;
+  }
+  __syncwarp();
+  warp_bitonic_sort(buf, P, lane);
+  if (lane < R) {
+    const long long o = ((long long)lane * ng + g) * T + t;
+    int r = ranks[o];
+    r = r < 0 ? 0 : (r >= size ? size - 1 : r);
+    out[o] = size > 0 ? f32_of_key(buf[r]) : NAN;
+  }
+}
+
+// Task q = (r * n_large + l) * T + t selects in row t of the slab, columns
+// [lbase[l], lbase[l] + lsize[l]).  Block b takes chunk b % nchunks of
+// task b / nchunks.
+__global__ void select_hist_kernel(const float* slab, long long width,
+                                   const long long* lbase,
+                                   const long long* lsize, long long n_large,
+                                   long long T, const unsigned int* prefix,
+                                   int shift, long long chunk,
+                                   long long nchunks, unsigned int* hist) {
+  __shared__ unsigned int bins[kSelBins];
+  const long long q = (long long)blockIdx.x / nchunks;
+  const long long c = (long long)blockIdx.x - q * nchunks;
+  const long long lt = q % (n_large * T);
+  const long long l = lt / T;
+  const long long t = lt - l * T;
+  const long long size = lsize[l];
+  const long long begin = c * chunk;
+  if (begin >= size) return;  // block-uniform
+  const long long end = begin + chunk < size ? begin + chunk : size;
+  for (int b = threadIdx.x; b < kSelBins; b += blockDim.x) bins[b] = 0;
+  __syncthreads();
+  const unsigned int want = prefix[q];
+  const unsigned int above =
+      shift + 8 >= 32 ? 0u : (0xffffffffu << (shift + 8));
+  const float* row = slab + t * width + lbase[l];
+  for (long long i = begin + threadIdx.x; i < end; i += blockDim.x) {
+    const unsigned int k = f32_sort_key(row[i]);
+    if ((k & above) == (want & above)) {
+      atomicAdd(&bins[(k >> shift) & 0xffu], 1u);
+    }
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b < kSelBins; b += blockDim.x) {
+    if (bins[b] != 0) atomicAdd(&hist[q * kSelBins + b], bins[b]);
+  }
+}
+
+// One thread per task: the digit holding the remaining rank; clears the
+// task's bins for the next pass; the last pass writes the value.
+__global__ void select_pick_kernel(unsigned int* hist, unsigned int* prefix,
+                                   int32_t* want, long long tasks,
+                                   long long n_large, long long T,
+                                   const int32_t* large_groups, long long ng,
+                                   int shift, float* out) {
+  const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= tasks) return;
+  unsigned int* h = hist + q * kSelBins;
+  const unsigned int w = (unsigned int)want[q];
+  unsigned int cum = 0;
+  int digit = kSelBins - 1;
+  for (int d = 0; d < kSelBins; ++d) {
+    const unsigned int c = h[d];
+    if (cum + c > w) {
+      digit = d;
+      break;
+    }
+    cum += c;
+  }
+  for (int d = 0; d < kSelBins; ++d) h[d] = 0;
+  const unsigned int key = prefix[q] | ((unsigned int)digit << shift);
+  prefix[q] = key;
+  want[q] = (int32_t)(w - cum);
+  if (shift == 0) {
+    const long long r = q / (n_large * T);
+    const long long lt = q - r * n_large * T;
+    const long long l = lt / T;
+    const long long t = lt - l * T;
+    out[(r * ng + large_groups[l]) * T + t] = f32_of_key(key);
+  }
+}
+
 }  // namespace
 
 extern "C" {
+
+// values [S, T] f32; row_order [S]; offsets [ng + 1]; ranks / out
+// [R, ng, T].  Small groups: small_groups [n_small].  Large groups:
+// large_groups / lbase / lsize [n_large], slab [T, width] (their columns),
+// scratch prefix / want [R * n_large * T] (prefix zeroed, want = the
+// clamped ranks) and hist [R * n_large * T, 256] zeroed.
+int gt_segment_select(const float* values, long long T,
+                      const int32_t* row_order, const long long* offsets,
+                      long long ng, const int32_t* ranks, int R,
+                      const int32_t* small_groups, long long n_small,
+                      const int32_t* large_groups, const long long* lbase,
+                      const long long* lsize, long long n_large,
+                      long long max_large, const float* slab,
+                      long long width, unsigned int* prefix, int32_t* want,
+                      unsigned int* hist, float* out, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n_small > 0 && T > 0) {
+    const long long tasks = n_small * T;
+    select_small_kernel<<<(unsigned)((tasks + kSelWarps - 1) / kSelWarps),
+                          kSelWarps * 32, 0, st>>>(
+        values, T, row_order, offsets, small_groups, n_small, ranks, R, ng,
+        out);
+    if (int e = last_error()) return e;
+  }
+  if (n_large > 0 && T > 0) {
+    const long long tasks = (long long)R * n_large * T;
+    const long long chunk = 16384;
+    const long long nchunks = (max_large + chunk - 1) / chunk;
+    for (int shift = 24; shift >= 0; shift -= 8) {
+      select_hist_kernel<<<(unsigned)(tasks * nchunks), kThreads, 0, st>>>(
+          slab, width, lbase, lsize, n_large, T, prefix, shift, chunk,
+          nchunks, hist);
+      if (int e = last_error()) return e;
+      select_pick_kernel<<<blocks_for(tasks), kThreads, 0, st>>>(
+          hist, prefix, want, tasks, n_large, T, large_groups, ng, shift, out);
+      if (int e = last_error()) return e;
+    }
+  }
+  return 0;
+}
 
 // cols: a host array of C (1..16) column pointers, element (i, c) at
 // cols[c][i * ld] (null: counts only); out: [ns, ldo] of the value type

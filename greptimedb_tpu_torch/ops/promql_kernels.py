@@ -15,6 +15,20 @@ incremented only where it launches its kernel.
 - ``counter_window`` replaces K9's searchsorted geometry
   (``engine.py:288``), K10's ``counter``/``instant`` kinds (``:383``) and,
   in rate mode, the ``_extrapolated`` epilogue (``:1839``) of K11.
+- ``window_stats`` replaces K10's other kinds (``gauge_window``,
+  ``counter_rc``, ``regression``, ``irate``; ``engine.py:455-499``): it
+  sums each window directly in f64 where the reference differences
+  full-table f64 prefix sums.
+- ``minmax_window`` replaces K13, the ``minmax`` kind's ``fori_loop`` of
+  scatter-min/max passes (``engine.py:500-535``).
+- ``window_count_max`` and ``window_matrix`` replace K14,
+  ``_count_max_kernel`` (``engine.py:541``) and ``_matrix_kernel``
+  (``:555``: per-window sorts for quantile/mad, the Holt scan).
+- ``window_matrix_dense`` runs the same sorts over a subquery's ``[S, T,
+  K]`` window matrix: the quantile/mad reducers of
+  ``_eval_subquery_window`` (``:1415-1437``).
+- ``subquery_counter`` replaces ``_eval_subquery_counter`` (``:1309-1363``:
+  the first/last gathers, the counter-drop loop and ``_extrapolated``).
 
 Bounds and design notes live in the CUDA source.  Its library builds with
 ``-fmad=false`` (see ``csrc/promql_kernels.cu``).
@@ -44,7 +58,23 @@ KIND_KEYS = {
     "instant": ("count", "last", "last_ts"),
     "counter": ("count", "first_ts", "last_ts", "first_val", "last_val",
                 "delta_adj", "delta_raw"),
+    "counter_rc": ("count", "resets", "changes"),
+    "gauge_window": ("count", "sum", "avg", "var", "last", "first",
+                     "first_ts", "last_ts"),
+    "regression": ("count", "slope", "intercept", "last_ts"),
+    "irate": ("last_ts", "prev_ts", "last_val", "prev_val"),
+    "minmax": ("min", "max"),
 }
+# window_stats kinds (csrc StatsKind) and window_matrix modes (MatrixMode)
+_STATS_KINDS = {"gauge_window": 0, "counter_rc": 1, "regression": 2,
+                "irate": 3}
+_MATRIX_MODES = {"quantile": 0, "mad": 1, "holt": 2}
+# subquery_counter modes (csrc SubqueryMode)
+_SUBQ_MODES = {"rate": 0, "pair": 1}
+# widest window (keys, a power of two) a warp sorts in shared memory; wider
+# windows sort in a global scratch of at most _SCRATCH_BYTES
+SMEM_WIDTH = 1 << 14
+_SCRATCH_BYTES = 1 << 28
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -73,6 +103,18 @@ def _load():
                                  vp, vp],
             "gt_counter_window": [vp, vp, vp, vp, ll, vp, vp, vp, ll, ll, ll,
                                   ll, ll, i, i, i, d] + [vp] * 10,
+            "gt_window_stats": [vp, vp, vp, ll, vp, vp, vp, ll, ll, ll, ll,
+                                ll, i] + [vp] * 16,
+            "gt_minmax_window": [vp, vp, ll, vp, vp, vp, ll, ll, ll, ll, ll,
+                                 vp, vp, vp],
+            "gt_window_count_max": [vp, ll, vp, vp, vp, ll, ll, ll, ll, ll,
+                                    vp, vp],
+            "gt_window_matrix": [vp, vp, ll, vp, vp, vp, ll, ll, ll, ll, ll,
+                                 i, i, vp, vp, vp, i, vp, vp],
+            "gt_window_matrix_dense": [vp, ll, ll, ll, i, i, vp, vp, i, vp,
+                                       vp],
+            "gt_subquery_counter": [vp, ll, ll, ll, vp, vp, i, i, i, d]
+            + [vp] * 7,
         }
         for name, args in sigs.items():
             fn = getattr(lib, name)
@@ -248,7 +290,7 @@ def window_bounds_plain(key_s, ts_min, kp, sel, start_ms: int, step_ms: int,
     return lo, hi, cnt, has, sel_ok
 
 
-def window_stats_plain(kind, key_s, ts_s, val_s, gdrop, ts_min, kp, sel,
+def counter_stats_plain(kind, key_s, ts_s, val_s, gdrop, ts_min, kp, sel,
                        start_ms, step_ms, num_steps, range_ms) -> dict:
     """The reference's window body (engine.py:401-454) for the
     ``instant`` and ``counter`` kinds: ``[S, T]`` outputs of KIND_KEYS."""
@@ -317,8 +359,8 @@ def counter_window_plain(layout, gdrop, sel, start_ms, *, step_ms,
                          num_steps, range_ms, kind, func=None, range_s=None):
     key_s, ts_s, val_s, _tsid_s, _valid_s, ts_min, kp = layout
     stats_kind = "counter" if kind == "rate" else kind
-    out = window_stats_plain(stats_kind, key_s, ts_s, val_s, gdrop, ts_min,
-                             kp, sel, start_ms, step_ms, num_steps, range_ms)
+    out = counter_stats_plain(stats_kind, key_s, ts_s, val_s, gdrop, ts_min,
+                              kp, sel, start_ms, step_ms, num_steps, range_ms)
     if kind != "rate":
         return out
     range_end = start_ms + step_ms * torch.arange(
@@ -390,7 +432,583 @@ def counter_window(layout, gdrop, sel, start_ms: int, *, step_ms: int,
 counter_window.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# window_stats: K10's gauge_window, counter_rc, regression and irate kinds
+# ---------------------------------------------------------------------------
+
+def _layout_inputs(what, layout, sel):
+    """Validated ``(key_s, ts_s, val_s, sel, ts_min, kp)`` of a sort
+    layout and a padded selection."""
+    key_s, ts_s, val_s, _tsid_s, _valid_s, ts_min, kp = layout
+    n = key_s.shape[0]
+    key_s = _flat(what, key_s, torch.int64)
+    ts_s = _flat(what, ts_s, torch.int64, n)
+    val_s = _flat(what, val_s, torch.float32, n)
+    sel = _flat(what, sel, torch.int32)
+    if ts_min.dtype != torch.int64 or kp.dtype != torch.int64:
+        raise ValueError(f"{what}: ts_min/kp must be int64")
+    return key_s, ts_s, val_s, sel, ts_min, kp
+
+
+def _blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sums in the association XLA's CPU backend gives
+    ``jnp.cumsum``: sequential within blocks of 16, the block totals
+    scanned the same way and added.  Window sums are differences of these
+    prefixes, so where a window's terms cancel (few samples, near-constant
+    values) the association shows; this one repeats the reference's."""
+    n = x.shape[0]
+    if n <= 16:
+        return torch.cumsum(x, 0)
+    nb = -(-n // 16)
+    loc = torch.cumsum(torch.cat([x, x.new_zeros(nb * 16 - n)]).reshape(
+        nb, 16), 1)
+    pre = _blocked_cumsum(loc[:, -1])
+    pre = torch.cat([pre.new_zeros(1), pre[:-1]])
+    return (loc + pre[:, None]).reshape(-1)[:n]
+
+
+def fma64(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` rounded once, in f64 (Dekker's exact product and
+    Knuth's exact sum): the fused multiply-add that XLA's CPU backend
+    contracts the reference's ``q - mean * mean`` into, which decides the
+    result where the terms cancel."""
+    p = a * b
+    split = 134217729.0  # 2^27 + 1
+    ta, tb = a * split, b * split
+    ah, bh = ta - (ta - a), tb - (tb - b)
+    al, bl = a - ah, b - bh
+    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    s = p + c
+    bb = s - p
+    t = (p - (s - bb)) + (c - bb)
+    return s + (t + e)
+
+
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` on f32 values with one rounding to f32 (the f32
+    product is exact in f64): the contraction XLA's CPU backend applies to
+    the reference's f32 recurrences."""
+    return (a.to(torch.float64) * b.to(torch.float64)
+            + c.to(torch.float64)).to(torch.float32)
+
+
+def _cs(x: torch.Tensor) -> torch.Tensor:
+    """The reference's ``cs`` (engine.py:416): f64 prefix sums with a
+    leading zero."""
+    return torch.cat([torch.zeros(1, dtype=torch.float64, device=x.device),
+                      _blocked_cumsum(x.to(torch.float64))])
+
+
+def window_stats_plain(kind, layout, sel, start_ms, *, step_ms, num_steps,
+                       range_ms) -> dict:
+    """The reference's window body (engine.py:401-499) for the
+    ``gauge_window``, ``counter_rc``, ``regression`` and ``irate`` kinds,
+    by its full-table f64 prefix-sum differences."""
+    key_s, ts_s, val_s, tsid_s, valid_s, ts_min, kp = layout
+    n = key_s.shape[0]
+    lo, hi, cnt, has, sel_ok = window_bounds_plain(
+        key_s, ts_min, kp, sel, start_ms, step_ms, num_steps, range_ms)
+    has2 = (cnt >= 2) & sel_ok[:, None]
+    first_i = torch.clamp(lo, 0, n - 1)
+    last_i = torch.clamp(hi - 1, 0, n - 1)
+    fcnt = cnt.to(torch.float32)
+    nan = float("nan")
+    if kind == "irate":
+        prev_i = torch.clamp(hi - 2, 0, n - 1)
+        return {"last_ts": torch.where(has2, ts_s[last_i], 0),
+                "prev_ts": torch.where(has2, ts_s[prev_i], 0),
+                "last_val": torch.where(has2, val_s[last_i], nan),
+                "prev_val": torch.where(has2, val_s[prev_i], nan)}
+    out = {"count": torch.where(has, fcnt, 0.0)}
+    if kind == "counter_rc":
+        # indicator i compares rows i-1 and i: the window's pairs are
+        # lo+1 .. hi-1, so the pair crossing into the window is left out
+        prev_same = torch.zeros_like(valid_s)
+        prev_same[1:] = ((tsid_s[1:] == tsid_s[:-1]) & valid_s[1:]
+                         & valid_s[:-1])
+        prev_val = torch.cat([val_s[:1] * 0, val_s[:-1]])
+        cs_r = _cs(prev_same & (prev_val > val_s))
+        cs_c = _cs(prev_same & (prev_val != val_s))
+        lo1 = torch.clamp(lo + 1, 0, n)
+        out["resets"] = torch.where(has, (cs_r[hi] - cs_r[lo1]).float(), nan)
+        out["changes"] = torch.where(has, (cs_c[hi] - cs_c[lo1]).float(),
+                                     nan)
+        return out
+    cs_v = _cs(torch.where(valid_s, val_s, 0.0))
+    if kind == "gauge_window":
+        cs_v2 = _cs(torch.where(valid_s, val_s.to(torch.float64) ** 2, 0.0))
+        s = (cs_v[hi] - cs_v[lo]).to(torch.float32)
+        c = torch.clamp(cnt, min=1)
+        # mean from the f32-rounded sum, var from the f64 square sums
+        mean = s.to(torch.float64) / c
+        var = fma64(-mean, mean, (cs_v2[hi] - cs_v2[lo]) / c)
+        out.update({
+            "sum": torch.where(has, s, nan),
+            "avg": torch.where(has, s / torch.clamp(fcnt, min=1), nan),
+            "var": torch.where(has, torch.clamp(var, min=0.0).float(), nan),
+            "last": torch.where(has, val_s[last_i], nan),
+            "first": torch.where(has, val_s[first_i], nan),
+            "first_ts": torch.where(has, ts_s[first_i], 0),
+            "last_ts": torch.where(has, ts_s[last_i], 0)})
+        return out
+    # regression: seconds relative to this window grid's start
+    tsec = (ts_s - start_ms).to(torch.float64) / 1000.0
+    cs_t = _cs(torch.where(valid_s, tsec, 0.0))
+    cs_tv = _cs(torch.where(valid_s, tsec * val_s.to(torch.float64), 0.0))
+    cs_t2 = _cs(torch.where(valid_s, tsec * tsec, 0.0))
+    sw = cs_v[hi] - cs_v[lo]
+    st = cs_t[hi] - cs_t[lo]
+    stv = cs_tv[hi] - cs_tv[lo]
+    st2 = cs_t2[hi] - cs_t2[lo]
+    cn = cnt.to(torch.float64)
+    denom = cn * st2 - st * st
+    slope = torch.where(denom != 0, (cn * stv - st * sw) / denom, nan)
+    intercept = torch.where(cn > 0, (sw - slope * st) / cn, nan)
+    out.update({"slope": torch.where(has2, slope.float(), nan),
+                "intercept": torch.where(has2, intercept.float(), nan),
+                "last_ts": torch.where(has, ts_s[last_i], 0)})
+    return out
+
+
+def var_slack(val_s, valid_s, cnt, sums) -> torch.Tensor:
+    """How far ``window_stats_plain``'s ``var`` may stray from the
+    kernel's by the plain version's method alone, per window ``[S, T]``
+    (``cnt`` the window counts, ``sums`` the plain version's f32 window
+    sums).  Two terms: (1) its square sums are differences of two
+    table-wide f64 prefix sums, each built by up to 16 additions per level
+    of ``_blocked_cumsum``'s recursion and so off by up to that many
+    roundings of the table's total ``sum(v**2)``, divided by the window
+    count; (2) ``mean`` comes from the window sum rounded to f32, and the
+    kernel's direct sum and the plain version's prefix difference may
+    round to neighbouring f32 values: ``var`` then moves by up to
+    ``2 * |mean| * ulp(sum) / cnt``."""
+    n = val_s.shape[0]
+    levels = max(1, math.ceil(math.log(max(n, 2), 16)))
+    total = float(torch.where(valid_s, val_s.to(torch.float64) ** 2,
+                              0.0).sum())
+    c = torch.clamp(cnt, min=1).to(torch.float64)
+    a = sums.abs()
+    ulp = (torch.nextafter(a, torch.full_like(a, math.inf)) - a).to(
+        torch.float64)
+    mean = a.to(torch.float64) / c
+    return (2 * 16 * levels * torch.finfo(torch.float64).eps * total / c
+            + 2 * mean * ulp / c).nan_to_num(0.0)
+
+
+def window_stats(layout, sel, start_ms: int, *, step_ms: int,
+                 num_steps: int, range_ms: int, kind: str) -> dict:
+    """Window statistics of ``kind`` (``gauge_window``, ``counter_rc``,
+    ``regression``, ``irate``) of the selected series over a sort layout:
+    the dict of ``KIND_KEYS[kind]`` ``[S, T]`` tensors (``*_ts`` int64,
+    the rest f32), for windows ``(t - range_ms, t]`` at
+    ``t = start_ms + step_ms * j``.  ``regression`` measures time in
+    seconds from ``start_ms``."""
+    if kind not in _STATS_KINDS:
+        raise ValueError(f"window_stats: unknown kind {kind!r}")
+    key_s, ts_s, val_s, sel, ts_min, kp = _layout_inputs(
+        "window_stats", layout, sel)
+    if _on_cpu("window_stats", key_s, ts_s, val_s, sel, ts_min, kp):
+        return window_stats_plain(kind, layout, sel, start_ms,
+                                  step_ms=step_ms, num_steps=num_steps,
+                                  range_ms=range_ms)
+    S, T, n, dev = sel.shape[0], int(num_steps), key_s.shape[0], key_s.device
+    outs = {k: torch.empty((S, T), dtype=torch.int64 if k.endswith("_ts")
+                           else torch.float32, device=dev)
+            for k in KIND_KEYS[kind]}
+    order = ("count", "sum", "avg", "var", "last", "first", "first_ts",
+             "last_ts", "resets", "changes", "slope", "intercept",
+             "prev_ts", "last_val", "prev_val")
+    rc = _load().gt_window_stats(
+        key_s.data_ptr(), ts_s.data_ptr(), val_s.data_ptr(), n,
+        ts_min.data_ptr(), kp.data_ptr(), sel.data_ptr(), S, T,
+        int(start_ms), int(step_ms), int(range_ms), _STATS_KINDS[kind],
+        *(_ptr(outs.get(k)) for k in order), _stream_ptr(key_s))
+    window_stats.launches += 1
+    _check(rc, "window_stats")
+    return outs
+
+
+window_stats.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# minmax_window: K13
+# ---------------------------------------------------------------------------
+
+def minmax_window_plain(layout, sel, start_ms, *, step_ms, num_steps,
+                        range_ms) -> dict:
+    """min/max of each window's samples, gathered by the window bounds
+    (the reference scatters each sample into every window it falls in;
+    the same sets, so the same extremes).  A window without samples, or
+    whose extreme is infinite, is NaN, as ``jnp.isfinite`` makes it."""
+    key_s, _ts_s, val_s, _tsid_s, _valid_s, ts_min, kp = layout
+    n = key_s.shape[0]
+    lo, _hi, cnt, has, _sel_ok = window_bounds_plain(
+        key_s, ts_min, kp, sel, start_ms, step_ms, num_steps, range_ms)
+    width = max(int(cnt.max()) if cnt.numel() else 0, 1)
+    j = torch.arange(width, device=key_s.device)
+    ok = (j < cnt[..., None]) & has[..., None]
+    x = val_s[torch.clamp(lo[..., None] + j, 0, max(n - 1, 0))] if n else \
+        torch.zeros(ok.shape, dtype=torch.float32, device=key_s.device)
+    inf, nan = float("inf"), float("nan")
+    mn = torch.where(ok, x, inf).amin(-1)
+    mx = torch.where(ok, x, -inf).amax(-1)
+    return {"min": torch.where(torch.isfinite(mn), mn, nan),
+            "max": torch.where(torch.isfinite(mx), mx, nan)}
+
+
+def minmax_window(layout, sel, start_ms: int, *, step_ms: int,
+                  num_steps: int, range_ms: int) -> dict:
+    """``{"min", "max"}`` ``[S, T]`` f32 of each window ``(t - range_ms,
+    t]`` of the selected series over a sort layout (NaN where a window is
+    empty or its extreme is infinite).  Exact."""
+    key_s, ts_s, val_s, sel, ts_min, kp = _layout_inputs(
+        "minmax_window", layout, sel)
+    if _on_cpu("minmax_window", key_s, val_s, sel, ts_min, kp):
+        return minmax_window_plain(layout, sel, start_ms, step_ms=step_ms,
+                                   num_steps=num_steps, range_ms=range_ms)
+    S, T, dev = sel.shape[0], int(num_steps), key_s.device
+    mn = torch.empty((S, T), dtype=torch.float32, device=dev)
+    mx = torch.empty_like(mn)
+    rc = _load().gt_minmax_window(
+        key_s.data_ptr(), val_s.data_ptr(), key_s.shape[0],
+        ts_min.data_ptr(), kp.data_ptr(), sel.data_ptr(), S, T,
+        int(start_ms), int(step_ms), int(range_ms), mn.data_ptr(),
+        mx.data_ptr(), _stream_ptr(key_s))
+    minmax_window.launches += 1
+    _check(rc, "minmax_window")
+    return {"min": mn, "max": mx}
+
+
+minmax_window.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# window_count_max + window_matrix: K14
+# ---------------------------------------------------------------------------
+
+def window_count_max_plain(layout, sel, start_ms, *, step_ms, num_steps,
+                           range_ms) -> int:
+    key_s, _ts_s, _val_s, _tsid_s, _valid_s, ts_min, kp = layout
+    _lo, _hi, cnt, _has, sel_ok = window_bounds_plain(
+        key_s, ts_min, kp, sel, start_ms, step_ms, num_steps, range_ms)
+    c = torch.where(sel_ok[:, None], cnt, 0)
+    return int(c.max()) if c.numel() else 0
+
+
+def window_count_max(layout, sel, start_ms: int, *, step_ms: int,
+                     num_steps: int, range_ms: int) -> int:
+    """The most samples in any window of a selected series (the reference's
+    ``_count_max_kernel``, which sizes the window matrix)."""
+    key_s, _ts_s, _val_s, sel, ts_min, kp = _layout_inputs(
+        "window_count_max", layout, sel)
+    if _on_cpu("window_count_max", key_s, sel, ts_min, kp):
+        return window_count_max_plain(layout, sel, start_ms,
+                                      step_ms=step_ms, num_steps=num_steps,
+                                      range_ms=range_ms)
+    out = torch.empty(1, dtype=torch.int32, device=key_s.device)
+    rc = _load().gt_window_count_max(
+        key_s.data_ptr(), key_s.shape[0], ts_min.data_ptr(), kp.data_ptr(),
+        sel.data_ptr(), sel.shape[0], int(num_steps), int(start_ms),
+        int(step_ms), int(range_ms), out.data_ptr(), _stream_ptr(key_s))
+    window_count_max.launches += 1
+    _check(rc, "window_count_max")
+    return int(out.item())
+
+
+window_count_max.launches = 0
+
+
+def _floor_index(rank: torch.Tensor, top: int) -> tuple:
+    """``floor``/``ceil`` of a rank as indices clipped to ``[0, top]``; a
+    NaN rank reads index 0 (its result is NaN whichever it reads)."""
+    big = float(top + 1)
+    lo = torch.nan_to_num(torch.floor(rank), nan=0.0, posinf=big,
+                          neginf=-1.0).clamp(0, top).long()
+    hi = torch.nan_to_num(torch.ceil(rank), nan=0.0, posinf=big,
+                          neginf=-1.0).clamp(0, top).long()
+    return lo, hi
+
+
+def _q_of(sorted_rows: torch.Tensor, q, cnt: torch.Tensor) -> torch.Tensor:
+    """Prometheus' linear-interpolation quantile over rows sorted
+    ascending along the last axis, in f32 (the reference's ``q_of``,
+    engine.py:586 and :1418)."""
+    rank = q * torch.clamp(cnt - 1, min=0).to(torch.float32)
+    lo_r, hi_r = _floor_index(rank, sorted_rows.shape[-1] - 1)
+    vlo = torch.gather(sorted_rows, -1, lo_r[..., None])[..., 0]
+    vhi = torch.gather(sorted_rows, -1, hi_r[..., None])[..., 0]
+    return vlo + (vhi - vlo) * (rank - lo_r.to(torch.float32))
+
+
+def window_matrix_plain(layout, sel, start_ms, *, step_ms, num_steps,
+                        range_ms, lmax, kind, a1=None, a2=None):
+    """The reference's ``_matrix_kernel`` (engine.py:555-631): each
+    window's samples gathered into ``[S*T, lmax]``, then per-row sorts
+    (``quantile``, ``mad``) or the Holt scan (``holt``)."""
+    key_s, _ts_s, val_s, _tsid_s, _valid_s, ts_min, kp = layout
+    n = key_s.shape[0]
+    S, T = sel.shape[0], int(num_steps)
+    lo, _hi, cnt, has, _sel_ok = window_bounds_plain(
+        key_s, ts_min, kp, sel, start_ms, step_ms, num_steps, range_ms)
+    cntf = cnt.reshape(-1)
+    j = torch.arange(lmax, device=key_s.device)
+    rows = val_s[torch.clamp(lo.reshape(-1)[:, None] + j, 0, n - 1)]
+    ok = j[None, :] < cntf[:, None]
+    inf, nan = float("inf"), float("nan")
+
+    def per_window(a):
+        return a[None, :].expand(S, T).reshape(-1)
+
+    if kind == "quantile":
+        srt = torch.sort(torch.where(ok, rows, inf), dim=1).values
+        qv = per_window(a1)
+        res = _q_of(srt, qv, cntf)
+        res = torch.where(qv < 0, -inf, torch.where(qv > 1, inf, res))
+    elif kind == "mad":
+        srt = torch.sort(torch.where(ok, rows, inf), dim=1).values
+        med = _q_of(srt, 0.5, cntf)
+        dev = torch.sort(torch.where(ok, (rows - med[:, None]).abs(), inf),
+                         dim=1).values
+        res = _q_of(dev, 0.5, cntf)
+    elif kind == "holt":
+        sf, tf = per_window(a1), per_window(a2)
+        s = rows[:, 0]
+        b = rows[:, min(1, lmax - 1)] - s
+        for i in range(1, lmax):
+            x = rows[:, i]
+            act = i < cntf
+            s1 = fma32(sf, x, (1 - sf) * (s + b))
+            b1 = fma32(1 - tf, b, tf * (s1 - s))
+            s, b = torch.where(act, s1, s), torch.where(act, b1, b)
+        param_ok = (sf > 0) & (sf < 1) & (tf > 0) & (tf < 1)
+        res = torch.where((cntf >= 2) & param_ok, s, nan)
+    else:
+        raise ValueError(f"window_matrix: unknown kind {kind!r}")
+    out = torch.where(cntf > 0, res, nan).reshape(S, T)
+    return torch.where(has, out, nan)
+
+
+def _params(what, a, T, dev):
+    if a is None:
+        return torch.ones(T, dtype=torch.float32, device=dev)
+    a = torch.as_tensor(a, dtype=torch.float32, device=dev)
+    return a.expand(T).contiguous() if a.dim() == 0 else _flat(
+        what, a, torch.float32, T)
+
+
+def _scratch(width: int, tasks: int, dev) -> tuple:
+    """The global sort buffers of windows wider than ``SMEM_WIDTH`` keys:
+    one slot of ``width`` keys per launched warp, as many warps as
+    ``_SCRATCH_BYTES`` holds (at least one, at most one per task).
+    ``(None, 0)`` where shared memory holds the windows."""
+    if width <= SMEM_WIDTH:
+        return None, 0
+    warps = max(1, min(tasks, _SCRATCH_BYTES // (4 * width)))
+    return torch.empty(warps * width, dtype=torch.int32, device=dev), warps
+
+
+def window_matrix(layout, sel, start_ms: int, *, step_ms: int,
+                  num_steps: int, range_ms: int, lmax: int, kind: str,
+                  a1=None, a2=None) -> torch.Tensor:
+    """``[S, T]`` f32 of a function that needs each window's samples as a
+    whole: ``quantile`` (φ per step in ``a1``), ``mad`` (median absolute
+    deviation) or ``holt`` (double exponential smoothing with factors
+    ``a1``, ``a2`` per step).  ``lmax`` (a power of two >= 2, at least
+    ``window_count_max``) is the reference's padded window width: the
+    rank clip and the Holt scan length follow it."""
+    if kind not in ("quantile", "mad", "holt"):
+        raise ValueError(f"window_matrix: unknown kind {kind!r}")
+    if lmax < 2 or lmax & (lmax - 1):
+        raise ValueError(f"window_matrix: lmax {lmax} is not a power of two "
+                         f">= 2")
+    key_s, ts_s, val_s, sel, ts_min, kp = _layout_inputs(
+        "window_matrix", layout, sel)
+    T, dev = int(num_steps), key_s.device
+    a1 = _params("window_matrix", a1, T, dev)
+    a2 = _params("window_matrix", a2, T, dev)
+    if _on_cpu("window_matrix", key_s, val_s, sel, ts_min, kp, a1, a2):
+        return window_matrix_plain(layout, sel, start_ms, step_ms=step_ms,
+                                   num_steps=num_steps, range_ms=range_ms,
+                                   lmax=lmax, kind=kind, a1=a1, a2=a2)
+    S = sel.shape[0]
+    out = torch.empty((S, T), dtype=torch.float32, device=dev)
+    scratch, warps = (None, 0) if kind == "holt" else _scratch(
+        lmax, -(-S * T // 32), dev)
+    rc = _load().gt_window_matrix(
+        key_s.data_ptr(), val_s.data_ptr(), key_s.shape[0],
+        ts_min.data_ptr(), kp.data_ptr(), sel.data_ptr(), S, T,
+        int(start_ms), int(step_ms), int(range_ms), int(lmax),
+        _MATRIX_MODES[kind], a1.data_ptr(), a2.data_ptr(), _ptr(scratch),
+        warps, out.data_ptr(), _stream_ptr(key_s))
+    window_matrix.launches += 1
+    _check(rc, "window_matrix")
+    return out
+
+
+window_matrix.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# window_matrix_dense + subquery_counter: the subquery reducers
+# ---------------------------------------------------------------------------
+
+def window_matrix_dense_plain(win, kind, a1=None) -> torch.Tensor:
+    """The reference's subquery reducers ``quantile`` and ``mad`` over a
+    ``[S, T, K]`` window matrix, NaN = not a sample of the window
+    (``_eval_subquery_window``, engine.py:1415-1438)."""
+    m = ~torch.isnan(win)
+    cnt = m.sum(-1)
+    inf, nan = float("inf"), float("nan")
+    srt = torch.sort(torch.where(m, win, inf), dim=-1).values
+    if kind == "quantile":
+        qv = a1[None, :].expand(cnt.shape)
+        out = _q_of(srt, qv, cnt)
+        out = torch.where(qv < 0, -inf, torch.where(qv > 1, inf, out))
+    elif kind == "mad":
+        med = _q_of(srt, 0.5, cnt)
+        dev = torch.sort(torch.where(m, (win - med[..., None]).abs(), inf),
+                         dim=-1).values
+        out = _q_of(dev, 0.5, cnt)
+    else:
+        raise ValueError(f"window_matrix_dense: unknown kind {kind!r}")
+    return torch.where(cnt > 0, out, nan)
+
+
+def _window_matrix_3d(what: str, win: torch.Tensor) -> torch.Tensor:
+    if win.dtype != torch.float32 or win.dim() != 3:
+        raise ValueError(f"{what}: want f32 [S, T, K], got {win.dtype} "
+                         f"{tuple(win.shape)}")
+    return win.contiguous()
+
+
+def window_matrix_dense(win: torch.Tensor, kind: str,
+                        a1=None) -> torch.Tensor:
+    """``quantile`` (φ per step in ``a1``) or ``mad`` over a subquery's
+    window matrix ``win`` ``[S, T, K]`` f32 (NaN where an entry is not a
+    sample of its window).  Returns ``[S, T]`` f32."""
+    if kind not in ("quantile", "mad"):
+        raise ValueError(f"window_matrix_dense: unknown kind {kind!r}")
+    win = _window_matrix_3d("window_matrix_dense", win)
+    S, T, K = win.shape
+    a1 = _params("window_matrix_dense", a1, T, win.device)
+    if _on_cpu("window_matrix_dense", win, a1):
+        return window_matrix_dense_plain(win, kind, a1)
+    out = torch.empty((S, T), dtype=torch.float32, device=win.device)
+    if S * T == 0:
+        return out
+    width = 1 << max(K - 1, 1).bit_length()
+    scratch, warps = _scratch(width, S * T, win.device)
+    rc = _load().gt_window_matrix_dense(
+        win.data_ptr(), S * T, K, T, width, _MATRIX_MODES[kind],
+        a1.data_ptr(), _ptr(scratch), warps, out.data_ptr(),
+        _stream_ptr(win))
+    window_matrix_dense.launches += 1
+    _check(rc, "window_matrix_dense")
+    return out
+
+
+window_matrix_dense.launches = 0
+
+
+def subquery_counter_plain(win, ts_tk, steps, *, kind, func=None,
+                           range_s=None):
+    """The reference's ``_eval_subquery_counter`` (engine.py:1309-1363)
+    after its window matrix: first/last gathers along K (indices clipped
+    as ``take_along_axis`` clips them), then for ``rate`` the counter-drop
+    loop (a sequential f32 sum in window order) and ``extrapolated``; for
+    ``pair`` the last two samples."""
+    m = ~torch.isnan(win)
+    K = win.shape[2]
+    ks = torch.arange(K, device=win.device)
+    cnt = m.sum(-1)
+    last_k = torch.where(m, ks, -1).amax(-1)
+
+    def at(x, k):
+        return torch.gather(x, -1, torch.clamp(k, 0, K - 1)[..., None])[..., 0]
+
+    ts_b = ts_tk[None].expand(win.shape)
+    lv, lt = at(win, last_k), at(ts_b, last_k)
+    if kind == "pair":
+        prev_k = torch.where(m & (ks < last_k[..., None]), ks, -1).amax(-1)
+        return {"count": cnt.to(torch.float32), "last_ts": lt,
+                "prev_ts": at(ts_b, prev_k), "last_val": lv,
+                "prev_val": at(win, prev_k)}
+    first_k = torch.where(m, ks, K).amin(-1)
+    fv, ft = at(win, first_k), at(ts_b, first_k)
+    prev = torch.zeros(win.shape[:2], dtype=win.dtype, device=win.device)
+    has_prev = torch.zeros(win.shape[:2], dtype=torch.bool,
+                           device=win.device)
+    drops = torch.zeros_like(prev)
+    for k in range(K):
+        v, valid = win[..., k], m[..., k]
+        reset = valid & has_prev & (prev > v)
+        drops = drops + torch.where(reset, prev, 0.0)
+        prev = torch.where(valid, v, prev)
+        has_prev = has_prev | valid
+    out = {"first_ts": ft, "last_ts": lt, "first_val": fv,
+           "count": cnt.to(torch.float32), "delta_adj": lv - fv + drops,
+           "delta_raw": lv - fv}
+    return extrapolated(out, range_s, steps, counter=func != "delta",
+                        is_rate=func == "rate")
+
+
+def subquery_counter(win: torch.Tensor, ts_tk: torch.Tensor,
+                     steps: torch.Tensor, *, kind: str, func=None,
+                     range_s: float | None = None):
+    """A counter function over a subquery's window matrix ``win`` ``[S, T,
+    K]`` f32 (NaN where an entry is not a sample), its sample times
+    ``ts_tk`` ``[T, K]`` int64 ms and the steps' window ends ``steps``
+    ``[T]`` int64 ms.  ``kind`` ``rate`` returns ``[S, T]`` f32 of
+    ``func`` (rate/increase/delta) over ``range_s`` seconds; ``pair``
+    returns the dict ``count``, ``last_ts``, ``prev_ts``, ``last_val``,
+    ``prev_val`` ``[S, T]`` of irate/idelta."""
+    if kind not in _SUBQ_MODES:
+        raise ValueError(f"subquery_counter: unknown kind {kind!r}")
+    if kind == "rate" and (func not in ("rate", "increase", "delta")
+                           or range_s is None):
+        raise ValueError("subquery_counter: rate mode takes func "
+                         "rate/increase/delta and range_s")
+    win = _window_matrix_3d("subquery_counter", win)
+    S, T, K = win.shape
+    if (ts_tk.dtype != torch.int64 or tuple(ts_tk.shape) != (T, K)
+            or steps.dtype != torch.int64 or tuple(steps.shape) != (T,)):
+        raise ValueError(f"subquery_counter: want int64 ts_tk [{T}, {K}] "
+                         f"and steps [{T}]")
+    ts_tk, steps = ts_tk.contiguous(), steps.contiguous()
+    if _on_cpu("subquery_counter", win, ts_tk, steps):
+        return subquery_counter_plain(win, ts_tk, steps, kind=kind,
+                                      func=func, range_s=range_s)
+    dev = win.device
+
+    def buf(dtype):
+        return torch.empty((S, T), dtype=dtype, device=dev)
+
+    f32, i64 = torch.float32, torch.int64
+    outs = ({"rate": buf(f32)} if kind == "rate" else
+            {"count": buf(f32), "last_ts": buf(i64), "prev_ts": buf(i64),
+             "last_val": buf(f32), "prev_val": buf(f32)})
+    order = ("rate", "count", "last_ts", "prev_ts", "last_val", "prev_val")
+    rc = _load().gt_subquery_counter(
+        win.data_ptr(), S * T, K, T, ts_tk.data_ptr(), steps.data_ptr(),
+        _SUBQ_MODES[kind], int(func != "delta"), int(func == "rate"),
+        float(range_s) if range_s is not None else 0.0,
+        *(_ptr(outs.get(k)) for k in order), _stream_ptr(win))
+    subquery_counter.launches += 1
+    _check(rc, "subquery_counter")
+    return outs["rate"] if kind == "rate" else outs
+
+
+subquery_counter.launches = 0
+
+
 def reset_launch_counts() -> None:
     prefix_scan.launches = 0
     sort_layout.launches = 0
     counter_window.launches = 0
+    window_stats.launches = 0
+    minmax_window.launches = 0
+    window_count_max.launches = 0
+    window_matrix.launches = 0
+    window_matrix_dense.launches = 0
+    subquery_counter.launches = 0

@@ -19,6 +19,10 @@ incremented only where it launches its kernel.
   (``ops/segment.py:353``).
 - ``radix_argsort`` replaces K6's sorts (``ops/segment.py:353`` and the
   lexsort of ``:206``).
+- ``segment_select`` replaces K12's sorts, the per-step two-key sorts of
+  the PromQL ``quantile`` and ``topk``/``bottomk`` aggregations
+  (``greptimedb_tpu/promql/engine.py:1601-1651``): it reads order
+  statistics of group-contiguous columns without sorting them in full.
 
 Contract shared by both reductions: a row is live when ``mask`` (if given)
 is set and ``0 <= ids < ns``; an element of a live row counts when it is
@@ -80,6 +84,8 @@ def _load():
             "gt_rank_scatter": [vp, vp, vp, ll, ll, vp, vp, vp, vp, vp],
             "gt_argsort_keys": [vp, vp, ll, vp, vp, vp, vp, vp],
             "gt_radix_pass": [vp, vp, ll, i, vp, vp, vp, vp, vp],
+            "gt_segment_select": [vp, ll, vp, vp, ll, vp, i, vp, ll, vp, vp,
+                                  vp, ll, ll, vp, ll, vp, vp, vp, vp, vp],
         }
         for sfx in _SUFFIX.values():
             sigs[f"gt_segment_reduce_{sfx}"] = [vp, ll, i, vp, vp, ll, i, i,
@@ -526,9 +532,103 @@ def radix_argsort(values, valid=None) -> torch.Tensor:
 radix_argsort.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# segment_select (K12's sorts)
+# ---------------------------------------------------------------------------
+
+SELECT_SMALL = 1024  # largest group the warp sort takes (csrc kSelSmall)
+
+
+def segment_select_plain(values, row_order, offsets, ranks):
+    """Per column, the rows sorted by (group, value) as the reference's
+    two-key ``lax.sort`` orders them (NaN last), read at each group's
+    ranks."""
+    S, T = values.shape
+    R, ng, _ = ranks.shape
+    dev = values.device
+    sizes = torch.diff(offsets)
+    gid = torch.repeat_interleave(torch.arange(ng, device=dev), sizes)
+    vs, p1 = torch.sort(values.index_select(0, row_order.long()), dim=0,
+                        stable=True)
+    _g, p2 = torch.sort(gid[p1], dim=0, stable=True)
+    srt = torch.gather(vs, 0, p2)
+    size = sizes[None, :, None]
+    r = torch.minimum(torch.clamp(ranks.long(), min=0),
+                      torch.clamp(size - 1, min=0))
+    rows = (offsets[:-1][None, :, None] + r).clamp(0, max(S - 1, 0))
+    cols = torch.arange(T, device=dev)[None, None, :].expand(R, ng, T)
+    out = srt[rows, cols] if S else torch.zeros((R, ng, T), device=dev)
+    return torch.where(size > 0, out, float("nan"))
+
+
+def segment_select(values, row_order, offsets, ranks) -> torch.Tensor:
+    """Order statistics of group-contiguous columns: ``values`` ``[S, T]``
+    f32, groups given by ``row_order`` ``[S]`` int32 (rows of group g at
+    ``row_order[offsets[g]:offsets[g + 1]]``) and ``offsets`` ``[ng + 1]``
+    int64; ``ranks`` ``[R, ng, T]`` int32 (clamped into each group).
+    Returns ``[R, ng, T]`` f32: the value at that rank of the group's
+    column in ascending order, NaN last (NaN for an empty group)."""
+    if values.dtype != torch.float32 or values.dim() != 2:
+        raise ValueError(f"segment_select: values f32 [S, T], got "
+                         f"{values.dtype} {tuple(values.shape)}")
+    S, T = values.shape
+    if row_order.dtype != torch.int32 or row_order.shape != (S,):
+        raise ValueError("segment_select: row_order int32 [S]")
+    if offsets.dtype != torch.int64 or offsets.dim() != 1:
+        raise ValueError("segment_select: offsets int64 [ng + 1]")
+    ng = offsets.shape[0] - 1
+    if (ranks.dtype != torch.int32 or ranks.dim() != 3
+            or ranks.shape[1:] != (ng, T) or not 1 <= ranks.shape[0] <= 32):
+        raise ValueError(f"segment_select: ranks int32 [R<=32, {ng}, {T}], "
+                         f"got {ranks.dtype} {tuple(ranks.shape)}")
+    values, row_order = values.contiguous(), row_order.contiguous()
+    offsets, ranks = offsets.contiguous(), ranks.contiguous()
+    if _on_cpu("segment_select", values, row_order, offsets, ranks):
+        return segment_select_plain(values, row_order, offsets, ranks)
+    R, dev = ranks.shape[0], values.device
+    off_h = offsets.cpu()
+    sizes_h = torch.diff(off_h)
+    small = torch.nonzero(sizes_h <= SELECT_SMALL)[:, 0]
+    large = torch.nonzero(sizes_h > SELECT_SMALL)[:, 0]
+    out = torch.empty((R, ng, T), dtype=torch.float32, device=dev)
+    small_d = small.to(device=dev, dtype=torch.int32)
+    n_large = large.numel()
+    slab = lbase = lsize = large_d = prefix = want = hist = None
+    width = max_large = 0
+    if n_large:
+        lsize_h = sizes_h[large]
+        lbase_h = torch.cumsum(lsize_h, 0) - lsize_h
+        width, max_large = int(lsize_h.sum()), int(lsize_h.max())
+        idx = torch.cat([row_order[int(off_h[g]):int(off_h[g + 1])]
+                         for g in large.tolist()])
+        # the large groups' columns, each step a contiguous row
+        slab = values.index_select(0, idx.long()).t().contiguous()
+        large_d = large.to(device=dev, dtype=torch.int32)
+        lsize = lsize_h.to(dev)
+        lbase = lbase_h.to(dev)
+        want = torch.minimum(ranks[:, large_d.long(), :].clamp(min=0),
+                             (lsize - 1)[None, :, None].to(torch.int32))
+        want = want.to(torch.int32).contiguous()
+        prefix = torch.zeros(want.numel(), dtype=torch.int32, device=dev)
+        hist = torch.zeros(want.numel() * 256, dtype=torch.int32, device=dev)
+    rc = _load().gt_segment_select(
+        values.data_ptr(), T, row_order.data_ptr(), offsets.data_ptr(), ng,
+        ranks.data_ptr(), R, small_d.data_ptr(), small.numel(),
+        _ptr(large_d), _ptr(lbase), _ptr(lsize), n_large, max_large,
+        _ptr(slab), width, _ptr(prefix), _ptr(want), _ptr(hist),
+        out.data_ptr(), _stream_ptr(values))
+    segment_select.launches += 1
+    _check(rc, "segment_select")
+    return out
+
+
+segment_select.launches = 0
+
+
 def reset_launch_counts() -> None:
     segment_reduce.launches = 0
     sorted_segment_reduce.launches = 0
     compact.launches = 0
     rank_scatter.launches = 0
     radix_argsort.launches = 0
+    segment_select.launches = 0

@@ -6,7 +6,7 @@ and ``_rows_match`` (numeric cells within ``1e-5*max(1,|b|)``), with its
 ``GreptimeDB`` swapped for the port's on ``device="cpu"`` through
 ``monkeypatch``, so the reference's own golden test in the same worker
 sees its own class again.  The list is every golden file the port
-answers whole: the dense grid, PromQL and the SQL row path.  Files that
+answers whole: the dense grid, all of PromQL and the SQL row path.  Files that
 need what the port has not ported yet (joins, subqueries, DDL beyond
 CREATE, sketches, vector and full-text search, the expression-key fold,
 ...) stay out; ``ROADMAP.md`` queue A names them.
@@ -57,6 +57,17 @@ PORTED = [
     "164_range_count_sum_mix", "167_range_empty_windows",
     "168_range_single_series", "169_range_groupby_trunc_filter",
     "171_tql_fused_sum_rate", "175_tql_fused_instant",
+    # the rest of PromQL: every window kind, the window-matrix functions,
+    # quantile/topk/bottomk, binary operators, @ and subqueries
+    "50_tql_functions2", "51_tql_aggregations2", "52_tql_binary_ops",
+    "70_tql_range_eval", "83_tql_label_functions", "84_tql_histogram",
+    "85_scalar_vector_tql", "106_tql_offset_at", "107_tql_missing_metric",
+    "121_promql_functions3", "122_changes_idelta", "134_tql_range_syntax",
+    "141_promql_subquery", "146_tql_modifier_group",
+    "172_tql_fused_gauge_aggs", "173_tql_fused_counter_rc",
+    "174_tql_fused_irate", "176_tql_subquery_nested_agg",
+    "177_tql_subquery_gauge", "178_tql_fused_deriv_offset",
+    "179_tql_fused_group_without", "180_tql_fusion_mixed",
 ]
 
 

@@ -9,12 +9,14 @@ cells ``|a-b| <= 1e-5*max(1,|b|)``, tests/test_golden.py; label values
 and timestamps exact).  The port's fused and unfused routes
 (``GREPTIME_PLAN_FUSION``) and its cached and uncached evaluations
 (``GREPTIME_PROMQL_CACHE``) must give equal rows; unknown metrics give an
-empty vector and unported PromQL is refused, not faked.
+empty vector and the one aggregation the reference refuses too
+(``count_values``) is refused, not faked.
 """
 
 import numpy as np
 import pytest
 
+from greptimedb_tpu.errors import Unsupported as RefUnsupported
 from greptimedb_tpu.promql.engine import PromEvaluator as RefEvaluator
 from greptimedb_tpu.promql.parser import parse_promql as ref_parse
 from greptimedb_tpu.standalone import GreptimeDB as RefDB
@@ -64,7 +66,7 @@ def rows_match(got, want):
     for g, w in zip(got.rows, want.rows):
         assert len(g) == len(w)
         for a, b in zip(g, w):
-            if isinstance(b, float):
+            if isinstance(b, float) and a != b:  # equal infinities pass
                 assert abs(a - b) <= 1e-5 * max(1.0, abs(b)), (g, w)
             else:
                 assert a == b, (g, w)
@@ -72,7 +74,12 @@ def rows_match(got, want):
 
 @pytest.fixture(scope="module")
 def dbs():
-    ref = RefDB()
+    # the reference on one device: its window sums are differences of
+    # prefix sums, whose association on the test harness's 8-device mesh
+    # is the sharded scan's; on one device it is the one the port repeats
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("GREPTIME_MESH", "off")
+        ref = RefDB()
     port = GreptimeDB(device="cpu")
     for db in (ref, port):
         db.sql(DDL)
@@ -205,7 +212,9 @@ def test_unknown_metric_is_an_empty_vector(dbs):
         assert res.column_names == ["ts", "val"]
 
 
-@pytest.mark.parametrize("expr", [
+# PromQL the port refused before its fourth slice: each now answers as the
+# reference does
+FORMERLY_REFUSED = [
     f"irate({M}[5m])",
     f"quantile(0.9, rate({M}[5m]))",
     f"topk(3, rate({M}[5m]))",
@@ -216,11 +225,203 @@ def test_unknown_metric_is_an_empty_vector(dbs):
     f"histogram_quantile(0.9, rate({M}[5m]))",
     f"rate({M}[5m] @ 1700000300)",
     f"round(rate({M}[5m]))",
+]
+
+
+@pytest.mark.parametrize("expr", FORMERLY_REFUSED)
+def test_ported_promql_matches_reference(expr, dbs):
+    ref, port = dbs
+    q = tql(expr)
+    rows_match(port.sql(q), ref.sql(q))
+
+
+@pytest.mark.parametrize("expr", [
+    f"count_values(\"v\", {M})",
 ])
 def test_unported_promql_is_refused(expr, dbs):
-    _ref, port = dbs
-    with pytest.raises(Unsupported, match="not ported yet"):
+    """count_values stays refused, as the reference refuses it."""
+    ref, port = dbs
+    with pytest.raises(RefUnsupported):
+        ref.sql(tql(expr))
+    with pytest.raises(Unsupported):
         port.sql(tql(expr))
+
+
+P = f"{M}{{pod=~\"pod-(1|2).\"}}"  # 20 pods x 4 containers
+AT = 1_700_000_400
+PARITY = [
+    # K10's other kinds, with offsets and @ (few samples per window too)
+    tql(f"idelta({M}[1m])"), tql(f"irate({M}[30s] offset 45s)"),
+    tql(f"resets({M}[5m])"), tql(f"changes({M}[2m] offset 1m)"),
+    tql(f"avg_over_time({M}[5m])"), tql(f"count_over_time({M}[2m])"),
+    tql(f"last_over_time({M}[1m] offset 30s)"),
+    tql(f"first_over_time({M}[5m])"), tql(f"stddev_over_time({M}[5m])"),
+    tql(f"stdvar_over_time({M}[3m] offset 2m)"),
+    tql(f"present_over_time({M}[30s])"),
+    tql(f"sum_over_time({M}[2m] @ {AT})"),
+    tql(f"deriv({M}[5m])"), tql(f"deriv({M}[30s] offset 1m)"),
+    tql(f"predict_linear({M}[2m] offset 30s, 120)"),
+    tql(f"deriv({M}[2m] @ {AT} offset 30s)"),
+    # K13
+    tql(f"min_over_time({M}[5m])"), tql(f"max_over_time({M}[45s])"),
+    tql(f"max_over_time({M}[2m] @ {AT})"),
+    # K14
+    tql(f"quantile_over_time(0.9, {M}[5m])"),
+    tql(f"quantile_over_time(0, {M}[1m] offset 1m)"),
+    tql(f"quantile_over_time(1, {M}[2m])"),
+    tql(f"quantile_over_time(-0.5, {M}[2m])"),
+    tql(f"quantile_over_time(1.5, {M}[2m])"),
+    tql(f"quantile_over_time(0.25, {M}[3m] @ {AT})"),
+    tql(f"mad_over_time({M}[5m])"), tql(f"mad_over_time({M}[30s])"),
+    tql(f"double_exponential_smoothing({M}[5m], 0.5, 0.3)"),
+    tql(f"double_exponential_smoothing({M}[1m], 0.9, 0.1)"),
+    tql(f"double_exponential_smoothing({M}[5m], 1, 0.3)"),
+    # K12: aggregations, grouped and ng == 1
+    tql(f"stddev by (pod) (rate({M}[5m]))"),
+    tql(f"stdvar without (pod) ({M})"),
+    tql(f"quantile by (pod) (0.5, rate({M}[5m]))"),
+    tql(f"quantile (0.99, {M})"), tql(f"quantile (0, rate({M}[2m]))"),
+    tql(f"quantile by (container) (1, {M})"),
+    tql(f"quantile (-1, rate({M}[5m]))"),
+    tql(f"quantile by (pod) (2, rate({M}[5m]))"),
+    tql(f"topk(5, {M})"), tql(f"topk by (pod) (2, rate({M}[5m]))"),
+    tql(f"bottomk(3, rate({M}[2m]))"),
+    tql(f"bottomk by (container) (1, {M})"),
+    tql(f"topk(1000, {P})"), tql(f"topk(scalar(vector(2)), {P})"),
+    # binary operators and vector matching
+    tql(f"{P} - 100"), tql(f"3 * {P}"), tql(f"{P} % 7"),
+    tql(f"{P} atan2 1000"), tql(f"{P} > 5000"), tql(f"5000 < {P}"),
+    tql(f"{P} >= bool 5000"), tql(f"2 == bool 2"),
+    tql(f"rate({M}[5m]) / on (pod, container) increase({M}[5m])"),
+    tql(f"rate({M}{{container=\"c0\"}}[5m]) / ignoring (container) "
+        f"rate({M}{{container=\"c1\"}}[5m])"),
+    tql(f"sum by (pod) (rate({M}[5m])) / sum by (pod) "
+        f"(avg_over_time({M}[5m]))"),
+    tql(f"{P} and {M}{{container=\"c2\"}}"),
+    tql(f"{P} unless {M}{{container=\"c2\"}}"),
+    tql(f"{M}{{pod=\"pod-3\"}} or {M}{{pod=\"pod-4\"}}"),
+    # subqueries
+    tql(f"rate({M}[1m:15s])"), tql(f"increase({M}[2m:30s] offset 30s)"),
+    tql(f"delta({M}[1m:15s])"), tql(f"irate({M}[2m:30s])"),
+    tql(f"idelta({M}[1m:15s])"),
+    tql(f"avg_over_time(rate({M}[1m])[5m:30s])"),
+    tql(f"quantile_over_time(0.5, rate({M}[1m])[5m:1m])"),
+    tql(f"quantile_over_time(1.5, {M}[2m:30s])"),
+    tql(f"mad_over_time({M}[3m:30s])"),
+    tql(f"stddev_over_time({M}[5m:1m])"),
+    tql(f"stdvar_over_time({M}[5m:1m])"),
+    tql(f"sum_over_time({M}[2m:30s])"),
+    tql(f"count_over_time({M}[2m:45s])"),
+    tql(f"present_over_time({M}[2m:45s])"),
+    tql(f"min_over_time({M}[2m:20s])"),
+    tql(f"last_over_time({M}[2m:30s] offset 1m)"),
+    tql(f"first_over_time({M}[2m:30s])"),
+    tql(f"max by (pod) (max_over_time(rate({M}[1m])[5m:1m]))"),
+    # scalar, label and misc functions
+    tql(f"timestamp({P})"), tql("time()"), tql("vector(1)"),
+    tql(f"scalar(sum({M}))"), tql(f"absent(nope_total)"),
+    tql(f"absent({M})"), tql(f"clamp({P}, 1000, 5000)"),
+    tql(f"clamp_min({P}, 5000)"), tql(f"clamp_max({P}, 5000)"),
+    tql(f"round({P}, 10)"), tql(f"sort_desc({P})"),
+    tql(f"label_replace({P}, \"p\", \"$1\", \"pod\", \"pod-(.*)\")"),
+    tql(f"label_join({P}, \"pc\", \"/\", \"pod\", \"container\")"),
+]
+
+
+@pytest.mark.parametrize("i", range(len(PARITY)))
+def test_promql_surface_matches_reference(i, dbs):
+    ref, port = dbs
+    want = ref.sql(PARITY[i])
+    rows_match(port.sql(PARITY[i]), want)
+
+
+WINDOW_FUNCS = ["irate", "idelta", "resets", "changes", "avg_over_time",
+                "sum_over_time", "count_over_time", "last_over_time",
+                "first_over_time", "stddev_over_time", "stdvar_over_time",
+                "present_over_time", "min_over_time", "max_over_time",
+                "deriv"]
+
+
+@pytest.mark.parametrize("func", WINDOW_FUNCS)
+@pytest.mark.parametrize("agg", ["sum by (pod)", "max without (pod)",
+                                 "count"])
+def test_fused_window_kinds_equal_unfused(func, agg, dbs, monkeypatch):
+    """Every window kind fuses under an aggregation, and the fused rows
+    equal the unfused ones and the reference's."""
+    ref, port = dbs
+    q = tql(f"{agg} ({func}({M}[2m] offset 30s))", 0, 700_000, 30)
+    before = FUSED_DISPATCHES["count"]
+    fused = port.sql(q)
+    assert FUSED_DISPATCHES["count"] == before + 1, "fused route not taken"
+    monkeypatch.setenv("GREPTIME_PLAN_FUSION", "off")
+    plain = port.sql(q)
+    assert FUSED_DISPATCHES["count"] == before + 1
+    assert fused.num_rows > 0
+    assert fused.rows == plain.rows
+    rows_match(fused, ref.sql(q))
+
+
+@pytest.mark.parametrize("expr", [
+    f"stddev(rate({M}[5m]))", f"stdvar by (pod) (avg_over_time({M}[5m]))",
+    f"quantile(0.5, rate({M}[5m]))", f"topk(2, irate({M}[5m]))",
+    f"sum(rate({M}[5m] @ 1700000300))",
+])
+def test_unfused_aggregations_stay_unfused(expr, dbs):
+    """stddev/stdvar (whose v^2 - mean^2 cancels), the order statistics
+    and pinned selectors take the multi-step path."""
+    ref, port = dbs
+    before = FUSED_DISPATCHES["count"]
+    got = port.sql(tql(expr))
+    assert FUSED_DISPATCHES["count"] == before
+    rows_match(got, ref.sql(tql(expr)))
+
+
+WIDE_SCRAPES = 17_500  # 1 s scrapes: a 5 h window holds 17,500 samples
+
+
+def write_wide(db):
+    """Two gauges scraped every second for WIDE_SCRAPES seconds: one window
+    holds more samples than the window-matrix kernels' shared-memory
+    buffers (16,384 keys)."""
+    rng = np.random.default_rng(12)
+    n = 2 * WIDE_SCRAPES
+    k = np.tile(np.arange(WIDE_SCRAPES), 2)
+    v = np.round(rng.normal(50, 20, n), 2)
+    v[rng.random(n) < 0.01] = np.nan
+    db._region_of(M).write({
+        "pod": np.array(["pod-0", "pod-1"], dtype=object)[
+            np.arange(n) // WIDE_SCRAPES],
+        "container": np.full(n, "c0", dtype=object),
+        "ts": T0 + 1000 * k.astype(np.int64), "val": v})
+
+
+@pytest.fixture(scope="module")
+def wide_dbs():
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("GREPTIME_MESH", "off")
+        ref = RefDB()
+    port = GreptimeDB(device="cpu")
+    for db in (ref, port):
+        db.sql(DDL)
+        write_wide(db)
+    yield ref, port
+    ref.close()
+    port.close()
+
+
+@pytest.mark.parametrize("expr", [
+    f"quantile_over_time(0.9, {M}[5h])", f"mad_over_time({M}[5h])",
+    f"double_exponential_smoothing({M}[5h], 0.5, 0.3)",
+    f"quantile_over_time(0.5, {M}[5h:1s])",
+])
+def test_windows_wider_than_shared_memory_match_reference(expr, wide_dbs):
+    """quantile/mad/Holt over windows of ~17,300 samples (lmax 32,768) and
+    a subquery of 18,000 inner steps answer as the reference does."""
+    ref, port = wide_dbs
+    q = tql(expr, 1000 * WIDE_SCRAPES - 60_000, 1000 * WIDE_SCRAPES, 60)
+    want = ref.sql(q)
+    assert want.num_rows > 0
+    rows_match(port.sql(q), want)
 
 
 def test_new_writes_are_seen(tmp_path):
@@ -271,6 +472,11 @@ def test_cuda_path_matches_cpu(cuda_device, monkeypatch):
                 for f in ("rate", "increase", "delta")]
         for q in QUERIES[:8] + bare:
             rows_match(gpu.sql(q), cpu.sql(q))
+        monkeypatch.delenv("GREPTIME_PLAN_FUSION")
+        for q in PARITY:
+            rows_match(gpu.sql(q), cpu.sql(q))
+        assert pk.window_matrix_dense.launches > 0
+        assert pk.subquery_counter.launches > 0
     finally:
         cpu.close()
         gpu.close()
