@@ -3,6 +3,7 @@
 NVIDIA card.
 
     python3 chip_smoke.py [--hours 24] [--scrapes 40] [--seed 11]
+                          [--flow-series 1048576]
 
 Phases, each printing its own lines:
 
@@ -52,10 +53,35 @@ Phases, each printing its own lines:
    masks and keys the row path gives them; and min/max of signed f32 and
    f64 values with -0.0, +0.0 and +-inf entries through both reductions,
    exactly equal to their plain versions.
-8. One JSON line with every kernel's numbers, then the last line
+   Then the sketch aggregates on the same table, while its db is open:
+   hll(usage_user) and uddsketch_state(128, 0.01, usage_user) by hostname
+   over all rows (registers and bucket counts exact against a numpy
+   replica of the f32 values the device holds; hll_count within 3 x 1.6 %
+   of the exact distinct count, uddsketch_calc within the sketch's
+   relative error of the exact order statistic); the 4,000 states stored
+   in a table and merged with hll_merge / uddsketch_merge by a tag,
+   checked against numpy merges.  hll_fold (fold and merge modes) and
+   udd_fold are then timed against their plain versions and one library
+   call, as in phase 2, at those shapes.
+8. Flows (last): a fresh db, src (h STRING, ts, v DOUBLE, k BIGINT) and
+   the full-surface flow of tests/test_flow_device.py (date_bin 1 minute,
+   sum, count(*), count(v), avg, min, max, first_value, last_value,
+   sum(k): 12 state matrices), 2^20 series (--flow-series) reporting
+   every 10 s, v integer-valued in 1..99 with NaN on every 1,000th row, k
+   in 0..999, written as 6 time-forward batches of 30 s (3 rows a series)
+   through region.write + flow_engine.on_write + run_all.  The flow must
+   stay streaming(device) with no fallback and one reseed (the first
+   batch); every sink row is checked exactly against numpy through a host
+   scan of the sink region, and the device sink equals the host engine's
+   (GREPTIME_FLOW_DEVICE=off) at bench_flow.py's parity size.  Prints the
+   warm fold rows/s (median warm batch), the seed batch's time, the
+   device-busy share of one warm fold and peak device memory; then times
+   flow_merge on the fold's own inputs against its plain version.
+9. One JSON line with every kernel's numbers, then the last line
    {"ok": true, "device": {...}}.
 
-Cuts, printed when taken: --hours 12 (SQL path), --scrapes 20 (PromQL).
+Cuts, printed when taken: --hours 12 (SQL path), --scrapes 20 (PromQL),
+--flow-series below 2^20 (flows).
 
 Exits non-zero, printing no result, when CUDA is absent, a kernel does
 not build, launch or agree with its plain version, or a query is wrong.
@@ -65,6 +91,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -106,6 +133,9 @@ SOURCES = {
     "window_matrix_dense": "greptimedb_tpu_torch/csrc/promql_kernels.cu",
     "subquery_counter": "greptimedb_tpu_torch/csrc/promql_kernels.cu",
     "segment_select": "greptimedb_tpu_torch/csrc/segment_kernels.cu",
+    "flow_merge": "greptimedb_tpu_torch/csrc/flow_kernels.cu",
+    "hll_fold": "greptimedb_tpu_torch/csrc/sketch_kernels.cu",
+    "udd_fold": "greptimedb_tpu_torch/csrc/sketch_kernels.cu",
 }
 REPLACES = {
     "bucket_reduce": "greptimedb_tpu/query/physical.py:1129",
@@ -125,6 +155,9 @@ REPLACES = {
     "window_matrix_dense": "greptimedb_tpu/promql/engine.py:1416",
     "subquery_counter": "greptimedb_tpu/promql/engine.py:1342",
     "segment_select": "greptimedb_tpu/promql/engine.py:1610",
+    "flow_merge": "greptimedb_tpu/flow/device.py:452",
+    "hll_fold": "greptimedb_tpu/ops/sketch.py:49",
+    "udd_fold": "greptimedb_tpu/ops/sketch.py:136",
 }
 PROM_T0 = 1700000000000   # bench_promql.py's epoch
 SCRAPE_MS = 15_000
@@ -225,7 +258,7 @@ def device_busy(fn, top_n: int = 3, sessions: int = 3):
 # phase 1
 # ---------------------------------------------------------------------------
 
-def phase_device(gk, pk, sk) -> tuple[str, bool]:
+def phase_device(*mods) -> tuple[str, bool]:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -243,7 +276,6 @@ def phase_device(gk, pk, sk) -> tuple[str, bool]:
     from greptimedb_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    mods = (gk, pk, sk)
     cuda_build.build_many([(m.SOURCE, m.LIBRARY, m.NVCC_FLAGS)
                            for m in mods], force=True)
     for m in mods:
@@ -323,8 +355,24 @@ def phase_kernels(gk, card: str) -> dict:
         plain = time_ms(lambda: gk.bucket_reduce_plain(nan_vals, op, **kw))
         window = c * s * w_raw
         bnd, by = bound_ms(window * 4 + s * w_raw + nbytes(got), window)
+        lib = None
+        if op == "sum":
+            # one matmul of the masked window (zeros where masked or NaN,
+            # made beforehand) by the 0/1 bucket matrix: the reference's
+            # bdot as one library call
+            win = nan_vals.narrow(2, s0, w_raw)
+            vz = torch.where(v2[None] & ~torch.isnan(win), win, 0.0).reshape(
+                c * s, w_raw).contiguous()
+            pos = torch.arange(w_raw, device=dev) + pad_l
+            onehot = (pos[:, None] // r == torch.arange(
+                13, device=dev)[None, :]).float()
+            torch.backends.cuda.matmul.allow_tf32 = False  # full f32
+            max_err(torch.matmul(vz, onehot).reshape(c, s, 13), want,
+                    exact=False)
+            lib = time_ms(lambda: torch.matmul(vz, onehot))
+            del win, vz
         report("bucket_reduce", f"masked {op} window 12 h +5 min", ms, plain,
-               bnd, by, None, err_w)
+               bnd, by, lib, err_w)
         results["bucket_reduce"]["max_abs_err"] = max(
             results["bucket_reduce"]["max_abs_err"], err_w)
 
@@ -403,6 +451,7 @@ def ingest(db, hours: int, has_arrow: bool):
     stats["hot_sum"] = np.zeros(hours)
     stats["decile"] = np.zeros((hours, 11), np.int64)
     stats["over99"] = np.zeros(SCALE, bool)
+    user_steps = []  # usage_user as stored (f32), for the sketch checks
     t_write = 0.0
     for hour in range(hours):
         ts = T0 + (hour * STEPS_PER_HOUR + np.repeat(
@@ -433,6 +482,7 @@ def ingest(db, hours: int, has_arrow: bool):
             minlength=11)[:11]
         stats["over99"] |= (user > 99.0).any(0)
         stats["last"] = v32[-1]
+        user_steps.append(user.copy())
         t0 = time.perf_counter()
         region.write(data)
         if has_arrow:
@@ -441,6 +491,7 @@ def ingest(db, hours: int, has_arrow: bool):
     rows = hours * SCALE * STEPS_PER_HOUR
     log(f"ingest: {rows:,} rows in {t_write:.3f} s of write/flush "
         f"({rows / t_write:,.0f} rows/s)")
+    stats["user"] = np.concatenate(user_steps)  # [steps, SCALE] f32
     return stats
 
 
@@ -1989,6 +2040,590 @@ def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 7, continued: the sketch aggregates on phase 3's table
+# ---------------------------------------------------------------------------
+
+HLL_M = 4096
+UDD_NB, UDD_ERR = 128, 0.01
+HLL_SE = 1.04 / math.sqrt(HLL_M)  # HLL's standard error at 4,096 registers
+
+
+def _np_mix32(x: np.ndarray) -> np.ndarray:
+    x = x ^ (x >> np.uint32(16))
+    x = x * np.uint32(0x85EBCA6B)
+    x = x ^ (x >> np.uint32(13))
+    x = x * np.uint32(0xC2B2AE35)
+    return x ^ (x >> np.uint32(16))
+
+
+def _np_bit_length(w: np.ndarray) -> np.ndarray:
+    _m, e = np.frexp(w.astype(np.float64))
+    return np.where(w > 0, e, 0).astype(np.int64)
+
+
+def np_hll_hash(v: np.ndarray):
+    """The hll() hash of finite f64 values in numpy uint32 arithmetic:
+    (register index, rank = exact leading-zero count of h2 >> 1)."""
+    vi = np.floor(v)
+    k = np.clip(vi, -9.2e18, 9.2e18).astype(np.int64)
+    lo = (k & 0xFFFFFFFF).astype(np.uint32)
+    hi = ((k >> 32) & 0xFFFFFFFF).astype(np.uint32)
+    frac = ((v - vi) * float(1 << 30)).astype(np.int64).astype(np.uint32)
+    h1 = _np_mix32(lo ^ _np_mix32(hi ^ _np_mix32(frac)))
+    h2 = _np_mix32((frac + np.uint32(0x9E3779B9)) ^ h1)
+    return (h1 >> np.uint32(20)).astype(np.int64), 32 - _np_bit_length(
+        h2 >> np.uint32(1))
+
+
+def np_udd(v: np.ndarray, gamma: float, nb: int):
+    """uddsketch_state per column of ``v`` [rows, groups] (f64, values
+    > 0 count) as its docstring defines it: (counts [groups, nb], k_min,
+    collapse c, the per-row keys and validity)."""
+    ok = v > 0
+    k = np.ceil(np.log(np.where(ok, v, 1.0)) / math.log(gamma)).astype(
+        np.int64)
+    kmin = np.where(ok, k, 1 << 30).min(0)
+    kmax = np.where(ok, k, -(1 << 30)).max(0)
+    need = (np.maximum(kmax - kmin + 1, 1) + 2 + nb - 1) // nb
+    c = np.left_shift(1, _np_bit_length(need - 1))
+    base = (kmin // c) * c
+    idx = np.clip((k - base + c - 1) // c, 0, nb - 1)
+    groups = np.broadcast_to(np.arange(v.shape[1]), v.shape)
+    counts = np.bincount((groups * nb + idx)[ok],
+                         minlength=v.shape[1] * nb).reshape(v.shape[1], nb)
+    return counts, kmin, c
+
+
+def phase_sketches(shk, sk, db, ctx: dict, card: str):
+    """hll / uddsketch_state by hostname over all of phase 3's rows, their
+    estimators, and hll_merge / uddsketch_merge of the 4,000 stored states
+    by a tag; every result against numpy.  Returns (launches, context for
+    the kernel timings)."""
+    from greptimedb_tpu_torch.ops import sketch as sko
+
+    user = ctx["stats"]["user"]  # [steps, SCALE] f32, as the device holds
+    gamma = sko.udd_gamma(UDD_ERR)
+    t0 = time.perf_counter()
+    v = user.astype(np.float64)
+    idx, rho = np_hll_hash(v)
+    hosts = np.broadcast_to(np.arange(SCALE), v.shape)
+    regs = np.zeros(SCALE * HLL_M, np.int32)
+    np.maximum.at(regs, (hosts * HLL_M + idx).ravel(),
+                  rho.ravel().astype(np.int32))
+    regs = regs.reshape(SCALE, HLL_M)
+    counts, kmin, coll = np_udd(v, gamma, UDD_NB)
+    srt = np.sort(user, axis=0)
+    distinct = 1 + (srt[1:] != srt[:-1]).sum(0)
+    all_distinct = len(np.unique(user))
+    pos = np.where(user > 0, user, np.inf).astype(np.float64)
+    pos.sort(axis=0)
+    npos = (user > 0).sum(0)
+    log(f"sketches: numpy replica of {v.size:,} values in "
+        f"{time.perf_counter() - t0:.3f} s; collapse factors "
+        f"{sorted(set(coll.tolist()))}")
+    del v, idx, rho, hosts, srt
+    sk.reset_launch_counts()
+    shk.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+
+    def host_of(row):
+        return int(row[0].split("_")[1])
+
+    def want_udd(h):
+        base = (kmin[h] // coll[h]) * coll[h]
+        return {int(base // coll[h] + i): int(n)
+                for i, n in enumerate(counts[h]) if n}
+
+    states = {}
+
+    def check_states(res):
+        if len(res.rows) != SCALE:
+            raise AssertionError(f"sketch states: {len(res.rows)} rows")
+        for row in res.rows:
+            h = host_of(row)
+            got = sko.decode_hll(row[1])
+            if got is None or not np.array_equal(got, regs[h]):
+                raise AssertionError(f"hll registers of host {h} differ")
+            dec = sko.decode_udd(row[2])
+            if dec is None or dec[2] != int(coll[h]) or dec[3] != UDD_NB \
+                    or dec[4] != want_udd(h):
+                raise AssertionError(f"uddsketch state of host {h} differs")
+            states[h] = (row[1], row[2])
+        return (f"registers and bucket counts exact for {SCALE:,} hosts "
+                f"(collapse {sorted(set(coll.tolist()))})")
+
+    report = {}
+    q_states = (f"SELECT hostname, hll(usage_user), uddsketch_state("
+                f"{UDD_NB}, {UDD_ERR}, usage_user) FROM cpu GROUP BY hostname")
+    report["states"] = timed_query(db, q_states, card,
+                                   "sketch hll + uddsketch_state",
+                                   check_states)
+    q = 0.5
+
+    def check_estimates(res):
+        rel = np.zeros(SCALE)
+        worst_q = 0.0
+        for row in res.rows:
+            h = host_of(row)
+            rel[h] = abs(row[1] - distinct[h]) / distinct[h]
+            g_eff = gamma ** int(coll[h])
+            alpha = (g_eff - 1) / (g_eff + 1)
+            x = pos[int(math.floor(q * (npos[h] - 1))), h]
+            err = abs(row[2] - x) / x
+            if err > alpha * (1 + 1e-9):
+                raise AssertionError(f"uddsketch_calc host {h}: {row[2]} vs "
+                                     f"{x} (alpha {alpha})")
+            worst_q = max(worst_q, err)
+        within = float((rel <= 3 * HLL_SE).mean())
+        if len(res.rows) != SCALE or within < 0.99:
+            raise AssertionError(f"hll_count: {within:.4f} of hosts within "
+                                 f"3 x {HLL_SE:.4f}")
+        return (f"hll_count within 3 x {HLL_SE:.4f} of the exact distinct "
+                f"count for {100 * within:.2f} % of hosts (mean |rel err| "
+                f"{rel.mean():.4f}, max {rel.max():.4f}); uddsketch_calc("
+                f"{q}) within its relative error bound, worst {worst_q:.4f}")
+
+    q_est = (f"SELECT hostname, hll_count(hll(usage_user)), uddsketch_calc("
+             f"{q}, uddsketch_state({UDD_NB}, {UDD_ERR}, usage_user)) FROM "
+             f"cpu GROUP BY hostname")
+    report["estimates"] = timed_query(db, q_est, card,
+                                      "sketch hll_count + uddsketch_calc",
+                                      check_estimates)
+
+    def check_global(res):
+        got = res.rows[0][0]
+        rel = abs(got - all_distinct) / all_distinct
+        if rel > 3 * HLL_SE:
+            raise AssertionError(f"global hll_count {got} vs {all_distinct}")
+        return f"{got:,} vs {all_distinct:,} distinct (rel err {rel:.4f})"
+
+    report["global"] = timed_query(
+        db, "SELECT hll_count(hll(usage_user)) FROM cpu", card,
+        "sketch global hll_count", check_global)
+
+    # the 4,000 states stored in a table, merged by a tag: the first digit
+    # of the host number
+    db.sql("CREATE TABLE cpu_states (hostname STRING, grp STRING, "
+           "ts TIMESTAMP(3) TIME INDEX, hs STRING, us STRING, "
+           "PRIMARY KEY (hostname, grp))")
+    names = [f"host_{h}" for h in range(SCALE)]
+    grp = [n[:6] for n in names]
+    db._region_of("cpu_states").write({
+        "hostname": np.array(names, dtype=object),
+        "grp": np.array(grp, dtype=object),
+        "ts": np.full(SCALE, T0, np.int64),
+        "hs": np.array([states[h][0] for h in range(SCALE)], dtype=object),
+        "us": np.array([states[h][1] for h in range(SCALE)], dtype=object)})
+    c_star = int(coll.max())
+    lo_hi = [((min(want_udd(h)) - 1) * coll[h] + 1, max(want_udd(h))
+              * coll[h]) for h in range(SCALE) if want_udd(h)]
+    span = max(b for _a, b in lo_hi) - min(a for a, _b in lo_hi) + 1
+    while span / c_star > 4096:
+        c_star *= 2
+    members: dict[str, list[int]] = {}
+    for h, g in enumerate(grp):
+        members.setdefault(g, []).append(h)
+
+    def check_merges(res):
+        if len(res.rows) != len(members):
+            raise AssertionError(f"merges: {len(res.rows)} groups")
+        for g, hs, us in res.rows:
+            mine = members[g]
+            if not np.array_equal(sko.decode_hll(hs), regs[mine].max(0)):
+                raise AssertionError(f"hll_merge of {g} differs")
+            want: dict[int, int] = {}
+            for h in mine:
+                for key, n in want_udd(h).items():
+                    kk = -((-key * int(coll[h])) // c_star)
+                    want[kk] = want.get(kk, 0) + n
+            dec = sko.decode_udd(us)
+            if dec is None or dec[2] != c_star or dec[4] != want:
+                raise AssertionError(f"uddsketch_merge of {g} differs")
+        return (f"{len(members)} groups: registers the max and counts the "
+                f"re-keyed sums (collapse {c_star}) of their hosts' states")
+
+    report["merges"] = timed_query(
+        db, "SELECT grp, hll_merge(hs), uddsketch_merge(us) FROM cpu_states "
+            "GROUP BY grp", card, "sketch hll_merge + uddsketch_merge",
+        check_merges)
+    launches = {"hll_fold": shk.hll_fold.launches,
+                "udd_fold": shk.udd_fold.launches,
+                "segment_reduce": sk.segment_reduce.launches,
+                "sorted_segment_reduce": sk.sorted_segment_reduce.launches,
+                "compact": sk.compact.launches}
+    log(f"sketches: launches {launches}, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()} B")
+    for kname in ("hll_fold", "udd_fold"):
+        if launches[kname] <= 0:
+            raise AssertionError(f"{kname} never launched on the sketch path")
+    groups = sorted(members)
+    gid_of = {g: i for i, g in enumerate(groups)}
+    return launches, dict(regs=regs, counts=counts,
+                          grp=np.array([gid_of[g] for g in grp], np.int32),
+                          ngrp=len(groups))
+
+
+def phase_sketch_kernels(shk, db, sctx: dict, card: str) -> dict:
+    """hll_fold (fold and merge modes) and udd_fold on phase 3's resident
+    usage_user column with the row path's hostname ids and row mask, and
+    the merge modes on the stored states, against their plain versions and
+    one library call."""
+    from greptimedb_tpu_torch.ops import sketch as sko
+
+    table = db.cache.get(db._region_of("cpu"))
+    vals = table.columns["usage_user"]
+    gid = table.columns["hostname"].to(torch.int32)
+    mask = table.row_mask
+    n = mask.shape[0]
+    ng = 1 << (SCALE - 1).bit_length()
+    results = {}
+
+    def report(name, variant, ms, plain, bound, by, lib, err):
+        lib_s = "null" if lib is None else f"{lib:.4f}"
+        log(f"kernel {name}[{variant}]: {ms:.4f} ms (plain {plain:.4f} ms, "
+            f"library {lib_s} ms, bound {bound:.4f} ms by {by}), "
+            f"max_abs_err {err:.3g} — {card}")
+
+    # -- hll_fold, fold mode --
+    got = shk.hll_fold(vals, gid, ng, mask)
+    want = shk.hll_fold_plain(vals, gid, ng, mask)
+    err = max_err(got, want, exact=True)
+    ms = time_ms(lambda: shk.hll_fold(vals, gid, ng, mask))
+    plain = time_ms(lambda: shk.hll_fold_plain(vals, gid, ng, mask), reps=5)
+    idx, rho, ok = shk.hll_hash_plain(vals)
+    live = ok & mask & (gid >= 0) & (gid < ng)
+    cells = torch.where(live, gid.long() * HLL_M + idx, ng * HLL_M)
+    rho32 = torch.where(live, rho, 0).to(torch.int32)
+    buf = torch.zeros(ng * HLL_M + 1, dtype=torch.int32, device=vals.device)
+    lib = time_ms(lambda: buf.scatter_reduce_(0, cells, rho32, "amax"))
+    bnd, by = bound_ms(nbytes(vals, gid, mask, got), n * 30)
+    report("hll_fold", f"fold [{n:,}] f32 -> [{ng:,},{HLL_M}]", ms, plain,
+           bnd, by, lib, err)
+    results["hll_fold"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd,
+                               bound_by=by, library_ms=lib, max_abs_err=err)
+    del idx, rho, ok, live, cells, rho32, buf
+    # -- hll_fold, merge mode: the stored states by group --
+    vocab = torch.from_numpy(sctx["regs"]).cuda()
+    codes = torch.arange(SCALE, dtype=torch.int32, device=vocab.device)
+    g2 = torch.from_numpy(sctx["grp"]).cuda()
+    m2 = torch.ones(SCALE, dtype=torch.bool, device=vocab.device)
+    ng2 = sctx["ngrp"]
+    got = shk.hll_merge(codes, vocab, g2, ng2, m2)
+    want = shk.hll_merge_plain(codes, vocab, g2, ng2, m2)
+    merr = max_err(got, want, exact=True)
+    mms = time_ms(lambda: shk.hll_merge(codes, vocab, g2, ng2, m2))
+    mplain = time_ms(lambda: shk.hll_merge_plain(codes, vocab, g2, ng2, m2),
+                     reps=5)
+    ids = g2.long()[:, None].expand(-1, HLL_M)
+    buf2 = torch.zeros((ng2, HLL_M), dtype=torch.int32, device=vocab.device)
+    mlib = time_ms(lambda: buf2.scatter_reduce_(0, ids, vocab, "amax"))
+    mbnd, mby = bound_ms(nbytes(codes, g2, m2, vocab, got), vocab.numel())
+    report("hll_fold", f"merge {SCALE:,} states -> {ng2}", mms, mplain,
+           mbnd, mby, mlib, merr)
+    results["hll_fold"].update(merge_ms=mms, merge_plain_ms=mplain,
+                               merge_bound_ms=mbnd, merge_library_ms=mlib)
+    results["hll_fold"]["max_abs_err"] = max(err, merr)
+    # -- udd_fold, fold mode --
+    gamma = sko.udd_gamma(UDD_ERR)
+    got = shk.udd_fold(vals, gid, ng, mask, gamma, UDD_NB)
+    want = shk.udd_fold_plain(vals, gid, ng, mask, gamma, UDD_NB)
+    err = max_err(got, want, exact=True)
+    ms = time_ms(lambda: shk.udd_fold(vals, gid, ng, mask, gamma, UDD_NB))
+    plain = time_ms(lambda: shk.udd_fold_plain(vals, gid, ng, mask, gamma,
+                                               UDD_NB), reps=5)
+    k, okk = shk.udd_keys_plain(vals, mask, gamma)
+    kmin, kmax = shk.udd_key_extremes_plain(k, okk, gid, ng)
+    c = shk.udd_collapse_plain(kmin, kmax, UDD_NB)
+    gidc = torch.clamp(gid.long(), 0, ng - 1)
+    base = torch.div(kmin, c, rounding_mode="floor") * c
+    bidx = torch.clamp(torch.div(k - base[gidc] + c[gidc] - 1, c[gidc],
+                                 rounding_mode="floor"), 0, UDD_NB - 1)
+    livek = okk & (gid >= 0) & (gid < ng)
+    ucells = (gid.long() * UDD_NB + bidx)[livek]
+    lib = time_ms(lambda: torch.bincount(ucells, minlength=ng * UDD_NB))
+    bnd, by = bound_ms(nbytes(vals, gid, mask, got), n * 20, F64_FLOPS)
+    report("udd_fold", f"fold [{n:,}] f32 -> [{ng:,},{UDD_NB + 2}]", ms,
+           plain, bnd, by, lib, err)
+    results["udd_fold"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd,
+                               bound_by=by, library_ms=lib, max_abs_err=err)
+    del k, okk, gidc, base, bidx, livek, ucells
+    # -- udd_fold, merge mode: the hosts' count rows by group --
+    vc = torch.from_numpy(sctx["counts"]).cuda()
+    cfg = torch.zeros(SCALE, dtype=torch.int32, device=vc.device)
+    got = shk.udd_merge(codes, vc, cfg, g2, ng2, m2)
+    want = shk.udd_merge_plain(codes, vc, cfg, g2, ng2, m2)
+    merr = max_err(got, want, exact=True)
+    mms = time_ms(lambda: shk.udd_merge(codes, vc, cfg, g2, ng2, m2))
+    mplain = time_ms(lambda: shk.udd_merge_plain(codes, vc, cfg, g2, ng2,
+                                                 m2), reps=5)
+    report("udd_fold", f"merge {SCALE:,} count rows -> {ng2}", mms, mplain,
+           bound_ms(nbytes(codes, g2, m2, vc, cfg, got), 0)[0], "bytes",
+           None, merr)
+    results["udd_fold"].update(merge_ms=mms, merge_plain_ms=mplain)
+    results["udd_fold"]["max_abs_err"] = max(err, merr)
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 8: flows
+# ---------------------------------------------------------------------------
+
+FLOW_SERIES = 1 << 20
+FLOW_BATCHES, FLOW_STEPS_PER_BATCH, FLOW_STEP_MS = 6, 3, 10_000
+FLOW_T0 = 28_333_333 * 60_000  # a minute boundary (windows align to it)
+# tests/test_flow_device.py FLOW_SQL: the device fold's full surface
+FLOW_SQL = ("CREATE FLOW f SINK TO agg AS SELECT "
+            "date_bin(INTERVAL '1 minute', ts) AS w, h, sum(v) AS s, "
+            "count(*) AS c, count(v) AS cv, avg(v) AS a, min(v) AS mn, "
+            "max(v) AS mx, first_value(v) AS fv, last_value(v) AS lv, "
+            "sum(k) AS sk FROM src GROUP BY w, h")
+FLOW_SRC = ("CREATE TABLE src (h STRING, ts TIMESTAMP(3) TIME INDEX, "
+            "v DOUBLE, k BIGINT, PRIMARY KEY (h))")
+SINK_COLS = ("s", "c", "cv", "a", "mn", "mx", "fv", "lv", "sk")
+
+
+def np_flow_sink(v: np.ndarray, k: np.ndarray, steps_per_window: int,
+                 steps_per_batch: int):
+    """FLOW_SQL's aggregates per (window, series) from v / k [steps,
+    series] (time-ordered; NaN = NULL) as the streaming decomposition
+    defines them: first_value is the first non-NULL value of the window's
+    first batch and last_value the last non-NULL value of its last batch
+    (a batch's companion timestamp counts NULL rows too)."""
+    S = v.shape[1]
+    vw = v.reshape(-1, steps_per_window, S)
+    kw = k.reshape(-1, steps_per_window, S)
+    ok = ~np.isnan(vw)
+    cv = ok.sum(1)
+    s = np.where(ok, vw, 0.0).sum(1)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        a = np.where(cv > 0, s / np.maximum(cv, 1), np.nan)
+    big = np.where(ok, vw, np.inf).min(1)
+    small = np.where(ok, vw, -np.inf).max(1)
+    head, tail = vw[:, :steps_per_batch], vw[:, -steps_per_batch:]
+    hok, tok = ~np.isnan(head), ~np.isnan(tail)
+    first = np.take_along_axis(head, np.argmax(hok, 1)[:, None], 1)[:, 0]
+    last = np.take_along_axis(
+        tail, (steps_per_batch - 1 - np.argmax(tok[:, ::-1], 1))[:, None],
+        1)[:, 0]
+    return {"s": np.where(cv > 0, s, np.nan),
+            "c": np.full(cv.shape, steps_per_window, np.float64),
+            "cv": cv.astype(np.float64), "a": a,
+            "mn": np.where(cv > 0, big, np.nan),
+            "mx": np.where(cv > 0, small, np.nan),
+            "fv": np.where(hok.any(1), first, np.nan),
+            "lv": np.where(tok.any(1), last, np.nan),
+            "sk": kw.sum(1).astype(np.float64)}
+
+
+def _flow_db(home: str, device_fold: bool):
+    from greptimedb_tpu_torch.standalone import GreptimeDB
+    from greptimedb_tpu_torch.storage.region import RegionOptions
+
+    os.environ["GREPTIME_FLOW_DEVICE"] = "on" if device_fold else "off"
+    try:
+        db = GreptimeDB(home, region_options=RegionOptions(
+            wal_enabled=False, flush_threshold_bytes=1 << 40))
+    finally:
+        os.environ.pop("GREPTIME_FLOW_DEVICE", None)
+    db.sql(FLOW_SRC)
+    db.sql(FLOW_SQL)
+    return db
+
+
+def _fold_batch(db, region, data):
+    region.write(data)
+    if not region.last_write_appendable:
+        raise AssertionError("a flow batch was not an append")
+    db.flow_engine.on_write("src", data["ts"], data, appendable=True)
+    db.flow_engine.run_all()
+    torch.cuda.synchronize()
+
+
+def flow_parity(seed: int = 13, groups: int = 500, rows: int = 4000,
+                nbatches: int = 3) -> int:
+    """The device sink against the host engine's (GREPTIME_FLOW_DEVICE=
+    off) at bench_flow.py's parity size and batch shape, on the card."""
+    rng = np.random.default_rng(seed)
+    vocab = np.array([f"h{i}" for i in range(groups)], dtype=object)
+    perm = rng.permutation(groups)
+    batches, t = [], 0
+    for b in range(nbatches):
+        hidx = perm[(np.arange(rows, dtype=np.int64) + b * 7919) % groups]
+        ts = t + 1 + np.arange(rows, dtype=np.int64) // 6
+        t = int(ts[-1])
+        batches.append({"h": vocab[hidx], "ts": ts,
+                        "v": rng.integers(1, 100, rows).astype(np.float64),
+                        "k": rng.integers(0, 1000, rows).astype(np.int64)})
+    sinks = []
+    for device_fold in (True, False):
+        home = tempfile.mkdtemp(prefix="chip_smoke_flow_")
+        db = _flow_db(home, device_fold)
+        try:
+            region = db._region_of("src")
+            for b in batches:
+                _fold_batch(db, region, b)
+            from greptimedb_tpu_torch.flow.engine import flow_mode
+
+            mode = flow_mode(db.flow_engine.flows["f"])
+            if mode != ("streaming(device)" if device_fold else "streaming"):
+                raise AssertionError(f"parity flow ran {mode}")
+            sinks.append(db.sql("SELECT w, h, " + ", ".join(SINK_COLS)
+                                + " FROM agg ORDER BY w, h").rows)
+        finally:
+            db.close()
+            shutil.rmtree(home, ignore_errors=True)
+    if not sinks[0] or sinks[0] != sinks[1]:
+        raise AssertionError("device and host flow sinks differ")
+    return len(sinks[0])
+
+
+def phase_flows(fk, sk, series: int, card: str):
+    """Returns (launches, the kernel numbers of flow_merge)."""
+    from greptimedb_tpu_torch.datatypes.batch import DictColumn
+    from greptimedb_tpu_torch.flow import device as flow_device
+    from greptimedb_tpu_torch.flow.engine import flow_mode
+    from greptimedb_tpu_torch.storage.memtable import tagcode_col
+
+    if series < FLOW_SERIES:
+        log(f"cut: {series:,} flow series instead of {FLOW_SERIES:,}")
+    steps = FLOW_BATCHES * FLOW_STEPS_PER_BATCH
+    spw = 60_000 // FLOW_STEP_MS  # steps per 1-minute window
+    rng = np.random.default_rng(5)
+    v = rng.integers(1, 100, (steps, series)).astype(np.float64)
+    v.reshape(-1)[::1000] = np.nan
+    k = rng.integers(0, 1000, (steps, series)).astype(np.int64)
+    names = np.array([f"h{i}" for i in range(series)], dtype=object)
+    codes = np.tile(np.arange(series, dtype=np.int32), FLOW_STEPS_PER_BATCH)
+    home = tempfile.mkdtemp(prefix="chip_smoke_flow_")
+    db = _flow_db(home, True)
+    captured = {}
+    real_merge = flow_device.flow_merge
+
+    def capture(*args):
+        captured["args"] = args
+        return real_merge(*args)
+
+    try:
+        region = db._region_of("src")
+        rt = db.flow_runtime
+        sk.reset_launch_counts()
+        fk.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # left over from earlier phases
+        times, busy = [], None
+        for b in range(FLOW_BATCHES):
+            js = np.arange(b * FLOW_STEPS_PER_BATCH,
+                           (b + 1) * FLOW_STEPS_PER_BATCH)
+            data = {"h": DictColumn(names, codes),
+                    "ts": np.repeat(FLOW_T0 + js * FLOW_STEP_MS, series),
+                    "v": v[js].reshape(-1), "k": k[js].reshape(-1)}
+            if b == FLOW_BATCHES - 2:
+                flow_device.flow_merge = capture
+            try:
+                if b == FLOW_BATCHES - 1:
+                    region.write(data)
+                    busy = device_busy(lambda: (
+                        db.flow_engine.on_write("src", data["ts"], data,
+                                                appendable=True),
+                        db.flow_engine.run_all()), sessions=1)
+                    continue
+                t0 = time.perf_counter()
+                _fold_batch(db, region, data)
+                times.append(time.perf_counter() - t0)
+            finally:
+                flow_device.flow_merge = real_merge
+        task = db.flow_engine.flows["f"]
+        mode = flow_mode(task)
+        launches = {"flow_merge": fk.flow_merge.launches,
+                    "segment_reduce": sk.segment_reduce.launches}
+        peak = torch.cuda.max_memory_allocated()
+        st = task.device_state
+        if mode != "streaming(device)" or rt.fallbacks or rt.reseeds != 1:
+            raise AssertionError(f"flow ran {mode}, {rt.fallbacks} "
+                                 f"fallbacks, {rt.reseeds} reseeds")
+        rows_b = series * FLOW_STEPS_PER_BATCH
+        warm = float(np.median(times[1:]))
+        log(f"flows: {series:,} series x {steps} steps in {FLOW_BATCHES} "
+            f"batches of {rows_b:,} rows: {mode}, {rt.reseeds} reseed, "
+            f"{rt.fallbacks} fallbacks, {rt.fold_dispatches} folds; state "
+            f"{len(st.slots)} x [{st.Gpad:,}, {st.Wpad}] = {st.nbytes():,} B")
+        log(f"flows: seed batch {times[0] * 1e3:.3f} ms; warm batches "
+            f"{[round(t * 1e3, 3) for t in times[1:]]} ms; warm fold "
+            f"{rows_b / warm:,.0f} rows/s (median); device busy "
+            f"{busy[0]:.3f} ms of {busy[1]:.3f} ms wall for one warm fold "
+            f"({100 * busy[0] / max(busy[1], 1e-9):.2f} %), top device ops "
+            f"{busy[2]}; max_memory_allocated {peak} B, of which {held} B "
+            f"were held before the phase; launches {launches} — {card}")
+        for kname, n in launches.items():
+            if n <= 0:
+                raise AssertionError(f"{kname} never launched on the flow "
+                                     f"path")
+        # every sink row against numpy, through a host scan of the sink
+        t0 = time.perf_counter()
+        want = np_flow_sink(v, k, spw, FLOW_STEPS_PER_BATCH)
+        sink = db._region_of("agg").scan_host(with_tag_codes=True)
+        vocab = db._region_of("agg").encoders["h"].values()
+        ids = np.array([int(x[1:]) for x in vocab], np.int64)
+        hcol = sink.get(tagcode_col("h"))
+        series_of = (ids[np.asarray(hcol, np.int64)] if hcol is not None
+                     else np.array([int(x[1:]) for x in sink["h"]]))
+        win = (np.asarray(sink["w"], np.int64) - FLOW_T0) // 60_000
+        nwin = steps // spw
+        if len(win) != nwin * series or len(
+                np.unique(win * series + series_of)) != len(win):
+            raise AssertionError(f"sink has {len(win)} rows, want "
+                                 f"{nwin * series}")
+        for col in SINK_COLS:
+            got = np.asarray(sink[col], np.float64)
+            exp = want[col][win, series_of]
+            same = (got == exp) | (np.isnan(got) & np.isnan(exp))
+            if not same.all():
+                i = int(np.argmin(same))
+                raise AssertionError(f"sink {col}: series {series_of[i]} "
+                                     f"window {win[i]}: {got[i]} vs {exp[i]}")
+        log(f"flows: {len(win):,} sink rows ({nwin} windows x {series:,} "
+            f"series) exactly equal to numpy ({time.perf_counter() - t0:.3f}"
+            f" s host scan + check)")
+        n_par = flow_parity()
+        log(f"flows: device sink equal to GREPTIME_FLOW_DEVICE=off at "
+            f"bench_flow.py's parity size ({n_par} rows)")
+        results = {"flow_merge": flow_merge_timing(fk, captured["args"],
+                                                   card)}
+        return launches, results
+    finally:
+        db.close()
+        shutil.rmtree(home, ignore_errors=True)
+
+
+def flow_merge_timing(fk, args, card: str) -> dict:
+    """flow_merge on a warm fold's own inputs (its chunk partials and
+    affected slots) over copies of the state it merged into."""
+    state, chunk, rows_any, aff_g, aff_w, kinds, links = args
+    sa = [s.clone() for s in state]
+    sb = [s.clone() for s in state]
+    got = fk.flow_merge(sa, chunk, rows_any, aff_g, aff_w, kinds, links)
+    want = fk.flow_merge_plain(sb, chunk, rows_any, aff_g, aff_w, kinds,
+                               links)
+    err = max(max_err(a, b, exact=True) for a, b in zip(got + sa, want + sb))
+    ms = time_ms(lambda: fk.flow_merge(sa, chunk, rows_any, aff_g, aff_w,
+                                       kinds, links))
+    plain = time_ms(lambda: fk.flow_merge_plain(sb, chunk, rows_any, aff_g,
+                                                aff_w, kinds, links), reps=5)
+    gpad = state[-1].shape[0]
+    n_aff = int((aff_g < gpad).sum())
+    A = len(kinds)
+    # per live slot: A chunk partials and the row count read, A + 1 state
+    # elements read and written, A + 1 outputs written, the slot ids read
+    bnd, by = bound_ms(n_aff * (8 * A + 8 + 24 * (A + 1) + 8), 0)
+    log(f"kernel flow_merge[{A} accumulators + rows, {n_aff:,} of "
+        f"{aff_g.shape[0]:,} slots into [{gpad:,}, {state[-1].shape[1]}]]: "
+        f"{ms:.4f} ms (plain {plain:.4f} ms, library null ms — no one call, "
+        f"bound {bnd:.4f} ms by {by}), max_abs_err {err:.3g} — {card}")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                library_ms=None, max_abs_err=err)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--hours", type=int, default=24,
@@ -1997,16 +2632,20 @@ def main() -> int:
                     help="15 s scrapes per PromQL series (20 is the cut)")
     ap.add_argument("--seed", type=int, default=11,
                     help="seed of the PromQL data")
+    ap.add_argument("--flow-series", type=int, default=FLOW_SERIES,
+                    help="series of the flow phase (2^20; fewer is a cut)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    from greptimedb_tpu_torch.ops import flow_kernels as fk
     from greptimedb_tpu_torch.ops import grid_kernels as gk
     from greptimedb_tpu_torch.ops import promql_kernels as pk
     from greptimedb_tpu_torch.ops import segment_kernels as sk
+    from greptimedb_tpu_torch.ops import sketch_kernels as shk
 
     t_start = time.perf_counter()
-    card, has_arrow = phase_device(gk, pk, sk)
+    card, has_arrow = phase_device(gk, pk, sk, shk, fk)
     kernels = phase_kernels(gk, card)
     launches, db, home, ctx = phase_main_path(gk, args.hours, has_arrow,
                                               card)
@@ -2015,6 +2654,10 @@ def main() -> int:
         row_launches = phase_row_path(sk, db, ctx, card)
         log(f"elapsed: {time.perf_counter() - t_start:.3f} s")
         kernels.update(phase_row_kernels(sk, db, ctx, card))
+        log(f"elapsed: {time.perf_counter() - t_start:.3f} s")
+        sketch_launches, sctx = phase_sketches(shk, sk, db, ctx, card)
+        kernels.update(phase_sketch_kernels(shk, db, sctx, card))
+        del sctx
     finally:
         db.close()
         shutil.rmtree(home, ignore_errors=True)
@@ -2028,26 +2671,36 @@ def main() -> int:
     finally:
         db.close()
         shutil.rmtree(home, ignore_errors=True)
+    log(f"elapsed: {time.perf_counter() - t_start:.3f} s")
+    flow_launches, flow_k = phase_flows(fk, sk, args.flow_series, card)
+    kernels.update(flow_k)
     log(f"launches: SQL grid path {launches}, SQL row path {row_launches}, "
-        f"PromQL path {prom_launches}")
+        f"sketches {sketch_launches}, PromQL path {prom_launches}, flows "
+        f"{flow_launches}")
     launches.update(row_launches)
-    for name, n in prom_launches.items():
-        launches[name] = launches.get(name, 0) + n
+    for path in (sketch_launches, prom_launches, flow_launches):
+        for name, n in path.items():
+            launches[name] = launches.get(name, 0) + n
     line = {"kernels": []}
     for name in ("bucket_reduce", "group_merge", "prefix_scan",
                  "sort_layout", "counter_window", "segment_reduce",
                  "sorted_segment_reduce", "compact", "rank_scatter",
                  "radix_argsort", "window_stats", "minmax_window",
                  "window_count_max", "window_matrix", "window_matrix_dense",
-                 "subquery_counter", "segment_select"):
+                 "subquery_counter", "segment_select", "flow_merge",
+                 "hll_fold", "udd_fold"):
         k = kernels[name]
-        line["kernels"].append({
+        entry = {
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
-        })
+        }
+        # the merge modes of the sketch kernels, timed beside the fold
+        entry.update({key: val for key, val in k.items()
+                      if key.startswith("merge_")})
+        line["kernels"].append(entry)
     log(f"total: {time.perf_counter() - t_start:.3f} s")
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {

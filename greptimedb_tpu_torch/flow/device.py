@@ -1,0 +1,1175 @@
+"""Device-resident flow runtime: continuous-aggregation state on the card.
+
+The host streaming engine (flow/engine.py) keeps one python dict entry
+per (group, window) key and walks result tuples per row — correct, but
+O(rows) host objects per ingest fold.  This module moves a streaming
+flow's standing state into resident device tensors (the
+tensor-runtime-as-query-engine bet of TQP, arXiv 2203.01877, applied to
+continuous aggregation):
+
+- state is a set of ``[G, W]`` partial matrices (one per partial
+  aggregate column of the flow's rpc/partial.py split: sum/count value +
+  valid-count, min/max value + valid-count, first/last value + companion
+  timestamp), keyed by a GROUP dictionary (group-key combo -> row) and a
+  WINDOW dictionary (date_bin bucket -> column), both maintained with
+  vectorized numpy maps — no per-row python objects anywhere;
+- each arriving write batch folds in with one fold per (flow, chunk):
+  the chunk's rows segment-reduce to per-(group, window) partials
+  (``chunk_partials``, on the ``segment_reduce`` kernel) and the
+  ``flow_merge`` kernel (ops/flow_kernels.py) merges them into the
+  resident state in place and gathers back ONLY the affected slots for
+  the sink upsert;
+- folds consume the region APPEND LOG (storage/region.py), which already
+  carries int32 dictionary tag codes from the vectorized ingest — the
+  watermark (last folded WAL sequence per source region) is exact by
+  construction, which is what makes the GTF1 checkpoints
+  (flow/checkpoint.py) resumable by WAL-tail replay.
+
+Torch counterpart of the reference's ``flow/device.py``.  Not ported yet:
+the ``flow`` workload quota (``memory_probe`` stays None, so no growth is
+rejected) and the mesh sharding of the state (it lives on the db's one
+device).
+
+``GREPTIME_FLOW_DEVICE=off`` disables the whole module: the engine keeps
+the host path (this module is then never imported).
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from greptimedb_tpu_torch.ops import segment_kernels
+from greptimedb_tpu_torch.ops.flow_kernels import flow_merge
+from greptimedb_tpu_torch.ops.segment import segment_first_last
+from greptimedb_tpu_torch.storage.memtable import SEQ, tagcode_col
+from greptimedb_tpu_torch.utils.telemetry import REGISTRY
+from greptimedb_tpu_torch.utils.tracing import TRACER
+
+# bump when the fold or state layout changes: invalidates checkpoints
+# (the same number as the reference's, whose GTF1 payloads restore here)
+FLOW_KERNEL_VER = 1
+
+M_FOLD = REGISTRY.counter(
+    "greptime_flow_fold_dispatches_total",
+    "Device folds (one per (flow, chunk) on the warm path)",
+    labels=("flow",),
+)
+M_FOLD_ROWS = REGISTRY.counter(
+    "greptime_flow_fold_rows_total",
+    "Rows folded into device flow state",
+)
+M_FALLBACK = REGISTRY.counter(
+    "greptime_flow_fallback_total",
+    "Flows degraded to the host engine (quota/ineligible/error)",
+    labels=("reason",),
+)
+M_RESEED = REGISTRY.counter(
+    "greptime_flow_reseed_total",
+    "Device flow state reseeds from a source scan",
+    labels=("reason",),
+)
+
+_TORCH_DTYPE = {np.dtype(np.float64): torch.float64,
+                np.dtype(np.int64): torch.int64}
+_I64_MAX = np.int64(np.iinfo(np.int64).max)
+_I64_MIN = np.int64(np.iinfo(np.int64).min)
+
+
+class FlowDeviceOverflow(Exception):
+    """A key column's dictionary outgrew the fixed-base combo packing —
+    the flow degrades to the host engine (reject-to-fallback)."""
+
+
+class FlowDeviceQuota(Exception):
+    """State growth rejected by the ``flow`` workload quota — the flow
+    degrades to the host engine (reject-to-fallback)."""
+
+# per-key-column local-code capacity for the fixed-base combo packing:
+# three non-window key columns of <=2M distinct values each pack into one
+# int64.  Flows keyed wider fall back to the host engine.
+_COMBO_BITS = 21
+_MAX_KEY_COLS = 3
+
+
+def _pow2(n: int, lo: int = 8) -> int:
+    p = lo
+    while p < n:
+        p <<= 1
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Eligibility + spec
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class _KeyCol:
+    name: str  # partial alias (__kN)
+    kind: str  # "str" | "num" | "window"
+    col: str | None  # source column
+    step: int = 0  # window bucket width (ts units)
+    origin: int = 0
+
+
+@dataclass(frozen=True)
+class _Slot:
+    name: str  # partial column name (__aI_J)
+    kind: str  # "sum" | "count" | "min" | "max" | "pick_min" | "pick_max"
+    col: str | None  # aggregated source column (None: count(*))
+    companion: str | None = None  # pick slots: the min/max(ts) partial col
+
+
+@dataclass(frozen=True)
+class FlowDeviceSpec:
+    keys: tuple  # _KeyCol, window excluded from combo packing
+    slots: tuple  # _Slot
+    window_pos: int  # index into keys of the window key, or -1
+    cols: tuple  # distinct numeric source columns the slots read
+    ts_name: str
+    sig: tuple  # kernel identity (kinds x column indices)
+
+    def accums(self):
+        """Deduplicated accumulator plan: the physical state arrays.
+
+        Slots share accumulators by value identity — ``sum(v)`` and
+        ``avg(v)``'s sum partial are the SAME running sum, and the
+        valid-count that decides SQL NULL for sum/min/max over a column
+        IS ``count(col)`` — so the kernel runs each chunk reduction and
+        each state scatter once, not once per output column.  Returns
+        (accum list of (key, init, dtype), per-slot refs into it); the
+        shared ``rows`` presence counter is appended by the caller."""
+        acc: list[tuple] = []
+        index: dict[tuple, int] = {}
+
+        def add(key, init, dtype):
+            i = index.get(key)
+            if i is None:
+                i = index[key] = len(acc)
+                acc.append((key, init, dtype))
+            return i
+
+        refs = []
+        for s in self.slots:
+            if s.kind == "sum":
+                refs.append((add(("vsum", s.col), 0.0, np.float64),
+                             add(("vcnt", s.col), 0, np.int64)))
+            elif s.kind == "count":
+                if s.col is None:
+                    refs.append((add(("rcnt",), 0, np.int64), None))
+                else:
+                    refs.append((add(("vcnt", s.col), 0, np.int64), None))
+            elif s.kind == "min":
+                refs.append((add(("vmin", s.col), np.inf, np.float64),
+                             add(("vcnt", s.col), 0, np.int64)))
+            elif s.kind == "max":
+                refs.append((add(("vmax", s.col), -np.inf, np.float64),
+                             add(("vcnt", s.col), 0, np.int64)))
+            else:  # pick_min / pick_max
+                refs.append((add(("pval", s.col, s.kind), np.nan,
+                                 np.float64),
+                             add(("pts", s.kind), 0, np.int64)))
+        return acc, refs
+
+
+def build_spec(db, task):
+    """The device spec for a streaming flow, or None when any part of the
+    query is outside the device fold's closed surface (the caller then
+    keeps the host engine — every fallback is the old path byte-for-byte).
+    """
+    from greptimedb_tpu_torch.query.ast import (
+        Column, FuncCall, IntervalLit, Literal, Star,
+    )
+
+    plan = task.partial_plan
+    if plan is None or task.query.where is not None:
+        return None
+    # every source is a plain table: the port has no metric engine, whose
+    # logical tables (a multiplexed physical region) the reference keeps
+    # on the host here
+    try:
+        ctx = db.table_context(task.source_table)
+    except Exception:  # noqa: BLE001 — source missing: decide later
+        return None
+    schema = ctx.schema
+    if schema.time_index is None:
+        return None
+    ts_name = schema.time_index.name
+    by_name = {c.name: c for c in schema}
+
+    def _numeric(col_name):
+        c = by_name.get(col_name)
+        if c is None or c.dtype.is_string_like:
+            return None
+        return c
+
+    keys: list[_KeyCol] = []
+    slots: list[_Slot] = []
+    window_pos = -1
+    companions = {op[1]: (op[0], vcol)
+                  for vcol, op in plan.merge_cols.items()
+                  if isinstance(op, tuple)}
+    pick_by_vcol: dict[str, str] = {v: t for t, (_m, v) in companions.items()}
+    key_aliases = set(plan.key_cols)
+    for it in plan.partial_select.items:
+        alias = it.alias
+        e = it.expr
+        if alias in key_aliases:
+            if isinstance(e, Column):
+                c = by_name.get(e.name)
+                if c is None:
+                    return None
+                if c.dtype.is_string_like:
+                    if not c.is_tag:
+                        # string FIELD keys have no dictionary codes in
+                        # the append log — per-row objects, host path
+                        return None
+                    keys.append(_KeyCol(alias, "str", c.name))
+                elif c.dtype.is_float or c.name == ts_name:
+                    # float keys have no exact integer code; raw-ts keys
+                    # are per-row cardinality — both stay host
+                    return None
+                else:
+                    keys.append(_KeyCol(alias, "num", c.name))
+            elif isinstance(e, FuncCall) and e.name == "date_bin" and \
+                    len(e.args) >= 2:
+                if window_pos >= 0:
+                    return None  # a second window key: host
+                iv = e.args[0]
+                if isinstance(iv, Literal) and isinstance(iv.value, str):
+                    from greptimedb_tpu_torch.query.parser import parse_interval_str
+
+                    iv = IntervalLit(parse_interval_str(iv.value), iv.value)
+                if not isinstance(iv, IntervalLit):
+                    return None
+                inner = e.args[1]
+                if not (isinstance(inner, Column) and inner.name == ts_name):
+                    return None
+                origin = 0
+                if len(e.args) > 2:
+                    if not isinstance(e.args[2], Literal):
+                        return None
+                    origin = ctx.ts_literal(e.args[2].value)
+                step = int(iv.ms * ctx.ts_unit_ms_factor())
+                if step <= 0:
+                    return None
+                window_pos = len(keys)
+                keys.append(_KeyCol(alias, "window", ts_name, step, origin))
+            else:
+                return None
+            continue
+        # aggregate partial
+        if alias in companions:
+            continue  # folded into its pick slot below
+        if not isinstance(e, FuncCall):
+            return None
+        pfn = e.name
+        if pfn in ("first_value", "last_value"):
+            op = plan.merge_cols.get(alias)
+            if not isinstance(op, tuple):
+                return None
+            arg = e.args[0] if e.args else None
+            if not (isinstance(arg, Column) and _numeric(arg.name)):
+                return None
+            slots.append(_Slot(alias, op[0], arg.name,
+                               companion=pick_by_vcol.get(alias)))
+        elif pfn == "count":
+            if not e.args or isinstance(e.args[0], Star):
+                slots.append(_Slot(alias, "count", None))
+            elif isinstance(e.args[0], Column) and _numeric(e.args[0].name):
+                slots.append(_Slot(alias, "count", e.args[0].name))
+            else:
+                return None
+        elif pfn in ("sum", "min", "max"):
+            arg = e.args[0] if e.args else None
+            if not (isinstance(arg, Column) and _numeric(arg.name)):
+                return None
+            slots.append(_Slot(alias, pfn, arg.name))
+        else:
+            return None
+    if not slots:
+        return None
+    if len(keys) - (1 if window_pos >= 0 else 0) > _MAX_KEY_COLS:
+        return None
+    cols = tuple(dict.fromkeys(
+        s.col for s in slots if s.col is not None))
+    col_idx = {c: i for i, c in enumerate(cols)}
+    sig = tuple(
+        (s.kind, col_idx.get(s.col, -1)) for s in slots
+    ) + (("window", window_pos >= 0),)
+    return FlowDeviceSpec(
+        keys=tuple(keys), slots=tuple(slots), window_pos=window_pos,
+        cols=cols, ts_name=ts_name, sig=sig,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Vectorized host-side dictionaries
+# ---------------------------------------------------------------------------
+
+
+class _NpMap:
+    """Sorted int64 -> int64 map with vectorized lookup (searchsorted) and
+    amortized insert; the host-side dictionary primitive of the runtime —
+    warm folds never touch a python dict per row OR per unique."""
+
+    __slots__ = ("keys", "vals")
+
+    def __init__(self, keys=None, vals=None):
+        self.keys = np.empty(0, np.int64) if keys is None else keys
+        self.vals = np.empty(0, np.int64) if vals is None else vals
+
+    def __len__(self) -> int:
+        return len(self.keys)
+
+    def lookup(self, q: np.ndarray) -> np.ndarray:
+        if not len(self.keys):
+            return np.full(len(q), -1, np.int64)
+        pos = np.searchsorted(self.keys, q)
+        pos = np.minimum(pos, len(self.keys) - 1)
+        return np.where(self.keys[pos] == q, self.vals[pos], -1)
+
+    def insert(self, new_keys: np.ndarray, new_vals: np.ndarray) -> None:
+        keys = np.concatenate([self.keys, new_keys.astype(np.int64)])
+        vals = np.concatenate([self.vals, new_vals.astype(np.int64)])
+        order = np.argsort(keys, kind="stable")
+        self.keys, self.vals = keys[order], vals[order]
+
+
+class _GrowArr:
+    """Append-only array with doubling capacity (group decode columns).
+    ``width`` > 0 makes it 2-D (the packed per-group key-code rows)."""
+
+    __slots__ = ("arr", "n", "width")
+
+    def __init__(self, dtype, cap: int = 64, arr=None, width: int = 0):
+        self.width = width
+        if arr is not None:
+            self.arr = arr
+            self.n = len(arr)
+        else:
+            shape = (cap, width) if width else cap
+            self.arr = np.empty(shape, dtype=dtype)
+            self.n = 0
+
+    def extend(self, vals) -> None:
+        need = self.n + len(vals)
+        if need > len(self.arr):
+            cap = max(need, 2 * len(self.arr))
+            shape = (cap, self.width) if self.width else cap
+            grown = np.empty(shape, dtype=self.arr.dtype)
+            grown[: self.n] = self.arr[: self.n]
+            self.arr = grown
+        self.arr[self.n: need] = vals
+        self.n = need
+
+    def view(self) -> np.ndarray:
+        return self.arr[: self.n]
+
+
+# ---------------------------------------------------------------------------
+# The fold
+# ---------------------------------------------------------------------------
+
+
+def merge_plan(spec: FlowDeviceSpec):
+    """The ``flow_merge`` kinds and pick links of the accumulator plan
+    (``spec.accums``), in its order: one kind per state matrix but rows."""
+    acc_keys = [k for k, _i, _d in spec.accums()[0]]
+    kinds, links = [], []
+    for key in acc_keys:
+        kind = key[0]
+        links.append(acc_keys.index(("pts", key[2])) if kind == "pval"
+                     else -1)
+        kinds.append({
+            "rcnt": "add_i64", "vcnt": "add_i64", "vsum": "add_f64",
+            "vmin": "min_f64", "vmax": "max_f64", "pval": "pick",
+            "pts": "ts_max" if kind == "pts" and key[1] == "pick_max"
+            else "ts_min",
+        }[kind])
+    return acc_keys, kinds, links
+
+
+def chunk_partials(acc_keys, cols, seg, rvalid, ts, vals, vvalids,
+                   apad: int):
+    """A chunk's rows reduced to per-affected-slot partials, one per
+    accumulator, plus the valid-row count per slot (rows last): the chunk
+    half of the reference's fold (flow/device.py:394-451).  Every
+    reduction is a ``segment_reduce`` (f64 for sums and min/max, int64 for
+    counts and the companion timestamps) or ``segment_first_last`` (its
+    int64 mode; the pick of the lowest row index among the extreme
+    timestamps); rows of segment ``apad`` (filtered) drop out."""
+    ci_of = {c: i for i, c in enumerate(cols)}
+    reduced: dict[tuple, tuple] = {}
+
+    def reduce(ci, op):
+        # one (value, valid-count) per (column, op): the sum's count IS the
+        # column's valid count (NaN values are the invalid ones)
+        got = reduced.get((ci, op))
+        if got is None:
+            got = reduced[(ci, op)] = segment_kernels.segment_reduce(
+                vals[ci], seg, apad, op, rvalid & vvalids[ci])
+        return got
+
+    _none, rows_any = segment_kernels.segment_reduce(None, seg, apad, "sum",
+                                                     rvalid)
+    chunk = []
+    for key in acc_keys:
+        kind = key[0]
+        if kind == "rcnt":
+            chunk.append(rows_any)
+        elif kind == "vcnt":
+            chunk.append(reduce(ci_of[key[1]], "sum")[1])
+        elif kind == "vsum":
+            chunk.append(reduce(ci_of[key[1]], "sum")[0])
+        elif kind in ("vmin", "vmax"):
+            chunk.append(reduce(ci_of[key[1]], kind[1:])[0])
+        elif kind == "pval":
+            ci = ci_of[key[1]]
+            _ets, ev = segment_first_last(
+                ts, vals[ci], seg, apad, mask=rvalid & vvalids[ci],
+                last=key[2] == "pick_max")
+            chunk.append(ev)
+        else:  # pts: min/max(ts) over ALL chunk rows
+            ext, _cnt = segment_kernels.segment_reduce(
+                ts, seg, apad, "max" if key[1] == "pick_max" else "min",
+                rvalid)
+            chunk.append(ext)
+    return chunk, rows_any
+
+
+# ---------------------------------------------------------------------------
+# Per-flow device state
+# ---------------------------------------------------------------------------
+
+
+class DeviceFlowState:
+    """Resident state of one streaming flow (see module docstring)."""
+
+    def __init__(self, spec: FlowDeviceSpec, gpad: int = 8, wpad: int = 8,
+                 *, device):
+        self.spec = spec
+        self.device = device
+        self.Gpad = gpad
+        self.Wpad = wpad
+        self.G = 0
+        self.W = 0
+        # group-key dictionaries: string tags map (region code space ->
+        # local code) per (region, column); numeric keys map value bits;
+        # packed combos map to group rows
+        self.code_maps: dict[tuple, np.ndarray] = {}
+        self.val_maps: dict[int, _NpMap] = {}
+        self.col_vals: dict[int, _GrowArr] = {}
+        # string keys: persistent value -> local code dict per column
+        # (appended alongside col_vals), so unifying a NEW REGION's codes
+        # costs O(new vocab) once — not an O(local vocab) dict rebuild on
+        # every chunk that brings any new code
+        self.val_dicts: dict[int, dict] = {}
+        self.win_map = _NpMap()
+        self.win_start = _GrowArr(np.int64)
+        # recycled window columns (expired windows free their slot):
+        # bounds W for expiring flows — state stays a fixed-size ring
+        # over the live window span instead of growing (and re-padding,
+        # and recompiling) forever with stream time
+        self.win_free: list[int] = []
+        self.group_map = _NpMap()
+        nkey = len([k for k in spec.keys if k.kind != "window"])
+        self.group_codes = _GrowArr(np.int64, width=max(nkey, 1))
+        for ci, kc in enumerate(spec.keys):
+            if kc.kind == "str":
+                self.col_vals[ci] = _GrowArr(object)
+            elif kc.kind == "num":
+                self.val_maps[ci] = _NpMap()
+                self.col_vals[ci] = _GrowArr(np.int64)
+        self.slots: list = []  # device tensors, kernel order (+rows last)
+        self._alloc_state()
+        # exact fold watermarks (flow/checkpoint.py persists these)
+        self.folded: dict[int, int] = {}  # region id -> last folded seq
+        self.positions: dict[int, int] = {}  # region id -> append-log pos
+        self.max_ts: dict[int, int] = {}  # region id -> max folded ts
+        self.folds = 0
+
+    # ---- allocation ---------------------------------------------------
+    def _zeros(self, fill, dtype):
+        return torch.full((self.Gpad, self.Wpad), fill,
+                          dtype=_TORCH_DTYPE[np.dtype(dtype)],
+                          device=self.device)
+
+    def _alloc_state(self) -> None:
+        acc, _refs = self.spec.accums()
+        slots = [self._zeros(init, dtype) for _key, init, dtype in acc]
+        slots.append(self._zeros(0, np.int64))  # rows (shared presence)
+        self.slots = slots
+
+    def nbytes(self) -> int:
+        return sum(a.numel() * a.element_size() for a in self.slots)
+
+    def grow(self, g_need: int, w_need: int) -> tuple[int, int]:
+        """Target padded dims for the requested live counts (pow2)."""
+        return _pow2(g_need, self.Gpad), _pow2(w_need, self.Wpad)
+
+    def regrow(self, gpad: int, wpad: int) -> None:
+        """Re-place the state into larger matrices (cold: group/window
+        discovery; pow2 growth keeps it amortized)."""
+        old = self.slots
+        og, ow = self.Gpad, self.Wpad
+        self.Gpad, self.Wpad = gpad, wpad
+        self._alloc_state()
+        for s, o in zip(self.slots, old):
+            s[:og, :ow] = o
+
+    def recycle_expired(self, cutoff: int) -> None:
+        """Free window columns whose bucket expired (start < cutoff):
+        zero their state and push the slot onto the free list for the
+        next window rollover — mirrors the host engine's _expire_state
+        key pruning, with bounded memory as the payoff."""
+        if len(self.win_map) == 0:
+            return
+        keys, vals = self.win_map.keys, self.win_map.vals
+        dead = keys < cutoff
+        if not bool(dead.any()):
+            return
+        freed = vals[dead]
+        self.win_map = _NpMap(keys[~dead].copy(), vals[~dead].copy())
+        self.win_free.extend(int(x) for x in freed)
+        acc, _refs = self.spec.accums()
+        inits = [init for _k, init, _d in acc] + [0]
+        fi = torch.from_numpy(freed.astype(np.int64)).to(self.device)
+        for a, init in zip(self.slots, inits):
+            a[:, fi] = init
+
+    def reset(self) -> None:
+        """Drop all state + dictionaries (reseed rebuilds from a scan)."""
+        self.G = self.W = 0
+        self.code_maps.clear()
+        self.val_dicts.clear()
+        self.win_map = _NpMap()
+        self.win_start = _GrowArr(np.int64)
+        self.win_free = []
+        self.group_map = _NpMap()
+        self.group_codes = _GrowArr(np.int64, width=self.group_codes.width)
+        for ci, kc in enumerate(self.spec.keys):
+            if kc.kind == "str":
+                self.col_vals[ci] = _GrowArr(object)
+            elif kc.kind == "num":
+                self.val_maps[ci] = _NpMap()
+                self.col_vals[ci] = _GrowArr(np.int64)
+        self._alloc_state()
+        self.folded.clear()
+        self.positions.clear()
+        self.max_ts.clear()
+
+    # ---- checkpoint payload -------------------------------------------
+    def to_payload(self) -> dict:
+        host_slots = [a.cpu().numpy() for a in self.slots]
+        return {
+            "ver": FLOW_KERNEL_VER,
+            "sig": self.spec.sig,
+            "G": self.G, "W": self.W,
+            "Gpad": self.Gpad, "Wpad": self.Wpad,
+            "slots": host_slots,
+            "code_maps": {k: v.copy() for k, v in self.code_maps.items()},
+            "val_maps": {ci: (m.keys.copy(), m.vals.copy())
+                         for ci, m in self.val_maps.items()},
+            "col_vals": {ci: g.view().copy()
+                         for ci, g in self.col_vals.items()},
+            "win_map": (self.win_map.keys.copy(), self.win_map.vals.copy()),
+            "win_start": self.win_start.view().copy(),
+            "group_map": (self.group_map.keys.copy(),
+                          self.group_map.vals.copy()),
+            "group_codes": self.group_codes.view().copy(),
+            "folded": dict(self.folded),
+            "max_ts": dict(self.max_ts),
+        }
+
+    @classmethod
+    def from_payload(cls, spec: FlowDeviceSpec, payload: dict, *,
+                     device) -> "DeviceFlowState | None":
+        """The state of a GTF1 payload (this package's or the reference's:
+        numpy arrays and dicts), placed on ``device``."""
+        if payload.get("ver") != FLOW_KERNEL_VER or \
+                tuple(payload.get("sig", ())) != spec.sig:
+            return None
+        st = cls(spec, payload["Gpad"], payload["Wpad"], device=device)
+        st.G, st.W = payload["G"], payload["W"]
+        st.code_maps = dict(payload["code_maps"])
+        for ci, (k, v) in payload["val_maps"].items():
+            st.val_maps[ci] = _NpMap(k, v)
+        for ci, arr in payload["col_vals"].items():
+            dtype = object if st.spec.keys[ci].kind == "str" else np.int64
+            st.col_vals[ci] = _GrowArr(dtype, arr=arr.copy())
+        st.win_map = _NpMap(*payload["win_map"])
+        st.win_start = _GrowArr(np.int64, arr=payload["win_start"].copy())
+        live = set(int(x) for x in st.win_map.vals)
+        st.win_free = [i for i in range(st.win_start.n) if i not in live]
+        st.group_map = _NpMap(*payload["group_map"])
+        st.group_codes = _GrowArr(np.int64, arr=payload["group_codes"].copy(),
+                                  width=st.group_codes.width)
+        st.slots = [torch.from_numpy(np.array(a)).to(device)
+                    for a in payload["slots"]]
+        st.folded = dict(payload["folded"])
+        st.max_ts = dict(payload["max_ts"])
+        return st
+
+
+# ---------------------------------------------------------------------------
+# The runtime
+# ---------------------------------------------------------------------------
+
+
+class FlowDeviceRuntime:
+    """Per-db device flow runtime: owns every flow's DeviceFlowState,
+    pumps source-region append logs into one fold per chunk, and serves
+    the checkpoint layer exact WAL watermarks."""
+
+    def __init__(self, db):
+        self.db = db
+        self.device = db.device
+        self.states: dict[str, DeviceFlowState] = {}
+        # the flow workload quota is not ported: no growth is rejected
+        self.memory_probe = None
+        # mirrors (memory.py discipline: benches read without a scrape)
+        self.fold_dispatches = 0
+        self.fold_rows = 0
+        self.reseeds = 0
+        self.fallbacks = 0
+        self.last_restore: dict[str, str] = {}
+
+    # ------------------------------------------------------------------
+    def nbytes(self) -> int:
+        return sum(s.nbytes() for s in list(self.states.values()))
+
+    def drop(self, name: str) -> None:
+        self.states.pop(name, None)
+
+    def _fallback(self, task, reason: str) -> None:
+        """Degrade this flow to the host engine permanently (until
+        re-registration): clear device state, force a host reseed."""
+        self.fallbacks += 1
+        M_FALLBACK.labels(reason).inc()
+        self.states.pop(task.name, None)
+        task.device_state = None
+        task.device_failed = True
+        task.needs_backfill = True
+
+    # ---- state acquisition -------------------------------------------
+    def state_of(self, task) -> DeviceFlowState | None:
+        """This task's device state, creating it on first use; None when
+        the flow is host-bound (ineligible / over quota / failed)."""
+        st = self.states.get(task.name)
+        if st is not None:
+            return st
+        if getattr(task, "device_failed", False) or task.mode != "streaming":
+            return None
+        spec = build_spec(self.db, task)
+        if spec is None:
+            # only a DECIDABLE ineligibility latches the host fallback: a
+            # source that does not exist yet (CREATE FLOW before CREATE
+            # TABLE is supported) must retry once the table appears
+            try:
+                self.db.table_context(task.source_table)
+            except Exception:  # noqa: BLE001 — source missing: retry later
+                return None
+            task.device_failed = True
+            M_FALLBACK.labels("ineligible").inc()
+            self.fallbacks += 1
+            return None
+        st = DeviceFlowState(spec, device=self.device)
+        if self.memory_probe is not None and not self.memory_probe(
+                st.nbytes()):
+            self._fallback(task, "quota")
+            return None
+        self.states[task.name] = st
+        task.device_state = st
+        return st
+
+    # ---- pumping ------------------------------------------------------
+    def pump(self, task) -> bool:
+        """Drain new append-log chunks of every source region into the
+        flow's fold (device or host), advancing the exact watermark.
+        Returns False when the flow must fall back to the host engine
+        entirely (caller then runs the legacy path)."""
+        st = self.state_of(task)
+        try:
+            regions = self.db._regions_of(task.source_table)
+        except Exception:  # noqa: BLE001 — source missing: nothing to pump
+            return st is not None
+        if st is None:
+            if task.mode == "streaming":
+                return False
+            self._advance_batching(task, regions)
+            return True
+        try:
+            return self._pump_device(task, st, regions)
+        except FlowDeviceOverflow:
+            self._fallback(task, "overflow")
+            return False
+        except FlowDeviceQuota:
+            self._fallback(task, "quota")
+            return False
+
+    def _pump_device(self, task, st, regions) -> bool:
+        from greptimedb_tpu_torch.flow.pump import drain_append_log
+
+        if task.needs_backfill:
+            self.reseed(task, st, "seed")
+            return True
+        # the SHARED exact-watermark consumer (flow/pump.py): one copy
+        # of the append-log discipline for this and the host pump
+        reason = drain_append_log(
+            regions, st.positions, st.folded,
+            lambda region, chunk: self.fold_chunk(
+                task, st, region, chunk))
+        if reason is not None:
+            self.reseed(task, st, reason)
+        return True
+
+    def _advance_batching(self, task, regions) -> None:
+        """Batching flows keep the legacy ts-driven dirty marking; the
+        runtime advances their checkpoint watermark along the append
+        log.  An UNLOGGED sequence (upsert/delete — batching's bread and
+        butter) does not stall the watermark forever: its rows are still
+        in the memtable, so the gap's windows are marked HERE (idempotent
+        with the write's own notification) before advancing past it.  A
+        gap no longer in the memtable stops the advance — restore then
+        re-marks from the frozen watermark, never losing a window."""
+        wms = getattr(task, "watermark", None)
+        if wms is None:
+            wms = task.watermark = {}
+        if task.positions is None:
+            task.positions = {}
+        for region in regions:
+            rid = region.region_id
+            wm = wms.get(rid)
+            if wm is None:
+                # first contact: everything written so far either had its
+                # windows marked by this very notification or predates the
+                # flow (never aggregated — the legacy batching semantic),
+                # so the watermark starts at the current sequence head
+                wms[rid] = region.next_seq - 1
+                task.positions[rid] = region.append_pos
+                continue
+            pos = task.positions.get(rid, 0)
+            chunks = region.append_chunks_since(pos)
+            if chunks is None:
+                # trimmed past us: resync the position; the watermark
+                # stays put (restore re-marks from it)
+                task.positions[rid] = region.append_pos
+                continue
+            by_seq = None
+            for chunk in chunks:
+                seq = int(chunk[SEQ][0])
+                pos += 1
+                if seq <= wm:
+                    continue
+                while seq > wm + 1:
+                    # unlogged gap sequence: mark its windows from the
+                    # memtable copy, then cover it
+                    if by_seq is None:
+                        by_seq = {
+                            int(c[SEQ][0]): c
+                            for c in region.memtable.snapshot_chunks()
+                            if len(c[SEQ])
+                        }
+                    gap = by_seq.get(wm + 1)
+                    if gap is None:
+                        break  # flushed out: freeze the watermark here
+                    task.mark_dirty(np.asarray(gap[region.ts_name]))
+                    wm += 1
+                if seq == wm + 1:
+                    wm = seq
+            wms[rid] = wm
+            task.positions[rid] = pos
+
+    # ---- the fold -----------------------------------------------------
+    def _encode_keys(self, st: DeviceFlowState, region, chunk, n: int,
+                     valid: np.ndarray):
+        # gl: warm-path(host)
+        """Vectorized (group, window) ids for a chunk; registers new
+        dictionary entries (O(new vocab), not O(rows))."""
+        spec = st.spec
+        per_col: list[np.ndarray] = []
+        w = None
+        for ci, kc in enumerate(spec.keys):
+            if kc.kind == "window":
+                ts = np.asarray(chunk[kc.col]).astype(np.int64, copy=False)
+                wv = (ts - kc.origin) // kc.step * kc.step + kc.origin
+                loc = st.win_map.lookup(wv)
+                miss = valid & (loc < 0)
+                if miss.any():
+                    new = np.unique(wv[miss])
+                    # recycled slots first (expired windows freed them),
+                    # fresh columns only past the free list
+                    nreuse = min(len(new), len(st.win_free))
+                    ids = [st.win_free.pop() for _ in range(nreuse)]
+                    base = st.win_start.n
+                    ids.extend(range(base, base + len(new) - nreuse))
+                    ids = np.asarray(ids, dtype=np.int64)
+                    st.win_map.insert(new, ids)
+                    if nreuse:
+                        st.win_start.arr[ids[:nreuse]] = new[:nreuse]
+                    if len(new) > nreuse:
+                        st.win_start.extend(new[nreuse:])
+                    st.W = st.win_start.n
+                    loc = st.win_map.lookup(wv)
+                w = loc
+                continue
+            if kc.kind == "str":
+                codes = np.asarray(chunk[tagcode_col(kc.col)]).astype(
+                    np.int64, copy=False)
+                mkey = (region.region_id, ci)
+                cmap = st.code_maps.get(mkey)
+                if cmap is None:
+                    cmap = st.code_maps[mkey] = np.full(16, -1, np.int64)
+                mx = int(codes.max()) if n else -1
+                if mx >= len(cmap):
+                    grown = np.full(_pow2(mx + 1, 16), -1, np.int64)
+                    grown[: len(cmap)] = cmap
+                    cmap = st.code_maps[mkey] = grown
+                loc = cmap[codes]
+                miss = valid & (loc < 0)
+                if miss.any():
+                    new_codes = np.unique(codes[miss])
+                    vocab = region.encoders[kc.col].values()
+                    vals = st.col_vals[ci]
+                    # region vocabularies differ across partitions: the
+                    # flow-local code unifies them by VALUE through a
+                    # persistent dict maintained alongside col_vals —
+                    # O(new vocab) python lookups, once per entry ever
+                    known = st.val_dicts.get(ci)
+                    if known is None:
+                        known = st.val_dicts[ci] = {
+                            v: j for j, v in enumerate(vals.view())}
+                    for rc in new_codes.tolist():
+                        v = vocab[rc]
+                        lc = known.get(v)
+                        if lc is None:
+                            lc = vals.n
+                            vals.extend(np.array([v], dtype=object))
+                            known[v] = lc
+                        cmap[rc] = lc
+                    loc = cmap[codes]
+                per_col.append(loc)
+            else:  # num
+                nv = np.asarray(chunk[kc.col]).astype(np.int64, copy=False)
+                vmap = st.val_maps[ci]
+                loc = vmap.lookup(nv)
+                miss = valid & (loc < 0)
+                if miss.any():
+                    new = np.unique(nv[miss])
+                    base = len(vmap)
+                    vmap.insert(new, np.arange(
+                        base, base + len(new), dtype=np.int64))
+                    st.col_vals[ci].extend(new)
+                    loc = vmap.lookup(nv)
+                per_col.append(loc)
+        # combo -> group row (fixed-base packing: stable across chunks)
+        if len(per_col) > 1:
+            for ci, kc in enumerate(spec.keys):
+                if kc.kind == "window":
+                    continue
+                if st.col_vals[ci].n >= (1 << _COMBO_BITS):
+                    raise FlowDeviceOverflow(kc.col or kc.name)
+        if not per_col:
+            g = np.zeros(n, np.int64)
+            if st.G == 0:
+                st.G = 1
+                st.group_codes.extend(np.zeros((1, 1), np.int64))
+        else:
+            pack = per_col[0].astype(np.int64).copy()
+            for c in per_col[1:]:
+                pack = (pack << _COMBO_BITS) | c
+            g = st.group_map.lookup(pack)
+            miss = valid & (g < 0)
+            if miss.any():
+                newp = np.unique(pack[miss])
+                base = len(st.group_map)
+                st.group_map.insert(newp, np.arange(
+                    base, base + len(newp), dtype=np.int64))
+                # unpack the combo codes back out (vectorized shifts —
+                # packing bases are fixed, so this is exact).  Column 0
+                # sits in the HIGH bits unshifted, so it takes the full
+                # remainder — masking it would silently truncate a
+                # single-key flow's codes past 2^21 and decode the
+                # aggregate under the WRONG tag value
+                rows = np.empty((len(newp), st.group_codes.width), np.int64)
+                rem = newp.copy()
+                for j in range(len(per_col) - 1, 0, -1):
+                    rows[:, j] = rem & ((1 << _COMBO_BITS) - 1)
+                    rem >>= _COMBO_BITS
+                rows[:, 0] = rem
+                st.group_codes.extend(rows)
+                st.G = len(st.group_map)
+                g = st.group_map.lookup(pack)
+        if w is None:
+            w = np.zeros(n, np.int64)
+            st.W = max(st.W, 1)
+            if st.win_start.n == 0:
+                st.win_map.insert(np.zeros(1, np.int64),
+                                  np.zeros(1, np.int64))
+                st.win_start.extend(np.zeros(1, np.int64))
+        return g, w
+
+    def fold_chunk(self, task, st: DeviceFlowState, region, chunk,
+                   upsert: bool = True, now_ms: int | None = None) -> None:
+        # gl: warm-path(host)
+        """Fold one append-log chunk: vectorized encode, one fold (chunk
+        partials + ``flow_merge``), sink upsert of only the affected
+        rows."""
+        from greptimedb_tpu_torch.flow.engine import M_FLOW_TICK
+
+        with TRACER.stage("flow_device_fold", flow_name=task.name):
+            with M_FLOW_TICK.labels(task.name, "device").time():
+                self._fold_chunk_inner(task, st, region, chunk, upsert,
+                                       now_ms)
+
+    def _fold_chunk_inner(self, task, st, region, chunk, upsert,
+                          now_ms) -> None:
+        # gl: warm-path(host)
+        spec = st.spec
+        ts = np.asarray(chunk[spec.ts_name]).astype(np.int64, copy=False)
+        n = len(ts)
+        if n == 0:
+            return
+        valid = np.ones(n, dtype=bool)
+        if task.expire_after_ms is not None and spec.window_pos >= 0:
+            kc = spec.keys[spec.window_pos]
+            wv = (ts - kc.origin) // kc.step * kc.step + kc.origin
+            now = int(time.time() * 1000) if now_ms is None else now_ms
+            # host semantics (_stream_ingest_inner): a late row whose
+            # window already expired must NOT fold — its state is gone and
+            # a fragment would overwrite the sink's complete aggregate
+            valid &= (now - wv) <= task.expire_after_ms
+            if not valid.any():
+                return
+            # free expired window columns for reuse BEFORE registering
+            # this chunk's windows (the _expire_state twin)
+            st.recycle_expired(now - task.expire_after_ms)
+        g, w = self._encode_keys(st, region, chunk, n, valid)
+        # growth (cold: only on group/window discovery)
+        gpad, wpad = st.grow(max(st.G, 1), max(st.W, 1))
+        if gpad != st.Gpad or wpad != st.Wpad:
+            delta = st.nbytes()
+            need = delta * ((gpad * wpad) // max(st.Gpad * st.Wpad, 1) - 1)
+            if self.memory_probe is not None and need > 0 and \
+                    not self.memory_probe(need):
+                raise FlowDeviceQuota(task.name)
+            st.regrow(gpad, wpad)
+        # affected slots: unique (g, w) among valid rows
+        flat = g * np.int64(st.Wpad) + w
+        aff_flat, seg_valid = np.unique(flat[valid], return_inverse=True)
+        apad = _pow2(len(aff_flat), 64)
+        seg = np.full(n, apad, np.int32)
+        seg[valid] = seg_valid
+        aff_g = np.full(apad, st.Gpad, np.int32)  # pad -> skipped slot
+        aff_w = np.zeros(apad, np.int32)
+        aff_g[: len(aff_flat)] = aff_flat // st.Wpad
+        aff_w[: len(aff_flat)] = aff_flat % st.Wpad
+        vals, vvalids = [], []
+        for c in spec.cols:
+            arr = np.asarray(chunk[c])
+            if arr.dtype == object:
+                # nullable non-float column staged through an object
+                # array: region write normally types these; be safe
+                arr = arr.astype(np.float64)
+            vals.append(arr.astype(np.float64, copy=False))
+            vvalids.append(np.ones(n, dtype=bool) if arr.dtype.kind != "f"
+                           else ~np.isnan(vals[-1]))
+        dev = st.device
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        acc_keys, kinds, links = merge_plan(spec)
+        seg_t, rvalid_t = put(seg), put(valid)
+        part, rows_any = chunk_partials(
+            acc_keys, spec.cols, seg_t, rvalid_t, put(ts),
+            [put(v) for v in vals], [put(m) for m in vvalids], apad)
+        outs = flow_merge(st.slots, part, rows_any, put(aff_g), put(aff_w),
+                          kinds, links)
+        st.folds += 1
+        self.fold_dispatches += 1
+        self.fold_rows += int(valid.sum())
+        M_FOLD.labels(task.name).inc()
+        M_FOLD_ROWS.inc(int(valid.sum()))
+        rid = region.region_id
+        st.max_ts[rid] = max(st.max_ts.get(rid, _I64_MIN),
+                             int(ts.max()))
+        if upsert:
+            self._upsert_affected(task, st, aff_g[: len(aff_flat)],
+                                  aff_w[: len(aff_flat)],
+                                  [o[: len(aff_flat)].cpu().numpy()
+                                   for o in outs])
+        task.last_tick_ms = int(time.time() * 1000)
+        task.ckpt_dirty = True
+
+    # ---- sink materialization ----------------------------------------
+    def _finalize_columns(self, task, st, aff_g, aff_w, outs) -> dict:
+        """Final output columns for the given affected slots — the
+        vectorized twin of rpc/partial.py merge_partials (same NULL
+        rules, exact for the device-closed aggregate surface)."""
+        spec = st.spec
+        plan = task.partial_plan
+        # accumulator outputs (+ rows last) -> per-slot (value, valid
+        # count) views through the dedup refs
+        _acc, refs = spec.accums()
+        rows_out = outs[-1]
+        by_slot: dict[str, tuple] = {}
+        for s, (vi, hi) in zip(spec.slots, refs):
+            by_slot[s.name] = (outs[vi],
+                               outs[hi] if hi is not None else rows_out)
+        key_vals: dict[str, object] = {}
+        codes = st.group_codes.view()[aff_g]
+        pc = 0
+        for ci, kc in enumerate(spec.keys):
+            if kc.kind == "window":
+                key_vals[kc.name] = st.win_start.view()[aff_w]
+                continue
+            if kc.kind == "str":
+                # dictionary-coded sink upsert (DictColumn): the
+                # runtime's local codes + vocabulary go straight into the
+                # region's factorization — no per-row string objects on
+                # the sink write either
+                from greptimedb_tpu_torch.datatypes.batch import DictColumn
+
+                key_vals[kc.name] = DictColumn(
+                    st.col_vals[ci].view(),
+                    codes[..., pc].astype(np.int32))
+            else:
+                key_vals[kc.name] = st.col_vals[ci].view()[codes[..., pc]]
+            pc += 1
+        data: dict[str, object] = {}
+        for m in plan.items:
+            if m.kind == "key":
+                data[m.output_name] = key_vals[plan.key_cols[m.key_index]]
+            elif m.agg in ("avg", "mean"):
+                s_v, _ = by_slot[m.partial_cols[0]]
+                c_v, _ = by_slot[m.partial_cols[1]]
+                with np.errstate(invalid="ignore", divide="ignore"):
+                    data[m.output_name] = np.where(
+                        c_v > 0, s_v / np.maximum(c_v, 1), np.nan)
+            else:
+                v, has = by_slot[m.partial_cols[0]]
+                s = next(x for x in spec.slots
+                         if x.name == m.partial_cols[0])
+                if s.kind == "count":
+                    data[m.output_name] = v
+                elif s.kind in ("pick_min", "pick_max"):
+                    data[m.output_name] = v  # NaN already means NULL
+                else:
+                    data[m.output_name] = np.where(
+                        has > 0, v, np.nan)
+        return data
+
+    def _upsert_affected(self, task, st, aff_g, aff_w, outs) -> None:
+        if len(aff_g) == 0:
+            return
+        data = self._finalize_columns(task, st, aff_g, aff_w, outs)
+        n = len(aff_g)
+        region = self.db._region_of(task.sink_table)
+        if "update_at" in [c.name for c in region.schema]:
+            data["update_at"] = np.full(n, int(time.time() * 1000),
+                                        np.int64)
+        region.write(data)
+        from greptimedb_tpu_torch.flow.engine import M_FLOW_ROWS
+
+        M_FLOW_ROWS.labels(task.name).inc(n)
+        self.db.cache.invalidate_region(region.region_id)
+
+    def upsert_all(self, task, st: DeviceFlowState,
+                   now_ms: int | None = None) -> None:
+        """Refresh the sink from every live state key (restore / reseed —
+        closes the window where a pre-crash sink upsert was not yet
+        durable while the checkpointed state already covered it)."""
+        rows = st.slots[-1].cpu().numpy()
+        live = rows > 0
+        if task.expire_after_ms is not None and st.spec.window_pos >= 0:
+            now = int(time.time() * 1000) if now_ms is None else now_ms
+            ws = st.win_start.view()
+            dead_w = np.zeros(st.Wpad, dtype=bool)
+            dead_w[: len(ws)] = (now - ws) > task.expire_after_ms
+            live &= ~dead_w[None, :]
+        aff_g, aff_w = np.nonzero(live)
+        if len(aff_g) == 0:
+            return
+        outs = [a.cpu().numpy()[aff_g, aff_w] for a in st.slots]
+        self._upsert_affected(task, st, aff_g, aff_w, outs)
+
+    # ---- reseed -------------------------------------------------------
+    def reseed(self, task, st: DeviceFlowState, reason: str) -> None:
+        """Rebuild state from a seq-bounded source scan (register /
+        restart without checkpoint / upsert / trimmed log).  The scan's
+        max sequence becomes the exact watermark; chunks at or below it
+        are skipped by the pump."""
+        M_RESEED.labels(reason).inc()
+        self.reseeds += 1
+        st.reset()
+        now = int(time.time() * 1000)
+        lo = None
+        if task.expire_after_ms is not None:
+            # mirror the host backfill filter: raw-ts cutoff, windows kept
+            # when any surviving row maps to them
+            lo = now - task.expire_after_ms
+        try:
+            regions = self.db._regions_of(task.source_table)
+        except Exception:  # noqa: BLE001 — source missing: empty state
+            task.needs_backfill = False
+            return
+        for region in regions:
+            rid = region.region_id
+            with region._write_lock:
+                # all sequences <= seq0 are fully applied to the memtable
+                seq0 = region.next_seq - 1
+                pos0 = region.append_pos
+            cols = region.scan_host(with_tag_codes=True)
+            seqs = cols.get(SEQ)
+            nrows = len(seqs) if seqs is not None else 0
+            seqhi = seq0
+            if nrows:
+                seqhi = max(seq0, int(seqs.max()))
+                keep = np.ones(nrows, dtype=bool)
+                if lo is not None:
+                    keep &= np.asarray(cols[st.spec.ts_name]).astype(
+                        np.int64, copy=False) >= lo
+                if keep.any():
+                    chunk = {k: np.asarray(v)[keep]
+                             for k, v in cols.items()}
+                    self.fold_chunk(task, st, region, chunk, upsert=False,
+                                    now_ms=now)
+            st.folded[rid] = seqhi
+            st.positions[rid] = pos0
+        task.needs_backfill = False
+        self.upsert_all(task, st, now_ms=now)
+        task.ckpt_dirty = True
+
+    # ---- introspection ------------------------------------------------
+    def state_keys(self, task, st: DeviceFlowState,
+                   now_ms: int | None = None) -> set:
+        """Live (key tuple) set — the host stream_state.keys() twin, for
+        tests and information_schema (O(G) host decode, cold path)."""
+        rows = st.slots[-1].cpu().numpy()
+        live = rows > 0
+        if task.expire_after_ms is not None and st.spec.window_pos >= 0:
+            now = int(time.time() * 1000) if now_ms is None else now_ms
+            ws = st.win_start.view()
+            dead_w = np.zeros(st.Wpad, dtype=bool)
+            dead_w[: len(ws)] = (now - ws) > task.expire_after_ms
+            live &= ~dead_w[None, :]
+        aff_g, aff_w = np.nonzero(live)
+        codes = st.group_codes.view()[aff_g]
+        out = set()
+        cols = []
+        pc = 0
+        for ci, kc in enumerate(st.spec.keys):
+            if kc.kind == "window":
+                cols.append(st.win_start.view()[aff_w])
+            else:
+                cols.append(st.col_vals[ci].view()[codes[..., pc]])
+                pc += 1
+        for i in range(len(aff_g)):
+            out.add(tuple(c[i] for c in cols))
+        return out

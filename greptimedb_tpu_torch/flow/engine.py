@@ -1,0 +1,848 @@
+"""Dual-mode flow engine: streaming incremental aggregation + batching
+dirty-window re-query.
+
+Equivalent of the reference's FlowDualEngine
+(src/flow/src/adapter/flownode_impl.rs:66): each flow runs on one of two
+engines, chosen from its query shape —
+
+- STREAMING (reference src/flow/src/compute/render.rs, dfir incremental
+  map/reduce): when the query decomposes into mergeable partial
+  aggregates (rpc/partial.py — the same commutativity split the
+  distributed planner uses), arriving write batches are aggregated
+  immediately: the chunk's partials compute through the normal device
+  engine over an ephemeral staging region, merge into windowed state
+  keyed by (group, window), and only the AFFECTED windows upsert into
+  the sink.  No source re-scan ever happens.
+- BATCHING (reference src/flow/src/batching_mode/engine.rs + RFC
+  flow-inc-query): non-decomposable queries fall back to dirty-window
+  re-query — on trigger the flow re-runs restricted to dirty windows and
+  upserts (a window re-run fully replaces its rows).
+
+Torch counterpart of the reference's ``flow/engine.py``.  The port has no
+metric engine: every source is a plain table whose region pumps its own
+append log, so the reference's data-driven fold for metric-engine logical
+sources (and its ``_plain_source`` probe) has no counterpart here.  The
+cluster roles (``flow/cluster.py``) are not ported; ``flownode_id`` stays
+None.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+
+from greptimedb_tpu_torch.errors import (
+    FlowAlreadyExists, FlowNotFound, PlanError, Unsupported,
+)
+from greptimedb_tpu_torch.query.ast import (
+    BinaryOp, Column, CreateFlow, DropFlow, FuncCall, IntervalLit, Literal,
+    Select, ShowFlows, Star,
+)
+from greptimedb_tpu_torch.utils.telemetry import REGISTRY
+from greptimedb_tpu_torch.utils.tracing import TRACER
+
+# Flow observability (reference src/flow/src/metrics.rs
+# METRIC_FLOW_RUN_INTERVAL/ROWS): tick latency per (flow, engine mode)
+# and sink rows written per flow, scrapeable at /metrics and queryable
+# via information_schema.runtime_metrics.
+M_FLOW_TICK = REGISTRY.histogram(
+    "greptime_flow_tick_duration_seconds",
+    "One flow evaluation tick (streaming ingest fold or batching re-query)",
+    labels=("flow", "mode"),
+)
+M_FLOW_ROWS = REGISTRY.counter(
+    "greptime_flow_rows_total",
+    "Rows written to flow sink tables",
+    labels=("flow",),
+)
+
+
+@dataclass
+class FlowTask:
+    name: str
+    sink_table: str
+    source_table: str
+    query: Select
+    window_ms: int  # bucket width of the flow's time key
+    expire_after_ms: int | None
+    comment: str | None = None
+    dirty: set = field(default_factory=set)  # dirty window starts (ms)
+    last_run_ms: int = 0
+    # dual-engine fields (mode chosen at registration)
+    mode: str = "batching"  # "streaming" | "batching"
+    partial_plan: object = None  # rpc.partial.PartialPlan for streaming
+    # streaming state: (key values tuple) -> {partial_col: value}
+    stream_state: dict = field(default_factory=dict)
+    needs_backfill: bool = False
+    window_key_pos: int | None = None  # position of the time key in keys
+    stage: object = None  # cached (provider, engine) for chunk evaluation
+    # device flow runtime (flow/device.py; all None/untouched when
+    # GREPTIME_FLOW_DEVICE=off keeps the host path byte-for-byte)
+    device_state: object = None
+    device_failed: bool = False
+    watermark: dict = None  # region id -> last folded WAL sequence
+    positions: dict = None  # region id -> consumed append-log position
+    max_ts_folded: dict = field(default_factory=dict)
+    last_tick_ms: int = 0
+    ckpt_dirty: bool = False
+    restored_from_checkpoint: bool = False
+    flownode_id: int | None = None
+
+    def mark_dirty(self, ts_values) -> None:
+        for t in ts_values:
+            self.dirty.add((int(t) // self.window_ms) * self.window_ms)
+
+
+def _find_window_ms(sel: Select) -> int:
+    """The flow's time bucket width from its GROUP BY date_bin/date_trunc."""
+    fixed = {
+        "second": 1000, "minute": 60_000, "hour": 3_600_000,
+        "day": 86_400_000, "week": 604_800_000,
+    }
+    for g in list(sel.group_by) + [i.expr for i in sel.items]:
+        if isinstance(g, FuncCall) and g.name == "date_bin" and g.args:
+            a = g.args[0]
+            if isinstance(a, IntervalLit):
+                return a.ms
+        if isinstance(g, FuncCall) and g.name == "date_trunc" and g.args:
+            a = g.args[0]
+            if isinstance(a, Literal) and str(a.value).lower() in fixed:
+                return fixed[str(a.value).lower()]
+    return 3_600_000  # default hourly windows
+
+
+def select_to_sql(sel: Select) -> str:
+    """Regenerate parseable SQL from a (flow-shaped) Select AST — the
+    durable form of a flow definition."""
+    items = []
+    for it in sel.items:
+        s = "*" if isinstance(it.expr, Star) else str(it.expr)
+        if it.range_ is not None:
+            s += f" RANGE '{it.range_.raw}'"
+        if it.alias:
+            s += f" AS {it.alias}"
+        items.append(s)
+    parts = ["SELECT " + ", ".join(items)]
+    if sel.table:
+        parts.append(f"FROM {sel.table}")
+    if sel.where is not None:
+        parts.append(f"WHERE {sel.where}")
+    if sel.group_by:
+        parts.append("GROUP BY " + ", ".join(map(str, sel.group_by)))
+    if sel.having is not None:
+        parts.append(f"HAVING {sel.having}")
+    if sel.order_by:
+        parts.append("ORDER BY " + ", ".join(
+            f"{o.expr} {'ASC' if o.asc else 'DESC'}" for o in sel.order_by
+        ))
+    if sel.limit is not None:
+        parts.append(f"LIMIT {sel.limit}")
+    return " ".join(parts)
+
+
+def flow_to_sql(stmt: CreateFlow) -> str:
+    s = f"CREATE FLOW {stmt.name} SINK TO {stmt.sink_table}"
+    if stmt.expire_after is not None:
+        s += f" EXPIRE AFTER '{stmt.expire_after.raw}'"
+    if stmt.comment:
+        s += " COMMENT '" + stmt.comment.replace("'", "''") + "'"
+    return s + " AS " + select_to_sql(stmt.query)
+
+
+class FlowEngine:
+    _KV_PREFIX = "__flow/"
+
+    def __init__(self, db, restore: bool = True):
+        import os
+        import threading
+
+        # restore=False: sharded flownodes (flow/cluster.py) register
+        # only the flows their routes assign, not the whole key-space
+        self.db = db
+        self.flows: dict[str, FlowTask] = {}
+        # device flow runtime + checkpoint store (standalone wires both
+        # before constructing the engine; GREPTIME_FLOW_DEVICE=off leaves
+        # them None and every path below is the pre-existing host code)
+        self.runtime = getattr(db, "flow_runtime", None)
+        self.checkpoints = getattr(db, "flow_checkpoints", None)
+        # this engine's fencing token for checkpoint deletes: flownodes
+        # can SHARE one checkpoint store object (shared data home), so
+        # the epoch a failover winner claims lives per-engine — a
+        # fenced-out zombie engine keeps its older token and its stale
+        # drop plan loses (flow/cluster.py tick sets this on the target)
+        self.ckpt_epoch: int | None = None
+        self._ckpt_interval_s = float(os.environ.get(
+            "GREPTIME_FLOW_CKPT_INTERVAL_S", "30"))
+        self._last_ckpt_ms = 0.0
+        self._idle_armed = False
+        # serializes incremental-state mutation: HTTP ingest-pool workers
+        # (servers/http.py) and the SQL path on the db-executor both call
+        # on_write/run_all — two threads folding the same flow's deltas
+        # concurrently would lose or double-apply them.  Reentrant so
+        # run_all → run_flow nests.
+        self._fold_lock = threading.RLock()
+        if restore:
+            self._restore()
+
+    def _restore(self) -> None:
+        """Rebuild flows from their durable SQL (reference persists flow
+        metadata in common-meta's key space the same way)."""
+        from greptimedb_tpu_torch.query.parser import parse_sql
+
+        for _k, raw in self.db.kv.range(self._KV_PREFIX):
+            stmt = parse_sql(raw.decode())[0]
+            if isinstance(stmt, CreateFlow):
+                self._register(stmt)
+
+    def _register(self, stmt: CreateFlow) -> FlowTask:
+        sel = stmt.query
+        if sel.table is None:
+            raise PlanError("flow query needs a source table")
+        task = FlowTask(
+            name=stmt.name,
+            sink_table=stmt.sink_table,
+            source_table=sel.table,
+            query=sel,
+            window_ms=_find_window_ms(sel),
+            expire_after_ms=stmt.expire_after.ms if stmt.expire_after else None,
+            comment=stmt.comment,
+        )
+        # engine choice (FlowDualEngine): decomposable aggregate queries
+        # stream; everything else batches.  ORDER BY/LIMIT flows must
+        # batch — split_partial strips them for the distributed path
+        # where the frontend reapplies, but a flow has no such finisher
+        from greptimedb_tpu_torch.rpc.partial import split_partial
+
+        ts_col = None
+        try:
+            ti = self.db.table_context(sel.table).schema.time_index
+            ts_col = ti.name if ti is not None else None
+        except Exception:  # noqa: BLE001 — source missing: batching mode
+            pass
+        # with the time index known, first/last decompose into pick pairs
+        # (value-at-extreme-ts) and stream through the same merge_into
+        plan = split_partial(sel, ts_column=ts_col)
+        if plan is not None and not sel.order_by and sel.limit is None:
+            task.mode = "streaming"
+            task.partial_plan = plan
+            task.window_key_pos = self._time_key_pos(task)
+            # state is in-memory: seed it from the source on (re)register
+            task.needs_backfill = True
+        self.flows[stmt.name] = task
+        self._ensure_sink(task)
+        if self.checkpoints is not None:
+            task.watermark = {}
+            task.positions = {}
+            self._try_restore(task)
+        return task
+
+    def _try_restore(self, task: FlowTask) -> bool:
+        """Resume from the flow's GTF1 checkpoint + WAL-tail replay
+        (flow/checkpoint.py).  A miss / stale / unreplayable checkpoint
+        leaves the legacy seeding in place (backfill / dirty marks)."""
+        import os as _os
+
+        from greptimedb_tpu_torch.flow.checkpoint import apply_payload
+
+        if not _os.path.exists(self.checkpoints.path(task.name)):
+            return False
+        payload = self.checkpoints.load(task.name)
+        if payload is None:
+            return False
+        try:
+            return apply_payload(self, task, payload)
+        except Exception:  # noqa: BLE001 — a restore failure must never
+            # block registration; the flow reseeds from source instead
+            task.needs_backfill = task.mode == "streaming"
+            return False
+
+    def create_flow(self, stmt: CreateFlow) -> None:
+        if stmt.name in self.flows:
+            if stmt.if_not_exists:
+                return
+            raise FlowAlreadyExists(stmt.name)
+        self._register(stmt)
+        self.db.kv.put(self._KV_PREFIX + stmt.name, flow_to_sql(stmt).encode())
+
+    def drop_flow(self, name: str, if_exists: bool = False) -> None:
+        if name not in self.flows:
+            if if_exists:
+                return
+            raise FlowNotFound(name)
+        del self.flows[name]
+        self.db.kv.delete(self._KV_PREFIX + name)
+        if self.runtime is not None:
+            self.runtime.drop(name)
+        if self.checkpoints is not None:
+            # fenced by this engine's epoch token: a zombie engine whose
+            # flows were failed over away raises FencedError here instead
+            # of destroying the new owner's checkpoint
+            self.checkpoints.delete(name, epoch=self.ckpt_epoch)
+
+    def list_flows(self) -> list[FlowTask]:
+        return [self.flows[k] for k in sorted(self.flows)]
+
+    # ------------------------------------------------------------------
+    def on_write(self, table: str, ts_values, data: dict | None = None,
+                 appendable: bool = True) -> None:
+        """Ingest hook.  Streaming flows consume the arriving batch
+        immediately when the caller provides the full columns AND the
+        batch was a pure append; upserts (``appendable=False``) would
+        double-count in incremental state, so they force a state reseed.
+        Batching flows (or ts-only callers) mark dirty windows.
+
+        With the device runtime armed, streaming flows over plain tables
+        instead PUMP their source regions' append logs (flow/device.py):
+        the fold consumes the logged chunks in WAL-sequence order, which
+        is what makes the checkpoint watermark exact.  Metric-engine
+        logical sources (multiplexed physical regions) keep the
+        data-driven legacy fold."""
+        with self._fold_lock:
+            for task in list(self.flows.values()):
+                if task.source_table.split(".")[-1] != table.split(".")[-1]:
+                    continue
+                if self.runtime is not None:
+                    self._on_write_pumped(task, ts_values, data, appendable)
+                    continue
+                if task.mode == "streaming" and not appendable:
+                    task.needs_backfill = True
+                if task.mode == "streaming" and data is not None and not (
+                    task.needs_backfill
+                ):
+                    self._stream_ingest(task, data)
+                else:
+                    task.mark_dirty(ts_values)
+        if self.runtime is not None:
+            self._arm_idle_checkpoints()
+
+    # ---- pumped ingest (device runtime armed) -------------------------
+    def _on_write_pumped(self, task: FlowTask, ts_values, data,
+                         appendable: bool) -> None:
+        if task.mode == "batching":
+            task.mark_dirty(ts_values)
+            task.ckpt_dirty = True
+            self.runtime.pump(task)  # watermark advance only
+            return
+        if not appendable:
+            task.needs_backfill = True
+        if not getattr(task, "device_failed", False) and \
+                self.runtime.pump(task):
+            return
+        self._pump_host_stream(task)
+
+    def _pump_host_stream(self, task: FlowTask) -> None:
+        """The host dict-of-partials fold, fed from the append log by
+        the SHARED exact-watermark consumer (flow/pump.py — one copy of
+        the discipline for this and the device pump) so its checkpoints
+        carry the same exact watermark (device-ineligible /
+        quota-rejected flows)."""
+        from greptimedb_tpu_torch.flow.pump import drain_append_log
+
+        try:
+            regions = self.db._regions_of(task.source_table)
+        except Exception:  # noqa: BLE001 — source missing
+            return
+        if task.watermark is None:
+            task.watermark = {}
+            task.positions = {}
+        if task.needs_backfill:
+            self._host_reseed(task, regions)
+            return
+        reason = drain_append_log(
+            regions, task.positions, task.watermark,
+            lambda region, chunk: self._host_fold_chunk(
+                task, region, chunk))
+        if reason is not None:
+            self._host_reseed(task, regions)
+
+    def _host_fold_chunk(self, task: FlowTask, region, chunk) -> None:
+        """Fold one append-log chunk through the legacy streaming path
+        (identical content to the wire batch: the memtable materializes
+        the same columns region.write encoded)."""
+        from greptimedb_tpu_torch.storage.memtable import SEQ
+
+        schema = region.schema
+        data = {k: v for k, v in chunk.items() if schema.has_column(k)}
+        self._stream_ingest(task, data)
+        rid = region.region_id
+        seq = int(chunk[SEQ][0])
+        task.watermark[rid] = max(task.watermark.get(rid, -1), seq)
+        ts = chunk[region.ts_name]
+        if len(ts):
+            task.max_ts_folded[rid] = max(
+                task.max_ts_folded.get(rid, -(1 << 63)), int(ts.max()))
+        task.ckpt_dirty = True
+        task.last_tick_ms = int(time.time() * 1000)
+
+    def _host_reseed(self, task: FlowTask, regions) -> None:
+        """Legacy backfill + exact-enough watermark: sequences snapshot
+        under each region's write lock BEFORE the backfill query, so
+        everything at or below the watermark is covered by the query
+        (rows landing during it may fold twice under concurrent ingest —
+        the pre-existing backfill race — never be lost)."""
+        marks = {}
+        for region in regions:
+            with region._write_lock:
+                marks[region.region_id] = (region.next_seq - 1,
+                                           region.append_pos)
+        with TRACER.stage("run_flow", flow_name=task.name, mode="backfill"):
+            with M_FLOW_TICK.labels(task.name, "streaming").time():
+                self._backfill(task)
+        if task.needs_backfill:
+            return  # backfill failed and kept the flag: retry later
+        for region in regions:
+            rid = region.region_id
+            seq0, pos0 = marks[rid]
+            task.watermark[rid] = seq0
+            task.positions[rid] = pos0
+            b = region.ts_bounds()
+            if b is not None:
+                task.max_ts_folded[rid] = b[1]
+        task.ckpt_dirty = True
+
+    # ---- streaming engine ---------------------------------------------
+    def _time_key_pos(self, task: FlowTask) -> int | None:
+        """Which position in the state key tuple holds the time bucket
+        (tags may be integer-typed, so positional knowledge — derived from
+        the planner's key classification — is required, not type sniffing)."""
+        try:
+            from greptimedb_tpu_torch.query.planner import plan_select
+
+            ctx = self.db.table_context(task.source_table)
+            plan = plan_select(task.query, ctx)
+        except Exception:  # noqa: BLE001 — source missing at registration
+            return None
+        key_items = [m for m in task.partial_plan.items if m.kind == "key"]
+        for pos, m in enumerate(key_items):
+            gk = next((k for k in plan.group_keys
+                       if k.name == m.output_name), None)
+            if gk is not None and gk.kind == "time":
+                return pos
+        return None
+
+    def _eval_partial_on_chunk(self, task: FlowTask, data: dict):
+        """Run the flow's partial query over just the arriving rows via a
+        per-task staging engine (full semantics: WHERE, date_bin, device
+        aggregation).  The QueryEngine is cached so compiled kernels are
+        reused across batches; only the tiny Region is rebuilt per chunk."""
+        from greptimedb_tpu_torch.query.engine import QueryEngine, SingleTableProvider
+        from greptimedb_tpu_torch.storage.manifest import Manifest
+        from greptimedb_tpu_torch.storage.object_store import MemoryObjectStore
+        from greptimedb_tpu_torch.storage.region import Region, RegionOptions
+
+        src_schema = self.db.table_context(task.source_table).schema
+        store = MemoryObjectStore()
+        manifest = Manifest.open(store, "region_1/manifest")
+        manifest.commit({"kind": "schema", "schema": src_schema.to_dict()})
+        region = Region(1, store, src_schema, manifest, None,
+                        RegionOptions(wal_enabled=False))
+        region.write({k: v for k, v in data.items()
+                      if src_schema.has_column(k)})
+        if task.stage is None:
+            provider = SingleTableProvider(region, self.db.timezone,
+                                           device=self.db.device)
+            task.stage = (provider, QueryEngine(provider))
+        provider, engine = task.stage
+        provider.view = region
+        provider._built = None
+        import copy
+
+        sel = copy.deepcopy(task.partial_plan.partial_select)
+        return engine.execute_select(sel)
+
+    def _stream_ingest(self, task: FlowTask, data: dict) -> None:
+        # span named for the entry point, flow_name attribute so the
+        # ingest fold shows up in self-traces next to the triggering
+        # statement's tree (same trace id: the hook runs inside it)
+        with TRACER.stage("stream_ingest", flow_name=task.name):
+            with M_FLOW_TICK.labels(task.name, "streaming").time():
+                self._stream_ingest_inner(task, data)
+
+    def _stream_ingest_inner(self, task: FlowTask, data: dict) -> None:
+        from greptimedb_tpu_torch.rpc.partial import merge_into
+
+        plan = task.partial_plan
+        res = self._eval_partial_on_chunk(task, data)
+        if not res.rows:
+            return
+        idx = {n: i for i, n in enumerate(res.column_names)}
+        key_idx = [idx[k] for k in plan.key_cols]
+        affected = []
+        now_ms = int(time.time() * 1000)
+        for row in res.rows:
+            key = tuple(row[i] for i in key_idx)
+            if task.expire_after_ms is not None:
+                w = self._window_of_key(task, key)
+                if w is not None and now_ms - w > task.expire_after_ms:
+                    # late arrival to an expired window: its state is gone;
+                    # folding the lone chunk in would OVERWRITE the sink's
+                    # complete historical aggregate with a fragment
+                    continue
+            slot = task.stream_state.get(key)
+            if slot is None:
+                task.stream_state[key] = {
+                    c: row[idx[c]] for c in plan.merge_cols
+                }
+            else:
+                merge_into(slot, {c: row[idx[c]] for c in plan.merge_cols},
+                           plan.merge_cols)
+            affected.append(key)
+        self._upsert_finalized(task, affected)
+        if task.expire_after_ms is not None:
+            self._expire_state(task, now_ms)
+
+    def _window_of_key(self, task: FlowTask, key: tuple):
+        """The window timestamp inside a state key, by the planner-derived
+        position (tags may be integer-typed — never sniff by type)."""
+        pos = task.window_key_pos
+        if pos is None or pos >= len(key):
+            return None
+        v = key[pos]
+        return int(v) if isinstance(v, (int, float)) else None
+
+    def _expire_state(self, task: FlowTask, now_ms: int) -> None:
+        dead = []
+        for key in task.stream_state:
+            w = self._window_of_key(task, key)
+            if w is not None and now_ms - w > task.expire_after_ms:
+                dead.append(key)
+        for key in dead:
+            del task.stream_state[key]
+
+    def _upsert_finalized(self, task: FlowTask, keys: list[tuple]) -> None:
+        """Finalize the affected (group, window) rows and upsert them."""
+        from greptimedb_tpu_torch.rpc.partial import merge_partials
+
+        plan = task.partial_plan
+        keys = list(dict.fromkeys(keys))
+        part: dict[str, list] = {c: [] for c in plan.key_cols}
+        for c in plan.merge_cols:
+            part[c] = []
+        for key in keys:
+            slot = task.stream_state.get(key)
+            if slot is None:
+                continue
+            for c, v in zip(plan.key_cols, key):
+                part[c].append(v)
+            for c in plan.merge_cols:
+                part[c].append(slot[c])
+        names, rows = merge_partials(plan, [part])
+        if not rows:
+            return
+        data = {n: [r[i] for r in rows] for i, n in enumerate(names)}
+        region = self.db._region_of(task.sink_table)
+        if "update_at" in [c.name for c in region.schema]:
+            data["update_at"] = [int(time.time() * 1000)] * len(rows)
+        region.write(data)
+        M_FLOW_ROWS.labels(task.name).inc(len(rows))
+        self.db.cache.invalidate_region(region.region_id)
+
+    def _backfill(self, task: FlowTask) -> None:
+        """Seed streaming state from the full source (register/restart —
+        in-memory state is the price of the streaming engine; the
+        reference checkpoints similarly, batching_mode/checkpoint.rs)."""
+        import copy
+
+        from greptimedb_tpu_torch.errors import TableNotFound
+
+        plan = task.partial_plan
+        task.stream_state.clear()
+        sel = copy.deepcopy(plan.partial_select)
+        if task.expire_after_ms is not None:
+            # expired windows are immutable history (their source rows may
+            # be gone); never recompute or overwrite them — same filter
+            # the batching engine applies to dirty windows
+            try:
+                ctx = self.db.table_context(task.source_table)
+                ts_col = ctx.schema.time_index.name
+                lo = int(time.time() * 1000) - task.expire_after_ms
+                cond = BinaryOp(">=", Column(ts_col), Literal(lo))
+                sel.where = (
+                    cond if sel.where is None
+                    else BinaryOp("AND", sel.where, cond)
+                )
+            except TableNotFound:
+                pass
+        try:
+            # metrics={}: a flow's internal query must not write its stage
+            # breakdown into the triggering statement's slow-query sink
+            res = self.db.engine.execute_select(sel, metrics={})
+        except TableNotFound:
+            # source not created yet (flow registered first): empty state
+            # is correct; the first real ingest streams from zero
+            task.needs_backfill = False
+            return
+        # any other failure propagates and KEEPS needs_backfill: silently
+        # starting from empty state would undercount every window forever
+        idx = {n: i for i, n in enumerate(res.column_names)}
+        key_idx = [idx[k] for k in plan.key_cols]
+        for row in res.rows:
+            key = tuple(row[i] for i in key_idx)
+            task.stream_state[key] = {c: row[idx[c]] for c in plan.merge_cols}
+        task.needs_backfill = False
+        if task.stream_state:
+            self._upsert_finalized(task, list(task.stream_state))
+
+    def _ensure_sink(self, task: FlowTask) -> None:
+        from greptimedb_tpu_torch.datatypes.schema import ColumnSchema, Schema
+        from greptimedb_tpu_torch.datatypes.types import ConcreteDataType, SemanticType
+
+        db, name = self.db._split_name(task.sink_table)
+        if self.db.catalog.table_exists(db, name):
+            return
+        # derive sink schema by planning the query
+        ctx = self.db.table_context(task.source_table)
+        from greptimedb_tpu_torch.query.planner import plan_select
+
+        plan = plan_select(task.query, ctx)
+        cols = []
+        key_names = {k.name for k in plan.group_keys}
+        ts_done = False
+        for item in plan.items:
+            out = item.output_name
+            gk = next((k for k in plan.group_keys if k.name == out), None)
+            if gk is not None and gk.kind == "time" and not ts_done:
+                cols.append(ColumnSchema(
+                    out, ConcreteDataType.TIMESTAMP_MILLISECOND,
+                    SemanticType.TIMESTAMP, nullable=False,
+                ))
+                ts_done = True
+            elif gk is not None and gk.kind == "tag":
+                cols.append(ColumnSchema(out, ConcreteDataType.STRING,
+                                         SemanticType.TAG))
+            else:
+                cols.append(ColumnSchema(out, ConcreteDataType.FLOAT64))
+        if not ts_done:
+            cols.append(ColumnSchema(
+                "update_at", ConcreteDataType.TIMESTAMP_MILLISECOND,
+                SemanticType.TIMESTAMP, nullable=False,
+            ))
+        schema = Schema(tuple(cols))
+        info = self.db.catalog.create_table(db, name, schema)
+        self.db.regions.create_region(info.region_ids[0], schema)
+
+    def run_flow(self, task: FlowTask, now_ms: int | None = None) -> int:
+        """Re-evaluate dirty windows; upsert into sink. Returns rows written.
+
+        Streaming tasks only reach here for (re)seeding: registration,
+        restart, or a ts-only ingest notification (no columns to consume)
+        — all handled by a full state backfill."""
+        with self._fold_lock:
+            return self._run_flow_locked(task, now_ms)
+
+    def _run_flow_locked(self, task: FlowTask,
+                         now_ms: int | None = None) -> int:
+        if task.mode == "streaming":
+            if self.runtime is not None:
+                # pumped flows: drain the append log (reseeding if the
+                # state needs it); dirty marks are subsumed by the pump
+                if task.needs_backfill or task.dirty:
+                    task.dirty.clear()
+                    if not getattr(task, "device_failed", False) and \
+                            self.runtime.pump(task):
+                        return 0
+                    self._pump_host_stream(task)
+                return 0
+            if task.needs_backfill or task.dirty:
+                task.dirty.clear()
+                with TRACER.stage("run_flow", flow_name=task.name,
+                                  mode="backfill"):
+                    with M_FLOW_TICK.labels(task.name, task.mode).time():
+                        self._backfill(task)
+            return 0
+        if not task.dirty:
+            return 0
+        with TRACER.stage("run_flow", flow_name=task.name, mode=task.mode):
+            with M_FLOW_TICK.labels(task.name, task.mode).time():
+                written = self._run_batching(task, now_ms)
+        M_FLOW_ROWS.labels(task.name).inc(written)
+        return written
+
+    def _run_batching(self, task: FlowTask, now_ms: int | None) -> int:
+        now_ms = now_ms or int(time.time() * 1000)
+        windows = sorted(task.dirty)
+        task.dirty.clear()
+        if task.expire_after_ms is not None:
+            windows = [w for w in windows if now_ms - w <= task.expire_after_ms]
+        if not windows:
+            return 0
+        written = 0
+        # coalesce adjacent windows into ranges to batch queries
+        ranges: list[tuple[int, int]] = []
+        for w in windows:
+            if ranges and w == ranges[-1][1]:
+                ranges[-1] = (ranges[-1][0], w + task.window_ms)
+            else:
+                ranges.append((w, w + task.window_ms))
+        ctx = self.db.table_context(task.source_table)
+        ts_col = ctx.schema.time_index.name
+        import copy
+
+        for lo, hi in ranges:
+            sel = copy.deepcopy(task.query)
+            cond = BinaryOp(
+                "AND",
+                BinaryOp(">=", Column(ts_col), Literal(lo)),
+                BinaryOp("<", Column(ts_col), Literal(hi)),
+            )
+            sel.where = cond if sel.where is None else BinaryOp("AND", sel.where, cond)
+            # metrics={}: see _backfill — keep flow stages out of the
+            # triggering statement's slow-query sink
+            res = self.db.engine.execute_select(sel, metrics={})
+            if not res.rows:
+                continue
+            data = {
+                name: [r[i] for r in res.rows]
+                for i, name in enumerate(res.column_names)
+            }
+            region = self.db._region_of(task.sink_table)
+            # align to sink schema; extra update_at timestamp when no time key
+            if "update_at" in [c.name for c in region.schema]:
+                data["update_at"] = [now_ms] * len(res.rows)
+            region.write(data)
+            written += len(res.rows)
+        self.db.cache.invalidate_region(
+            self.db._region_of(task.sink_table).region_id
+        )
+        task.last_run_ms = now_ms
+        return written
+
+    def run_all(self) -> int:
+        with self._fold_lock:
+            written = sum(self.run_flow(t) for t in list(self.flows.values()))
+        # outside the fold lock: checkpoint_now re-acquires it only for
+        # the state snapshot, keeping fsync off the ingest path
+        if self.checkpoints is not None:
+            self.maybe_checkpoint()
+        return written
+
+    # ---- checkpointing -------------------------------------------------
+    def checkpoint_now(self, name: str | None = None) -> int:
+        """Persist GTF1 checkpoints for dirty flows (all, or one by
+        name); returns how many were saved.  Only the state SNAPSHOT
+        (build_payload — host copies of watermarks + matrices) runs
+        under the fold lock; the pickle + fsync + rename happen outside
+        it, so a multi-MB checkpoint never stalls concurrent ingest
+        folds.  A fold landing between snapshot and save re-dirties the
+        task, and a failed save restores the flag."""
+        if self.checkpoints is None:
+            return 0
+        from greptimedb_tpu_torch.flow.checkpoint import build_payload
+
+        snaps = []
+        with self._fold_lock:
+            for task in list(self.flows.values()):
+                if name is not None and task.name != name:
+                    continue
+                if name is None and not task.ckpt_dirty:
+                    continue
+                payload = build_payload(self, task)
+                if payload is None:
+                    continue
+                task.ckpt_dirty = False
+                snaps.append((task, payload))
+            self._last_ckpt_ms = time.time() * 1000.0
+        saved = 0
+        for task, payload in snaps:
+            if self.checkpoints.save(task.name, payload):
+                saved += 1
+            else:
+                task.ckpt_dirty = True  # retry on the next tick
+        return saved
+
+    def maybe_checkpoint(self) -> int:
+        """Interval-gated checkpoint pass (called post-fold and from the
+        scheduler's idle hook)."""
+        if self.checkpoints is None or self._ckpt_interval_s <= 0:
+            return 0
+        now = time.time() * 1000.0
+        if now - self._last_ckpt_ms < self._ckpt_interval_s * 1000.0:
+            return 0
+        return self.checkpoint_now()
+
+    def _arm_idle_checkpoints(self) -> None:
+        """Drain checkpoints on scheduler idle capacity (the scheduler's idle_hook):
+        armed after folds, unhooks itself once no flow is dirty.  The
+        armed flag flips under the fold lock on BOTH sides, so a fold
+        that dirties a flow concurrently with the drain's final tick
+        either keeps the hook alive (tick sees the dirty flow) or
+        re-arms right after (arm sees the cleared flag) — never neither."""
+        if self.checkpoints is None or self._ckpt_interval_s <= 0:
+            return
+        sched = getattr(self.db, "scheduler", None)
+        if sched is None or not hasattr(sched, "add_idle_hook"):
+            return
+        with self._fold_lock:
+            if self._idle_armed:
+                return
+            self._idle_armed = True
+        sched.add_idle_hook(self._ckpt_idle_tick)
+
+    def _ckpt_idle_tick(self) -> bool:
+        self.maybe_checkpoint()
+        with self._fold_lock:
+            pending = any(t.ckpt_dirty for t in self.flows.values())
+            if not pending:
+                self._idle_armed = False
+        return pending
+
+    # ---- state introspection -------------------------------------------
+    def state_keys(self, name: str, now_ms: int | None = None) -> set:
+        """Live (group, window) key tuples of a streaming flow — one
+        probe for both engines (host dict keys / decoded device state)."""
+        task = self.flows[name]
+        st = getattr(task, "device_state", None)
+        if st is not None and self.runtime is not None:
+            return self.runtime.state_keys(task, st, now_ms)
+        return set(task.stream_state)
+
+    def state_bytes(self, task: FlowTask) -> int:
+        st = getattr(task, "device_state", None)
+        if st is not None:
+            return st.nbytes()
+        # host dict-of-partials: slot dicts dominate; a coarse but
+        # monotone estimate is enough for SHOW FLOWS / info_schema
+        ncols = len(task.partial_plan.merge_cols) if task.partial_plan \
+            else 0
+        return len(task.stream_state) * (88 + 56 * max(ncols, 1))
+
+    def watermark_repr(self, task: FlowTask) -> str | None:
+        st = getattr(task, "device_state", None)
+        wm = st.folded if st is not None else getattr(task, "watermark",
+                                                      None)
+        if not wm:
+            return None
+        import json
+
+        return json.dumps({str(k): v for k, v in sorted(wm.items())},
+                          separators=(",", ":"))
+
+
+def handle_flow_statement(db, stmt):
+    from greptimedb_tpu_torch.query.engine import QueryResult
+
+    eng: FlowEngine = db.flow_engine
+    if isinstance(stmt, CreateFlow):
+        eng.create_flow(stmt)
+        return QueryResult([], [], affected_rows=0)
+    if isinstance(stmt, DropFlow):
+        eng.drop_flow(stmt.name, stmt.if_exists)
+        return QueryResult([], [], affected_rows=0)
+    if isinstance(stmt, ShowFlows):
+        rows = [[t.name, t.sink_table, str(t.query.table), t.comment,
+                 flow_mode(t), t.flownode_id, eng.state_bytes(t),
+                 eng.watermark_repr(t), t.last_tick_ms or None]
+                for t in eng.list_flows()]
+        return QueryResult(
+            ["Flow", "Sink", "Source", "Comment", "Mode", "Flownode",
+             "StateBytes", "Watermark", "LastTick"], rows)
+    raise Unsupported(f"flow statement {type(stmt).__name__}")
+
+
+def flow_mode(task: FlowTask) -> str:
+    """Human-readable engine mode: where this flow's folds actually run."""
+    if task.mode != "streaming":
+        return "batching"
+    if getattr(task, "device_state", None) is not None:
+        return "streaming(device)"
+    return "streaming"

@@ -80,6 +80,36 @@ def _null_key(v, asc: bool, nulls_first: bool | None):
     return null_rank, v if not is_null else 0
 
 
+class SingleTableProvider(TableProvider):
+    """Provider over one Region (or region-duck view): any table name maps
+    to it.  The streaming flow engine evaluates its partial query over each
+    arriving chunk through one.  Its ``DeviceTable`` lives on ``device``
+    (the owning db's); it serves no dense grid, so its plans take the row
+    path, as the reference's provider (which has no grid) does."""
+
+    def __init__(self, view, timezone: str = "UTC", *, device):
+        self.view = view
+        self.timezone = timezone
+        self.device = device
+        self._built: tuple | None = None
+
+    def table_context(self, table: str) -> TableContext:
+        return TableContext(self.view.schema, self.view.encoders,
+                            self.timezone)
+
+    def grid_table(self, table: str, plan):
+        return None, self.view.ts_bounds() or (0, 0)
+
+    def device_table(self, table: str, plan):
+        from greptimedb_tpu_torch.storage.cache import build_device_table
+
+        gen = self.view.generation
+        if self._built is None or self._built[0] != gen:
+            self._built = (gen, build_device_table(self.view,
+                                                   device=self.device))
+        return self._built[1], self.view.ts_bounds() or (0, 0)
+
+
 class QueryEngine:
     def __init__(self, provider: TableProvider):
         self.provider = provider

@@ -361,11 +361,32 @@ def _geo_fn(name: str, fn, arity: int):
 
 
 def _hll_count(args, n):
-    raise Unsupported("hll_count: sketches not ported yet")
+    """hll_count(state) → approximate distinct count (reference
+    scalars/hll_count.rs)."""
+    from greptimedb_tpu_torch.ops import sketch as sk
+
+    def one(state):
+        regs = sk.decode_hll(state)
+        return None if regs is None else int(round(sk.hll_estimate(regs)))
+    return _per_row(args, n, one)
 
 
 def _uddsketch_calc(args, n):
-    raise Unsupported("uddsketch_calc: sketches not ported yet")
+    """uddsketch_calc(quantile, state) (reference uddsketch.rs docs)."""
+    from greptimedb_tpu_torch.ops import sketch as sk
+
+    if len(args) != 2:
+        raise Unsupported("uddsketch_calc(quantile, state)")
+    # args may arrive (q, states) with q scalar — normalize to per-row
+    q, states = args
+    swapped = [states, q]
+
+    def one(state, quantile):
+        try:
+            return sk.udd_quantile(state, float(quantile))
+        except (TypeError, ValueError):
+            return None
+    return _per_row(swapped, n, one)
 
 
 _HOST_FUNCS["hll_count"] = _hll_count

@@ -30,10 +30,13 @@ aggregates (``ops/segment.py`` over the ``segment_reduce`` /
 float sum/avg/count) → ``compact`` of the groups that have rows → host.
 A raw SELECT compacts the matching rows with the ``compact`` kernel and
 the host shapes them (ORDER BY, LIMIT, DISTINCT, windows).  The row path
-builds its closures per call: there is nothing to compile.  Not ported
-yet: the stacked batch dispatch (``execute_grid_batch``), per-member
-series masks, sketches and the device top-k of ``_topk_spec`` (the host
-sorts the compacted rows instead).
+builds its closures per call: there is nothing to compile.  The sketch
+aggregates (``hll``, ``uddsketch_state`` and their ``*_merge`` forms)
+fold on the device through the ``hll_fold`` / ``udd_fold`` kernels
+(``ops/sketch.py``) into ``[groups, width]`` grids that the host encodes
+as state strings.  Not ported yet: the stacked batch dispatch
+(``execute_grid_batch``), per-member series masks and the device top-k
+of ``_topk_spec`` (the host sorts the compacted rows instead).
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ import time as _time
 import numpy as np
 import torch
 
-from greptimedb_tpu_torch.errors import PlanError, Unsupported
+from greptimedb_tpu_torch.errors import ExecutionError, PlanError, Unsupported
 from greptimedb_tpu_torch.ops.grid_kernels import (
     bucket_reduce, clamp_start, group_layout, group_merge,
 )
@@ -68,7 +71,6 @@ DENSE_LIMIT = 1 << 22
 # diagnostics: every row-path aggregate dispatch, by the segment strategy
 # it used (the reference's DISPATCH_STATS keys of the row path)
 DISPATCH_STATS = {"sorted": 0, "scatter": 0}
-_SKETCH_AGGS = ("hll", "uddsketch_state", "hll_merge", "uddsketch_merge")
 
 
 @_dataclasses.dataclass
@@ -280,6 +282,10 @@ class Executor:
 
     def __init__(self):
         self._cache: dict[tuple, object] = {}
+        # decoded sketch-merge vocab matrices by (agg, column, dicts
+        # version): repeat queries must not re-decode/re-upload thousands
+        # of stored states per execution
+        self._sketch_cache: dict[tuple, object] = {}
         # resident bucket-major partials per (region, step class): the
         # aligned-window range path reuses them across warm queries
         from greptimedb_tpu_torch.storage.cache import DerivedLayoutCache
@@ -882,6 +888,8 @@ class Executor:
     ) -> tuple[dict[str, np.ndarray], int]:
         ctx = plan.ctx
         ctx.table_dicts = table.dicts  # string-dict exprs
+        ctx.table_dicts_version = getattr(table, "dicts_version", 0)
+        ctx.sketch_table = plan.table
         ts_name = ctx.schema.time_index.name if ctx.schema.time_index else None
         device = table.row_mask.device
 
@@ -946,6 +954,7 @@ class Executor:
         # plain float sum/avg/count columns run in ONE wide [N, C] pass
         batched: list[tuple[str, str, str]] = []  # (out_name, op, column)
         agg_specs = []
+        sketch_codecs: dict[str, tuple] = {}
         for agg in plan.aggs:
             op = {"avg": "mean", "mean": "mean", "sum": "sum",
                   "count": "count"}.get(agg.name)
@@ -962,9 +971,18 @@ class Executor:
                     col = None
             if col is not None:
                 batched.append((str(agg), op, col))
-            else:
-                agg_specs.append((str(agg),
-                                  self._compile_agg(agg, ctx, ts_name, seg_fn)))
+                continue
+            fn = self._compile_agg(agg, ctx, ts_name, seg_fn, device)
+            agg_specs.append((str(agg), fn))
+            # sketch aggregates come back as [groups, width] grids; the
+            # codec comes off the compiled fn so fold and serialization
+            # can never disagree on (gamma, nb)
+            if agg.name in ("hll", "hll_merge"):
+                sketch_codecs[str(agg)] = ("hll",)
+            elif agg.name == "uddsketch_state":
+                sketch_codecs[str(agg)] = ("udd",) + fn._udd_meta
+            elif agg.name == "uddsketch_merge":
+                sketch_codecs[str(agg)] = ("udd_merge",) + fn._udd_merge_meta
 
         num_groups = (grid if (dense_ok and key_specs)
                       else (1 if not key_specs else table.padded_rows))
@@ -981,14 +999,26 @@ class Executor:
             out = kernel(table, ts_lo, ts_hi, starts)
             gmask = out.pop("__gmask__")
             cnt_all = out.pop("__cnt_all__", None)
+            # sketch grids are [groups, width]: the compaction carries their
+            # group row numbers instead
+            grids = {name: out.pop(name) for name in sketch_codecs}
+            if grids:
+                out["__grow__"] = torch.arange(
+                    gmask.shape[0], dtype=torch.int64, device=device)
             # the groups that have rows, in group order, to the front: only
             # they cross to the host
             packed, n = compact_rows(out, gmask)
-            return packed, n, cnt_all
+            return packed, n, cnt_all, grids
 
-        packed, n, cnt_all_g = timed_kernel_call(run, False, metrics, device)
+        packed, n, cnt_all_g, grids = timed_kernel_call(
+            run, False, metrics, device)
         # THE one host materialization per dispatch
         out = {k: v.cpu().numpy() for k, v in packed.items()}
+        if grids:
+            grow = out.pop("__grow__")
+            for name, grid in grids.items():
+                out[name] = _encode_sketches(
+                    grid.cpu().numpy()[grow], sketch_codecs[name])
         env: dict[str, np.ndarray] = {}
         for i, k in enumerate(plan.group_keys):
             raw = out[f"__key{i}__"]
@@ -1023,10 +1053,11 @@ class Executor:
         return env, n
 
     def _compile_agg(self, agg: FuncCall, ctx, ts_name: str | None,
-                     seg_fn=segment_reduce):
+                     seg_fn=segment_reduce, device=None):
         name = agg.name
-        if name in _SKETCH_AGGS:
-            raise Unsupported(f"{name}: sketches not ported yet")
+        if name in ("hll", "uddsketch_state", "hll_merge",
+                    "uddsketch_merge"):
+            return self._compile_sketch_agg(agg, ctx, device)
         if name == "approx_distinct":
             # exact on device: the sort-unique segment count
             if not agg.args or isinstance(agg.args[0], Star):
@@ -1103,6 +1134,130 @@ class Executor:
 
             return spread
         raise Unsupported(f"aggregate {name}")
+
+    def _compile_sketch_agg(self, agg: FuncCall, ctx, device):
+        """hll/uddsketch_state fold raw rows into [groups, width] sketch
+        grids on the device; the *_merge variants decode every DISTINCT
+        stored state into a dense vocab matrix at build time (the vector
+        -search dictionary trick) and reduce those (ops/sketch.py)."""
+        from greptimedb_tpu_torch.ops import sketch as sk
+        from greptimedb_tpu_torch.query.ast import Literal
+
+        name = agg.name
+        if name == "hll":
+            if len(agg.args) != 1:
+                raise PlanError("hll(column)")
+            arg_fn = compile_device(agg.args[0], ctx)
+            return lambda env, gid, ng, mask: sk.hll_fold(
+                _rows(arg_fn(env), mask.shape[0], mask.device), gid, ng,
+                mask)
+        if name == "uddsketch_state":
+            if (len(agg.args) != 3
+                    or not isinstance(agg.args[0], Literal)
+                    or not isinstance(agg.args[1], Literal)):
+                raise PlanError(
+                    "uddsketch_state(bucket_limit, error_rate, column)")
+            try:
+                nb = max(8, min(int(agg.args[0].value), 4096))
+                gamma = sk.udd_gamma(float(agg.args[1].value))
+            except (ValueError, TypeError) as e:
+                raise PlanError(
+                    f"uddsketch_state(bucket_limit, error_rate, column):"
+                    f" {e}")
+            arg_fn = compile_device(agg.args[2], ctx)
+
+            def sfn(env, gid, ng, mask, gamma=gamma, nb=nb):
+                return sk.udd_fold(
+                    _rows(arg_fn(env), mask.shape[0], mask.device), gid, ng,
+                    mask, gamma, nb)
+
+            sfn._udd_meta = (gamma, nb)  # the ONE (gamma, nb) for encoding
+            return sfn
+        # merge variants: the argument is a string column of stored states
+        arg = agg.args[0] if agg.args else None
+        if not isinstance(arg, Column):
+            raise PlanError(f"{name}(state_column)")
+        col = ctx.resolve(arg.name)
+        # keyed by (agg, column, table, device); only the NEWEST dicts
+        # version is kept — the version counter is process-wide monotonic,
+        # so stale matrices can never hit again
+        ckey = (str(agg), col, getattr(ctx, "sketch_table", None),
+                str(device))
+        ver = getattr(ctx, "table_dicts_version", 0)
+        cached = self._sketch_cache.get(ckey)
+        if cached is not None and cached[0] == ver:
+            return cached[1]
+        vocab = list(getattr(ctx, "table_dicts", {}).get(col, []))
+        if name == "hll_merge":
+            mat = np.zeros((max(len(vocab), 1), sk.HLL_M), dtype=np.int32)
+            for i, s in enumerate(vocab):
+                regs = sk.decode_hll(s)
+                if regs is not None:
+                    mat[i] = regs
+            dev = torch.from_numpy(mat).to(device)
+            fn = lambda env, gid, ng, mask: sk.hll_merge_fold(  # noqa: E731
+                env[col], dev, gid, ng, mask)
+            self._sketch_cache[ckey] = (ver, fn)
+            return fn
+        # uddsketch_merge: state keys are absolute base-gamma-derived
+        # bucket indices, so states merge regardless of their per-group
+        # offsets; only the BASE gamma must agree (differing collapse
+        # factors merge by re-collapsing to the coarsest, exactly
+        # UDDSketch's operation).  Each vocab row gets a config (base
+        # gamma) id and the kernel folds per-group config min/max, so only
+        # queries whose SELECTED rows actually mix base gamma fail — at
+        # result time, not per vocabulary.
+        metas = [sk.decode_udd(s) for s in vocab]
+        configs: list[float] = []
+        cfg_ids = np.full(max(len(vocab), 1), -1, dtype=np.int32)
+        for i, m in enumerate(metas):
+            if m is None:
+                continue
+            gb = round(m[1], 12)
+            if gb not in configs:
+                configs.append(gb)
+            cfg_ids[i] = configs.index(gb)
+        c_star = max((m[2] for m in metas if m is not None), default=1)
+        # the combined key range may exceed the grid even at c_star:
+        # re-collapse globally (more doubling) until it fits — never
+        # clamp counts into an edge bucket
+        base_lo = min(((min(m[4]) - 1) * m[2] + 1
+                       for m in metas if m is not None and m[4]), default=0)
+        base_hi = max((max(m[4]) * m[2]
+                       for m in metas if m is not None and m[4]), default=0)
+        while (base_hi - base_lo + 1) / c_star > 4096:
+            c_star *= 2
+        # re-express every state's keys in c_star units (upper-edge rule)
+        all_keys: list[int] = []
+        rekeyed: list[dict[int, int] | None] = []
+        for m in metas:
+            if m is None:
+                rekeyed.append(None)
+                continue
+            _g, _gb, c, _nb, counts = m
+            conv: dict[int, int] = {}
+            for k, cnt in counts.items():
+                kk = -((-k * c) // c_star)  # ceil(k*c / c_star)
+                conv[kk] = conv.get(kk, 0) + cnt
+            rekeyed.append(conv)
+            all_keys.extend(conv.keys())
+        kmin_all = min(all_keys) if all_keys else 0
+        width = min(max(all_keys) - kmin_all + 1, 4097) if all_keys else 8
+        mat = np.zeros((max(len(vocab), 1), width), dtype=np.int64)
+        for i, conv in enumerate(rekeyed):
+            if conv is None:
+                continue
+            for k, cnt in conv.items():
+                mat[i, min(max(k - kmin_all, 0), width - 1)] += cnt
+        dev = torch.from_numpy(mat).to(device)
+        dev_cfg = torch.from_numpy(cfg_ids).to(device)
+
+        def fn(env, gid, ng, mask):
+            return sk.udd_merge_fold(env[col], dev, dev_cfg, gid, ng, mask)
+
+        fn._udd_merge_meta = (configs, kmin_all, width, c_star)
+        self._sketch_cache[ckey] = (ver, fn)
+        return fn
 
     def _build_agg_kernel(
         self, key_specs, dense_ok, num_groups, cards, where_fn, agg_specs,
@@ -1311,6 +1466,33 @@ class Executor:
             else:
                 env[c] = arr
         return env, n
+
+
+def _encode_sketches(v: np.ndarray, codec: tuple) -> np.ndarray:
+    """Host epilogue of the sketch aggregates: each group's grid row (the
+    groups that have rows, in group order) to its state string."""
+    from greptimedb_tpu_torch.ops import sketch as sk
+
+    if codec[0] == "hll":
+        return np.array([sk.encode_hll(r) for r in v], dtype=object)
+    if codec[0] == "udd":
+        return np.array([sk.encode_udd(r, codec[1], codec[2]) for r in v],
+                        dtype=object)
+    # udd_merge: [counts..., cfg_min, cfg_max] per group
+    configs, kmin_all, width, c_star = codec[1:5]
+    rows = []
+    for r in v:
+        cmin, cmax = int(r[-2]), int(r[-1])
+        if cmax < 0:  # no valid state rows in the group
+            rows.append(None)
+            continue
+        if cmin != cmax:
+            raise ExecutionError(
+                "uddsketch_merge: selected rows mix sketch gamma configs "
+                "(error_rate)")
+        sparse = {kmin_all + i: int(c) for i, c in enumerate(r[:width]) if c}
+        rows.append(sk.encode_udd_doc(sparse, configs[cmin], c_star, width))
+    return np.array(rows, dtype=object)
 
 
 def _ones(mask: torch.Tensor) -> torch.Tensor:

@@ -9,9 +9,13 @@ reference's, so code written against it runs here unchanged apart from
 the import.  The device comes from ``device.resolve_device``: the card
 unless the caller passes ``device="cpu"``.
 
-Not ported yet (the reference's ``__init__`` wires them up): flows, the
+Flows (``flow/``: CREATE FLOW, DROP FLOW, SHOW FLOWS, the device fold
+and GTF1 checkpoints under ``<data_home>/flow_ckpt``) are wired as in the
+reference; ``GREPTIME_FLOW_DEVICE=off`` keeps every flow on the host
+engine.  Not ported yet (the reference's ``__init__`` wires them up): the
 serving scheduler, SLO observatory, scrubber, metric and file engines,
-partitioned tables, views, the mesh, the compile cache and the servers.
+partitioned tables, views, the mesh, the compile cache, the memory quotas
+and the servers.
 """
 
 from __future__ import annotations
@@ -28,8 +32,8 @@ from greptimedb_tpu_torch.errors import (
 from greptimedb_tpu_torch.meta.catalog import DEFAULT_DB, CatalogManager
 from greptimedb_tpu_torch.meta.kv import FileKv, KvBackend, MemoryKv
 from greptimedb_tpu_torch.query.ast import (
-    CreateDatabase, CreateTable, DescribeTable, Insert, Select, Statement,
-    Tql,
+    CreateDatabase, CreateFlow, CreateTable, DescribeTable, DropFlow, Insert,
+    Select, ShowFlows, Statement, Tql,
 )
 from greptimedb_tpu_torch.query.engine import QueryEngine, QueryResult, TableProvider
 from greptimedb_tpu_torch.query.exprs import TableContext
@@ -142,6 +146,8 @@ class GreptimeDB(TableProvider):
         # and memtable mutation are unsynchronized); statements serialize
         # on this lock
         self._lock = threading.RLock()
+        # before the flow engine: restoring a flow at registration plans
+        # its query (table_context reads the session timezone)
         self.timezone = "UTC"
         # journaled DDL (reference ddl_manager.rs:99): CREATE TABLE runs as
         # a resumable procedure; RUNNING journals from a crashed process
@@ -163,10 +169,39 @@ class GreptimeDB(TableProvider):
             import sys as _sys
 
             print(f"procedure recovery failed: {e}", file=_sys.stderr)
+        # device flow runtime (flow/device.py): resident [G, W] partial
+        # state on self.device, one fold per ingest chunk, GTF1 checkpoints
+        # with exact WAL watermarks (flow/checkpoint.py).
+        # GREPTIME_FLOW_DEVICE=off keeps the host dict-of-partials engine —
+        # the modules are then never imported.  The flow memory quota is
+        # not ported (the runtime's memory_probe stays None).
+        self.flow_runtime = None
+        self.flow_checkpoints = None
+        if os.environ.get("GREPTIME_FLOW_DEVICE", "on").lower() not in (
+                "off", "0", "false"):
+            from greptimedb_tpu_torch.flow.checkpoint import FlowCheckpointStore
+            from greptimedb_tpu_torch.flow.device import FlowDeviceRuntime
+
+            self.flow_runtime = FlowDeviceRuntime(self)
+            try:
+                self.flow_checkpoints = FlowCheckpointStore(
+                    os.path.join(data_home, "flow_ckpt"))
+            except OSError:
+                self.flow_checkpoints = None  # unwritable home
+        from greptimedb_tpu_torch.flow.engine import FlowEngine
+
+        self.flow_engine = FlowEngine(self)
 
     def close(self, flush: bool = False) -> None:
-        """Close region WAL handles (``flush=True`` flushes dirty regions
-        first) and the kv store."""
+        """Write the flows' final checkpoints, close region WAL handles
+        (``flush=True`` flushes dirty regions first) and the kv store."""
+        if self.flow_checkpoints is not None:
+            # final checkpoints: a clean restart resumes every flow from
+            # its exact watermark with zero tail to replay
+            try:
+                self.flow_engine.checkpoint_now()
+            except Exception:  # noqa: BLE001 — shutdown must not die on
+                pass  # a checkpoint failure; restart reseeds instead
         self.regions.close(flush=flush)
         if hasattr(self.kv, "close"):
             self.kv.close()
@@ -257,6 +292,10 @@ class GreptimeDB(TableProvider):
             return self._insert(stmt)
         if isinstance(stmt, DescribeTable):
             return self._describe(stmt)
+        if isinstance(stmt, (CreateFlow, DropFlow, ShowFlows)):
+            from greptimedb_tpu_torch.flow.engine import handle_flow_statement
+
+            return handle_flow_statement(self, stmt)
         raise Unsupported(f"statement {type(stmt).__name__} not ported yet")
 
     def _execute_tql(self, stmt: Tql) -> QueryResult:
@@ -313,11 +352,27 @@ class GreptimeDB(TableProvider):
 
     def _insert(self, stmt: Insert) -> QueryResult:
         if stmt.select is not None:
-            raise Unsupported("INSERT … SELECT not ported yet")
+            # INSERT INTO … SELECT: evaluate the query, then insert its
+            # rows positionally
+            import dataclasses as _dc
+
+            res = self.execute_statement(stmt.select)
+            if not res.rows:
+                return QueryResult([], [], affected_rows=0)
+            return self._insert(_dc.replace(
+                stmt, rows=[list(r) for r in res.rows], select=None))
         region = self._table_view(stmt.table)
         _columns, data = insert_rows_to_columns(stmt, region.schema,
                                                 self.timezone)
         region.write(data)
+        if self.flow_engine.flows:
+            # flows: streaming ones fold the arriving batch, batching ones
+            # mark dirty windows; both re-evaluate synchronously
+            ts_name = region.schema.time_index.name
+            self.flow_engine.on_write(
+                stmt.table, data[ts_name], data=data,
+                appendable=getattr(region, "last_write_appendable", True))
+            self.flow_engine.run_all()
         return QueryResult([], [], affected_rows=len(stmt.rows))
 
     def _describe(self, stmt: DescribeTable) -> QueryResult:

@@ -6,10 +6,10 @@ and ``_rows_match`` (numeric cells within ``1e-5*max(1,|b|)``), with its
 ``GreptimeDB`` swapped for the port's on ``device="cpu"`` through
 ``monkeypatch``, so the reference's own golden test in the same worker
 sees its own class again.  The list is every golden file the port
-answers whole: the dense grid, all of PromQL and the SQL row path.  Files that
-need what the port has not ported yet (joins, subqueries, DDL beyond
-CREATE, sketches, vector and full-text search, the expression-key fold,
-...) stay out; ``ROADMAP.md`` queue A names them.
+answers whole: the dense grid, all of PromQL, the SQL row path, the
+sketch aggregates and flows.  Files that need what the port has not ported
+yet (joins, subqueries, DDL beyond CREATE, vector and full-text search,
+the expression-key fold, ...) stay out; ``ROADMAP.md`` queue A names them.
 """
 
 import os
@@ -68,6 +68,10 @@ PORTED = [
     "174_tql_fused_irate", "176_tql_subquery_nested_agg",
     "177_tql_subquery_gauge", "178_tql_fused_deriv_offset",
     "179_tql_fused_group_without", "180_tql_fusion_mixed",
+    # sketches (hll/uddsketch states, their merges and INSERT ... SELECT)
+    # and flows
+    "21_sketches", "37_approx_sketch_agg", "111_uddsketch_merge_golden",
+    "112_hll_merge_golden", "80_flows_batching",
 ]
 
 
