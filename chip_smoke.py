@@ -3,7 +3,7 @@
 NVIDIA card.
 
     python3 chip_smoke.py [--hours 24] [--scrapes 40] [--seed 11]
-                          [--flow-series 1048576]
+                          [--flow-series 1048576] [--log-lines 1000000]
 
 Phases, each printing its own lines:
 
@@ -77,11 +77,30 @@ Phases, each printing its own lines:
    warm fold rows/s (median warm batch), the seed batch's time, the
    device-busy share of one warm fold and peak device memory; then times
    flow_merge on the fold's own inputs against its plain version.
-9. One JSON line with every kernel's numbers, then the last line
+9. Logs (last): a fresh db; bench_logs.py's corpus (1,000,000 mostly-
+   unique lines over one hour, 16 apps x 4 levels = 64 streams, seed 12;
+   --log-lines) pushed through servers.ingest.loki_push in JSON batches
+   of 20,000 into loki_logs (push rate printed); then bench_logs.py's
+   four LogQL queries (two |= line filters, one |~ alternation, sum by
+   (app) (count_over_time(...[2m]))), a bytes_over_time by app, a rate
+   with a != filter, and two SQL count(*) queries (matches_term, LIKE),
+   each run cold once and warm five times (first and warm-median latency,
+   the logql_window stage, the profiler's device-busy share).  Every
+   answer equals a Python/numpy computation over the generated lines
+   exactly and the GREPTIME_FULLTEXT=off host twin's answer; the
+   fulltext counters, peak device memory and the launches are printed
+   (fp_candidates, logs_layout, line_vals, row_match and window_stats
+   must all have launched, and the prefilter must have run); then the
+   four log kernels are timed on the phase's own resident state.
+10. One JSON line with every kernel's numbers, then the last line
    {"ok": true, "device": {...}}.
 
+Each phase from 2 on starts by dropping what earlier phases left
+(gc.collect, torch.cuda.empty_cache) and printing the device memory
+still allocated.
+
 Cuts, printed when taken: --hours 12 (SQL path), --scrapes 20 (PromQL),
---flow-series below 2^20 (flows).
+--flow-series below 2^20 (flows), --log-lines below 1,000,000 (logs).
 
 Exits non-zero, printing no result, when CUDA is absent, a kernel does
 not build, launch or agree with its plain version, or a query is wrong.
@@ -90,6 +109,7 @@ not build, launch or agree with its plain version, or a query is wrong.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -136,6 +156,10 @@ SOURCES = {
     "flow_merge": "greptimedb_tpu_torch/csrc/flow_kernels.cu",
     "hll_fold": "greptimedb_tpu_torch/csrc/sketch_kernels.cu",
     "udd_fold": "greptimedb_tpu_torch/csrc/sketch_kernels.cu",
+    "fp_candidates": "greptimedb_tpu_torch/csrc/fulltext_kernels.cu",
+    "logs_layout": "greptimedb_tpu_torch/csrc/fulltext_kernels.cu",
+    "line_vals": "greptimedb_tpu_torch/csrc/fulltext_kernels.cu",
+    "row_match": "greptimedb_tpu_torch/csrc/fulltext_kernels.cu",
 }
 REPLACES = {
     "bucket_reduce": "greptimedb_tpu/query/physical.py:1129",
@@ -158,6 +182,10 @@ REPLACES = {
     "flow_merge": "greptimedb_tpu/flow/device.py:452",
     "hll_fold": "greptimedb_tpu/ops/sketch.py:49",
     "udd_fold": "greptimedb_tpu/ops/sketch.py:136",
+    "fp_candidates": "greptimedb_tpu/fulltext/resident.py:75",
+    "logs_layout": "greptimedb_tpu/fulltext/loki.py:101",
+    "line_vals": "greptimedb_tpu/fulltext/loki.py:115",
+    "row_match": "greptimedb_tpu/fulltext/loki.py:131",
 }
 PROM_T0 = 1700000000000   # bench_promql.py's epoch
 SCRAPE_MS = 15_000
@@ -2624,6 +2652,407 @@ def flow_merge_timing(fk, args, card: str) -> dict:
                 library_ms=None, max_abs_err=err)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: logs
+# ---------------------------------------------------------------------------
+
+LOG_LINES = 1_000_000
+LOG_BATCH = 20_000
+LOG_T0_NS = 1_700_000_000_000_000_000
+LOG_SPAN_S = 3600
+LOG_TENANT = "bench"
+# bench_logs.py's corpus: 16 apps x 4 levels = 64 streams, mostly-unique
+# lines (a random 40-bit request id in each)
+LOG_APPS = [f"svc-{i}" for i in range(16)]
+LOG_LEVELS = ["info", "warn", "error", "debug"]
+LOG_PATHS = ["/api/v1/items", "/api/v1/users", "/healthz", "/checkout",
+             "/search", "/login"]
+LOG_ERRORS = ["context deadline exceeded", "connection refused",
+              "connection reset by peer", "upstream timeout",
+              "tls handshake failure", "queue overflow"]
+LOG_STEP_S = LOG_SPAN_S // 30
+LOG_LIMIT = 100
+# name -> (LogQL, kind, predicate of a matching line, range ms, levels)
+LOG_QUERIES = {
+    "substr_common": ('{app=~".+"} |= "context deadline"', "streams",
+                      lambda s: "context deadline" in s, 0, None),
+    "substr_rare": ('{app=~".+"} |= "tls handshake failure"', "streams",
+                    lambda s: "tls handshake failure" in s, 0, None),
+    "regex": ('{app=~".+"} |~ "deadline exceeded|connection refused"',
+              "streams", lambda s: ("deadline exceeded" in s
+                                    or "connection refused" in s), 0, None),
+    "count_over_time": ('sum by (app) (count_over_time({level="error"} '
+                        '|= "request failed" [2m]))', "count_by_app",
+                        lambda s: "request failed" in s, 120_000,
+                        ("error",)),
+    "bytes_over_time": ('sum by (app) (bytes_over_time({app=~".+"} '
+                        '|= "upstream timeout" [5m]))', "bytes_by_app",
+                        lambda s: "upstream timeout" in s, 300_000, None),
+    "rate": ('rate({level="warn"} != "status=200" [1m])', "rate",
+             lambda s: "status=200" not in s, 60_000, ("warn",)),
+}
+LOG_SQL = {
+    "sql_matches_term": ("SELECT count(*) FROM loki_logs WHERE "
+                         "matches_term(line, 'refused')",
+                         lambda s: "refused" in s),
+    "sql_like": ("SELECT count(*) FROM loki_logs WHERE line LIKE "
+                 "'%queue overflow%'", lambda s: "queue overflow" in s),
+}
+
+
+def gen_log_lines(rng, n: int):
+    """bench_logs.py's gen_lines: (app, level, ts_ns, line)."""
+    out = []
+    for i in range(n):
+        app = rng.choice(LOG_APPS)
+        level = rng.choice(LOG_LEVELS)
+        ts = LOG_T0_NS + int(i * (LOG_SPAN_S * 1e9) / n)
+        rid = rng.randrange(10**12)
+        path = rng.choice(LOG_PATHS)
+        if level == "error" and rng.random() < 0.6:
+            line = (f"request failed method=GET path={path} "
+                    f"req_id={rid:x} err={rng.choice(LOG_ERRORS)!r}")
+        else:
+            line = (f"handled method=GET path={path} status="
+                    f"{rng.choice([200, 201, 204, 301, 404])} "
+                    f"req_id={rid:x} dur={rng.random()*2:.3f}s")
+        out.append((app, level, ts, line))
+    return out
+
+
+def log_push_bodies(rows) -> list[bytes]:
+    """bench_logs.py's push batches: JSON, streams grouped by (app,
+    level), LOG_BATCH lines a request."""
+    bodies = []
+    for lo in range(0, len(rows), LOG_BATCH):
+        streams: dict = {}
+        for app, level, ts, line in rows[lo:lo + LOG_BATCH]:
+            streams.setdefault((app, level), []).append([str(ts), line])
+        bodies.append(json.dumps({"streams": [
+            {"stream": {"app": a, "level": lv}, "values": vals}
+            for (a, lv), vals in streams.items()]}).encode())
+    return bodies
+
+
+def np_log_corpus(rows) -> dict:
+    """Per-line arrays of the generated corpus (ts in ms, as pushed)."""
+    return {"app": np.array([r[0] for r in rows], dtype=object),
+            "level": np.array([r[1] for r in rows], dtype=object),
+            "ts_ms": np.array([r[2] // 1_000_000 for r in rows], np.int64),
+            "nbytes": np.array([len(r[3].encode("utf-8")) for r in rows],
+                               np.int64),
+            "lines": [r[3] for r in rows]}
+
+
+def np_log_expected(corpus: dict, name: str):
+    """The exact answer of one phase 9 query from the generated lines:
+    the Loki payload's ``result`` for stream queries (newest LOG_LIMIT
+    matching lines, grouped by stream), ``{series: {step seconds: value
+    string}}`` for metric queries, the count for SQL."""
+    lines = corpus["lines"]
+    pred = (LOG_SQL[name][1] if name in LOG_SQL else LOG_QUERIES[name][2])
+    hit = np.fromiter((pred(s) for s in lines), dtype=bool, count=len(lines))
+    if name in LOG_SQL:
+        return int(hit.sum())
+    _q, kind, _pred, range_ms, levels = LOG_QUERIES[name]
+    if kind == "streams":
+        streams: dict = {}
+        for i in np.nonzero(hit)[0][-LOG_LIMIT:][::-1].tolist():
+            app, level = corpus["app"][i], corpus["level"][i]
+            entry = streams.setdefault((app, level), {
+                "stream": {"app": app, "level": level,
+                           "tenant": LOG_TENANT}, "values": []})
+            entry["values"].append(
+                [str(int(corpus["ts_ms"][i]) * 1_000_000), lines[i]])
+        return list(streams.values())
+    if levels is not None:
+        hit &= np.isin(corpus["level"], levels)
+    start_ms = LOG_T0_NS // 1_000_000
+    steps = start_ms + np.arange(LOG_SPAN_S // LOG_STEP_S + 1,
+                                 dtype=np.int64) * LOG_STEP_S * 1000
+    out: dict = {}
+    keys = sorted(set(zip(corpus["app"][hit], corpus["level"][hit])))
+    for app, level in keys:
+        sel = hit & (corpus["app"] == app) & (corpus["level"] == level)
+        ts = corpus["ts_ms"][sel]  # ascending: lines are in time order
+        cb = np.concatenate([[0], np.cumsum(corpus["nbytes"][sel])])
+        lo = np.searchsorted(ts, steps - range_ms, side="right")
+        hi = np.searchsorted(ts, steps, side="right")
+        per = out.setdefault(app if kind != "rate" else (app, level), {})
+        for j, t in enumerate(steps.tolist()):
+            cnt = int(hi[j] - lo[j])
+            if cnt:
+                # the payload's step time: unit_to_ns(t) / 1e9
+                sec = t * 1_000_000 / 1e9
+                per[sec] = per.get(sec, 0) + (
+                    int(cb[hi[j]] - cb[lo[j]]) if kind == "bytes_by_app"
+                    else cnt)
+    if kind == "rate":  # count / 60 s, printed as the payload prints it
+        return {k: {sec: repr(v / 60.0) if v % 60 else str(v // 60)
+                    for sec, v in per.items()} for k, per in out.items()}
+    return {k: {sec: str(v) for sec, v in per.items()}
+            for k, per in out.items()}
+
+
+def log_payload_view(name: str, payload: dict):
+    """The part of a Loki payload np_log_expected describes."""
+    kind = LOG_QUERIES[name][1]
+    result = payload["data"]["result"]
+    if kind == "streams":
+        return result
+    out = {}
+    for r in result:
+        m = r["metric"]
+        key = m["app"] if kind != "rate" else (m["app"], m["level"])
+        out[key] = {sec: v for sec, v in r["values"]}
+    return out
+
+
+def log_counters() -> dict:
+    from greptimedb_tpu_torch.utils.telemetry import REGISTRY
+
+    val = REGISTRY.value
+    return {
+        "candidates": int(val("greptime_fulltext_candidates_total")),
+        "verified": int(val("greptime_fulltext_verified_total")),
+        "matched": int(val("greptime_fulltext_matched_total")),
+        "scanned_excluded": int(val("greptime_fulltext_scanned_total")),
+        "queries_prefilter": int(val("greptime_fulltext_queries_total",
+                                     ("prefilter",))),
+        "queries_memo": int(val("greptime_fulltext_queries_total",
+                                ("memo",))),
+        "resident_bytes": int(val("greptime_fulltext_resident_bytes")),
+    }
+
+
+def phase_logs(lk, pk, lines: int, card: str):
+    """Returns (launches, the kernel numbers of the four log kernels)."""
+    import random
+
+    from greptimedb_tpu_torch.fulltext import loki
+    from greptimedb_tpu_torch.servers.ingest import loki_push
+    from greptimedb_tpu_torch.standalone import GreptimeDB
+    from greptimedb_tpu_torch.utils.tracing import TRACER
+
+    if lines < LOG_LINES:
+        log(f"cut: {lines:,} log lines instead of {LOG_LINES:,}")
+    t0 = time.perf_counter()
+    rows = gen_log_lines(random.Random(12), lines)
+    bodies = log_push_bodies(rows)
+    log(f"logs: generated {lines:,} lines ({sum(len(r[3]) for r in rows):,}"
+        f" bytes of text) in {len(bodies)} JSON bodies of up to "
+        f"{LOG_BATCH:,} lines in {time.perf_counter() - t0:.3f} s")
+    os.environ["GREPTIME_FULLTEXT"] = "on"
+    db = GreptimeDB()
+    try:
+        lk.reset_launch_counts()
+        pk.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        n = sum(loki_push(db, b, "application/json", LOG_TENANT)
+                for b in bodies)
+        push_s = time.perf_counter() - t0
+        if n != lines:
+            raise AssertionError(f"pushed {n} rows, want {lines}")
+        log(f"logs: pushed {n:,} lines through servers.ingest.loki_push in "
+            f"{push_s:.3f} s ({n / push_s:,.0f} lines/s)")
+        params = {"start": str(LOG_T0_NS // 10**9),
+                  "end": str(LOG_T0_NS // 10**9 + LOG_SPAN_S),
+                  "step": str(LOG_STEP_S), "limit": str(LOG_LIMIT)}
+        runs = {name: (lambda q=q: loki.loki_query_range(
+                           db, {"query": q, **params}))
+                for name, (q, *_rest) in LOG_QUERIES.items()}
+        runs.update({name: (lambda q=q: db.sql(q).rows[0][0])
+                     for name, (q, _p) in LOG_SQL.items()})
+        answers, results = {}, {}
+        TRACER.configure(enabled=True)
+        try:
+            for name, run in runs.items():
+                t0 = time.perf_counter()
+                got = run()
+                torch.cuda.synchronize()
+                first_ms = (time.perf_counter() - t0) * 1e3
+                warm = []
+                for _ in range(5):
+                    mark = TRACER.mark()
+                    t0 = time.perf_counter()
+                    run()
+                    torch.cuda.synchronize()
+                    warm.append((time.perf_counter() - t0) * 1e3)
+                window = [(s["end_ns"] - s["start_ns"]) / 1e6
+                          for s in TRACER.since(mark)
+                          if s["name"] == "logql_window"]
+                busy, wall, top = device_busy(run, top_n=3, sessions=2)
+                answers[name] = got
+                results[name] = dict(first_ms=first_ms,
+                                     warm_ms=float(np.median(warm)),
+                                     busy_ms=busy, wall_ms=wall)
+                log(f"logs {name}: first {first_ms:.3f} ms, warm median "
+                    f"{results[name]['warm_ms']:.3f} ms (5 runs); "
+                    f"logql_window {window[0] if window else 0.0:.3f} ms; "
+                    f"device busy {busy:.3f} ms of {wall:.3f} ms wall "
+                    f"({100 * busy / max(wall, 1e-9):.2f} %); top device "
+                    f"ops {top} — {card}")
+        finally:
+            TRACER.configure(enabled=False)
+        launches = {"fp_candidates": lk.fp_candidates.launches,
+                    "logs_layout": lk.logs_layout.launches,
+                    "line_vals": lk.line_vals.launches,
+                    "row_match": lk.row_match.launches,
+                    "window_stats": pk.window_stats.launches}
+        counters = log_counters()
+        peak = torch.cuda.max_memory_allocated()
+        log(f"logs: fulltext counters {counters}; fulltext cache "
+            f"{db.engine.executor.fulltext_cache.stats()}; "
+            f"max_memory_allocated {peak} B, of which {held} B were held "
+            f"before the phase; launches {launches} — {card}")
+        for kname, cnt in launches.items():
+            if cnt <= 0:
+                raise AssertionError(f"{kname} never launched on the logs "
+                                     "path")
+        if counters["queries_prefilter"] <= 0:
+            raise AssertionError("the fingerprint prefilter never ran")
+        # every answer exactly against numpy over the generated lines
+        t0 = time.perf_counter()
+        corpus = np_log_corpus(rows)
+        sizes = {}
+        for name, got in answers.items():
+            want = np_log_expected(corpus, name)
+            view = got if name in LOG_SQL else log_payload_view(name, got)
+            if view != want:
+                raise AssertionError(f"logs {name}: {str(view)[:300]} vs "
+                                     f"numpy {str(want)[:300]}")
+            sizes[name] = (view if name in LOG_SQL else
+                           sum(len(v["values"]) if "values" in v else len(v)
+                               for v in (view if isinstance(view, list)
+                                         else view.values())))
+        log(f"logs: every answer exactly equal to numpy over the generated "
+            f"lines (entries / samples / counts {sizes}; "
+            f"{time.perf_counter() - t0:.3f} s)")
+        # ... and to the GREPTIME_FULLTEXT=off host twin
+        os.environ["GREPTIME_FULLTEXT"] = "off"
+        try:
+            off_ms = {}
+            for name, run in runs.items():
+                t0 = time.perf_counter()
+                got = run()
+                off_ms[name] = (time.perf_counter() - t0) * 1e3
+                if got != answers[name]:
+                    raise AssertionError(f"logs {name}: GREPTIME_FULLTEXT="
+                                         "off differs")
+        finally:
+            os.environ["GREPTIME_FULLTEXT"] = "on"
+        log(f"logs: every answer equal under GREPTIME_FULLTEXT=off (host "
+            f"twin ms {({k: round(v, 3) for k, v in off_ms.items()})})")
+        return launches, log_kernel_timing(lk, db, card)
+    finally:
+        os.environ.pop("GREPTIME_FULLTEXT", None)
+        db.close()
+
+
+def log_kernel_timing(lk, db, card: str) -> dict:
+    """The four log kernels on the phase's own resident state: the line
+    column's fingerprint matrix with the masks of "context deadline", the
+    resident table's columns, the verified vector and byte lengths of the
+    bytes query, and the 64-stream selection."""
+    from greptimedb_tpu_torch.fulltext import fingerprint as fpm
+    from greptimedb_tpu_torch.fulltext.loki import LokiEvaluator
+    from greptimedb_tpu_torch.fulltext.logql import parse_logql
+    from greptimedb_tpu_torch.storage.memtable import TSID
+
+    ev = LokiEvaluator(db, "loki_logs")
+    ft = ev.ft_cache
+    table = ev.table
+    vocab = table.dicts["line"]
+    e = ft._fingerprints("loki_logs", table.dicts_root, "line", vocab,
+                         table.row_mask.device)
+    masks = fpm.compile_masks(fpm.spec_for("contains", "context deadline"),
+                              e.words, e.mg)
+    qm = torch.from_numpy(masks.view(np.int32)).to(e.dev.device)
+    agg = parse_logql(LOG_QUERIES["bytes_over_time"][0]).inner
+    verified, npad = ev._verified_vector(agg.query)
+    blen = ev._byte_lengths(npad)
+    sel_tsids, sel_dev, _labels = ev.data.select_series(
+        ev._matchers(agg.query))
+    cols = table.columns
+    codes, ts, tsid, mask = (cols["line"], cols[ev.ts_name], cols[TSID],
+                             table.row_mask)
+    N = codes.shape[0]
+    lo = LOG_T0_NS // 1_000_000
+    hi = lo + LOG_SPAN_S * 1000 // 2
+    out = {}
+
+    def report(name, shape, ms, plain, bnd, by, lib, err):
+        log(f"kernel {name}[{shape}]: {ms:.4f} ms (plain {plain:.4f} ms, "
+            f"library {'null' if lib is None else f'{lib:.4f}'} ms, bound "
+            f"{bnd:.4f} ms by {by}), max_abs_err {err:.3g} — {card}")
+        out[name] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                         library_ms=lib, max_abs_err=err)
+
+    got = lk.fp_candidates(e.dev, qm)
+    err = max_err(got, lk.fp_candidates_plain(e.dev, qm), exact=True)
+    bnd, by = bound_ms(nbytes(e.dev, qm) + e.npad, 0)
+    report("fp_candidates",
+           f"{e.npad:,} x {e.words} words, {masks.shape[0]} mask, "
+           f"{int(got.sum()):,} candidates",
+           time_ms(lambda: lk.fp_candidates(e.dev, qm)),
+           time_ms(lambda: lk.fp_candidates_plain(e.dev, qm), reps=5),
+           bnd, by, None, err)
+
+    got = lk.logs_layout(ts, tsid, mask)
+    err = max(max_err(g, w, exact=True) for g, w in
+              zip(got, lk.logs_layout_plain(ts, tsid, mask)))
+    bnd, by = bound_ms(nbytes(ts, tsid, mask) + 8 * N + 16, 0)
+    report("logs_layout", f"N = {N:,}",
+           time_ms(lambda: lk.logs_layout(ts, tsid, mask)),
+           time_ms(lambda: lk.logs_layout_plain(ts, tsid, mask), reps=5),
+           bnd, by, time_ms(lambda: torch.aminmax(ts)), err)
+
+    got = lk.line_vals(codes, verified, mask, blen)
+    err = max(max_err(g, w, exact=True) for g, w in
+              zip(got, lk.line_vals_plain(codes, verified, mask, blen)))
+    bnd, by = bound_ms(nbytes(codes, verified, mask, blen) + 8 * N, 0)
+    report("line_vals", f"N = {N:,}, npad {npad:,}, with byte lengths",
+           time_ms(lambda: lk.line_vals(codes, verified, mask, blen)),
+           time_ms(lambda: lk.line_vals_plain(codes, verified, mask, blen),
+                   reps=5), bnd, by, None, err)
+
+    ns = table.num_series
+    got = lk.row_match(codes, verified, mask, ts, tsid, sel_dev, lo, hi, ns)
+    err = max_err(got, lk.row_match_plain(codes, verified, mask, ts, tsid,
+                                          sel_dev, lo, hi), exact=True)
+    bnd, by = bound_ms(nbytes(codes, verified, mask, ts, tsid, sel_dev) + N,
+                       0)
+    report("row_match",
+           f"N = {N:,}, {len(sel_tsids)} of {sel_dev.shape[0]} selected, "
+           f"{int(got.sum()):,} rows kept",
+           time_ms(lambda: lk.row_match(codes, verified, mask, ts, tsid,
+                                        sel_dev, lo, hi, ns)),
+           time_ms(lambda: lk.row_match_plain(codes, verified, mask, ts,
+                                              tsid, sel_dev, lo, hi),
+                   reps=5), bnd, by,
+           time_ms(lambda: torch.isin(tsid, sel_dev)), err)
+    return out
+
+
+def phase_start(name: str) -> int:
+    """Drop what earlier phases left (their dbs are closed and unbound),
+    then print and return the device memory still allocated."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    # cuBLAS keeps its workspace (32 MiB on Hopper) in the caching
+    # allocator from the first matmul on; dropping it shows what is left
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    rest = torch.cuda.memory_allocated()
+    log(f"phase {name}: torch.cuda.memory_allocated() {held} B at start, "
+        f"{rest} B without cuBLAS's workspaces")
+    return held
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--hours", type=int, default=24,
@@ -2634,19 +3063,25 @@ def main() -> int:
                     help="seed of the PromQL data")
     ap.add_argument("--flow-series", type=int, default=FLOW_SERIES,
                     help="series of the flow phase (2^20; fewer is a cut)")
+    ap.add_argument("--log-lines", type=int, default=LOG_LINES,
+                    help="lines of the logs phase (1,000,000; fewer is a "
+                         "cut)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     from greptimedb_tpu_torch.ops import flow_kernels as fk
+    from greptimedb_tpu_torch.ops import fulltext_kernels as lk
     from greptimedb_tpu_torch.ops import grid_kernels as gk
     from greptimedb_tpu_torch.ops import promql_kernels as pk
     from greptimedb_tpu_torch.ops import segment_kernels as sk
     from greptimedb_tpu_torch.ops import sketch_kernels as shk
 
     t_start = time.perf_counter()
-    card, has_arrow = phase_device(gk, pk, sk, shk, fk)
+    card, has_arrow = phase_device(gk, pk, sk, shk, fk, lk)
+    phase_start("2")
     kernels = phase_kernels(gk, card)
+    phase_start("3")
     launches, db, home, ctx = phase_main_path(gk, args.hours, has_arrow,
                                               card)
     log(f"elapsed: {time.perf_counter() - t_start:.3f} s")
@@ -2661,9 +3096,9 @@ def main() -> int:
     finally:
         db.close()
         shutil.rmtree(home, ignore_errors=True)
-    del ctx
-    torch.cuda.empty_cache()
+    del ctx, db
     log(f"elapsed: {time.perf_counter() - t_start:.3f} s")
+    phase_start("4")
     prom_launches, db, home = phase_promql(gk, pk, sk, args.scrapes,
                                            args.seed, has_arrow, card)
     try:
@@ -2671,14 +3106,21 @@ def main() -> int:
     finally:
         db.close()
         shutil.rmtree(home, ignore_errors=True)
+    del db
     log(f"elapsed: {time.perf_counter() - t_start:.3f} s")
+    phase_start("8")
     flow_launches, flow_k = phase_flows(fk, sk, args.flow_series, card)
     kernels.update(flow_k)
+    log(f"elapsed: {time.perf_counter() - t_start:.3f} s")
+    phase_start("9")
+    log_launches, log_k = phase_logs(lk, pk, args.log_lines, card)
+    kernels.update(log_k)
     log(f"launches: SQL grid path {launches}, SQL row path {row_launches}, "
         f"sketches {sketch_launches}, PromQL path {prom_launches}, flows "
-        f"{flow_launches}")
+        f"{flow_launches}, logs {log_launches}")
     launches.update(row_launches)
-    for path in (sketch_launches, prom_launches, flow_launches):
+    for path in (sketch_launches, prom_launches, flow_launches,
+                 log_launches):
         for name, n in path.items():
             launches[name] = launches.get(name, 0) + n
     line = {"kernels": []}
@@ -2688,7 +3130,8 @@ def main() -> int:
                  "radix_argsort", "window_stats", "minmax_window",
                  "window_count_max", "window_matrix", "window_matrix_dense",
                  "subquery_counter", "segment_select", "flow_merge",
-                 "hll_fold", "udd_fold"):
+                 "hll_fold", "udd_fold", "fp_candidates", "logs_layout",
+                 "line_vals", "row_match"):
         k = kernels[name]
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name],

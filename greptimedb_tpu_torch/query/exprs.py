@@ -500,6 +500,26 @@ def _code_set(values, pred) -> np.ndarray:
     )
 
 
+def _code_set_ft(ctx, real: str, values, pred, kind: str,
+                 text: str) -> np.ndarray:
+    """Fingerprint-prefiltered twin of ``_code_set`` for text predicates:
+    when the executor attached a fulltext provider (ctx.fulltext, set
+    from the resident FulltextIndexCache) the predicate evaluates only
+    on prefilter candidates — and repeats hit the verified-vocabulary
+    memo — instead of walking the whole dictionary.  Candidate sets have
+    no false negatives and verification runs the SAME ``pred``, so the
+    result is the identical int32 code array; any fallback (knob off,
+    a table without lineage, the grid path) IS ``_code_set``."""
+    if isinstance(values, DictionaryEncoder):
+        values = values.values()
+    ft = getattr(ctx, "fulltext", None)
+    if ft is not None:
+        codes = ft.codes_matching(real, values, pred, kind, text)
+        if codes is not None:
+            return codes
+    return _code_set(values, pred)
+
+
 def _codes_isin_fn(codes: np.ndarray, real: str, negate: bool):
     """The ONE code-set membership closure shared by tag and string-FIELD
     comparisons (negation excludes padding/poison codes < 0)."""
@@ -539,7 +559,8 @@ def compile_device(e: Expr, ctx: TableContext):
     regex; string fields through the resident table's dictionaries,
     ``ctx.table_dicts``, so on the row path only), tag = tag through a
     code translation, time-index comparisons with timestamp literals, and
-    the functions of ``compile_device_func``.  Vector-search and full-text
+    the functions of ``compile_device_func`` (full-text ``matches`` /
+    ``matches_term`` / ``matches_score`` included).  Vector-search
     functions raise ``Unsupported``.  Tag columns evaluate to their code
     arrays (comparisons are rewritten to code space).
     """
@@ -699,12 +720,16 @@ def compile_device(e: Expr, ctx: TableContext):
                         _like_to_regex(other.value),
                         re.IGNORECASE if op == "ILIKE" else 0,
                     )
-                    codes = _code_set(
-                        enc, lambda v: rx.match(str(v)) is not None)
+                    codes = _code_set_ft(
+                        ctx, real, enc,
+                        lambda v: rx.match(str(v)) is not None,
+                        "ilike" if op == "ILIKE" else "like", other.value)
                 else:  # ~ / !~ regex
                     rx = re.compile(other.value)
-                    codes = _code_set(
-                        enc, lambda v: rx.search(str(v)) is not None)
+                    codes = _code_set_ft(
+                        ctx, real, enc,
+                        lambda v: rx.search(str(v)) is not None,
+                        "regex", other.value)
                 return _codes_isin_fn(codes, real, op == "!~")
             if isinstance(other, Column) and ctx.is_tag(other.name):
                 # tag = tag is sound only through one dictionary: translate
@@ -763,16 +788,21 @@ def compile_device(e: Expr, ctx: TableContext):
                         "resident dictionary (row path only)")
                 if op in ("=", "!="):
                     pred = lambda v, w=other_f.value: str(v) == w  # noqa: E731
+                    kind = "eq"
                 elif op in ("LIKE", "ILIKE"):
                     rx = re.compile(
                         _like_to_regex(other_f.value),
                         re.IGNORECASE if op == "ILIKE" else 0)
                     pred = lambda v, rx=rx: rx.match(str(v)) is not None  # noqa: E731
+                    kind = "ilike" if op == "ILIKE" else "like"
                 else:
                     rx = re.compile(other_f.value)
                     pred = lambda v, rx=rx: rx.search(str(v)) is not None  # noqa: E731
-                return _codes_isin_fn(_code_set(vocab, pred), real,
-                                      op in ("!=", "!~"))
+                    kind = "regex"
+                return _codes_isin_fn(
+                    _code_set_ft(ctx, real, vocab, pred, kind,
+                                 other_f.value),
+                    real, op in ("!=", "!~"))
         # --- time-index comparisons with string timestamps ---
         ts_side = None
         if isinstance(e.left, Column) and ctx.is_ts(e.left.name):
@@ -936,6 +966,72 @@ def _ft_pred(name: str, query: str):
     return ft_predicate(name, query)
 
 
+def _compile_ft_match(e: FuncCall, ctx: TableContext):
+    """Full-text match over a string column: the predicate evaluates once
+    per DISTINCT term (dictionary vocabulary; prefiltered by the resident
+    fingerprint index when ctx.fulltext is set), then gathers to rows by
+    code on the device — same shape as the inverted-index matcher path."""
+    args = list(e.args)
+    if len(args) != 2:
+        raise PlanError(f"{e.name}(column, 'query') takes two arguments")
+    col = next((a for a in args if isinstance(a, Column)), None)
+    lit = next((a for a in args if isinstance(a, Literal)), None)
+    if col is None or lit is None or not isinstance(lit.value, str):
+        raise Unsupported(f"{e.name} needs a string column and a literal")
+    real = ctx.resolve(col.name)
+    vocab = getattr(ctx, "table_dicts", {}).get(real)
+    if vocab is None:
+        enc = ctx.encoders.get(real)  # tag column: region dictionary
+        if enc is None:
+            raise Unsupported(f"{e.name}: column {col.name} has no dictionary")
+        vocab = enc.values()
+    if e.name == "matches_score":
+        # TF-IDF relevance: the shared corpus scorer over the dictionary
+        # vocabulary, gathered to rows by code
+        from greptimedb_tpu_torch.storage.index import ft_score_corpus
+
+        sc = ft_score_corpus(lit.value, list(vocab))
+
+        def score_fn(env, col_name=real, sc=sc):
+            codes = env[col_name]
+            s = torch.as_tensor(sc, device=codes.device)
+            if s.numel() == 0:  # no rows: every code is padding
+                return torch.zeros(codes.shape, dtype=s.dtype,
+                                   device=codes.device)
+            safe = torch.clamp(codes, 0, s.shape[0] - 1).to(torch.int64)
+            return torch.where(codes >= 0, s[safe], 0.0)
+
+        return score_fn
+
+    pred = _ft_pred(e.name, lit.value)
+    if isinstance(vocab, DictionaryEncoder):
+        vocab = vocab.values()
+    if not isinstance(vocab, list):
+        vocab = list(vocab)  # a resident dictionary is a list already
+    ft = getattr(ctx, "fulltext", None)
+    bools = None
+    if ft is not None:
+        # fingerprint prefilter: the token predicate runs only on
+        # candidate terms (memoized per lineage) instead of every
+        # distinct value
+        bools = ft.cache.verified_bools(
+            ft.tkey, ft.table, real, vocab,
+            lambda t, p=pred: bool(p(str(t))), e.name, lit.value)
+    if bools is None:
+        bools = np.asarray([bool(pred(str(t))) for t in vocab], dtype=bool)
+
+    def fn(env, col_name=real, bools=bools):
+        codes = env[col_name]
+        h = torch.as_tensor(bools, device=codes.device)
+        if h.numel() == 0:  # no rows: every code is padding
+            return torch.zeros(codes.shape, dtype=torch.bool,
+                               device=codes.device)
+        safe = torch.clamp(codes, 0, h.shape[0] - 1).to(torch.int64)
+        return torch.where(codes >= 0, h[safe], False)
+
+    return fn
+
+
 def _to_ms(ts, factor: float):
     """Native-unit timestamps → ms (float64 then truncate, as the
     reference's x64 arithmetic)."""
@@ -987,7 +1083,7 @@ def compile_device_func(e: FuncCall, ctx: TableContext):
     if name in VEC_FUNCS:
         raise Unsupported(f"{name}: vector search not ported yet")
     if name in FT_FUNCS:
-        raise Unsupported(f"{name}: full-text search not ported yet")
+        return _compile_ft_match(e, ctx)
     if name == "abs":
         inner = compile_device(e.args[0], ctx)
         return lambda env: torch.abs(_as_tensor(inner(env)))

@@ -291,6 +291,25 @@ class Executor:
         from greptimedb_tpu_torch.storage.cache import DerivedLayoutCache
 
         self.layout_cache = DerivedLayoutCache()
+        # resident fulltext fingerprint matrices + verified-vocabulary
+        # memos (fulltext/resident.py): text predicates over dictionary-
+        # encoded columns prefilter on the device (fp_candidates) and
+        # verify only candidates
+        from greptimedb_tpu_torch.fulltext.resident import FulltextIndexCache
+
+        self.fulltext_cache = FulltextIndexCache()
+
+    def _fulltext_provider(self, plan, table):
+        """ctx.fulltext for one execution, or None (knob off / table
+        without dictionary lineage) — the compiler then walks
+        dictionaries host-side exactly as before."""
+        from greptimedb_tpu_torch.fulltext import enabled
+        from greptimedb_tpu_torch.fulltext.resident import FulltextProvider
+
+        if not enabled() or getattr(table, "dicts_root", 0) == 0:
+            return None
+        return FulltextProvider(self.fulltext_cache,
+                                getattr(plan, "table", None) or "?", table)
 
     # ---- aggregate path ----------------------------------------------
     def _time_key_params(
@@ -889,6 +908,7 @@ class Executor:
         ctx = plan.ctx
         ctx.table_dicts = table.dicts  # string-dict exprs
         ctx.table_dicts_version = getattr(table, "dicts_version", 0)
+        ctx.fulltext = self._fulltext_provider(plan, table)
         ctx.sketch_table = plan.table
         ts_name = ctx.schema.time_index.name if ctx.schema.time_index else None
         device = table.row_mask.device
@@ -1427,6 +1447,7 @@ class Executor:
     ) -> tuple[dict[str, np.ndarray], int]:
         ctx = plan.ctx
         ctx.table_dicts = table.dicts  # string-dict exprs
+        ctx.fulltext = self._fulltext_provider(plan, table)
         ts_name = ctx.schema.time_index.name if ctx.schema.time_index else None
         where_fn = compile_device(plan.where, ctx) if plan.where is not None else None
         lo, hi = plan.time_range

@@ -12,10 +12,13 @@ unless the caller passes ``device="cpu"``.
 Flows (``flow/``: CREATE FLOW, DROP FLOW, SHOW FLOWS, the device fold
 and GTF1 checkpoints under ``<data_home>/flow_ckpt``) are wired as in the
 reference; ``GREPTIME_FLOW_DEVICE=off`` keeps every flow on the host
-engine.  Not ported yet (the reference's ``__init__`` wires them up): the
-serving scheduler, SLO observatory, scrubber, metric and file engines,
-partitioned tables, views, the mesh, the compile cache, the memory quotas
-and the servers.
+engine.  Logs: ``servers.ingest.loki_push`` writes ``loki_logs``,
+``fulltext.loki`` answers the Loki read API's queries, and
+``db.engine.executor.fulltext_cache`` holds the fingerprint index that
+SQL text predicates and LogQL line filters share.  Not ported yet (the
+reference's ``__init__`` wires them up): the serving scheduler, SLO
+observatory, scrubber, metric and file engines, partitioned tables,
+views, the mesh, the compile cache, the memory quotas and the servers.
 """
 
 from __future__ import annotations
@@ -141,6 +144,11 @@ class GreptimeDB(TableProvider):
         # group ids); a region leaving residency drops it too
         self.promql_cache = PromLayoutCache()
         self.cache.promql_derived = self.promql_cache
+        # the resident fulltext fingerprint index is
+        # self.engine.executor.fulltext_cache (fulltext/resident.py): SQL
+        # text predicates and LogQL line filters prefilter through it, on
+        # each table's device.  The workload quota the reference admits
+        # it under is not ported (its memory_probe stays None)
         self.current_db = DEFAULT_DB
         # the storage engine is single-writer (region sequence assignment
         # and memtable mutation are unsynchronized); statements serialize

@@ -119,6 +119,13 @@ class DeviceTable:
     # tag columns whose codes are nondecreasing in row order and change
     # exactly where the series does: the sorted segment path's eligibility
     sorted_tags: tuple = ()
+    # lineage root: the dicts_version of the FULL build this table
+    # descends from.  Dictionaries only append within a lineage, so
+    # incrementally extendable derived state (the fulltext fingerprint
+    # matrix) keys on it.  Every build here is a full build, so the root
+    # is the build's own dicts_version; 0 means "no lineage" (no fulltext
+    # acceleration)
+    dicts_root: int = 0
 
     @property
     def padded_rows(self) -> int:
@@ -215,9 +222,10 @@ def build_device_table(region, *, device) -> DeviceTable:
         dev_cols[name] = stream_to_device(out, device)
     mask = np.zeros(padded, dtype=bool)
     mask[:n] = True
+    version = next_dicts_version()
     return DeviceTable(dev_cols, stream_to_device(mask, device),
-                       region.num_series, dicts, next_dicts_version(),
-                       detect_sorted_tags(schema, host_canon, n))
+                       region.num_series, dicts, version,
+                       detect_sorted_tags(schema, host_canon, n), version)
 
 
 def detect_sorted_tags(schema: Schema, host_canon: dict, n: int) -> tuple:
@@ -304,6 +312,18 @@ class RegionCacheManager:
             self._bytes += table.nbytes()
             self._shrink()
         return table
+
+    def peek_table(self, region):
+        """The region's resident DeviceTable if one is ALREADY resident at
+        the current generation, else None — never builds.  Consumers that
+        only accelerate when warm (the log-query DSL's fingerprint route)
+        use this so a cold table stays on its host path instead of paying
+        a device build it didn't ask for."""
+        gen = getattr(region, "generation", None)
+        if gen is None:
+            return None
+        entry = self._lru.get((region.region_id, "table", gen))
+        return entry.table if entry is not None else None
 
     def get_grid(self, region):
         """Dense-grid resident table for a region (storage/grid.py), or

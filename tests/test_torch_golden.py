@@ -7,8 +7,8 @@ and ``_rows_match`` (numeric cells within ``1e-5*max(1,|b|)``), with its
 ``monkeypatch``, so the reference's own golden test in the same worker
 sees its own class again.  The list is every golden file the port
 answers whole: the dense grid, all of PromQL, the SQL row path, the
-sketch aggregates and flows.  Files that need what the port has not ported
-yet (joins, subqueries, DDL beyond CREATE, vector and full-text search,
+sketch aggregates, flows and full-text search.  Files that need what the
+port has not ported yet (joins, subqueries, DDL beyond CREATE, vector search,
 the expression-key fold, ...) stay out; ``ROADMAP.md`` queue A names them.
 """
 
@@ -72,6 +72,8 @@ PORTED = [
     # and flows
     "21_sketches", "37_approx_sketch_agg", "111_uddsketch_merge_golden",
     "112_hll_merge_golden", "80_flows_batching",
+    # INSERT ... SELECT; full-text search (matches / matches_term)
+    "114_insert_select_into", "30_fulltext_log", "118_matches_fulltext2",
 ]
 
 

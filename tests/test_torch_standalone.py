@@ -206,6 +206,11 @@ def test_port_imports_neither_jax_nor_reference():
         "import greptimedb_tpu_torch.ops.segment\n"
         "import greptimedb_tpu_torch.ops.segment_kernels\n"
         "import greptimedb_tpu_torch.ops.masks\n"
+        "import greptimedb_tpu_torch.ops.fulltext_kernels\n"
+        "import greptimedb_tpu_torch.fulltext.resident\n"
+        "import greptimedb_tpu_torch.fulltext.loki as loki\n"
+        "import greptimedb_tpu_torch.servers.ingest as ingest\n"
+        "import greptimedb_tpu_torch.servers.logquery\n"
         "db = greptimedb_tpu_torch.standalone.GreptimeDB(device='cpu')\n"
         "db.sql(\"CREATE TABLE t (h STRING, ts TIMESTAMP(3) TIME INDEX, "
         "v DOUBLE, PRIMARY KEY (h))\")\n"
@@ -217,6 +222,16 @@ def test_port_imports_neither_jax_nor_reference():
         "assert db.sql('SELECT v FROM t WHERE v > 2').rows == [[3.0]]\n"
         "r = db.sql('TQL EVAL (0, 0.01, 0.01) sum by (h) (increase(t[1s]))')\n"
         "assert r.column_names == ['h', 'ts', 'val'] and r.num_rows == 1\n"
+        "body = b'{\"streams\": [{\"stream\": {\"app\": \"a\"}, "
+        "\"values\": [[\"1000000000\", \"conn refused\"], "
+        "[\"2000000000\", \"ok\"]]}]}'\n"
+        "assert ingest.loki_push(db, body) == 2\n"
+        "r = loki.loki_query_range(db, {'query': "
+        "'count_over_time({app=\"a\"} |= \"refused\" [5s])', "
+        "'start': '2', 'end': '2', 'step': '1'})\n"
+        "assert r['data']['result'][0]['values'] == [[2.0, '1']], r\n"
+        "assert db.sql(\"SELECT count(*) FROM loki_logs WHERE "
+        "matches_term(line, 'refused')\").rows == [[1]]\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'greptimedb_tpu' or "
         "m.startswith('greptimedb_tpu.'))\n"
