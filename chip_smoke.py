@@ -92,7 +92,25 @@ Phases, each printing its own lines:
    (fp_candidates, logs_layout, line_vals, row_match and window_stats
    must all have launched, and the prefilter must have run); then the
    four log kernels are timed on the phase's own resident state.
-10. One JSON line with every kernel's numbers, then the last line
+10. Concurrent serving, on phase 3's table while its db is open (run
+   after phase 7's sketches): 16 client threads submit through
+   db.scheduler, closed loop, (h) double-groupby-all over a 12 h aligned
+   window starting at hour i % 12 and (i) the same with
+   hostname = 'host_<k>', k varying per client and round.  Every answer
+   equals its query's solo db.sql rows (==), and every solo answer equals
+   phase 3's numpy sums; the launch counts are zeroed before the run and
+   read after it: group_merge_stacked and series_mask must both have
+   launched and at least one batch must have stacked.  Then queries/s and
+   p50/p99 latency with batching on and off (GREPTIME_SCHEDULER_BATCH, a
+   second scheduler with batching=False; runs on, off, off, on), the
+   largest batch, the device-busy share of one batched run under
+   torch.profiler beside the two kernels' own CUDA-event times x their
+   launches, and the two kernels timed on the largest batches' captured
+   arguments: group_merge_stacked at B = 16 against 16 solo group_merge
+   pairs (each member equal to its pair bit for bit), its plain version
+   and index_add_ over the stacked windows; series_mask against its plain
+   version; each with its byte bound.
+11. One JSON line with every kernel's numbers, then the last line
    {"ok": true, "device": {...}}.
 
 Each phase from 2 on starts by dropping what earlier phases left
@@ -160,6 +178,8 @@ SOURCES = {
     "logs_layout": "greptimedb_tpu_torch/csrc/fulltext_kernels.cu",
     "line_vals": "greptimedb_tpu_torch/csrc/fulltext_kernels.cu",
     "row_match": "greptimedb_tpu_torch/csrc/fulltext_kernels.cu",
+    "group_merge_stacked": "greptimedb_tpu_torch/csrc/grid_kernels.cu",
+    "series_mask": "greptimedb_tpu_torch/csrc/grid_kernels.cu",
 }
 REPLACES = {
     "bucket_reduce": "greptimedb_tpu/query/physical.py:1129",
@@ -186,6 +206,8 @@ REPLACES = {
     "logs_layout": "greptimedb_tpu/fulltext/loki.py:101",
     "line_vals": "greptimedb_tpu/fulltext/loki.py:115",
     "row_match": "greptimedb_tpu/fulltext/loki.py:131",
+    "group_merge_stacked": "greptimedb_tpu/query/physical.py:979",
+    "series_mask": "greptimedb_tpu/query/physical.py:1023",
 }
 PROM_T0 = 1700000000000   # bench_promql.py's epoch
 SCRAPE_MS = 15_000
@@ -3036,6 +3058,328 @@ def log_kernel_timing(lk, db, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: concurrent serving on phase 3's table
+# ---------------------------------------------------------------------------
+
+SERVE_CLIENTS = 16
+
+
+def serve_query(hours: int, i: int, host: int | None):
+    """(sql, window start hour, window hours, host) of client query i:
+    double-groupby-all over a 12 h aligned window starting at hour
+    i % 12 (h), or the same with hostname = 'host_<host>' (i)."""
+    wh = min(12, hours)
+    h0 = i % max(1, min(12, hours - wh + 1))
+    lo = T0 + h0 * 3_600_000
+    avgs = ", ".join(f"avg({m})" for m in METRICS)
+    where = "" if host is None else f"hostname = 'host_{host}' AND "
+    sql = (f"SELECT hostname, date_trunc('hour', ts) AS hour, {avgs} "
+           f"FROM cpu WHERE {where}ts >= {lo} AND ts < "
+           f"{lo + wh * 3_600_000} GROUP BY hostname, hour")
+    return sql, h0, wh, host
+
+
+def check_serving_rows(rows, stats, h0: int, wh: int, host) -> float:
+    """Rows of one serving query against phase 3's numpy sums, vectorized:
+    every (host, hour) of the window once, each avg within the golden
+    bound."""
+    n_want = (SCALE if host is None else 1) * wh
+    if len(rows) != n_want:
+        raise AssertionError(f"serving: {len(rows)} rows, expected {n_want}")
+    hosts = np.array([int(r[0].split("_")[1]) for r in rows])
+    hrs = (np.array([r[1] for r in rows], np.int64) - T0) // 3_600_000
+    vals = np.array([r[2:] for r in rows], np.float64)
+    keys = set(zip(hosts.tolist(), hrs.tolist()))
+    want_hosts = range(SCALE) if host is None else [host]
+    if keys != {(h, t) for h in want_hosts for t in range(h0, h0 + wh)}:
+        raise AssertionError("serving: wrong (host, hour) keys")
+    want = stats["sum"][hrs, hosts, :] / STEPS_PER_HOUR
+    diff = np.abs(vals - want)
+    if not np.isfinite(vals).all() or (
+            diff > REL_TOL * np.maximum(1.0, np.abs(want))).any():
+        raise AssertionError(f"serving: max |diff| {diff.max()}")
+    return float(diff.max())
+
+
+def drive_clients(submit, jobs, solo) -> tuple[list, float]:
+    """SERVE_CLIENTS threads, closed loop: client c submits its queries
+    jobs[c] in turn; every answer must equal the query's solo rows (==).
+    Returns (latencies ms, wall s)."""
+    import threading
+
+    lat: list = []
+    errors: list = []
+    lock = threading.Lock()
+
+    def client(c):
+        try:
+            for sql in jobs[c]:
+                t0 = time.perf_counter()
+                res = submit(sql)
+                dt = (time.perf_counter() - t0) * 1e3
+                if res.rows != solo[sql]:
+                    raise AssertionError(f"serving: member != solo for "
+                                         f"{sql[-80:]}")
+                with lock:
+                    lat.append(dt)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(len(jobs))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("serving: a client did not finish")
+    return lat, wall
+
+
+def phase_serving(gk, db, ctx: dict, hours: int, card: str):
+    """The concurrent serving path on phase 3's open db: SERVE_CLIENTS
+    threads submit (h) and (i) through db.scheduler; every answer equals
+    its solo db.sql rows and numpy; both stacked-batch kernels must launch
+    and at least one batch must stack.  Then queries/s and latency with
+    batching on and off, the device-busy share against the kernels' own
+    CUDA-event times, and the two kernels timed on the captured batch
+    arguments.  Returns (launches, kernel results)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from greptimedb_tpu_torch.query import physical
+    from greptimedb_tpu_torch.serving.scheduler import QueryScheduler
+
+    t_phase = time.perf_counter()
+    sched = db.scheduler
+    if sched is None:
+        raise AssertionError("serving: db.scheduler is off")
+    stats = ctx["stats"]
+    rounds = 3
+
+    def jobs_for(r0: int) -> list:
+        # even clients (h), odd clients (i) with a host that varies per
+        # client and round; windows vary with client and round
+        return [[serve_query(hours, c + r, None if c % 2 == 0 else
+                             (c * 251 + r * 17) % SCALE)
+                 for r in range(r0, r0 + rounds)]
+                for c in range(SERVE_CLIENTS)]
+
+    all_jobs = jobs_for(0) + jobs_for(rounds)
+    solo: dict = {}
+    worst = 0.0
+    t0 = time.perf_counter()
+    for job in [j for cj in all_jobs for j in cj]:
+        sql, h0, wh, host = job
+        if sql not in solo:
+            rows = db.sql(sql).rows
+            worst = max(worst, check_serving_rows(rows, stats, h0, wh, host))
+            solo[sql] = rows
+    log(f"serving: {len(solo)} distinct queries run solo through db.sql, "
+        f"each correct against numpy (max |diff| {worst:.3g}) in "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    # the counted run: launch counts zeroed just before, read just after;
+    # the largest batch's kernel arguments are captured for the timings
+    captured: dict = {}
+    real_gms, real_mask = physical.group_merge_stacked, physical.series_mask
+
+    def cap_gms(*args, **kw):
+        key = "gms_masked" if kw.get("mask") is not None else "gms"
+        if args[2].shape[0] >= captured.get(key, ((), None, 0))[2]:
+            captured[key] = (args, kw, args[2].shape[0])
+        return real_gms(*args, **kw)
+
+    def cap_mask(*args):
+        if args[5] >= captured.get("mask", ((), None, 0))[2]:
+            captured["mask"] = (args, None, args[5])
+        return real_mask(*args)
+
+    jobs = [[j[0] for j in cj] for cj in jobs_for(0)]
+    stats0 = dict(physical.DISPATCH_STATS)
+    largest0 = sched.largest_batch
+    physical.group_merge_stacked, physical.series_mask = cap_gms, cap_mask
+    try:
+        gk.reset_launch_counts()
+        for _ in range(10):
+            drive_clients(sched.submit, jobs, solo)
+            if (gk.group_merge_stacked.launches and gk.series_mask.launches
+                    and "gms_masked" in captured and "gms" in captured):
+                break
+        launches = {"group_merge_stacked": gk.group_merge_stacked.launches,
+                    "series_mask": gk.series_mask.launches}
+    finally:
+        physical.group_merge_stacked = real_gms
+        physical.series_mask = real_mask
+    batches = physical.DISPATCH_STATS["grid_batch"] - stats0["grid_batch"]
+    log(f"serving: launches {launches}; stacked batches {batches}, "
+        f"members {physical.DISPATCH_STATS['grid'] - stats0['grid']} "
+        f"on the grid, refused "
+        f"{physical.DISPATCH_STATS['grid_batch_refused'] - stats0['grid_batch_refused']}; "
+        f"largest batch {sched.largest_batch} (scheduler stats "
+        f"{ {k: v for k, v in sched.stats().items() if k != 'tenants'} })")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} never launched on the serving "
+                                 f"path")
+    if batches <= 0 or sched.largest_batch < 2:
+        raise AssertionError("serving: no stacked batch formed")
+
+    # queries/s and latency, batching on and off, in turns
+    timed_jobs = [[j[0] for j in cj] for cj in jobs_for(rounds)]
+    nq = sum(len(j) for j in timed_jobs)
+    off = QueryScheduler(db, batching=False)
+    runs = {"on": [], "off": []}
+    try:
+        for mode in ("on", "off", "off", "on"):
+            s = sched if mode == "on" else off
+            lat, wall = drive_clients(s.submit, timed_jobs, solo)
+            runs[mode].append((nq / wall, lat))
+    finally:
+        off.stop()
+    for mode, rs in runs.items():
+        lat = np.concatenate([np.array(r[1]) for r in rs])
+        log(f"serving: GREPTIME_SCHEDULER_BATCH={mode}: "
+            f"{' / '.join(f'{q:.2f}' for q, _l in rs)} queries/s "
+            f"({SERVE_CLIENTS} clients, {nq} queries a run); latency p50 "
+            f"{np.percentile(lat, 50):.3f} ms, p99 "
+            f"{np.percentile(lat, 99):.3f} ms — {card}")
+    log(f"serving: largest batch {sched.largest_batch} "
+        f"(before the phase {largest0})")
+
+    # device busy over one batched run, cross-checked against the two
+    # kernels' own CUDA-event times x their launches in that run
+    gk.reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        drive_clients(sched.submit, timed_jobs, solo)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof_launches = (gk.group_merge_stacked.launches, gk.series_mask.launches)
+    gk.reset_launch_counts()
+    busy_ms, kern_prof = 0.0, {"stacked": 0.0, "series_mask": 0.0}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        busy_ms += us / 1e3
+        if "stacked_" in e.key:
+            kern_prof["stacked"] += us / 1e3
+        elif "series_mask_kernel" in e.key:
+            kern_prof["series_mask"] += us / 1e3
+
+    # the kernels at B = 16 on the serving path's own tensors: the
+    # resident partials, group layout, plane list and lookup tables of
+    # the largest tag-filtered batch; sixteen 12 h windows (starts i % 12)
+    # and sixteen members' tables (the captured members', cycled)
+    results = {}
+    (sums, cnts, _b, lay, planes, nbw), _kw, _n = captured["gms_masked"]
+    codes, lut, offsets, strides, extents, _mp = captured["mask"][0]
+    B = SERVE_CLIENTS
+    dev = cnts.device
+    nb = cnts.shape[1]
+    cyc = torch.arange(B, device=dev) % offsets.shape[0]
+    margs = (codes, lut, offsets[cyc].contiguous(),
+             strides[cyc].contiguous(), extents, B)
+    got_m = gk.series_mask(*margs)
+    err_m = max_err(got_m, gk.series_mask_plain(*margs), exact=True)
+    b_lo = (torch.arange(B, device=dev) % 12).to(torch.int32)
+    args = (sums, cnts, b_lo, lay, planes, nbw)
+    kw = {"mask": got_m}
+    mask = got_m
+    got = gk.group_merge_stacked(*args, **kw)
+    want = gk.group_merge_stacked_plain(*args, **kw)
+    err = max(max_err(got[0], want[0], exact=True),
+              max_err(got[1], want[1], exact=False))
+    # member == solo, bit for bit: each member's window through the solo
+    # path's two group_merge launches
+    starts = [gk.clamp_start(b, nbw, nb) for b in b_lo.tolist()]
+    x_all = sums.index_select(0, planes.long())
+
+    def solo_pairs():
+        out = []
+        for m, b0 in enumerate(starts):
+            c_w = cnts.narrow(1, b0, nbw) * mask[m][:, None]
+            out.append((gk.group_merge(c_w.to(torch.int64), lay, "sum"),
+                        gk.group_merge(x_all.narrow(2, b0, nbw), lay, "sum",
+                                       factor=mask[m])))
+        return out
+
+    for m, (c1, s1) in enumerate(solo_pairs()):
+        max_err(got[0][m], c1, exact=True)
+        max_err(got[1][m], s1, exact=True)
+    ms = time_ms(lambda: gk.group_merge_stacked(*args, **kw))
+    solo_ms = time_ms(solo_pairs)
+    plain = time_ms(lambda: gk.group_merge_stacked_plain(*args, **kw),
+                    reps=5)
+    ids64 = lay.ids.long()
+    x_st = torch.stack([x_all.narrow(2, b0, nbw) for b0 in starts]) * (
+        mask[:, None, :, None])
+    lib_buf = torch.zeros((B, x_all.shape[0], lay.ngt + 1, nbw),
+                          device=dev)
+    lib = time_ms(lambda: lib_buf.index_add_(2, ids64, x_st))
+    del x_st, lib_buf
+    span = set()
+    for b0 in starts:
+        span.update(range(b0, b0 + nbw))
+    p_n, s_n, ngt = planes.shape[0], cnts.shape[0], lay.ngt
+    gms_bytes = ((p_n + 1) * s_n * len(span) * 4 + nbytes(
+        mask, b_lo, planes, lay.order, lay.offsets, got[0], got[1]))
+    bnd, by = bound_ms(gms_bytes, B * (p_n + 1) * s_n * nbw)
+    log(f"kernel group_merge_stacked[B={B}, masked, [{p_n},{s_n},{nb}] "
+        f"window {nbw} -> {ngt}]: {ms:.4f} ms (16 solo group_merge pairs "
+        f"{solo_ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms "
+        f"index_add_ over the stacked windows, bound {bnd:.4f} ms by {by}), "
+        f"max_abs_err {err:.3g}; every member == its solo pair bit for bit "
+        f"— {card}")
+    results["group_merge_stacked"] = dict(
+        ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=lib,
+        max_abs_err=err, solo_pairs_ms=solo_ms)
+    ms_u = time_ms(lambda: gk.group_merge_stacked(*args))
+    err_u = max(max_err(a, b, exact=True) for a, b in zip(
+        gk.group_merge_stacked(*args),
+        gk.group_merge_stacked_plain(*args)[:1]))
+    log(f"kernel group_merge_stacked[B={B}, unmasked]: {ms_u:.4f} ms, "
+        f"counts max_abs_err {err_u:.3g} — {card}")
+    ms_m = time_ms(lambda: gk.series_mask(*margs))
+    plain_m = time_ms(lambda: gk.series_mask_plain(*margs), reps=5)
+    bnd_m, by_m = bound_ms(nbytes(codes, lut, *margs[2:5], got_m), 0)
+    log(f"kernel series_mask[B={B}, {codes.shape[0]} tag(s) x "
+        f"{codes.shape[1]} series, {lut.shape[0]} table entries of "
+        f"{offsets.shape[0]} members]: {ms_m:.4f} ms (plain {plain_m:.4f} "
+        f"ms, library null ms — no one call, bound {bnd_m:.4f} ms by "
+        f"{by_m}), max_abs_err {err_m:.3g} — {card}")
+    results["series_mask"] = dict(ms=ms_m, plain_ms=plain_m, bound_ms=bnd_m,
+                                  bound_by=by_m, library_ms=None,
+                                  max_abs_err=err_m)
+    # the profiled run's own batches: their kernels' CUDA-event times at
+    # the captured batch sizes, times the launches of that run
+    real = {k: time_ms(lambda a=captured[k]: (
+        real_gms if k != "mask" else real_mask)(*a[0], **(a[1] or {})))
+        for k in ("gms", "gms_masked", "mask")}
+    est = {"stacked": prof_launches[0] / 2 * (
+               real["gms"] + real["gms_masked"]) / 2,
+           "series_mask": prof_launches[1] * real["mask"]}
+    log(f"serving: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms wall "
+        f"({100 * busy_ms / wall_ms:.2f} %) over one batched run "
+        f"({nq} queries); the two kernels per the profiler: stacked "
+        f"{kern_prof['stacked']:.3f} ms, series_mask "
+        f"{kern_prof['series_mask']:.3f} ms; per their CUDA-event times at "
+        f"the captured batches (B = {captured['gms'][2]} / "
+        f"{captured['gms_masked'][2]}: {real['gms']:.4f} / "
+        f"{real['gms_masked']:.4f} ms; series_mask {real['mask']:.4f} ms) "
+        f"x launches ({prof_launches[0]}, {prof_launches[1]}): stacked "
+        f"~{est['stacked']:.3f} ms, series_mask ~{est['series_mask']:.3f} "
+        f"ms — {card}")
+    log(f"serving phase: {time.perf_counter() - t_phase:.3f} s")
+    return launches, results
+
+
 def phase_start(name: str) -> int:
     """Drop what earlier phases left (their dbs are closed and unbound),
     then print and return the device memory still allocated."""
@@ -3093,6 +3437,11 @@ def main() -> int:
         sketch_launches, sctx = phase_sketches(shk, sk, db, ctx, card)
         kernels.update(phase_sketch_kernels(shk, db, sctx, card))
         del sctx
+        log(f"elapsed: {time.perf_counter() - t_start:.3f} s")
+        phase_start("10")
+        serve_launches, serve_k = phase_serving(gk, db, ctx, args.hours,
+                                                card)
+        kernels.update(serve_k)
     finally:
         db.close()
         shutil.rmtree(home, ignore_errors=True)
@@ -3117,10 +3466,10 @@ def main() -> int:
     kernels.update(log_k)
     log(f"launches: SQL grid path {launches}, SQL row path {row_launches}, "
         f"sketches {sketch_launches}, PromQL path {prom_launches}, flows "
-        f"{flow_launches}, logs {log_launches}")
+        f"{flow_launches}, logs {log_launches}, serving {serve_launches}")
     launches.update(row_launches)
     for path in (sketch_launches, prom_launches, flow_launches,
-                 log_launches):
+                 log_launches, serve_launches):
         for name, n in path.items():
             launches[name] = launches.get(name, 0) + n
     line = {"kernels": []}
@@ -3131,7 +3480,8 @@ def main() -> int:
                  "window_count_max", "window_matrix", "window_matrix_dense",
                  "subquery_counter", "segment_select", "flow_merge",
                  "hll_fold", "udd_fold", "fp_candidates", "logs_layout",
-                 "line_vals", "row_match"):
+                 "line_vals", "row_match", "group_merge_stacked",
+                 "series_mask"):
         k = kernels[name]
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -3140,9 +3490,11 @@ def main() -> int:
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
         }
-        # the merge modes of the sketch kernels, timed beside the fold
+        # the merge modes of the sketch kernels, timed beside the fold;
+        # the stacked merge's 16 solo group_merge pairs
         entry.update({key: val for key, val in k.items()
-                      if key.startswith("merge_")})
+                      if key.startswith("merge_")
+                      or key == "solo_pairs_ms"})
         line["kernels"].append(entry)
     log(f"total: {time.perf_counter() - t_start:.3f} s")
     log(json.dumps(line))

@@ -43,6 +43,47 @@
 //   identity (0, +inf, -inf).
 //   Bound: at the TSBS shape the merge reads ~2.2 MB, so it is
 //   launch-bound; the design keeps it to one launch per call.
+//
+// group_merge_stacked
+//   Replaces the stacked dispatch of the reference: physical.py:979
+//   (execute_grid_batch, jax.jit(jax.vmap(_bm_kernel_fn(...).kernel)) over
+//   each member's window start b_lo and, for tag-filtered members, its
+//   per-series mask row).  For member m of npad (the pow2-padded batch):
+//     b0      = clamp_start(b_lo[m], nbw, NB)   (JAX dynamic-slice clamp)
+//     cnt[m, g, b]    = sum over group g's series s of
+//                       (int64)(cnts[s, b0 + b] * mask[m, s])
+//     out[m, p, g, b] = sum over group g's series s of
+//                       sums[planes[p], s, b0 + b] * mask[m, s]
+//   (no mask: the factor is dropped, as in the unfiltered solo kernel).
+//   Each output element is one thread running group_merge_kernel's loop:
+//   the same CSR order (ascending series within a group), the same f32
+//   accumulator and the same expressions, so every member equals its solo
+//   bm run (one int64 and one f32 group_merge launch) bit for bit.  A
+//   masked series is never skipped: NaN or inf times 0 stays NaN in both.
+//   The window is read in place (no narrow copy).  Two launches per batch,
+//   whatever its size: counts, then sums.
+//   Bound: bytes.  The batch reads the union of its members' windows of
+//   the used planes and counts once, the mask stack and the layout, and
+//   writes npad * (P * 4 + 8) * ngt * nbw bytes; at the TSBS serving shape
+//   (P=10, S=4096, 12 of 24 buckets, npad=16, ngt=4096) that is ~42 MB,
+//   ~0.013 ms at 3.35 TB/s.  Simple first: one thread per output, the
+//   series gathers of a group are strided by NB floats.
+//
+// series_mask
+//   Replaces physical.py:1008 (_series_mask, jitted at :1023): a batch
+//   member's tag-only WHERE evaluated over the grid's tag codes,
+//   broadcast_to(where_fn(env), (spad,)).astype(f32).  A tag-only
+//   predicate's truth depends only on the codes of the tags it names, so
+//   the host evaluates it once (its compiled torch form, on the CPU) over
+//   the product of the code ranges [-1, card_t) into a 0/1 u8 table; the
+//   kernel gathers, for every member and series at once,
+//     mask[m, s] = lut[off[m'] + sum_t (codes[t, s] + 1) * stride[m', t]]
+//   with m' = m for real members and 0 (the leader) for pow2 pad rows.
+//   Grid codes lie in [-1, card_t) (the grid is built from the region's
+//   encoders, which only grow, and pads are -1); an index outside the
+//   table is clamped into it rather than read out of bounds.
+//   Bound: bytes (T * spad * 4 read, npad * spad * 4 written, the tables
+//   gathered through L1/L2).  One launch per batch.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -145,6 +186,95 @@ __global__ void group_merge_kernel(
   }
 }
 
+// jax.lax.dynamic_slice_in_dim's start: negative counts from the end,
+// then clamps so the slice fits (ops/grid_kernels.py clamp_start).
+__device__ __forceinline__ long long clamp_start_dev(long long start,
+                                                     long long width,
+                                                     long long size) {
+  if (start < 0) start += size;
+  long long hi = size - width;
+  if (hi < 0) hi = 0;
+  return start < 0 ? 0 : (start > hi ? hi : start);
+}
+
+__global__ void stacked_count_kernel(
+    const float* __restrict__ cnts, long long c_ss,
+    const int32_t* __restrict__ b_lo, const int32_t* __restrict__ order,
+    const int64_t* __restrict__ offsets, const float* __restrict__ mask,
+    long long m_ms, int64_t* __restrict__ out, int npad, int ngt, int nbw,
+    int nb) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long total = (long long)npad * ngt * nbw;
+  if (i >= total) return;
+  const long long b = i % nbw;
+  const long long mg = i / nbw;
+  const long long g = mg % ngt;
+  const long long m = mg / ngt;
+  const long long b0 = clamp_start_dev(b_lo[m], nbw, nb);
+  const float* cp = cnts + b0 + b;
+  const float* mrow = mask != nullptr ? mask + m * m_ms : nullptr;
+  const long long k0 = offsets[g];
+  const long long k1 = offsets[g + 1];
+  int64_t acc = 0;
+  for (long long k = k0; k < k1; ++k) {
+    const long long s = order[k];
+    float c = cp[s * c_ss];
+    if (mrow != nullptr) c = c * mrow[s];
+    acc += (int64_t)c;  // the solo path's .to(int64): truncation
+  }
+  out[i] = acc;
+}
+
+__global__ void stacked_sum_kernel(
+    const float* __restrict__ sums, long long s_sc, long long s_ss,
+    const int32_t* __restrict__ planes, const int32_t* __restrict__ b_lo,
+    const int32_t* __restrict__ order, const int64_t* __restrict__ offsets,
+    const float* __restrict__ mask, long long m_ms, float* __restrict__ out,
+    int npad, int P, int ngt, int nbw, int nb) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long total = (long long)npad * P * ngt * nbw;
+  if (i >= total) return;
+  const long long b = i % nbw;
+  long long rest = i / nbw;
+  const long long g = rest % ngt;
+  rest /= ngt;
+  const long long p = rest % P;
+  const long long m = rest / P;
+  const long long b0 = clamp_start_dev(b_lo[m], nbw, nb);
+  const float* xp = sums + (long long)planes[p] * s_sc + b0 + b;
+  const float* mrow = mask != nullptr ? mask + m * m_ms : nullptr;
+  const long long k0 = offsets[g];
+  const long long k1 = offsets[g + 1];
+  float acc = identity_of(OP_SUM);
+  for (long long k = k0; k < k1; ++k) {
+    const long long s = order[k];
+    const float v = xp[s * s_ss];
+    acc += mrow != nullptr ? v * mrow[s] : v;  // group_merge_kernel's sum
+  }
+  out[i] = acc;
+}
+
+__global__ void series_mask_kernel(
+    const int32_t* __restrict__ codes, long long codes_st, int T, int spad,
+    const uint8_t* __restrict__ lut, const int32_t* __restrict__ offsets,
+    const int32_t* __restrict__ strides, const int32_t* __restrict__ extents,
+    int n, float* __restrict__ out, int npad) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long total = (long long)npad * spad;
+  if (i >= total) return;
+  const long long s = i % spad;
+  const long long m = i / spad;
+  const long long mm = m < n ? m : 0;  // pad rows: the leader's twin
+  long long idx = offsets[mm];
+  for (int t = 0; t < T; ++t) {
+    int c = codes[(long long)t * codes_st + s] + 1;
+    const int e = extents[t];
+    c = c < 0 ? 0 : (c >= e ? e - 1 : c);
+    idx += (long long)c * strides[mm * T + t];
+  }
+  out[i] = lut[idx] != 0 ? 1.0f : 0.0f;
+}
+
 constexpr int kReduceThreads = 256;
 constexpr int kMergeThreads = 256;
 
@@ -177,6 +307,10 @@ int launch_group_merge(const T* x, long long x_sp, long long x_ss,
         x, x_sp, x_ss, order, offsets, factor, out, P, ngt, nb, op);
   }
   return (int)cudaGetLastError();
+}
+
+inline unsigned blocks_for(long long total, int threads) {
+  return (unsigned)((total + threads - 1) / threads);
 }
 
 }  // namespace
@@ -216,6 +350,51 @@ int gt_group_merge_i64(const int64_t* x, long long x_sp, long long x_ss,
                        int64_t* out, int P, int ngt, int nb, void* stream) {
   return launch_group_merge<int64_t>(x, x_sp, x_ss, order, offsets, nullptr,
                                      out, P, ngt, nb, OP_SUM, stream);
+}
+
+int gt_group_merge_stacked_count(const float* cnts, long long c_ss,
+                                 const int32_t* b_lo, const int32_t* order,
+                                 const int64_t* offsets, const float* mask,
+                                 long long m_ms, int64_t* out, int npad,
+                                 int ngt, int nbw, int nb, void* stream) {
+  const long long total = (long long)npad * ngt * nbw;
+  if (total > 0) {
+    stacked_count_kernel<<<blocks_for(total, kMergeThreads), kMergeThreads, 0,
+                           (cudaStream_t)stream>>>(
+        cnts, c_ss, b_lo, order, offsets, mask, m_ms, out, npad, ngt, nbw,
+        nb);
+  }
+  return (int)cudaGetLastError();
+}
+
+int gt_group_merge_stacked_sum(const float* sums, long long s_sc,
+                               long long s_ss, const int32_t* planes,
+                               const int32_t* b_lo, const int32_t* order,
+                               const int64_t* offsets, const float* mask,
+                               long long m_ms, float* out, int npad, int P,
+                               int ngt, int nbw, int nb, void* stream) {
+  const long long total = (long long)npad * P * ngt * nbw;
+  if (total > 0) {
+    stacked_sum_kernel<<<blocks_for(total, kMergeThreads), kMergeThreads, 0,
+                         (cudaStream_t)stream>>>(
+        sums, s_sc, s_ss, planes, b_lo, order, offsets, mask, m_ms, out, npad,
+        P, ngt, nbw, nb);
+  }
+  return (int)cudaGetLastError();
+}
+
+int gt_series_mask(const int32_t* codes, long long codes_st, int T, int spad,
+                   const uint8_t* lut, const int32_t* offsets,
+                   const int32_t* strides, const int32_t* extents, int n,
+                   float* out, int npad, void* stream) {
+  const long long total = (long long)npad * spad;
+  if (total > 0) {
+    series_mask_kernel<<<blocks_for(total, kMergeThreads), kMergeThreads, 0,
+                         (cudaStream_t)stream>>>(
+        codes, codes_st, T, spad, lut, offsets, strides, extents, n, out,
+        npad);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

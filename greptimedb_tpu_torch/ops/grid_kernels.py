@@ -1,6 +1,7 @@
-"""The grid aggregation kernels: bucket_reduce and group_merge.
+"""The grid aggregation kernels: bucket_reduce, group_merge and the
+stacked batch's group_merge_stacked and series_mask.
 
-Two hand-written CUDA kernels (``csrc/grid_kernels.cu``) carry the device
+Hand-written CUDA kernels (``csrc/grid_kernels.cu``) carry the device
 work of the SQL dense-grid path; each has a plain PyTorch version here.
 The wrappers pick by where the tensors lie: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel (or raises — there is no
@@ -13,6 +14,11 @@ incremented only where it launches the kernel.
   reductions of ``physical.py:1255`` (``_build_grid_kernel.kernel``).
 - ``group_merge`` replaces their series→group ``segment_sum``/``_min``/
   ``_max`` merge (``physical.py:1176`` and ``:1255``).
+- ``group_merge_stacked`` replaces the stacked dispatch's
+  ``jax.jit(jax.vmap(bm kernel))`` (``physical.py:979``): the aligned-
+  window merge of every member of a coalesced batch in two launches.
+- ``series_mask`` replaces ``_series_mask`` (``physical.py:1008``): the
+  members' tag-only WHERE masks, gathered from lookup tables.
 
 Bounds and design notes live in the CUDA source.  The shared library is
 built from the repository's sources by ``nvcc`` at first use into
@@ -68,6 +74,16 @@ def _load():
         lib.gt_group_merge_i64.argtypes = [vp, ll, ll, vp, vp, vp, i, i, i,
                                            vp]
         lib.gt_group_merge_i64.restype = i
+        lib.gt_group_merge_stacked_count.argtypes = [vp, ll, vp, vp, vp, vp,
+                                                     ll, vp, i, i, i, i, vp]
+        lib.gt_group_merge_stacked_count.restype = i
+        lib.gt_group_merge_stacked_sum.argtypes = [vp, ll, ll, vp, vp, vp, vp,
+                                                   vp, ll, vp, i, i, i, i, i,
+                                                   vp]
+        lib.gt_group_merge_stacked_sum.restype = i
+        lib.gt_series_mask.argtypes = [vp, ll, i, i, vp, vp, vp, vp, i, vp, i,
+                                       vp]
+        lib.gt_series_mask.restype = i
         _lib = lib
         return lib
 
@@ -347,6 +363,196 @@ def group_merge(x, layout: GroupLayout, op, factor=None):
 group_merge.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# group_merge_stacked (K2 stacked)
+# ---------------------------------------------------------------------------
+
+def _stacked_input(sums, cnts, b_lo, layout, planes, nbw, mask):
+    if sums.dtype != torch.float32 or sums.dim() != 3:
+        raise ValueError(f"group_merge_stacked: sums must be float32 "
+                         f"[C, S, NB], got {sums.dtype} {tuple(sums.shape)}")
+    if cnts.dtype != torch.float32 or cnts.shape != sums.shape[1:]:
+        raise ValueError(f"group_merge_stacked: cnts must be float32 "
+                         f"{tuple(sums.shape[1:])}, got {cnts.dtype} "
+                         f"{tuple(cnts.shape)}")
+    if b_lo.dtype != torch.int32 or b_lo.dim() != 1:
+        raise ValueError("group_merge_stacked: b_lo must be int32 [npad]")
+    if planes.dtype != torch.int32 or planes.dim() != 1:
+        raise ValueError("group_merge_stacked: planes must be int32 [P]")
+    s, nb = cnts.shape
+    if layout.ids.shape[0] != s:
+        raise ValueError(f"group_merge_stacked: layout has "
+                         f"{layout.ids.shape[0]} series, partials have {s}")
+    if not 0 < nbw <= nb:
+        raise ValueError(f"group_merge_stacked: window {nbw} outside "
+                         f"(0, {nb}]")
+    if mask is not None and (mask.dtype != torch.float32
+                             or mask.shape != (b_lo.shape[0], s)):
+        raise ValueError(f"group_merge_stacked: mask must be float32 "
+                         f"[{b_lo.shape[0]}, {s}], got {mask.dtype} "
+                         f"{tuple(mask.shape)}")
+
+
+def group_merge_stacked_plain(sums, cnts, b_lo, layout: GroupLayout, planes,
+                              nbw: int, mask=None):
+    """The plain PyTorch version: each member's window stacked, times its
+    mask row, then ``index_add_`` into ``ngt + 1`` segments (the overflow
+    sliced off) — per element the same ascending-series sums as
+    ``group_merge_plain`` over one member's window."""
+    _stacked_input(sums, cnts, b_lo, layout, planes, nbw, mask)
+    nb = cnts.shape[1]
+    starts = [clamp_start(b, nbw, nb) for b in b_lo.tolist()]
+    ids = layout.ids.to(torch.int64)
+    npad, ngt = len(starts), layout.ngt
+    c_w = torch.stack([cnts.narrow(1, b0, nbw) for b0 in starts])
+    if mask is not None:
+        c_w = c_w * mask[:, :, None]
+    cnt = torch.zeros((npad, ngt + 1, nbw), dtype=torch.int64,
+                      device=cnts.device)
+    cnt.index_add_(1, ids, c_w.to(torch.int64))
+    x = sums.index_select(0, planes.to(torch.int64))
+    s_w = torch.stack([x.narrow(2, b0, nbw) for b0 in starts])
+    if mask is not None:
+        s_w = s_w * mask[:, None, :, None]
+    sg = torch.zeros((npad, x.shape[0], ngt + 1, nbw), dtype=torch.float32,
+                     device=sums.device)
+    sg.index_add_(2, ids, s_w)
+    return cnt[:, :ngt], sg[:, :, :ngt]
+
+
+def group_merge_stacked(sums, cnts, b_lo, layout: GroupLayout, planes,
+                        nbw: int, mask=None):
+    """Aligned-window series→group merge for a whole batch of members.
+
+    ``sums`` ``[C, S, NB]`` and ``cnts`` ``[S, NB]`` float32 are the
+    resident bucket-major partials; member ``m`` reads buckets
+    ``[b0, b0 + nbw)`` with ``b0 = clamp_start(b_lo[m], nbw, NB)``
+    (``b_lo`` ``[npad]`` int32), of the planes listed in ``planes``
+    ``[P]`` int32, each series weighted by ``mask[m, s]`` (``[npad, S]``
+    float32, optional).  Returns the int64 counts ``[npad, ngt, nbw]``
+    (the masked counts truncated to int64, then summed) and the float32
+    sums ``[npad, P, ngt, nbw]``, each member bit-identical to its solo
+    ``group_merge`` pair.  Two launches, whatever ``npad``."""
+    if not cuda_build.on_cpu("group_merge_stacked", sums, cnts, b_lo,
+                             planes, mask, layout.order, layout.offsets):
+        return _group_merge_stacked_cuda(sums, cnts, b_lo, layout, planes,
+                                         nbw, mask)
+    return group_merge_stacked_plain(sums, cnts, b_lo, layout, planes, nbw,
+                                     mask)
+
+
+def _group_merge_stacked_cuda(sums, cnts, b_lo, layout, planes, nbw, mask):
+    _stacked_input(sums, cnts, b_lo, layout, planes, nbw, mask)
+    if sums.stride(-1) != 1:
+        sums = sums.contiguous()
+    if cnts.stride(-1) != 1:
+        cnts = cnts.contiguous()
+    b_lo, planes = b_lo.contiguous(), planes.contiguous()
+    if mask is not None and mask.stride(-1) != 1:
+        mask = mask.contiguous()
+    npad, p = b_lo.shape[0], planes.shape[0]
+    nb, ngt = cnts.shape[1], layout.ngt
+    dev = cnts.device
+    cnt = torch.empty((npad, ngt, nbw), dtype=torch.int64, device=dev)
+    sg = torch.empty((npad, p, ngt, nbw), dtype=torch.float32, device=dev)
+    lib = _load()
+    mptr = mask.data_ptr() if mask is not None else None
+    mst = mask.stride(0) if mask is not None else 0
+    rc = lib.gt_group_merge_stacked_count(
+        cnts.data_ptr(), cnts.stride(0), b_lo.data_ptr(),
+        layout.order.data_ptr(), layout.offsets.data_ptr(), mptr, mst,
+        cnt.data_ptr(), npad, ngt, nbw, nb, _stream_ptr(cnts))
+    group_merge_stacked.launches += 1
+    _check(rc, "group_merge_stacked")
+    if p:
+        rc = lib.gt_group_merge_stacked_sum(
+            sums.data_ptr(), sums.stride(0), sums.stride(1),
+            planes.data_ptr(), b_lo.data_ptr(), layout.order.data_ptr(),
+            layout.offsets.data_ptr(), mptr, mst, sg.data_ptr(), npad, p,
+            ngt, nbw, nb, _stream_ptr(sums))
+        group_merge_stacked.launches += 1
+        _check(rc, "group_merge_stacked")
+    return cnt, sg
+
+
+group_merge_stacked.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# series_mask (K21)
+# ---------------------------------------------------------------------------
+
+def _mask_input(codes, lut, offsets, strides, extents, npad):
+    if codes.dtype != torch.int32 or codes.dim() != 2:
+        raise ValueError(f"series_mask: codes must be int32 [T, S], got "
+                         f"{codes.dtype} {tuple(codes.shape)}")
+    t = codes.shape[0]
+    if lut.dtype != torch.uint8 or lut.dim() != 1 or lut.shape[0] == 0:
+        raise ValueError("series_mask: lut must be a non-empty uint8 [L]")
+    n = offsets.shape[0]
+    if offsets.dtype != torch.int32 or offsets.dim() != 1 or not (
+            0 < n <= npad):
+        raise ValueError(f"series_mask: offsets must be int32 [n], "
+                         f"0 < n <= npad {npad}")
+    if strides.dtype != torch.int32 or strides.shape != (n, t):
+        raise ValueError(f"series_mask: strides must be int32 [{n}, {t}]")
+    if extents.dtype != torch.int32 or extents.shape != (t,):
+        raise ValueError(f"series_mask: extents must be int32 [{t}]")
+
+
+def series_mask_plain(codes, lut, offsets, strides, extents, npad: int):
+    """The plain PyTorch version: the same index arithmetic and clamp as
+    the kernel, one ``lut`` gather, cast to float32."""
+    _mask_input(codes, lut, offsets, strides, extents, npad)
+    n = offsets.shape[0]
+    row = torch.arange(npad, device=codes.device)
+    mm = torch.where(row < n, row, torch.zeros_like(row))
+    c = codes.to(torch.int64) + 1
+    hi = (extents.to(torch.int64) - 1)[:, None]
+    c = torch.minimum(torch.clamp(c, min=0), hi)                # [T, S]
+    st = strides.to(torch.int64)[mm]                            # [npad, T]
+    idx = offsets.to(torch.int64)[mm][:, None] + (
+        st[:, :, None] * c[None]).sum(1)                        # [npad, S]
+    return (lut[idx] != 0).to(torch.float32)
+
+
+def series_mask(codes, lut, offsets, strides, extents, npad: int):
+    """Series masks of a stacked batch: ``out[m, s] = lut[offsets[m'] +
+    sum_t (codes[t, s] + 1) * strides[m', t]]`` as float 0/1, with
+    ``m' = m`` for the ``n`` real members and 0 (the leader's twin) for
+    the pad rows up to ``npad``.  ``codes`` ``[T, S]`` int32 are the grid
+    codes of the tags the members' predicates name (-1 = NULL/pad);
+    ``lut`` concatenates each member's 0/1 table over the product of its
+    tags' code ranges ``[-1, card_t)``; ``extents[t] = card_t + 1``.
+    One launch for the whole batch."""
+    if not cuda_build.on_cpu("series_mask", codes, lut, offsets, strides,
+                             extents):
+        return _series_mask_cuda(codes, lut, offsets, strides, extents, npad)
+    return series_mask_plain(codes, lut, offsets, strides, extents, npad)
+
+
+def _series_mask_cuda(codes, lut, offsets, strides, extents, npad):
+    _mask_input(codes, lut, offsets, strides, extents, npad)
+    if codes.shape[0] and codes.stride(-1) != 1:
+        codes = codes.contiguous()
+    lut, offsets = lut.contiguous(), offsets.contiguous()
+    strides, extents = strides.contiguous(), extents.contiguous()
+    t, s = codes.shape
+    out = torch.empty((npad, s), dtype=torch.float32, device=codes.device)
+    rc = _load().gt_series_mask(
+        codes.data_ptr(), codes.stride(0) if t else 0, t, s, lut.data_ptr(),
+        offsets.data_ptr(), strides.data_ptr(), extents.data_ptr(),
+        offsets.shape[0], out.data_ptr(), npad, _stream_ptr(codes))
+    series_mask.launches += 1
+    _check(rc, "series_mask")
+    return out
+
+
+series_mask.launches = 0
+
+
 def reset_launch_counts() -> None:
     bucket_reduce.launches = 0
     group_merge.launches = 0
+    group_merge_stacked.launches = 0
+    series_mask.launches = 0

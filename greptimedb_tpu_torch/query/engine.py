@@ -11,8 +11,10 @@ SELECT.  ``GREPTIME_GRID=off`` forces the row path.  Post-aggregation
 shaping (HAVING → ORDER BY → LIMIT → projection) mirrors the standard SQL
 operator order.
 
-Not ported yet: joins, subqueries, the stacked batch dispatch, the mesh
-route and the expression-key host fold (``_execute_expr_key_agg``; its
+``execute_select_batch`` serves a group of Selects that the serving
+scheduler coalesced through one stacked grid dispatch
+(``Executor.execute_grid_batch``).  Not ported yet: joins, subqueries,
+the mesh route and the expression-key host fold (``_execute_expr_key_agg``; its
 plans take the row path, as the reference's do when it declines).
 """
 
@@ -185,6 +187,66 @@ class QueryEngine:
             metrics["output_rows"] = len(result.rows)
             metrics["scanned_rows_padded"] = scanned
         return result
+
+    # ---- cross-query stacked execution --------------------------------
+    def execute_select_batch(
+        self, sels: list[Select], metrics: dict | None = None,
+    ) -> list[QueryResult] | None:
+        """Execute N concurrent Selects over the same (table, shape
+        class) through ONE stacked device dispatch
+        (Executor.execute_grid_batch), shaping each member's result with
+        the normal per-query host tail (_shape) so batched output is
+        bit-exact vs solo execution.  Returns None whenever ANY member
+        falls outside the tight warm-grid eligibility — the scheduler
+        then executes the group solo, so this path can only ever be a
+        fast path, never a semantic fork.  (The reference also clears its
+        compile journal's replay context here; the port has no compile
+        journal.)"""
+        if len(sels) < 2 or os.environ.get("GREPTIME_GRID", "auto") == "off":
+            return None
+        table = sels[0].table
+        if table is None or any(
+            s.table != table or s.joins or s.from_subquery is not None
+            for s in sels
+        ):
+            return None
+        from greptimedb_tpu_torch.query.ast import expr_contains
+
+        for s in sels:
+            touched = [s.where, s.having] + [it.expr for it in s.items]
+            if any(
+                e is not None and expr_contains(
+                    e, (ScalarSubquery, InSubquery, Exists))
+                for e in touched
+            ):
+                return None
+        from greptimedb_tpu_torch.errors import TableNotFound
+        from greptimedb_tpu_torch.query.optimizer import optimize_select
+
+        try:
+            ctx = self.provider.table_context(table)
+            plans = []
+            for s in sels:
+                s_opt, _rules = optimize_select(s, ctx)
+                plan = plan_select(s_opt, ctx)
+                if not grid_plan_candidate(plan) or plan.sliding is not None:
+                    return None
+                plans.append(plan)
+        except (PlanError, Unsupported, TableNotFound):
+            return None
+        grid, ts_bounds = self.provider.grid_table(table, plans[0])
+        if grid is None:
+            return None
+        with TRACER.stage("execute", batch=len(plans)):
+            outs = self.executor.execute_grid_batch(
+                plans, grid, ts_bounds, metrics=metrics)
+        if outs is None:
+            return None
+        results = []
+        with TRACER.stage("materialize", batch=len(plans)):
+            for plan, (env, n) in zip(plans, outs):
+                results.append(self._shape(plan, env, n))
+        return results
 
     def _execute_tableless(self, sel: Select) -> QueryResult:
         env: dict[str, np.ndarray] = {}

@@ -34,9 +34,15 @@ builds its closures per call: there is nothing to compile.  The sketch
 aggregates (``hll``, ``uddsketch_state`` and their ``*_merge`` forms)
 fold on the device through the ``hll_fold`` / ``udd_fold`` kernels
 (``ops/sketch.py``) into ``[groups, width]`` grids that the host encodes
-as state strings.  Not ported yet: the stacked batch dispatch
-(``execute_grid_batch``), per-member series masks and the device top-k
-of ``_topk_spec`` (the host sorts the compacted rows instead).
+as state strings.
+
+The stacked batch dispatch (``execute_grid_batch``) serves a group of
+concurrent aligned-window queries that the serving scheduler coalesced:
+one ``group_merge_stacked`` pair of launches over the resident partials
+for the whole batch, each member's tag-only WHERE entering as a row of the
+mask stack that ``series_mask`` gathers from the member's lookup table
+(``_series_mask``).  Not ported yet: the device top-k of ``_topk_spec``
+(the host sorts the compacted rows instead).
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ import torch
 from greptimedb_tpu_torch.errors import ExecutionError, PlanError, Unsupported
 from greptimedb_tpu_torch.ops.grid_kernels import (
     bucket_reduce, clamp_start, group_layout, group_merge,
+    group_merge_stacked, series_mask,
 )
 from greptimedb_tpu_torch.ops import segment_kernels as sk
 from greptimedb_tpu_torch.ops.masks import compact_rows
@@ -68,9 +75,20 @@ from greptimedb_tpu_torch.utils.tracing import TRACER
 
 DENSE_LIMIT = 1 << 22
 
-# diagnostics: every row-path aggregate dispatch, by the segment strategy
-# it used (the reference's DISPATCH_STATS keys of the row path)
-DISPATCH_STATS = {"sorted": 0, "scatter": 0}
+# diagnostics, under the reference's keys: every row-path aggregate
+# dispatch by its segment strategy; grid queries (``grid``), those served
+# from the bucket-major partials (``grid_bm``) and stacked batches
+# (``grid_batch``, one per dispatch).  ``grid_batch_refused`` counts the
+# batches refused for a member whose series-mask lookup table would exceed
+# SERIES_MASK_LUT_CAP entries (or whose predicate is not 0/1): the group
+# then runs solo, as the reference's batch does for a member it cannot
+# stack.
+DISPATCH_STATS = {"sorted": 0, "scatter": 0, "grid": 0, "grid_bm": 0,
+                  "grid_batch": 0, "grid_batch_refused": 0}
+
+# the largest series-mask lookup table one batch member may have (entries:
+# the product of card+1 over the tags its predicate names)
+SERIES_MASK_LUT_CAP = 1 << 22
 
 
 @_dataclasses.dataclass
@@ -274,6 +292,36 @@ def _mean(c, s):
     return torch.where(
         c > 0, s / torch.clamp(c, min=1).to(torch.float32), float("nan")
     ).reshape(-1)
+
+
+def mask_tables(luts: list):
+    """Batch arguments of ``series_mask`` from the members' lookup tables
+    (``Executor._series_mask``): the sorted union of the tags they name,
+    each member's offset into the concatenation of the distinct tables,
+    its row-major strides over the union ``[n, T]`` (0 for a tag it does
+    not name), the extents ``[T]`` (card + 1) and the distinct tables."""
+    union = sorted({t for tags, _e, _l in luts for t in tags})
+    uniq: dict[int, int] = {}
+    tables: list[torch.Tensor] = []
+    offs: list[int] = []
+    total = 0
+    for _tags, _ext, lut in luts:
+        k = uniq.get(id(lut))
+        if k is None:
+            k = uniq[id(lut)] = total
+            tables.append(lut)
+            total += lut.shape[0]
+        offs.append(k)
+    strides = np.zeros((len(luts), len(union)), np.int32)
+    extents = np.zeros(len(union), np.int32)
+    for i, (tags, ext, _l) in enumerate(luts):
+        stride = 1
+        for t, e in zip(reversed(tags), reversed(ext)):
+            j = union.index(t)
+            strides[i, j] = stride
+            extents[j] = e
+            stride *= e
+    return union, offs, strides, extents, tables
 
 
 class Executor:
@@ -510,6 +558,7 @@ class Executor:
         dict_ver, tag_order = g.dict_ver, g.tag_order
         g_step = grid.step
         device = grid.device
+        DISPATCH_STATS["grid"] += 1
 
         # resident bucket-major layout: ALIGNED windows whose aggregates
         # all resolve to the per-(series, bucket) partials skip the
@@ -521,6 +570,7 @@ class Executor:
             where_fn, where_series, metrics,
         )
         if layout is not None:
+            DISPATCH_STATS["grid_bm"] += 1
             bm_key = (
                 "grid_bm", plan.fingerprint(), grid.spad,
                 grid.field_names, r, nbw, nb, step_q, tuple(cards_tag),
@@ -597,6 +647,236 @@ class Executor:
         for name, _op, _fn, _nn, _ci in specs:
             env[name] = out[name][gmask]
         return env, n
+
+    # ---- cross-query stacked dispatch ---------------------------------
+    def execute_grid_batch(
+        self, plans: list[SelectPlan], grid, ts_bounds: tuple[int, int],
+        metrics: dict | None = None,
+    ) -> list[tuple[dict[str, np.ndarray], int]] | None:
+        """Stack N concurrent warm queries over the SAME (region, shape
+        class) into one device dispatch: ``group_merge_stacked`` over
+        every member's window start (b_lo, bts0).  Eligibility is the
+        reference's, the tightest warm shape: bucket-aligned windows whose
+        WHERE is absent (members fingerprint-identical) or tag-only
+        (members identical up to the tag predicate, each member's filter
+        entering as a row of the ``series_mask`` stack), identical window
+        geometry, resident bucket-major layout available.  Everything else
+        returns None and the scheduler falls back to solo execution.
+
+        Bit-exactness contract: each member's floats equal its solo run —
+        ``group_merge_stacked`` runs ``group_merge``'s loop per member,
+        the mask rows are the solo ``where_fn`` masks exactly, and the
+        epilogue is the solo path's elementwise torch ops."""
+        if len(plans) < 2:
+            return None
+        geoms: list[_GridGeom] = []
+        for p in plans:
+            if p.sliding is not None:
+                return None
+            g = self._grid_prologue(p, grid, ts_bounds)
+            if g is None:
+                return None
+            geoms.append(g)
+        g0 = geoms[0]
+        fp0 = plans[0].fingerprint()
+
+        def plan_sig(p: SelectPlan):
+            # where-independent plan identity: table, group keys and agg
+            # output names — everything the stacked kernel's output
+            # contract and the host result shaping depend on.  The WHERE
+            # itself may differ per member in tag-filtered mode.
+            return (
+                p.table,
+                tuple((k.kind, str(k.expr), k.name) for k in p.group_keys),
+                tuple(map(str, p.aggs)),
+            )
+
+        def sig(g: _GridGeom):
+            return (
+                g.aligned, g.has_time, g.where_fn is None, g.where_series,
+                g.r, g.pad_left,
+                g.nb, g.nbw, g.step_q, tuple(g.cards_tag), g.tag_order,
+                g.dict_ver,
+                tuple((name, op, ci, nn)
+                      for name, op, _fn, nn, ci in g.specs),
+            )
+
+        sig0 = sig(g0)
+        if not (g0.aligned and g0.has_time):
+            return None
+        # two batchable WHERE modes: absent (members fingerprint-
+        # identical) and tag-only (members agree on everything EXCEPT the
+        # tag predicate, which rides in as a per-member mask row)
+        if g0.where_fn is None:
+            filtered = False
+        elif g0.where_series:
+            filtered = True
+        else:
+            return None
+        psig0 = plan_sig(plans[0])
+        for p, g in zip(plans[1:], geoms[1:]):
+            if sig(g) != sig0:
+                return None
+            if (plan_sig(p) != psig0) if filtered else (
+                    p.fingerprint() != fp0):
+                return None
+        layout = self._aligned_layout(
+            grid, g0.r, g0.pad_left, g0.nb, g0.specs, True, True,
+            None, False, metrics,
+        )
+        if layout is None:
+            return None
+        luts = None
+        if filtered:
+            luts = [self._series_mask(p, g, grid)
+                    for p, g in zip(plans, geoms)]
+            if any(t is None for t in luts):
+                DISPATCH_STATS["grid_batch_refused"] += 1
+                return None
+
+        n = len(plans)
+        # pow2-pad the stack (duplicating the leader's window) as the
+        # reference does; the pad rows are dropped below and counted
+        # nowhere
+        npad = _pow2(n)
+        b_los = [g.b_lo for g in geoms] + [g0.b_lo] * (npad - n)
+        bts0s = [g.bts0 + g.b_lo * g.step_q for g in geoms]
+        device = grid.device
+        tag_order = g0.tag_order
+        tag_cols = [k.column for k in g0.tag_keys]
+        ngt, nbw, specs = g0.ngt, g0.nbw, g0.specs
+        vkey = (
+            "grid_bm_stack", psig0 if filtered else fp0, grid.spad,
+            grid.field_names, g0.r, nbw, g0.nb, g0.step_q,
+            tuple(g0.cards_tag), g0.dict_ver, tag_order, str(device),
+        )
+        prep = self._cache.get(vkey)
+        miss = prep is None
+        if prep is None:
+            planes = []
+            for _name, op, _fn, _nn, ci in specs:
+                if op != "count" and ci not in planes:
+                    planes.append(ci)
+            comps = _grid_key_outputs(tag_cols, g0.cards_tag, ngt, nbw, 0,
+                                      g0.step_q, True, torch.device("cpu"))
+            prep = (planes, _layout_memo(tag_cols, g0.cards_tag, ngt),
+                    comps["__comps__"].numpy(), comps["__bts__"].numpy())
+            self._cache[vkey] = prep
+        planes, layout_of, comps_np, boff_np = prep
+
+        # every small per-batch argument in ONE host→device copy: the
+        # window starts, the plane list and the mask tables' offsets,
+        # strides and extents
+        union, offs, strides, extents, tables = mask_tables(luts or [])
+        small = np.concatenate([
+            np.asarray(b_los, np.int32), np.asarray(planes, np.int32),
+            np.asarray(offs, np.int32), strides.reshape(-1), extents,
+        ]).astype(np.int32)
+        nt = len(union)
+
+        def run():
+            args = torch.as_tensor(small, device=device)
+            cut = np.cumsum([npad, len(planes), len(offs), n * nt])
+            b_lo_t, planes_t = args[:cut[0]], args[cut[0]:cut[1]]
+            tag_arrays = tuple(grid.tag_codes[t] for t in tag_order)
+            lay = layout_of(dict(zip(tag_order, tag_arrays)), tag_arrays,
+                            grid.spad, device)
+            smf = None
+            if filtered:
+                codes = (torch.stack([grid.tag_codes[t] for t in union])
+                         if union else torch.empty(
+                             (0, grid.spad), dtype=torch.int32,
+                             device=device))
+                lut_all = (tables[0] if len(tables) == 1
+                           else torch.cat(tables))
+                smf = series_mask(
+                    codes, lut_all, args[cut[1]:cut[2]],
+                    args[cut[2]:cut[3]].view(n, nt), args[cut[3]:], npad)
+            cnt_all, sg_all = group_merge_stacked(
+                layout[0], layout[1], b_lo_t, lay, planes_t, nbw, mask=smf)
+            floats = []
+            for _name, op, _fn, _nn, ci in specs:
+                if op == "sum":
+                    floats.append(torch.where(
+                        cnt_all > 0, sg_all[:, planes.index(ci)],
+                        float("nan")))
+                elif op == "mean":
+                    floats.append(torch.where(
+                        cnt_all > 0, sg_all[:, planes.index(ci)]
+                        / torch.clamp(cnt_all, min=1).to(torch.float32),
+                        float("nan")))
+            # one device tensor for the one copy back: the int64 counts
+            # and the float32 aggregates as their int32 bit patterns
+            parts = [cnt_all.reshape(npad, -1).view(torch.int32)]
+            if floats:
+                parts.append(torch.stack(floats, 1).reshape(
+                    npad, -1).view(torch.int32))
+            return torch.cat(parts, 1) if len(parts) > 1 else parts[0]
+
+        DISPATCH_STATS["grid"] += n
+        DISPATCH_STATS["grid_bm"] += n
+        DISPATCH_STATS["grid_batch"] += 1
+        packed = timed_kernel_call(run, miss, metrics, device)
+        # THE one host materialization for the whole stacked batch
+        host = packed.cpu().numpy()
+        width = ngt * nbw
+        cnt_np = np.ascontiguousarray(host[:, :2 * width]).view(np.int64)
+        fl_np = np.ascontiguousarray(host[:, 2 * width:]).view(np.float32)
+        if metrics is not None:
+            metrics["batched"] = n
+            metrics["layout"] = "bucket_major_stacked"
+        results = []
+        for i, p in enumerate(plans):
+            out_i = {"__gmask__": cnt_np[i] > 0, "__comps__": comps_np,
+                     "__bts__": bts0s[i] + boff_np}
+            f = 0
+            for name, op, _fn, _nn, _ci in specs:
+                if op == "count":
+                    out_i[name] = cnt_np[i]
+                else:
+                    out_i[name] = fl_np[i, f * width:(f + 1) * width]
+                    f += 1
+            results.append(self._grid_env(p, specs, out_i))
+        return results
+
+    def _series_mask(self, plan, g: "_GridGeom", grid):
+        """One stacked-batch member's tag-only WHERE as a lookup table:
+        ``(tags, extents, lut)`` where ``lut`` (uint8 0/1 on the grid's
+        device) is the member's own compiled predicate evaluated once on
+        the CPU over the product of its tags' code ranges ``[-1, card)``
+        (``extents`` = card + 1, row-major in ``tags`` order).  The
+        ``series_mask`` kernel gathers it per series, which equals the
+        solo kernel's ``broadcast_to(where_fn(env), (spad,))`` mask
+        exactly.  None when the table would exceed SERIES_MASK_LUT_CAP
+        entries or the predicate is not 0/1 — the batch is refused.
+        Cached like the reference's ``bm_smf`` kernels."""
+        mkey = ("bm_smf", plan.fingerprint(), grid.spad, g.dict_ver,
+                g.tag_order, str(grid.device))
+        hit = self._cache.get(mkey)
+        if hit is not None:
+            return hit
+        ctx = plan.ctx
+        refs: set = set()
+        referenced_columns(plan.where, ctx, refs)
+        tags = tuple(sorted(refs & set(grid.tag_codes)))
+        extents = tuple(len(ctx.encoders[t]) + 1 for t in tags)
+        size = 1
+        for e in extents:
+            size *= e
+        if size > SERIES_MASK_LUT_CAP:
+            return None
+        axes = [torch.arange(-1, e - 1, dtype=torch.int32) for e in extents]
+        env = {}
+        if axes:
+            grids = torch.meshgrid(*axes, indexing="ij")
+            env = {t: x.reshape(-1) for t, x in zip(tags, grids)}
+        v = torch.broadcast_to(_as_tensor(g.where_fn(env), "cpu"),
+                               (size,)).to(torch.float32)
+        if not bool(((v == 0) | (v == 1)).all()):
+            return None
+        lut = (tags, extents, v.to(torch.uint8).to(grid.device))
+        self._cache[mkey] = lut
+        return lut
 
     # ---- resident bucket-major layout (aligned windows) ---------------
     def _aligned_layout(

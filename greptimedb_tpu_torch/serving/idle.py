@@ -1,0 +1,209 @@
+"""Budgeted idle economy: deficit-round-robin over background consumers.
+
+The arbitration half of ROADMAP item 5 (serving/slo.py is the
+observation half).  Before this, the scheduler's single ``idle_hook``
+slot was shared first-come by four ad-hoc consumers (AOT warmup, flow
+checkpoint drains, the integrity scrubber, journal/cache drains)
+through a chained dispatcher that ran EVERY member each tick — no
+weights, no fairness, no notion of how much idle time each consumed.
+
+Here each consumer registers with a weight and the economy grants one
+consumer per idle tick by **deficit round-robin**: every eligible
+consumer accrues credit proportional to its weight each tick, the
+richest runs, and its measured elapsed time is debited in quantum
+units — so a greedy consumer (long ticks) automatically yields the
+next grants to cheap ones, while weights still steer the long-run
+split.  A starvation bound guarantees liveness regardless of weights:
+any consumer passed over ``GREPTIME_IDLE_STARVE_TICKS`` consecutive
+eligible ticks wins the next grant outright (and counts in
+``greptime_idle_starved_total`` — nonzero means the weights are
+misconfigured, the soak gates on it staying zero).
+
+The economy keeps the scheduler worker-loop contract (serving/
+scheduler.py): ``tick()`` returns True while any live consumer
+remains, False unhooks.  When the SLO engine reports a **fast-burn
+alert**, every consumer is throttled — the tick grants nothing until
+the alert clears, because idle-capacity work shares the device with
+the queries currently blowing the budget.
+
+``GREPTIME_SLO=off`` keeps this module unimported; the legacy chained
+dispatcher in ``add_idle_hook`` is untouched and serves exactly as
+before.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+
+from greptimedb_tpu_torch.utils.telemetry import REGISTRY
+
+M_IDLE_GRANTED = REGISTRY.counter(
+    "greptime_idle_granted_total",
+    "idle ticks granted per consumer", labels=("consumer",))
+M_IDLE_ELAPSED = REGISTRY.counter(
+    "greptime_idle_elapsed_seconds_total",
+    "idle time consumed per consumer", labels=("consumer",))
+M_IDLE_STARVED = REGISTRY.counter(
+    "greptime_idle_starved_total",
+    "grants forced by the starvation bound (should stay 0)",
+    labels=("consumer",))
+M_IDLE_THROTTLED = REGISTRY.counter(
+    "greptime_idle_throttled_total",
+    "idle ticks suppressed while a fast-burn alert fired")
+
+# Default weights by consumer name prefix (the class name of the bound
+# tick method): warmup and checkpoint drains convert idle time into
+# lower foreground latency / bounded replay, so they outrank the
+# scrubber's open-ended verification sweep.
+_DEFAULT_WEIGHTS = (
+    ("AotWarmup", 2.0),
+    ("FlowEngine", 2.0),
+    ("Scrubber", 1.0),
+)
+
+
+class _Consumer:
+    __slots__ = ("name", "fn", "weight", "deficit", "granted",
+                 "elapsed_s", "skipped", "starved", "drained")
+
+    def __init__(self, name: str, fn, weight: float):
+        self.name = name
+        self.fn = fn
+        self.weight = weight
+        self.deficit = 0.0
+        self.granted = 0
+        self.elapsed_s = 0.0
+        self.skipped = 0
+        self.starved = 0
+        self.drained = False
+
+
+def _name_of(fn) -> str:
+    owner = getattr(fn, "__self__", None)
+    if owner is not None:
+        return f"{type(owner).__name__}.{getattr(fn, '__name__', 'tick')}"
+    return getattr(fn, "__qualname__", None) or repr(fn)
+
+
+def _default_weight(name: str) -> float:
+    for prefix, w in _DEFAULT_WEIGHTS:
+        if name.startswith(prefix):
+            return w
+    return 1.0
+
+
+class IdleEconomy:
+    def __init__(self, slo=None, *, clock=time.monotonic):
+        env = os.environ.get
+        self.slo = slo
+        self.clock = clock
+        self.quantum_ms = float(env("GREPTIME_IDLE_QUANTUM_MS", "20"))
+        self.starve_ticks = int(env("GREPTIME_IDLE_STARVE_TICKS", "64"))
+        # GREPTIME_IDLE_WEIGHTS="name=weight,..." overrides (substring
+        # match on the consumer name)
+        self._weight_overrides: list[tuple[str, float]] = []
+        for part in env("GREPTIME_IDLE_WEIGHTS", "").split(","):
+            part = part.strip()
+            if not part or "=" not in part:
+                continue
+            n, _, w = part.partition("=")
+            try:
+                self._weight_overrides.append((n.strip(), float(w)))
+            except ValueError:
+                continue
+        self._lock = threading.Lock()
+        self._consumers: list[_Consumer] = []
+        self.throttled = 0
+
+    # ------------------------------------------------------------------
+    def _weight_for(self, name: str) -> float:
+        for sub, w in self._weight_overrides:
+            if sub in name:
+                return w
+        return _default_weight(name)
+
+    def register(self, fn, name: str | None = None,
+                 weight: float | None = None) -> str:
+        """Add (or resurrect) a consumer; returns its ledger name.
+        Re-registering the SAME callable revives a drained entry with
+        its stats intact — flow checkpointing re-arms its tick every
+        time new dirt appears, and that must not mint a new ledger."""
+        with self._lock:
+            for c in self._consumers:
+                if c.fn is fn:
+                    c.drained = False
+                    if weight is not None:
+                        c.weight = weight
+                    return c.name
+            base = name or _name_of(fn)
+            taken = {c.name for c in self._consumers}
+            n, i = base, 2
+            while n in taken:
+                n, i = f"{base}#{i}", i + 1
+            c = _Consumer(n, fn, weight if weight is not None
+                          else self._weight_for(n))
+            self._consumers.append(c)
+            return n
+
+    def consumers(self) -> list[dict]:
+        with self._lock:
+            return [{"name": c.name, "weight": c.weight,
+                     "granted": c.granted,
+                     "elapsed_ms": round(c.elapsed_s * 1000.0, 3),
+                     "starved": c.starved, "drained": c.drained,
+                     "deficit": round(c.deficit, 3)}
+                    for c in self._consumers]
+
+    # ------------------------------------------------------------------
+    def tick(self) -> bool:
+        """The scheduler's idle_hook: grant ONE consumer one unit of
+        work per tick.  True = consumers remain (stay hooked), False =
+        all drained (unhook; a later ``add_idle_hook`` re-arms)."""
+        if self.slo is not None and self.slo.fast_burn_active():
+            # storm in progress: background work yields the device
+            # entirely.  Still hooked — the worker loop's bounded wait
+            # (0.05 s) is the retry cadence, not a busy spin.
+            self.throttled += 1
+            M_IDLE_THROTTLED.inc()
+            with self._lock:
+                return any(not c.drained for c in self._consumers)
+        with self._lock:
+            live = [c for c in self._consumers if not c.drained]
+            if not live:
+                return False
+            # credit by weight, then pick: a starved consumer wins
+            # outright, else the richest deficit (ties: registration
+            # order — deterministic for the fairness tests)
+            win = None
+            for c in live:
+                c.deficit += c.weight
+                if win is None and c.skipped >= self.starve_ticks:
+                    win = c
+            if win is None:
+                win = max(live, key=lambda c: c.deficit)
+            elif win.skipped >= self.starve_ticks:
+                win.starved += 1
+                M_IDLE_STARVED.labels(win.name).inc()
+            for c in live:
+                c.skipped = 0 if c is win else c.skipped + 1
+        t0 = self.clock()
+        try:
+            keep = bool(win.fn())
+        except Exception:  # noqa: BLE001 — a failing consumer drains;
+            keep = False  # it must not kill the worker or the economy
+        dt = self.clock() - t0
+        with self._lock:
+            win.granted += 1
+            win.elapsed_s += dt
+            # debit in quantum units: one "fair" tick costs quantum_ms,
+            # a greedy 10x tick costs 10 credits of future priority
+            win.deficit -= max(1.0, (dt * 1000.0) / self.quantum_ms)
+            if not keep:
+                win.drained = True
+                win.deficit = 0.0
+            alive = any(not c.drained for c in self._consumers)
+        M_IDLE_GRANTED.labels(win.name).inc()
+        M_IDLE_ELAPSED.labels(win.name).inc(dt)
+        return alive

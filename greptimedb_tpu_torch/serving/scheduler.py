@@ -1,0 +1,902 @@
+"""Async query scheduler: priority queues, deadline shedding, batching.
+
+Every protocol server submits queries here instead of executing inline
+(``GREPTIME_SCHEDULER=off`` restores the inline path; the package is not
+imported then).  Submit threads parse + admit (per-tenant quotas,
+serving/admission.py) and block on a per-entry event; a small worker pool
+drains three priority classes — interactive > normal > background — so
+interactive queries always jump cold scans/compaction, sheds entries
+whose deadline passed before they ran, and coalesces concurrent warm
+queries that hit the same (region, shape class) into ONE stacked device
+dispatch (standalone.sql_batch → query/physical.execute_grid_batch), the
+Theseus/Data-Path-Fusion move: schedule compute ACROSS queries once the
+per-query kernels are cached.
+
+Queued entries register in the process registry at submit, so SHOW
+PROCESSLIST sees them and KILL cancels them before they ever claim a
+worker.  A background-priority worker also narrows the cold-scan decode
+pool to one thread while interactive queries wait (storage/scan.py
+``background_yield_hook``) — cooperative preemption of the scan pool.
+
+Host copy of the reference's ``serving/scheduler.py``.  The stacked
+dispatch it coalesces into runs on the port's hand-written CUDA kernels
+(``group_merge_stacked`` and ``series_mask`` in ``ops/grid_kernels.py``).
+The port has no EXPLAIN ANALYZE, slow-query table or usage journal yet,
+so ``sched_info`` reaches no result column and the cost estimate stays 0.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import threading
+import time
+import weakref
+from dataclasses import dataclass, field
+
+from greptimedb_tpu_torch.errors import (
+    Cancelled, DeadlineExceeded, GreptimeError, ResourcesExhausted,
+)
+from greptimedb_tpu_torch.serving.admission import TenantAdmission, TenantQuota
+from greptimedb_tpu_torch.utils.telemetry import REGISTRY
+from greptimedb_tpu_torch.utils.tracing import TRACER
+
+PRIORITIES = ("interactive", "normal", "background")
+
+M_QUEUE_DEPTH = REGISTRY.gauge(
+    "greptime_scheduler_queue_depth",
+    "queued (not yet claimed) queries per priority class",
+    labels=("priority",))
+M_WAIT = REGISTRY.histogram(
+    "greptime_scheduler_wait_seconds",
+    "queue wait from submit to claim", labels=("priority",),
+    buckets=(0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 30.0))
+M_BATCH = REGISTRY.histogram(
+    "greptime_scheduler_batch_size",
+    "queries coalesced per dispatch (1 = solo)",
+    buckets=(1, 2, 4, 8, 16, 32, 64))
+M_BATCHES = REGISTRY.counter(
+    "greptime_scheduler_batches_total",
+    "multi-query dispatch attempts", labels=("outcome",))
+M_BATCHED_QUERIES = REGISTRY.counter(
+    "greptime_scheduler_batched_queries_total",
+    "queries served from a stacked dispatch")
+M_SHED = REGISTRY.counter(
+    "greptime_scheduler_shed_total",
+    "queries shed at deadline before execution", labels=("priority",))
+M_EXECUTED = REGISTRY.counter(
+    "greptime_scheduler_executed_total",
+    "queries executed by scheduler workers", labels=("priority",))
+
+# ---------------------------------------------------------------------------
+# Scan-pool preemption: the cold-scan decode pool (storage/scan.py) asks
+# this module whether the CURRENT thread runs background-priority work
+# while interactive queries wait — if so it narrows to one decode thread.
+# ---------------------------------------------------------------------------
+
+_worker_local = threading.local()
+_wait_lock = threading.Lock()
+_interactive_waiting = 0
+
+
+def _note_waiting(priority: str, delta: int) -> None:
+    global _interactive_waiting
+    if priority == "interactive":
+        with _wait_lock:
+            _interactive_waiting += delta
+
+
+def current_priority() -> str | None:
+    """Priority class of the query the calling thread is executing (set
+    by scheduler workers), None off the scheduler."""
+    return getattr(_worker_local, "priority", None)
+
+
+def background_should_yield() -> bool:
+    """True when the calling thread runs background work and interactive
+    queries are queued — the scan pool narrows to 1 decode thread."""
+    return (
+        getattr(_worker_local, "priority", None) == "background"
+        and _interactive_waiting > 0
+    )
+
+
+def interactive_waiting() -> int:
+    """Interactive queries currently queued or executing — idle-capacity
+    consumers that are NOT scheduler workers (the integrity scrubber's
+    preemption check, storage/scrubber.py) skip their tick while this is
+    nonzero, so foreground latency never pays for background verify."""
+    return _interactive_waiting
+
+
+def _install_scan_hook() -> None:
+    from greptimedb_tpu_torch.storage import scan as _scan
+
+    _scan.background_yield_hook = background_should_yield
+
+
+_install_scan_hook()
+
+_DIGITS = re.compile(r"\d+")
+
+
+@dataclass
+class _Entry:
+    kind: str  # "sql" | "session" | "fn"
+    sql: str = ""
+    stmts: list | None = None
+    fn: object = None
+    tenant: str = "default"
+    priority: str = "interactive"
+    client: str = ""
+    dbname: str | None = None
+    timezone: str | None = None
+    trace_ctx: tuple | None = None
+    protocol: str = "sql"  # SLO sketch key axis: http/mysql/postgres/...
+    # caller-held SLO sample: when set, a clean
+    # finish appends (tenant, priority, protocol, enqueued) here instead
+    # of recording — the submitter records AFTER response serialization
+    # so the sketch and the per-protocol histogram agree.  Error/shed
+    # paths still record here (serialization never happens for them).
+    slo_hold: list | None = None
+    _slo_done: bool = False
+    deadline: float | None = None  # monotonic
+    est_bytes: int = 0
+    ticket: object = None
+    enqueued: float = field(default_factory=time.monotonic)
+    wait_ms: float = 0.0
+    done: threading.Event = field(default_factory=threading.Event)
+    result: object = None
+    error: Exception | None = None
+    claimed: bool = False  # guarded by the scheduler condition lock
+    batch_key: tuple | None = None
+    _batch_key_computed: bool = False
+
+    def compute_batch_key(self, current_db: str, default_tz: str):
+        """Grouping prefilter: single-Select statements whose SQL is
+        identical up to numeric literals (the rolling-window shape) are
+        CANDIDATES for one stacked dispatch; the executor verifies real
+        shape-class compatibility per batch and falls back solo when the
+        heuristic over-groups.  Session entries must target the db AND
+        timezone the batch executes under — naive timestamp literals
+        localize at plan time, so a session on another timezone would
+        silently get a shifted window if it coalesced."""
+        if self._batch_key_computed:
+            return self.batch_key
+        self._batch_key_computed = True
+        from greptimedb_tpu_torch.query.ast import Select
+
+        if (
+            self.kind in ("sql", "session")
+            and self.stmts is not None
+            and len(self.stmts) == 1
+            and type(self.stmts[0]) is Select
+            and (self.dbname is None or self.dbname == current_db)
+            and (self.timezone is None or self.timezone == default_tz)
+        ):
+            self.batch_key = (_DIGITS.sub("#", self.sql),)
+        return self.batch_key
+
+
+class QueryScheduler:
+    def __init__(
+        self,
+        db,
+        *,
+        workers: int | None = None,
+        max_queue: int | None = None,
+        max_batch: int | None = None,
+        default_timeout_s: float | None = None,
+        batching: bool | None = None,
+    ):
+        self.db = db
+        env = os.environ.get
+        # ONE worker by default: the db lock serializes execution anyway
+        # (mito2-style single-writer), so extra workers mostly steal
+        # batch members from each other; submit threads already overlap
+        # parsing with execution
+        self.workers = int(workers if workers is not None
+                           else env("GREPTIME_SCHEDULER_WORKERS", "1"))
+        self.max_queue = int(max_queue if max_queue is not None
+                             else env("GREPTIME_SCHEDULER_QUEUE", "512"))
+        self.max_batch = int(max_batch if max_batch is not None
+                             else env("GREPTIME_SCHEDULER_MAX_BATCH", "16"))
+        if default_timeout_s is None:
+            t = env("GREPTIME_SCHEDULER_TIMEOUT_S")
+            default_timeout_s = float(t) if t else None
+        self.default_timeout_s = default_timeout_s
+        if batching is None:
+            batching = env("GREPTIME_SCHEDULER_BATCH", "on") != "off"
+        self.batching = batching
+        # group-commit linger CEILING: under saturation (more clients in
+        # flight than claimed) a worker waits for coalescible arrivals
+        # before dispatching.  The effective wait is adaptive — scaled by
+        # observed same-class pressure (_effective_linger_s), so stacking
+        # engages as saturation deepens and a lone client never lingers.
+        self.linger_ms = float(env("GREPTIME_SCHEDULER_LINGER_MS", "5"))
+        self.admission = TenantAdmission(
+            memory=getattr(db, "memory", None),
+            defaults=TenantQuota(
+                qps=float(env("GREPTIME_TENANT_QPS", "0")) or None,
+                mem_bytes=int(env("GREPTIME_TENANT_MEM_BYTES", "0")) or None,
+                max_inflight=int(env("GREPTIME_TENANT_INFLIGHT", "0")) or None,
+            ),
+        )
+        self.query_est_bytes = int(
+            env("GREPTIME_TENANT_QUERY_EST_BYTES", str(8 << 20)))
+        self._cond = threading.Condition()
+        self._queues: dict[str, list[_Entry]] = {p: [] for p in PRIORITIES}
+        # submitted-but-unfinished sql/session entries per priority: the
+        # linger saturation signal.  fn-kind work (PromQL) and other
+        # priority classes can never join a batch, so they must not make
+        # a worker wait linger_ms for an arrival that cannot come.
+        self._sqlish_inflight: dict[str, int] = {p: 0 for p in PRIORITIES}
+        self._threads: list[threading.Thread] = []
+        self._started = False
+        self._stopping = False
+        # optional idle-capacity hook (AOT warmup, compile/warmup.py):
+        # when set, an idle worker calls it OUTSIDE the condition lock,
+        # one unit of background work per tick; a False return (or any
+        # exception) unhooks it.  None (default) keeps the worker's
+        # indefinite wait exactly as before.
+        self.idle_hook = None
+        # closed-loop observability, armed by standalone when
+        # GREPTIME_SLO is on: ``slo`` (serving/slo.py) receives exactly
+        # one sample per completed entry and feeds adaptive deadlines,
+        # adaptive linger and background admission; ``idle_economy``
+        # (serving/idle.py) takes over add_idle_hook registrations.
+        # Both None (=off) keeps every code path byte-for-byte legacy.
+        self.slo = None
+        self.idle_economy = None
+        # local mirrors so /status, EXPLAIN ANALYZE and the bench read
+        # pressure without a registry scrape (memory.py discipline)
+        self.executed = 0
+        self.batches = 0
+        self.batched_queries = 0
+        self.shed = 0
+        self.largest_batch = 0
+        # the process-wide registry holds the gauge functions: through a
+        # weak reference, so a closed db (and the device memory its caches
+        # hold) is not kept alive by the last scheduler's gauges
+        ref = weakref.ref(self)
+        for p in PRIORITIES:
+            M_QUEUE_DEPTH.labels(p).set_function(
+                lambda p=p: float(len(ref()._queues[p])) if ref() else 0.0)
+
+    # ------------------------------------------------------------------
+    def _ensure_started(self) -> None:
+        if self._started:
+            return
+        with self._cond:
+            if self._started:
+                return
+            for i in range(max(1, self.workers)):
+                t = threading.Thread(
+                    target=self._worker_loop, daemon=True,
+                    name=f"greptime-sched-{i}")
+                t.start()
+                self._threads.append(t)
+            self._started = True
+
+    def kick_idle(self) -> None:
+        """Start the worker pool (if not yet) and wake any parked
+        workers: called after installing ``idle_hook`` so background
+        warmup begins on an idle server instead of waiting for the
+        first query to start/wake a worker."""
+        self._ensure_started()
+        with self._cond:
+            self._cond.notify_all()
+
+    def add_idle_hook(self, fn, kick: bool = True, *,
+                      name: str | None = None,
+                      weight: float | None = None) -> None:
+        """Compose ``fn`` into the idle-capacity hook.  With the idle
+        economy armed (GREPTIME_SLO on), registrations become weighted
+        consumers and the economy's deficit-round-robin tick IS the
+        hook — one grant per tick, fairness and throttling applied
+        (serving/idle.py).  Otherwise multiple background consumers
+        (AOT warmup, flow checkpoint drain, the integrity scrubber)
+        share the single ``idle_hook`` slot through a dispatcher that
+        calls each member per tick, drops drained/failing members, and
+        reports drained (False) only when none remain — preserving the
+        worker loop's unhook-on-False contract for a lone hook.
+        ``kick=False`` registers without starting/waking the worker
+        pool: the hook begins ticking when the instance actually serves
+        traffic (embedded/test instances that never submit never spin
+        workers for it)."""
+        eco = self.idle_economy
+        if eco is not None:
+            eco.register(fn, name=name, weight=weight)
+            with self._cond:
+                self.idle_hook = eco.tick
+            if kick:
+                self.kick_idle()
+            return
+        with self._cond:
+            cur = self.idle_hook
+            if cur is None:
+                self.idle_hook = fn
+            elif getattr(cur, "_gl_hooks", None) is not None:
+                cur._gl_hooks.append(fn)
+            else:
+                hooks = [cur, fn]
+
+                def _multi():
+                    alive = False
+                    for h in list(_multi._gl_hooks):
+                        try:
+                            keep = bool(h())
+                        except Exception:  # noqa: BLE001 — a failing
+                            keep = False  # member must not kill the rest
+                        if keep:
+                            alive = True
+                        else:
+                            try:
+                                _multi._gl_hooks.remove(h)
+                            except ValueError:
+                                pass
+                    return alive
+
+                _multi._gl_hooks = hooks
+                self.idle_hook = _multi
+        if kick:
+            self.kick_idle()
+
+    def stop(self) -> None:
+        with self._cond:
+            self._stopping = True
+            for q in self._queues.values():
+                for e in q:
+                    e.error = Cancelled("scheduler shutting down")
+                    self._finish(e)
+                    _note_waiting(e.priority, -1)
+                q.clear()
+            self._cond.notify_all()
+        for t in self._threads:
+            t.join(timeout=5)
+        self._threads.clear()
+
+    # ------------------------------------------------------------------
+    def classify(self, stmts) -> str:
+        from greptimedb_tpu_torch.query.ast import (
+            Admin, Copy, DescribeTable, Explain, Select, ShowProcesslist,
+            Tql,
+        )
+
+        if not stmts:
+            return "normal"
+        background = (Copy, Admin)
+        interactive = (Select, Tql, Explain, DescribeTable, ShowProcesslist)
+        if any(isinstance(s, background) for s in stmts):
+            return "background"
+        if all(isinstance(s, interactive) for s in stmts):
+            return "interactive"
+        return "normal"
+
+    # ---- submission ---------------------------------------------------
+    def submit(self, sql: str, *, tenant: str = "default",
+               priority: str | None = None, client: str = "",
+               trace_ctx: tuple | None = None,
+               timeout_s: float | None = None,
+               protocol: str = "http", slo_hold: list | None = None):
+        """HTTP /v1/sql entry: execute under the instance default
+        session; returns the QueryResult (or raises)."""
+        e = self._make_sql_entry(sql, None, None, tenant, priority, client,
+                                 trace_ctx, timeout_s)
+        e.protocol = protocol
+        e.slo_hold = slo_hold
+        return self._enqueue_and_wait(e)
+
+    def submit_session(self, sql: str, dbname: str,
+                       timezone: str | None = None, *,
+                       tenant: str = "default", priority: str | None = None,
+                       client: str = "", trace_ctx: tuple | None = None,
+                       timeout_s: float | None = None,
+                       protocol: str = "sql"):
+        """Wire-protocol entry (MySQL/PostgreSQL session semantics):
+        returns (result, session_db, session_tz) like db.sql_in_db."""
+        e = self._make_sql_entry(sql, dbname, timezone, tenant, priority,
+                                 client, trace_ctx, timeout_s)
+        e.kind = "session"
+        e.protocol = protocol
+        return self._enqueue_and_wait(e)
+
+    def submit_fn(self, fn, *, tenant: str = "default",
+                  priority: str = "interactive", client: str = "",
+                  trace_ctx: tuple | None = None,
+                  timeout_s: float | None = None, label: str = "",
+                  protocol: str = "fn"):
+        """Non-SQL query work (PromQL evaluation, log queries): admission
+        + priority + shedding apply; batching does not."""
+        e = _Entry(kind="fn", fn=fn, sql=label, tenant=tenant,
+                   priority=priority, client=client, trace_ctx=trace_ctx,
+                   protocol=protocol)
+        self._set_deadline(e, timeout_s)
+        return self._enqueue_and_wait(e)
+
+    def _make_sql_entry(self, sql, dbname, timezone, tenant, priority,
+                        client, trace_ctx, timeout_s) -> _Entry:
+        stmts = None
+        try:
+            from greptimedb_tpu_torch.query.parser import parse_sql
+
+            stmts = parse_sql(sql)
+        except Exception:  # noqa: BLE001 — worker re-parses for the error
+            stmts = None
+        e = _Entry(kind="sql", sql=sql, stmts=stmts, tenant=tenant,
+                   priority=priority or self.classify(stmts),
+                   client=client, dbname=dbname, timezone=timezone,
+                   trace_ctx=trace_ctx)
+        self._set_deadline(e, timeout_s)
+        return e
+
+    def _set_deadline(self, e: _Entry, timeout_s: float | None) -> None:
+        t = timeout_s if timeout_s is not None else self.default_timeout_s
+        if t is None and self.slo is not None:
+            # no configured timeout: derive one from the class's OBSERVED
+            # p99 (x factor, generously floored) instead of running
+            # unbounded — None again below the sample floor, so a fresh
+            # instance sheds nothing on thin evidence (serving/slo.py)
+            t = self.slo.adaptive_timeout_s(e.priority)
+        if t is not None and t > 0:
+            e.deadline = time.monotonic() + t
+
+    # ---- closed-loop accounting (no-ops with slo unarmed) ----
+    def _finish(self, e: _Entry) -> None:
+        """Deliver ``e`` to its waiter, recording EXACTLY one SLO sample
+        per entry: shed/cancelled work records as a breach (budget was
+        consumed without an answer), ordinary errors record their true
+        latency, and a clean finish with a caller-held sample defers to
+        the submitter (response serialization still ahead)."""
+        slo = self.slo
+        if slo is not None and not e._slo_done:
+            e._slo_done = True
+            try:
+                if e.error is None and e.slo_hold is not None:
+                    e.slo_hold.append(
+                        (e.tenant, e.priority, e.protocol, e.enqueued))
+                else:
+                    slo.record(
+                        e.tenant, e.priority, e.protocol,
+                        time.monotonic() - e.enqueued,
+                        bad=isinstance(e.error,
+                                       (DeadlineExceeded, Cancelled)))
+            except Exception:  # noqa: BLE001 — accounting must never
+                pass          # block delivery
+        e.done.set()
+
+    def record_held(self, hold: list) -> None:
+        """Record caller-held samples (servers/http.py calls this after
+        serializing the response, so the sketch covers the full
+        submit→bytes-ready span)."""
+        slo = self.slo
+        if slo is not None:
+            now = time.monotonic()
+            for tenant, priority, protocol, enqueued in hold:
+                slo.record(tenant, priority, protocol, now - enqueued)
+        hold.clear()
+
+    def _estimate_cost_ms(self, e: _Entry) -> float:
+        """Usage-journal cost estimate for this statement shape
+        (digit-normalized fingerprint, the batch-key normalization); 0
+        when unknown — unknown work is admitted, only DEMONSTRABLY
+        expensive work is held to the budget."""
+        if e.kind == "fn" or not e.sql:
+            return 0.0
+        pc = getattr(self.db, "plan_compiler", None)
+        j = getattr(pc, "journal", None) if pc is not None else None
+        if j is None:
+            return 0.0
+        try:
+            return j.estimate_ms(_DIGITS.sub("#", e.sql)) or 0.0
+        except Exception:  # noqa: BLE001
+            return 0.0
+
+    def _note_cost(self, sqls, dt_s: float) -> None:
+        """Feed measured execution time back into the journal's
+        per-class cost EWMA — the estimate the admission check reads."""
+        if self.slo is None:
+            return
+        pc = getattr(self.db, "plan_compiler", None)
+        j = getattr(pc, "journal", None) if pc is not None else None
+        if j is None:
+            return
+        try:
+            ms = dt_s * 1000.0
+            for s in sqls:
+                if s:
+                    j.note_cost(_DIGITS.sub("#", s), ms)
+        except Exception:  # noqa: BLE001 — accounting is best-effort
+            pass
+
+    def _enqueue_and_wait(self, e: _Entry):
+        if e.priority not in PRIORITIES:
+            raise ValueError(f"unknown priority {e.priority!r}")
+        self._ensure_started()
+        if e.priority == "background" and self.slo is not None:
+            est = self._estimate_cost_ms(e)
+            ok, allowance = self.slo.admit_background(est)
+            if not ok:
+                from greptimedb_tpu_torch.serving.admission import M_REJECTED
+
+                M_REJECTED.labels(e.tenant, "slo_budget").inc()
+                raise ResourcesExhausted(
+                    f"background work rejected: estimated cost "
+                    f"{est:.0f} ms exceeds the error-budget headroom "
+                    f"({allowance:.0f} ms); retry once the budget "
+                    "recovers")
+        e.est_bytes = self.query_est_bytes
+        self.admission.admit(e.tenant, e.est_bytes)
+        counted = False
+        try:
+            # visible in SHOW PROCESSLIST (and killable) while queued
+            try:
+                e.ticket = self.db.processes.register(
+                    e.sql[:4096], getattr(self.db, "current_db", ""),
+                    e.client)
+            except Exception:  # noqa: BLE001 — registry is best-effort
+                e.ticket = None
+            with self._cond:
+                if self._stopping:
+                    raise Cancelled("scheduler shutting down")
+                depth = sum(len(q) for q in self._queues.values())
+                if depth >= self.max_queue:
+                    from greptimedb_tpu_torch.serving.admission import M_REJECTED
+
+                    M_REJECTED.labels(e.tenant, "queue_full").inc()
+                    raise ResourcesExhausted(
+                        f"scheduler queue full ({depth} queued); retry "
+                        "later or lower the request rate")
+                if e.kind in ("sql", "session"):
+                    self._sqlish_inflight[e.priority] += 1
+                    counted = True
+                self._queues[e.priority].append(e)
+                _note_waiting(e.priority, 1)
+                self._cond.notify()
+            # block until a worker finishes (or sheds) the entry; the
+            # extra margin lets an already-running query finish instead
+            # of abandoning it at the exact deadline
+            timeout = None
+            if e.deadline is not None:
+                timeout = max(0.0, e.deadline - time.monotonic()) + 30.0
+            if not e.done.wait(timeout):
+                removed = False
+                with self._cond:
+                    if not e.claimed:
+                        try:
+                            self._queues[e.priority].remove(e)
+                            _note_waiting(e.priority, -1)
+                            removed = True
+                        except ValueError:
+                            pass
+                # abandoned-before-claim is a breach the workers never
+                # see: record it here (claimed entries reach _finish)
+                if removed and self.slo is not None and not e._slo_done:
+                    e._slo_done = True
+                    self.slo.record(e.tenant, e.priority, e.protocol,
+                                    time.monotonic() - e.enqueued,
+                                    bad=True)
+                raise DeadlineExceeded(
+                    f"query abandoned after deadline: {e.sql[:128]!r}")
+            if e.error is not None:
+                raise e.error
+            return e.result
+        finally:
+            if counted:
+                with self._cond:
+                    self._sqlish_inflight[e.priority] -= 1
+            if e.ticket is not None:
+                try:
+                    self.db.processes.deregister(e.ticket)
+                except Exception:  # noqa: BLE001
+                    pass
+            self.admission.release(e.tenant, e.est_bytes)
+
+    # ---- worker -------------------------------------------------------
+    def _claim_next(self) -> _Entry | None:
+        """Under self._cond: pop the oldest entry of the highest non-empty
+        priority class."""
+        for p in PRIORITIES:
+            q = self._queues[p]
+            if q:
+                e = q.pop(0)
+                e.claimed = True
+                _note_waiting(p, -1)
+                return e
+        return None
+
+    def _claim_batch(self, leader: _Entry,
+                     budget: int | None = None) -> list[_Entry]:
+        """Under self._cond: claim queued entries coalescible with the
+        leader (same priority class + batch key), bounded by ``budget``
+        total group members (max_batch by default; the linger loop passes
+        its remaining headroom so repeated claims never overshoot)."""
+        db = self.db
+        key = leader.compute_batch_key(db.current_db, db.timezone)
+        if key is None:
+            return [leader]
+        if budget is None:
+            budget = self.max_batch
+        group = [leader]
+        q = self._queues[leader.priority]
+        keep = []
+        for e in q:
+            if (len(group) < budget
+                    and e.compute_batch_key(db.current_db, db.timezone)
+                    == key
+                    and (e.deadline is None
+                         or e.deadline > time.monotonic())):
+                e.claimed = True
+                _note_waiting(e.priority, -1)
+                group.append(e)
+            else:
+                keep.append(e)
+        if len(group) > 1:
+            q[:] = keep
+        return group
+
+    def _effective_linger_s(self, priority: str, group_len: int) -> float:  # gl: holds[_cond]
+        """Adaptive linger (called under self._cond): scale the
+        configured ceiling by observed same-class pressure.  ``pending``
+        counts submitted-but-unclaimed sql/session queries beyond this
+        group — zero pending (the idle path) lingers 0 ms, full linger
+        only engages once a max_batch's worth of joinable work is in
+        flight.  Depth, not a constant, decides the wait: light contention
+        pays a fraction of the ceiling, saturation the whole of it."""
+        if self.linger_ms <= 0:
+            return 0.0
+        pending = self._sqlish_inflight[priority] - group_len
+        if pending <= 0:
+            return 0.0
+        ceil_ms = self.linger_ms
+        if self.slo is not None:
+            # linger adapts to the MEASURED queue-wait sketch: when this
+            # class already waits w at p95, fishing for batch mates up to
+            # ~2w is latency noise (stacking pays for itself); when waits
+            # are near zero, a lightly loaded server must not pay the
+            # full configured ceiling for a mate that may never come
+            w = self.slo.wait_quantile(priority, 0.95)
+            if w is not None:
+                ceil_ms = min(self.linger_ms,
+                              max(self.linger_ms * 0.25, w * 2000.0))
+        return (ceil_ms / 1000.0) * min(
+            1.0, pending / max(1, self.max_batch))
+
+    def _worker_loop(self) -> None:  # gl: warm-path(host)
+        while True:
+            idle_work = None
+            with self._cond:
+                while not self._stopping:
+                    e = self._claim_next()
+                    if e is not None:
+                        break
+                    hook = self.idle_hook
+                    if hook is None:
+                        self._cond.wait()
+                        continue
+                    # background warmup pending: bounded wait, then (still
+                    # idle) run one tick outside the lock — live queries
+                    # always win the claim
+                    self._cond.wait(timeout=0.05)
+                    e = self._claim_next()
+                    if e is not None:
+                        break
+                    idle_work = hook
+                    break
+                if self._stopping:
+                    return
+                if idle_work is not None:
+                    e = None
+            if idle_work is not None:
+                try:
+                    drained = not idle_work()
+                except Exception:  # noqa: BLE001 — warmup must not kill
+                    drained = True  # the worker
+                if drained:
+                    # unhook under the lock, and only while the hook is
+                    # still the one we ran AND gained no new members —
+                    # add_idle_hook may have extended the dispatcher (or
+                    # replaced a lone hook) concurrently with this tick,
+                    # and clearing blindly would discard that registration
+                    with self._cond:
+                        cur = self.idle_hook
+                        if cur is idle_work and not getattr(
+                                cur, "_gl_hooks", None):
+                            self.idle_hook = None
+                continue
+            with self._cond:
+                group = [e]
+                if self.batching and e.kind in ("sql", "session"):
+                    group = self._claim_batch(e)
+                    linger_s = self._effective_linger_s(
+                        e.priority, len(group))
+                    if (e.compute_batch_key(
+                            self.db.current_db, self.db.timezone) is not None
+                            and linger_s > 0):
+                        stop_at = time.monotonic() + linger_s
+                        # linger only while MORE same-priority sql/session
+                        # entries are in flight than this group holds — a
+                        # lone client, fn-kind work (PromQL) or another
+                        # priority class can never contribute a member,
+                        # so the worker must not wait on them
+                        while (
+                            len(group) < self.max_batch
+                            and not self._stopping
+                            and time.monotonic() < stop_at
+                            and self._sqlish_inflight[e.priority]
+                            > len(group)
+                        ):
+                            self._cond.wait(timeout=0.001)
+                            more = self._claim_batch(
+                                e, self.max_batch - len(group) + 1)
+                            group.extend(m for m in more if m is not e)
+            now = time.monotonic()
+            live: list[_Entry] = []
+            for e in group:
+                e.wait_ms = (now - e.enqueued) * 1000.0
+                M_WAIT.labels(e.priority).observe(e.wait_ms / 1000.0)
+                if self.slo is not None:
+                    self.slo.record_wait(e.priority, e.wait_ms / 1000.0)
+                if e.deadline is not None and now > e.deadline:
+                    self.shed += 1
+                    M_SHED.labels(e.priority).inc()
+                    e.error = DeadlineExceeded(
+                        f"query shed after waiting "
+                        f"{e.wait_ms:.0f} ms: {e.sql[:128]!r}")
+                    self._finish(e)
+                    continue
+                if e.ticket is not None:
+                    try:
+                        e.ticket.check()
+                    except GreptimeError as kill:
+                        e.error = kill
+                        self._finish(e)
+                        continue
+                live.append(e)
+            if not live:
+                continue
+            _worker_local.priority = live[0].priority
+            try:
+                if len(live) > 1:
+                    self._execute_batch(live)
+                else:
+                    self._execute_solo(live[0])
+            finally:
+                _worker_local.priority = None
+
+    # ---- execution ----------------------------------------------------
+    def _sched_info(self, e: _Entry, batch: int) -> dict:
+        return {"sched_wait_ms": round(e.wait_ms, 3), "sched_batch": batch}
+
+    def _execute_solo(self, e: _Entry) -> None:
+        db = self.db
+        M_BATCH.observe(1)
+        self.executed += 1
+        M_EXECUTED.labels(e.priority).inc()
+        t0 = time.monotonic()
+        try:
+            db._proc_local.sched_info = self._sched_info(e, 1)
+            db._proc_local.ticket = e.ticket
+            with TRACER.trace_context(e.trace_ctx):
+                with TRACER.stage("scheduler", priority=e.priority,
+                                  wait_ms=round(e.wait_ms, 3), batch=1):
+                    if e.kind == "fn":
+                        e.result = e.fn()
+                    elif e.kind == "session":
+                        e.result = db.sql_in_db(e.sql, e.dbname, e.timezone,
+                                                _stmts=e.stmts)
+                    else:
+                        e.result = db.sql(e.sql, client=e.client,
+                                          _stmts=e.stmts)
+        except Exception as ex:  # noqa: BLE001 — delivered to the waiter
+            e.error = ex
+        finally:
+            db._proc_local.ticket = None
+            db._proc_local.sched_info = None
+            if e.error is None and e.kind != "fn":
+                self._note_cost((e.sql,), time.monotonic() - t0)
+            self._finish(e)
+
+    def _execute_batch(self, group: list[_Entry]) -> None:  # gl: warm-path(host)
+        """One stacked device dispatch for the whole group when the
+        executor confirms shape-class compatibility; per-entry solo
+        fallback otherwise.  Results are bit-exact vs solo execution —
+        the stacked kernel is the SAME program vmapped over the window
+        arguments (query/physical.py).
+
+        Byte-identical members dedup first: concurrent identical
+        read-only queries (every popular dashboard panel) plan, dispatch
+        and shape ONCE and share the result — within one dispatch they
+        observe the same instant, exactly what coalescing promises.  The
+        dedup key includes the session timezone: members only share a
+        result evaluated under THEIR tz (naive timestamp literals
+        localize at plan time), even if the instance default moved
+        between their batch-key computations."""
+        db = self.db
+        n = len(group)
+        leader = group[0]
+        uniq: dict[tuple, int] = {}
+        unique: list[_Entry] = []
+        assign: list[int] = []
+        for e in group:
+            key = (e.sql, e.dbname, e.timezone)
+            idx = uniq.get(key)
+            if idx is None:
+                idx = uniq[key] = len(unique)
+                unique.append(e)
+            assign.append(idx)
+
+        results = None
+        t0 = time.monotonic()
+        try:
+            db._proc_local.sched_info = self._sched_info(leader, n)
+            with TRACER.trace_context(leader.trace_ctx):
+                with TRACER.stage("scheduler", priority=leader.priority,
+                                  wait_ms=round(leader.wait_ms, 3),
+                                  batch=n, unique=len(unique)):
+                    if len(unique) == 1:
+                        # pure dedup: one solo execution shared N ways
+                        e0 = unique[0]
+                        db._proc_local.ticket = e0.ticket
+                        try:
+                            if e0.kind == "session":
+                                r0, _db, _tz = db.sql_in_db(
+                                    e0.sql, e0.dbname, e0.timezone,
+                                    _stmts=e0.stmts)
+                            else:
+                                r0 = db.sql(e0.sql, client=e0.client,
+                                            _stmts=e0.stmts)
+                        finally:
+                            db._proc_local.ticket = None
+                        results = [r0]
+                    else:
+                        results = db.sql_batch(
+                            [(e.sql, e.stmts[0], e.dbname, e.timezone)
+                             for e in unique])
+        except Exception as ex:  # noqa: BLE001 — same plan shape: the
+            # error applies to every member (and solo fallback would just
+            # raise it N times under the db lock)
+            for e in group:
+                e.error = ex
+                self._finish(e)
+            M_BATCHES.labels("error").inc()
+            return
+        finally:
+            db._proc_local.sched_info = None
+        if results is None:
+            M_BATCHES.labels("fallback").inc()
+            for e in group:
+                self._execute_solo(e)
+            return
+        M_BATCHES.labels("dispatched").inc()
+        M_BATCH.observe(n)
+        self.batches += 1
+        self.batched_queries += n
+        self.largest_batch = max(self.largest_batch, n)
+        M_BATCHED_QUERIES.inc(n)
+        self.executed += n
+        M_EXECUTED.labels(leader.priority).inc(n)
+        self._note_cost([e.sql for e in unique], time.monotonic() - t0)
+        for e, idx in zip(group, assign):
+            r = results[idx]
+            if e.kind == "session":
+                e.result = (r, e.dbname, e.timezone or db.timezone)
+            else:
+                e.result = r
+            self._finish(e)
+
+    # ------------------------------------------------------------------
+    def stats(self) -> dict:
+        with self._cond:
+            depth = {p: len(self._queues[p]) for p in PRIORITIES}
+        return {
+            "queue_depth": depth,
+            "executed": self.executed,
+            "batches": self.batches,
+            "batched_queries": self.batched_queries,
+            "largest_batch": self.largest_batch,
+            "shed": self.shed,
+            "workers": self.workers,
+            "batching": self.batching,
+            "tenants": self.admission.usage(),
+        }

@@ -1,0 +1,494 @@
+"""Closed-loop SLO engine: latency sketches, error budgets, burn rates.
+
+ROADMAP item 5 (observability): the system runs ingest, dashboards,
+LogQL, flows, compaction, scrubbing and AOT warmup simultaneously, but
+nothing *measured whether it was holding up*.  This module is the
+observation half of the observe-and-arbitrate loop (serving/idle.py is
+the arbitration half): every scheduler-completed query lands in exactly
+one (tenant, priority class, protocol) **latency sketch**, declared
+objectives turn breaches into **error-budget** consumption, and
+multi-window multi-burn-rate evaluation (the SRE-workbook pairs: 1h+5m
+fast, 6h+30m slow) drives alerts that throttle the idle economy and
+background admission (serving/scheduler.py).
+
+Sketches are DDSketch-style log-bucketed (Theseus organizes its runtime
+around the same explicit per-stage cost accounting): relative accuracy
+``alpha`` (GREPTIME_SLO_ALPHA), fixed memory — one preallocated int
+list per key, no per-query allocation on the warm path — and MERGEABLE
+(bucket-wise add), which both the two-generation rotation below and the
+soak's cross-checking rely on.  Burn windows are a ring of per-slot
+(total, breached) counters sized to the longest window, so evaluation
+is O(slots) at scrape time and O(1) at record time.
+
+Everything here is registry-exported (``greptime_slo_*`` pull gauges),
+so the self-monitor loop ingests it and the DB can PromQL-query
+its own burn rates; ``information_schema.slo_status`` and ``/v1/slo``
+render the same rows.  ``GREPTIME_SLO=off`` keeps this module entirely
+unimported (standalone.py gate) — today's behavior byte-for-byte.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import threading
+import time
+
+from greptimedb_tpu_torch.utils.telemetry import REGISTRY
+
+M_SLO_LATENCY = REGISTRY.gauge(
+    "greptime_slo_latency",
+    "observed latency quantile per SLO sketch key (seconds)",
+    labels=("tenant", "class", "protocol", "quantile"))
+M_SLO_BUDGET = REGISTRY.gauge(
+    "greptime_slo_budget_remaining",
+    "error budget remaining over the slow window (1 = untouched)",
+    labels=("tenant", "class", "protocol"))
+M_SLO_BURN = REGISTRY.gauge(
+    "greptime_slo_burn_rate",
+    "error-budget burn rate over a trailing window (1 = exactly on "
+    "budget)", labels=("tenant", "class", "protocol", "window"))
+
+# Burn windows in SLOTS (slot width is GREPTIME_SLO_SLOT_S seconds, 60
+# by default, so these are the SRE-workbook 5m/30m/1h/6h pairs; the
+# soak shrinks the slot to compress hours of window algebra into
+# seconds without touching the algebra itself).
+_WINDOWS = {"5m": 5, "30m": 30, "1h": 60, "6h": 360}
+_NSLOTS = 360  # ring covers the longest window
+
+# Priority classes tolerate progressively looser latency against ONE
+# declared per-tenant threshold: background work is not held to the
+# interactive objective, but it is still accounted.
+_CLASS_FACTOR = {"interactive": 1.0, "normal": 4.0, "background": 20.0}
+
+
+def sketch_params(alpha: float) -> tuple[float, float, int]:
+    """(gamma, log(gamma), bucket count) for relative accuracy alpha
+    over the fixed value range [_MIN_S, _MAX_S]."""
+    gamma = (1.0 + alpha) / (1.0 - alpha)
+    lg = math.log(gamma)
+    nb = int(math.ceil(math.log(_MAX_S / _MIN_S) / lg)) + 2
+    return gamma, lg, nb
+
+
+_MIN_S = 1e-4  # 0.1 ms: everything faster is bucket 0
+_MAX_S = 1e4   # ~2.8 h: everything slower clamps to the top bucket
+
+
+class LatencySketch:
+    """Log-bucketed streaming quantile sketch (DDSketch shape): bucket
+    ``i >= 1`` covers ``(_MIN_S * gamma**(i-1), _MIN_S * gamma**i]``;
+    the estimate for a bucket is its gamma-midpoint, so any quantile is
+    within relative error alpha of a true observed value.  Fixed
+    memory, integer counts, mergeable by bucket-wise addition."""
+
+    __slots__ = ("gamma", "lg", "counts", "n", "sum")
+
+    def __init__(self, params: tuple[float, float, int]):
+        self.gamma, self.lg, nb = params
+        self.counts = [0] * nb
+        self.n = 0
+        self.sum = 0.0
+
+    def observe(self, v: float) -> None:
+        if v <= _MIN_S:
+            i = 0
+        else:
+            i = int(math.ceil(math.log(v / _MIN_S) / self.lg))
+            last = len(self.counts) - 1
+            if i > last:
+                i = last
+        self.counts[i] += 1
+        self.n += 1
+        self.sum += v
+
+    def merge(self, other: "LatencySketch") -> None:
+        c, oc = self.counts, other.counts
+        for i in range(len(c)):
+            c[i] += oc[i]
+        self.n += other.n
+        self.sum += other.sum
+
+    def quantile(self, q: float) -> float | None:
+        if self.n == 0:
+            return None
+        rank = max(1, min(self.n, int(math.ceil(q * self.n))))
+        acc = 0
+        for i, c in enumerate(self.counts):
+            acc += c
+            if acc >= rank:
+                if i == 0:
+                    return _MIN_S
+                # gamma-midpoint of (_MIN*g^(i-1), _MIN*g^i]: relative
+                # error vs any value in the bucket is <= alpha
+                return (_MIN_S * (self.gamma ** i)
+                        * 2.0 / (1.0 + self.gamma))
+        return _MAX_S  # unreachable: acc == n >= rank by the loop end
+
+
+class _TwoGen:
+    """Rotating pair of sketches: quantiles read over cur MERGED with
+    prev, so estimates track the last 1–2 rotation periods instead of
+    all time (adaptive deadlines/linger must follow the workload as it
+    shifts, not its whole history)."""
+
+    __slots__ = ("cur", "prev", "params")
+
+    def __init__(self, params):
+        self.params = params
+        self.cur = LatencySketch(params)
+        self.prev = None
+
+    def observe(self, v: float) -> None:
+        self.cur.observe(v)
+
+    def rotate(self) -> None:
+        self.prev = self.cur
+        self.cur = LatencySketch(self.params)
+
+    def quantile(self, q: float) -> float | None:
+        if self.prev is None or self.prev.n == 0:
+            return self.cur.quantile(q)
+        m = LatencySketch(self.params)
+        m.merge(self.cur)
+        m.merge(self.prev)
+        return m.quantile(q)
+
+    @property
+    def n(self) -> int:
+        return self.cur.n + (self.prev.n if self.prev is not None else 0)
+
+
+class _KeyState:
+    """Per-(tenant, class, protocol) accounting: a cumulative latency
+    sketch plus the burn-window ring of per-slot (total, breached)."""
+
+    __slots__ = ("sketch", "tot", "bad", "slot_id", "total", "breached")
+
+    def __init__(self, params):
+        self.sketch = LatencySketch(params)
+        self.tot = [0] * _NSLOTS
+        self.bad = [0] * _NSLOTS
+        self.slot_id = [-1] * _NSLOTS
+        self.total = 0
+        self.breached = 0
+
+    def record(self, sid: int, v: float, breach: bool) -> None:
+        pos = sid % _NSLOTS
+        if self.slot_id[pos] != sid:  # ring slot recycled for a new era
+            self.slot_id[pos] = sid
+            self.tot[pos] = 0
+            self.bad[pos] = 0
+        self.tot[pos] += 1
+        self.total += 1
+        if breach:
+            self.bad[pos] += 1
+            self.breached += 1
+        self.sketch.observe(v)
+
+    def window(self, now_sid: int, slots: int) -> tuple[int, int]:
+        """(total, breached) over the trailing ``slots`` slots ending at
+        the current slot inclusive."""
+        lo = now_sid - slots
+        tot = bad = 0
+        for pos in range(_NSLOTS):
+            sid = self.slot_id[pos]
+            if lo < sid <= now_sid:
+                tot += self.tot[pos]
+                bad += self.bad[pos]
+        return tot, bad
+
+
+class SloEngine:
+    """See the module docstring.  Thread-safe: one lock over all state;
+    the warm path (record / record_wait) is a handful of int ops under
+    it."""
+
+    def __init__(self, *, clock=time.monotonic):
+        env = os.environ.get
+        self.clock = clock
+        self.alpha = float(env("GREPTIME_SLO_ALPHA", "0.01"))
+        self.slot_s = float(env("GREPTIME_SLO_SLOT_S", "60"))
+        self.threshold_s = float(
+            env("GREPTIME_SLO_THRESHOLD_MS", "500")) / 1000.0
+        self.objective = float(env("GREPTIME_SLO_OBJECTIVE", "0.999"))
+        self.fast_burn = float(env("GREPTIME_SLO_FAST_BURN", "14.4"))
+        self.slow_burn = float(env("GREPTIME_SLO_SLOW_BURN", "6.0"))
+        # an alert needs EVIDENCE: its short window must hold at least
+        # this many samples before it may fire (a 3-query test database
+        # with one cold scan is not a burning error budget)
+        self.min_samples = int(env("GREPTIME_SLO_MIN_SAMPLES", "500"))
+        # background-admission allowance at a FULL budget, scaled down
+        # linearly as the budget drains (serving/scheduler.py)
+        self.admit_ms = float(env("GREPTIME_SLO_ADMIT_MS", "60000"))
+        self.deadline_factor = float(
+            env("GREPTIME_SLO_DEADLINE_FACTOR", "8"))
+        self.deadline_floor_s = float(
+            env("GREPTIME_SLO_DEADLINE_FLOOR_S", "30"))
+        self._params = sketch_params(self.alpha)
+        # per-tenant (threshold_s, objective) overrides:
+        # "tenant=threshold_ms:objective,..."
+        self._overrides: dict[str, tuple[float, float]] = {}
+        for part in env("GREPTIME_SLO_OVERRIDES", "").split(","):
+            part = part.strip()
+            if not part or "=" not in part:
+                continue
+            tenant, _, spec = part.partition("=")
+            thr, _, obj = spec.partition(":")
+            try:
+                self._overrides[tenant.strip()] = (
+                    float(thr) / 1000.0,
+                    float(obj) if obj else self.objective)
+            except ValueError:
+                continue
+        self._lock = threading.Lock()
+        self._keys: dict[tuple, _KeyState] = {}
+        self._exec_cls: dict[str, _TwoGen] = {}
+        self._wait_cls: dict[str, _TwoGen] = {}
+        self._rotate_s = float(env("GREPTIME_SLO_ROTATE_S", "600"))
+        self._rotated_at = clock()
+        # alert evaluation is O(keys * slots): cache it for a second so
+        # the idle economy's per-tick throttle check stays O(1)
+        self._alerts_at = -1.0
+        self._alerts: list[dict] = []
+
+    # ---- objectives ---------------------------------------------------
+    def objective_for(self, tenant: str, cls: str) -> tuple[float, float]:
+        """(threshold_s, objective fraction) for one sketch key."""
+        thr, obj = self._overrides.get(
+            tenant, (self.threshold_s, self.objective))
+        return thr * _CLASS_FACTOR.get(cls, 1.0), obj
+
+    def set_objective(self, tenant: str, threshold_ms: float,
+                      objective: float | None = None) -> None:
+        """Runtime override (bench_soak's induced latency storm flips
+        the objective under live traffic and back)."""
+        with self._lock:
+            self._overrides[tenant] = (
+                threshold_ms / 1000.0,
+                self.objective if objective is None else objective)
+            self._alerts_at = -1.0
+
+    # ---- warm path ----------------------------------------------------
+    def record(self, tenant: str, cls: str, protocol: str,
+               seconds: float, bad: bool = False) -> None:
+        """One completed scheduler entry → exactly one sketch.  ``bad``
+        forces a breach regardless of latency (shed / errored work
+        consumed budget without producing an answer)."""
+        thr, _obj = self.objective_for(tenant, cls)
+        breach = bad or seconds > thr
+        sid = int(self.clock() / self.slot_s)
+        key = (tenant, cls, protocol)
+        with self._lock:
+            st = self._keys.get(key)
+            if st is None:
+                st = self._new_key(key)
+            st.record(sid, seconds, breach)
+            tg = self._exec_cls.get(cls)
+            if tg is None:
+                tg = self._exec_cls[cls] = _TwoGen(self._params)
+            tg.observe(seconds)
+
+    def record_wait(self, cls: str, seconds: float) -> None:
+        """Queue-wait sample (claim time, serving/scheduler.py) — feeds
+        the adaptive batch linger."""
+        with self._lock:
+            tg = self._wait_cls.get(cls)
+            if tg is None:
+                tg = self._wait_cls[cls] = _TwoGen(self._params)
+            tg.observe(seconds)
+
+    def _new_key(self, key: tuple) -> _KeyState:  # gl: holds[_lock]
+        # under self._lock; cold path: first traffic on a key mints its
+        # pull gauges (evaluated at scrape)
+        st = self._keys[key] = _KeyState(self._params)
+        tenant, cls, protocol = key
+
+        def _q(q, st=st):
+            with self._lock:
+                v = st.sketch.quantile(q)
+            return float(v) if v is not None else 0.0
+
+        M_SLO_LATENCY.labels(tenant, cls, protocol, "p50").set_function(
+            lambda: _q(0.50))
+        M_SLO_LATENCY.labels(tenant, cls, protocol, "p99").set_function(
+            lambda: _q(0.99))
+        M_SLO_BUDGET.labels(tenant, cls, protocol).set_function(
+            lambda key=key: self.budget_remaining(key))
+        for win in _WINDOWS:
+            M_SLO_BURN.labels(tenant, cls, protocol, win).set_function(
+                lambda key=key, win=win: self.burn_rate(key, win))
+        return st
+
+    # ---- window algebra -----------------------------------------------
+    def burn_rate(self, key: tuple, window: str) -> float:
+        """Budget-consumption multiplier over a trailing window: 1.0
+        burns exactly the declared budget, N burns it N times as fast.
+        0.0 when the window saw no traffic."""
+        st = self._keys.get(key)
+        if st is None:
+            return 0.0
+        _thr, obj = self.objective_for(key[0], key[1])
+        budget = max(1e-9, 1.0 - obj)
+        sid = int(self.clock() / self.slot_s)
+        with self._lock:
+            tot, bad = st.window(sid, _WINDOWS[window])
+        if tot == 0:
+            return 0.0
+        return (bad / tot) / budget
+
+    def budget_remaining(self, key: tuple) -> float:
+        """Fraction of the error budget left over the slow (6h) window;
+        1.0 with no traffic (an empty window has consumed nothing)."""
+        st = self._keys.get(key)
+        if st is None:
+            return 1.0
+        _thr, obj = self.objective_for(key[0], key[1])
+        budget = max(1e-9, 1.0 - obj)
+        sid = int(self.clock() / self.slot_s)
+        with self._lock:
+            tot, bad = st.window(sid, _WINDOWS["6h"])
+        if tot == 0:
+            return 1.0
+        return max(0.0, 1.0 - (bad / tot) / budget)
+
+    def alerts(self) -> list[dict]:
+        """Firing burn-rate alerts (cached ~1 s): both windows of a pair
+        must exceed the pair's burn threshold — the long window says the
+        budget is really going, the short one says it is STILL going
+        (so alerts clear promptly once the storm passes)."""
+        now = self.clock()
+        with self._lock:
+            if now - self._alerts_at < 1.0:
+                return self._alerts
+            keys = list(self._keys)
+        sid = int(now / self.slot_s)
+        out = []
+        for key in keys:
+            for severity, long_w, short_w, thresh in (
+                    ("fast", "1h", "5m", self.fast_burn),
+                    ("slow", "6h", "30m", self.slow_burn)):
+                st = self._keys.get(key)
+                if st is None:
+                    continue
+                with self._lock:
+                    tot_short, _ = st.window(sid, _WINDOWS[short_w])
+                if tot_short < self.min_samples:
+                    continue
+                bl = self.burn_rate(key, long_w)
+                bs = self.burn_rate(key, short_w)
+                if bl >= thresh and bs >= thresh:
+                    out.append({
+                        "tenant": key[0], "class": key[1],
+                        "protocol": key[2], "severity": severity,
+                        "burn_long": round(bl, 3),
+                        "burn_short": round(bs, 3),
+                        "windows": f"{long_w}/{short_w}",
+                    })
+        with self._lock:
+            self._alerts = out
+            self._alerts_at = now
+        return out
+
+    def fast_burn_active(self) -> bool:
+        """Any fast-pair alert firing — the idle economy throttles every
+        background consumer while this holds (serving/idle.py)."""
+        return any(a["severity"] == "fast" for a in self.alerts())
+
+    # ---- closing the loop (serving/scheduler.py consumers) -------------
+    def admit_background(self, est_ms: float) -> tuple[bool, float]:
+        """(admit?, allowance_ms) for background work whose estimated
+        cost is ``est_ms`` (the usage journal's estimate; 0 = unknown).  The
+        allowance is the full-budget grant scaled by the worst remaining
+        interactive budget; a firing fast-burn alert closes admission
+        entirely — background load must not help a storm along."""
+        if self.fast_burn_active():
+            return False, 0.0
+        remaining = 1.0
+        with self._lock:
+            keys = [k for k in self._keys if k[1] == "interactive"]
+        for k in keys:
+            remaining = min(remaining, self.budget_remaining(k))
+        allowance = remaining * self.admit_ms
+        return est_ms <= allowance, allowance
+
+    def adaptive_timeout_s(self, cls: str) -> float | None:
+        """Deadline for a class with no configured timeout: observed
+        p99 x factor, floored generously — shedding is for queries that
+        are WILDLY past their class's demonstrated behavior, and a thin
+        sample must not shed anything (None below 256 observations)."""
+        with self._lock:
+            tg = self._exec_cls.get(cls)
+            if tg is None or tg.n < 256:
+                return None
+            p99 = tg.quantile(0.99)
+        if p99 is None:
+            return None
+        return max(self.deadline_floor_s, p99 * self.deadline_factor)
+
+    def wait_quantile(self, cls: str, q: float) -> float | None:
+        with self._lock:
+            tg = self._wait_cls.get(cls)
+            if tg is None or tg.n == 0:
+                return None
+            return tg.quantile(q)
+
+    def exec_quantile(self, cls: str, q: float) -> float | None:
+        with self._lock:
+            tg = self._exec_cls.get(cls)
+            if tg is None or tg.n == 0:
+                return None
+            return tg.quantile(q)
+
+    # ---- maintenance / export -----------------------------------------
+    def advance(self) -> None:
+        """Rotate the adaptive two-generation sketches when due; called
+        from the self-monitor tick (and harmless to call anytime)."""
+        now = self.clock()
+        with self._lock:
+            if now - self._rotated_at < self._rotate_s:
+                return
+            self._rotated_at = now
+            for tg in self._exec_cls.values():
+                tg.rotate()
+            for tg in self._wait_cls.values():
+                tg.rotate()
+
+    def status_rows(self) -> list[dict]:
+        """One row per sketch key — information_schema.slo_status and
+        /v1/slo render these."""
+        with self._lock:
+            keys = sorted(self._keys)
+        firing = {(a["tenant"], a["class"], a["protocol"]): a["severity"]
+                  for a in self.alerts()}
+        out = []
+        for key in keys:
+            tenant, cls, protocol = key
+            thr, obj = self.objective_for(tenant, cls)
+            with self._lock:
+                st = self._keys.get(key)
+                if st is None:
+                    continue
+                p50 = st.sketch.quantile(0.50)
+                p99 = st.sketch.quantile(0.99)
+                total, breached = st.total, st.breached
+            out.append({
+                "tenant": tenant, "class": cls, "protocol": protocol,
+                "threshold_ms": round(thr * 1000.0, 3),
+                "objective": obj,
+                "total": total, "breached": breached,
+                "p50_ms": round((p50 or 0.0) * 1000.0, 3),
+                "p99_ms": round((p99 or 0.0) * 1000.0, 3),
+                "budget_remaining": round(self.budget_remaining(key), 6),
+                "burn_5m": round(self.burn_rate(key, "5m"), 3),
+                "burn_1h": round(self.burn_rate(key, "1h"), 3),
+                "burn_6h": round(self.burn_rate(key, "6h"), 3),
+                "alert": firing.get(key, ""),
+            })
+        return out
+
+    def total_recorded(self) -> int:
+        """Sum of every sketch's count — the soak's zero-gap check
+        compares this against queries actually submitted."""
+        with self._lock:
+            return sum(st.total for st in self._keys.values())

@@ -15,10 +15,21 @@ reference; ``GREPTIME_FLOW_DEVICE=off`` keeps every flow on the host
 engine.  Logs: ``servers.ingest.loki_push`` writes ``loki_logs``,
 ``fulltext.loki`` answers the Loki read API's queries, and
 ``db.engine.executor.fulltext_cache`` holds the fingerprint index that
-SQL text predicates and LogQL line filters share.  Not ported yet (the
-reference's ``__init__`` wires them up): the serving scheduler, SLO
-observatory, scrubber, metric and file engines, partitioned tables,
-views, the mesh, the compile cache, the memory quotas and the servers.
+SQL text predicates and LogQL line filters share.
+
+Serving: ``db.scheduler`` (``serving/scheduler.py``, on unless
+``GREPTIME_SCHEDULER=off``; its workers start on the first submit) takes
+queries from client threads, admits them per tenant, orders them by
+priority and coalesces concurrent shape-compatible SELECTs into one
+``sql_batch`` → ``QueryEngine.execute_select_batch`` →
+``Executor.execute_grid_batch`` stacked dispatch.  ``db.slo`` /
+``db.idle_economy`` (``serving/slo.py``, ``serving/idle.py``) are armed
+under ``GREPTIME_SLO`` (default on); the only idle consumer the port has
+is the flow checkpoint drain.  ``db.processes`` lists queued and running
+statements.  Not ported yet (the reference's ``__init__`` wires them
+up): the AOT warmup and scrubber idle consumers, the slow-query table,
+EXPLAIN ANALYZE, metric and file engines, partitioned tables, views, the
+mesh, the compile cache, the memory quotas and the servers.
 """
 
 from __future__ import annotations
@@ -157,6 +168,43 @@ class GreptimeDB(TableProvider):
         # before the flow engine: restoring a flow at registration plans
         # its query (table_context reads the session timezone)
         self.timezone = "UTC"
+        # live query registry (reference process_manager.rs): the
+        # scheduler registers queued entries, sql() running statements
+        from greptimedb_tpu_torch.meta.process import ProcessManager
+
+        self.processes = ProcessManager()
+        self._proc_local = threading.local()
+        # concurrent serving layer (serving/): clients submit queries
+        # through the scheduler — per-tenant admission, priority classes,
+        # deadline shedding, cross-query stacked dispatch.
+        # GREPTIME_SCHEDULER=off keeps the inline path: the package is
+        # never imported.  Worker threads start lazily on the first
+        # submit.  Built before the flow engine, whose checkpoint drain
+        # registers as an idle hook.
+        self.scheduler = None
+        if os.environ.get("GREPTIME_SCHEDULER", "on").lower() not in (
+                "off", "0", "false"):
+            from greptimedb_tpu_torch.serving import QueryScheduler
+
+            self.scheduler = QueryScheduler(self)
+        # closed-loop SLO observatory (serving/slo.py + serving/idle.py):
+        # per-(tenant, class, protocol) latency sketches, error budgets
+        # and burn-rate alerts, plus the budgeted idle economy that
+        # arbitrates the scheduler's idle capacity.  GREPTIME_SLO=off
+        # leaves both modules unimported and the scheduler's legacy
+        # chained idle hook in place.
+        self.slo = None
+        self.idle_economy = None
+        if (self.scheduler is not None
+                and os.environ.get("GREPTIME_SLO", "on").lower() not in (
+                    "off", "0", "false")):
+            from greptimedb_tpu_torch.serving.idle import IdleEconomy
+            from greptimedb_tpu_torch.serving.slo import SloEngine
+
+            self.slo = SloEngine()
+            self.idle_economy = IdleEconomy(slo=self.slo)
+            self.scheduler.slo = self.slo
+            self.scheduler.idle_economy = self.idle_economy
         # journaled DDL (reference ddl_manager.rs:99): CREATE TABLE runs as
         # a resumable procedure; RUNNING journals from a crashed process
         # resume here at startup
@@ -201,8 +249,14 @@ class GreptimeDB(TableProvider):
         self.flow_engine = FlowEngine(self)
 
     def close(self, flush: bool = False) -> None:
-        """Write the flows' final checkpoints, close region WAL handles
-        (``flush=True`` flushes dirty regions first) and the kv store."""
+        """Stop the scheduler, write the flows' final checkpoints, close
+        region WAL handles (``flush=True`` flushes dirty regions first)
+        and the kv store."""
+        if self.scheduler is not None:
+            # unhook idle work first: a tick claimed after this point
+            # would run against a closing instance
+            self.scheduler.idle_hook = None
+            self.scheduler.stop()
         if self.flow_checkpoints is not None:
             # final checkpoints: a clean restart resumes every flow from
             # its exact watermark with zero tail to replay
@@ -266,19 +320,102 @@ class GreptimeDB(TableProvider):
         return gt, view.ts_bounds() or (0, 0)
 
     # ---- SQL entry -----------------------------------------------------
-    def sql(self, query: str) -> QueryResult:
-        """Execute one or more statements; returns the LAST result."""
+    def sql(self, query: str, client: str = "",
+            _stmts: list | None = None) -> QueryResult:
+        """Execute one or more statements; returns the LAST result.
+        ``_stmts`` carries statements the scheduler already parsed."""
         from greptimedb_tpu_torch.utils.tracing import TRACER
 
-        with TRACER.stage("parse"):
-            stmts = parse_sql(query)
+        # register BEFORE taking the executor lock so statements queued
+        # behind a long query are listed; nested sql() calls (INSERT …
+        # SELECT, sql_in_db) reuse the outer ticket
+        ticket = None
+        if getattr(self._proc_local, "ticket", None) is None:
+            ticket = self.processes.register(query, self.current_db, client)
+            self._proc_local.ticket = ticket
+        try:
+            if _stmts is not None:
+                stmts = _stmts
+            else:
+                with TRACER.stage("parse"):
+                    stmts = parse_sql(query)
+            with self._lock:
+                result = QueryResult([], [])
+                for stmt in stmts:
+                    with TRACER.stage("execute_statement",
+                                      kind=type(stmt).__name__):
+                        result = self.execute_statement(stmt)
+                return result
+        finally:
+            if ticket is not None:
+                self._proc_local.ticket = None
+                self.processes.deregister(ticket)
+
+    def sql_in_db(
+        self, query: str, dbname: str, timezone: str | None = None,
+        _stmts: list | None = None,
+    ) -> tuple[QueryResult, str, str]:
+        """Session-scoped execution: run with the connection's database
+        and timezone without leaking either to other sessions (both are
+        swapped under the db lock).  Returns (result, session db, session
+        tz).  ``_stmts`` hands over an already parsed statement list."""
+        ticket = None
+        if getattr(self._proc_local, "ticket", None) is None:
+            ticket = self.processes.register(query, dbname)
+            self._proc_local.ticket = ticket
+        try:
+            with self._lock:
+                prev_db = self.current_db
+                prev_tz = self.timezone
+                self.current_db = dbname
+                if timezone is not None:
+                    self.timezone = timezone
+                try:
+                    result = self.sql(query, _stmts=_stmts)
+                    return result, self.current_db, self.timezone
+                finally:
+                    self.current_db = prev_db
+                    self.timezone = prev_tz
+        finally:
+            if ticket is not None:
+                self._proc_local.ticket = None
+                self.processes.deregister(ticket)
+
+    def sql_batch(self, entries) -> list[QueryResult] | None:
+        """Scheduler entry for one stacked dispatch over N coalesced
+        Selects: ``entries`` is [(query_text, Select, dbname|None,
+        timezone|None)].  Returns per-entry results (order preserved,
+        bit-exact vs solo) or None when any member falls outside the
+        batchable surface — the scheduler then executes each solo.
+        Refuses what the solo Select branch does not serve on the grid:
+        derived tables, joins, views and system tables."""
+        for _q, s, _d, _tz in entries:
+            if s.table is None or s.from_subquery is not None or s.joins:
+                return None
+            try:
+                vdb, vname = self._split_name(s.table)
+                if vdb.lower() in ("information_schema", "pg_catalog"):
+                    return None
+                if self.catalog.get_engine(vdb, vname) != "mito":
+                    return None
+            except Exception:  # noqa: BLE001 — the solo path owns the error
+                return None
         with self._lock:
-            result = QueryResult([], [])
-            for stmt in stmts:
-                with TRACER.stage("execute_statement",
-                                  kind=type(stmt).__name__):
-                    result = self.execute_statement(stmt)
-            return result
+            # session entries were classified against current_db and the
+            # instance timezone OUTSIDE the lock; a concurrent session
+            # swap could have moved either — re-verify under the lock or
+            # fall back to solo session execution
+            for _q, _s, dbname, tz in entries:
+                if dbname is not None and dbname != self.current_db:
+                    return None
+                if tz is not None and tz != self.timezone:
+                    return None
+            sink: dict = {}
+            sched = getattr(self._proc_local, "sched_info", None)
+            if sched:
+                sink.update(sched)
+            return self.engine.execute_select_batch(
+                [s for _q, s, _d, _tz in entries], metrics=sink)
 
     def execute_statement(self, stmt: Statement) -> QueryResult:
         if isinstance(stmt, Select):

@@ -393,3 +393,60 @@ def test_cuda_kernels_match_plain(cuda_device):
     assert gk.bucket_reduce.launches == 13
     assert gk.group_merge.launches == 3
     gk.reset_launch_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_cuda_stacked_kernels_match_plain(cuda_device, masked):
+    """group_merge_stacked (K2 stacked) and series_mask (K21) against their
+    plain versions, bit for bit: per-member starts that are negative or run
+    past NB, a NaN and an inf partial under a zero mask entry, n = 3 members
+    padded to 4, and the launch on a side stream (the caller's current
+    stream)."""
+    rng = np.random.default_rng(8)
+    spad, nb, nbw = 64, 8, 5
+    cnts = rng.integers(0, 33, (spad, nb)).astype(np.float32)
+    sums = (rng.random((3, spad, nb)) * 3000).astype(np.float32) * (cnts > 0)
+    sums[0, 3, 2], sums[1, 7, 4] = np.nan, np.inf
+    host = np.full(spad, -1, np.int32)
+    host[:50] = rng.integers(0, 23, 50)
+    ids = np.where(host < 0, 32, host).astype(np.int32)
+    codes = np.stack([host, np.where(host < 0, -1, host % 3)]).astype(
+        np.int32)
+    lut = (rng.random(24 * 4 + 24) > 0.5).astype(np.uint8)
+    offsets = np.array([0, 24 * 4, 24 * 4], np.int32)
+    strides = np.array([[4, 1], [1, 0], [1, 0]], np.int32)
+    extents = np.array([24, 4], np.int32)
+    b_lo = np.array([-4, 30, 2, -4], np.int32)
+    planes = np.array([2, 0, 1], np.int32)
+    dev = cuda_device
+    side = torch.cuda.Stream()
+    gk.reset_launch_counts()
+    with torch.cuda.stream(side):
+        t = {k: torch.from_numpy(v).to(dev) for k, v in dict(
+            cnts=cnts, sums=sums, ids=ids, codes=codes, lut=lut,
+            offsets=offsets, strides=strides, extents=extents, b_lo=b_lo,
+            planes=planes).items()}
+        lay = gk.group_layout(t["ids"], 32)
+        mask = gk.series_mask(t["codes"], t["lut"], t["offsets"],
+                              t["strides"], t["extents"], 4)
+        m = mask if masked else None
+        cnt, sg = gk.group_merge_stacked(t["sums"], t["cnts"], t["b_lo"],
+                                         lay, t["planes"], nbw, mask=m)
+    side.synchronize()
+    cpu = {k: v.cpu() for k, v in t.items()}
+    lay_c = gk.group_layout(cpu["ids"], 32)
+    want_mask = gk.series_mask_plain(cpu["codes"], cpu["lut"],
+                                     cpu["offsets"], cpu["strides"],
+                                     cpu["extents"], 4)
+    assert torch.equal(mask.cpu(), want_mask)
+    want_cnt, want_sg = gk.group_merge_stacked_plain(
+        cpu["sums"], cpu["cnts"], cpu["b_lo"], lay_c, cpu["planes"], nbw,
+        mask=want_mask if masked else None)
+    assert torch.equal(cnt.cpu(), want_cnt)
+    got_sg = sg.cpu()
+    assert torch.equal(torch.isnan(got_sg), torch.isnan(want_sg))
+    assert torch.equal(torch.nan_to_num(got_sg), torch.nan_to_num(want_sg))
+    assert gk.series_mask.launches == 1
+    assert gk.group_merge_stacked.launches == 2
+    gk.reset_launch_counts()
