@@ -4,6 +4,7 @@ NVIDIA card.
 
     python3 chip_smoke.py [--hours 24] [--scrapes 40] [--seed 11]
                           [--flow-series 1048576] [--log-lines 1000000]
+                          [--vectors 131072]
 
 Phases, each printing its own lines:
 
@@ -63,7 +64,7 @@ Phases, each printing its own lines:
    checked against numpy merges.  hll_fold (fold and merge modes) and
    udd_fold are then timed against their plain versions and one library
    call, as in phase 2, at those shapes.
-8. Flows (last): a fresh db, src (h STRING, ts, v DOUBLE, k BIGINT) and
+8. Flows: a fresh db, src (h STRING, ts, v DOUBLE, k BIGINT) and
    the full-surface flow of tests/test_flow_device.py (date_bin 1 minute,
    sum, count(*), count(v), avg, min, max, first_value, last_value,
    sum(k): 12 state matrices), 2^20 series (--flow-series) reporting
@@ -77,7 +78,7 @@ Phases, each printing its own lines:
    warm fold rows/s (median warm batch), the seed batch's time, the
    device-busy share of one warm fold and peak device memory; then times
    flow_merge on the fold's own inputs against its plain version.
-9. Logs (last): a fresh db; bench_logs.py's corpus (1,000,000 mostly-
+9. Logs: a fresh db; bench_logs.py's corpus (1,000,000 mostly-
    unique lines over one hour, 16 apps x 4 levels = 64 streams, seed 12;
    --log-lines) pushed through servers.ingest.loki_push in JSON batches
    of 20,000 into loki_logs (push rate printed); then bench_logs.py's
@@ -110,7 +111,27 @@ Phases, each printing its own lines:
    pairs (each member equal to its pair bit for bit), its plain version
    and index_add_ over the stacked windows; series_mask against its plain
    version; each with its byte bound.
-11. One JSON line with every kernel's numbers, then the last line
+11. Top-k, on phase 3's table while its db is open (after phase 10):
+   (j) SELECT * ... WHERE usage_user > 90 ORDER BY ts DESC LIMIT 10, (k)
+   ORDER BY usage_user DESC, ts LIMIT 100 (over the walk's ties at
+   100.0) and (l) ORDER BY usage_system, ts LIMIT 1000 OFFSET 64536 (k =
+   65,536, the eligibility edge), each cold once and warm five times,
+   equal row for row to a numpy stable lexsort of the f32 values the
+   device holds, with topk_select launched and only k rows to the host;
+   then topk_select timed at the three shapes against its plain version
+   and torch.sort(stable=True) + index_select of one packed int64 key.
+12. Vector search (last): a fresh db, items (cat, ts, id, emb
+   VECTOR(128)), 64 categories, --vectors (131,072) distinct integer-
+   valued vectors (SIFT's shape, components 0..127, from --seed), one
+   row each; k-NN LIMIT 10 by vec_l2sq_distance, vec_cos_distance and
+   vec_dot_product DESC, and a range count(*) WHERE vec_l2sq_distance <
+   r (about 1 % of rows), each cold once and warm once: L2^2 and dot
+   distances and the count exact against numpy, cosine within 1e-6 with
+   the same ids where the 10th and 11th differ by more; vec_distance
+   must have launched; then it is timed on the table's own [D, 128]
+   matrix against its plain version and torch.mv, beside the host parse
+   time every query pays.
+13. One JSON line with every kernel's numbers, then the last line
    {"ok": true, "device": {...}}.
 
 Each phase from 2 on starts by dropping what earlier phases left
@@ -118,7 +139,9 @@ Each phase from 2 on starts by dropping what earlier phases left
 still allocated.
 
 Cuts, printed when taken: --hours 12 (SQL path), --scrapes 20 (PromQL),
---flow-series below 2^20 (flows), --log-lines below 1,000,000 (logs).
+--flow-series below 2^20 (flows), --log-lines below 1,000,000 (logs);
+always: 3 warm runs of phase 4's TQL range query instead of 10, and
+131,072 vectors instead of SIFT1M's 1,000,000 (phase 12).
 
 Exits non-zero, printing no result, when CUDA is absent, a kernel does
 not build, launch or agree with its plain version, or a query is wrong.
@@ -180,6 +203,8 @@ SOURCES = {
     "row_match": "greptimedb_tpu_torch/csrc/fulltext_kernels.cu",
     "group_merge_stacked": "greptimedb_tpu_torch/csrc/grid_kernels.cu",
     "series_mask": "greptimedb_tpu_torch/csrc/grid_kernels.cu",
+    "topk_select": "greptimedb_tpu_torch/csrc/topk_kernels.cu",
+    "vec_distance": "greptimedb_tpu_torch/csrc/vector_kernels.cu",
 }
 REPLACES = {
     "bucket_reduce": "greptimedb_tpu/query/physical.py:1129",
@@ -208,6 +233,8 @@ REPLACES = {
     "row_match": "greptimedb_tpu/fulltext/loki.py:131",
     "group_merge_stacked": "greptimedb_tpu/query/physical.py:979",
     "series_mask": "greptimedb_tpu/query/physical.py:1023",
+    "topk_select": "greptimedb_tpu/query/physical.py:1961",
+    "vec_distance": "greptimedb_tpu/query/exprs.py:853",
 }
 PROM_T0 = 1700000000000   # bench_promql.py's epoch
 SCRAPE_MS = 15_000
@@ -215,6 +242,7 @@ PODS, CONTAINERS = 100_000, 10
 PROM_SERIES = PODS * CONTAINERS
 RANGE_MS = 300_000
 PROM_QUERY = "sum by (pod) (rate(http_requests_total[5m]))"
+TQL_WARM = 3  # warm runs of the 20-step TQL range query (a cut from 10)
 
 
 def log(msg: str) -> None:
@@ -234,6 +262,36 @@ def time_ms(fn, reps: int = 20) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls captured in one
+    CUDA graph, replayed under CUDA events (median of 10 replays) and
+    divided by ``reps``.  Unlike ``time_ms`` it leaves out the host's
+    launch cost, which fills the event window of a launch that runs in
+    tens of microseconds."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # allocations and library handles outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(10):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
     return float(np.median(times))
 
 
@@ -502,6 +560,7 @@ def ingest(db, hours: int, has_arrow: bool):
     stats["decile"] = np.zeros((hours, 11), np.int64)
     stats["over99"] = np.zeros(SCALE, bool)
     user_steps = []  # usage_user as stored (f32), for the sketch checks
+    system_steps = []  # usage_system as stored, for the top-k checks
     t_write = 0.0
     for hour in range(hours):
         ts = T0 + (hour * STEPS_PER_HOUR + np.repeat(
@@ -524,6 +583,7 @@ def ingest(db, hours: int, has_arrow: bool):
         stats["max_a"][hour] = v32[:k].max(0)
         stats["max_b"][hour] = v32[k:].max(0)
         user = v32[:, :, 0]
+        system_steps.append(v32[:, :, 1].copy())
         hot = user > 90.0
         stats["hot_count"][hour] = int(hot.sum())
         stats["hot_sum"][hour] = user[hot].astype(np.float64).sum()
@@ -542,6 +602,7 @@ def ingest(db, hours: int, has_arrow: bool):
     log(f"ingest: {rows:,} rows in {t_write:.3f} s of write/flush "
         f"({rows / t_write:,.0f} rows/s)")
     stats["user"] = np.concatenate(user_steps)  # [steps, SCALE] f32
+    stats["system"] = np.concatenate(system_steps)
     return stats
 
 
@@ -701,10 +762,11 @@ def phase_main_path(gk, hours: int, has_arrow: bool, card: str) -> dict:
 # phase 6: the SQL row path on phase 3's table
 # ---------------------------------------------------------------------------
 
-def timed_query(db, sql: str, card: str, label: str, check) -> dict:
-    """First run (checked), warm runs (10, or 3 when one run takes over
-    2 s), the stage split of one more run and the profiler's device-busy
-    share; prints one line and returns the numbers."""
+def timed_query(db, sql: str, card: str, label: str, check,
+                reps: int = 10) -> dict:
+    """First run (checked), warm runs (``reps``, or 3 when one run takes
+    over 2 s), the stage split of one more run and the profiler's
+    device-busy share; prints one line and returns the numbers."""
     from greptimedb_tpu_torch.query.parser import parse_sql
 
     t0 = time.perf_counter()
@@ -713,16 +775,14 @@ def timed_query(db, sql: str, card: str, label: str, check) -> dict:
     first_ms = (time.perf_counter() - t0) * 1e3
     detail = check(res)
     warm = []
-    reps = 10
     while len(warm) < reps:
         t0 = time.perf_counter()
         db.sql(sql)
         torch.cuda.synchronize()
         warm.append((time.perf_counter() - t0) * 1e3)
-        if warm[0] > 2000:
+        if warm[0] > 2000 and reps > 3:
             reps = 3
-    if reps == 3:
-        log(f"query {label}: one run takes over 2 s, so 3 warm runs")
+            log(f"query {label}: one run takes over 2 s, so 3 warm runs")
     metrics: dict = {}
     db.engine.execute_select(parse_sql(sql)[0], metrics=metrics)
     stages = {k: metrics[k] for k in (
@@ -732,7 +792,7 @@ def timed_query(db, sql: str, card: str, label: str, check) -> dict:
     out = dict(rows=len(res.rows), first_ms=first_ms,
                warm_median_ms=float(np.median(warm)), stages=stages,
                segments=metrics.get("segments"), busy_ms=busy_ms,
-               wall_ms=wall_ms)
+               wall_ms=wall_ms, rows_to_host=metrics.get("rows_to_host"))
     log(f"query {label}: {len(res.rows):,} rows correct ({detail}); first "
         f"{first_ms:.3f} ms, warm median {out['warm_median_ms']:.3f} ms "
         f"({len(warm)} runs); segments={out['segments']}; stages {stages}; "
@@ -1617,8 +1677,10 @@ def _promql_path(gk, pk, sk, db, scrapes, seed, has_arrow, card) -> dict:
     groups = len({r[0] for r in out.rows})
     if groups != PODS:
         raise AssertionError(f"range: {groups} groups, expected {PODS}")
+    log(f"cut: {TQL_WARM} warm runs of the TQL range query instead of 10 "
+        f"(~3.3 s each; the time limit)")
     warm = []
-    for _ in range(10):
+    for _ in range(TQL_WARM):
         t0 = time.perf_counter()
         db.sql(sql)
         warm.append((time.perf_counter() - t0) * 1e3)
@@ -1663,7 +1725,8 @@ def _promql_path(gk, pk, sk, db, scrapes, seed, has_arrow, card) -> dict:
         min(scrapes, (t_end - (start - RANGE_MS)) // SCRAPE_MS))
     log(f"promql range TQL EVAL ({steps} steps): {len(out.rows):,} rows, "
         f"{groups:,} groups correct (max |diff| {worst_r:.3g}); first "
-        f"{tql_first_ms:.3f} ms, warm median {tql_warm_ms:.3f} ms (10 runs);"
+        f"{tql_first_ms:.3f} ms, warm median {tql_warm_ms:.3f} ms "
+        f"({TQL_WARM} runs);"
         f" {range_samples / (tql_warm_ms / 1e3):,.0f} samples/s "
         f"({range_samples:,} samples in range); stages {stages}; profiler: "
         f"device busy {busy_r:.3f} ms of {wall_r:.3f} ms wall; top device "
@@ -3380,6 +3443,332 @@ def phase_serving(gk, db, ctx: dict, hours: int, card: str):
     return launches, results
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the raw scan's device top-k on phase 3's table
+# ---------------------------------------------------------------------------
+
+TOPK_WARM = 5
+
+
+def composite_key(tk, keys, mask):
+    """The top-k's sort key packed into one int64 (the invalid flag, then
+    each key word's offset from its least valid value), or None when the
+    words' spans need more than 63 bits: what one torch.sort can take."""
+    words = [w for v, asc, nf in keys for w in tk.sort_words(v, asc, nf)]
+    comp = torch.zeros(mask.shape[0], dtype=torch.int64, device=mask.device)
+    shift = 0
+    for w in reversed(words):
+        valid = w[mask]
+        lo = int(valid.min()) if valid.numel() else 0
+        span = int(valid.max()) - lo if valid.numel() else 0
+        comp |= torch.where(mask, w - lo, 0) << shift
+        shift += span.bit_length()
+    comp |= (~mask).to(torch.int64) << shift
+    return comp if shift + 1 <= 63 else None
+
+
+def phase_topk(tk, db, ctx: dict, card: str):
+    """Three ORDER BY ... LIMIT queries through db.sql on phase 3's table
+    (cold once, warm TOPK_WARM times), each equal row for row to a numpy
+    stable lexsort of the f32 values the device holds, served by the device
+    top-k with only k rows to the host; then topk_select timed at the three
+    queries' shapes against its plain version and one torch.sort."""
+    from greptimedb_tpu_torch.query import physical
+
+    user, system = ctx["stats"]["user"], ctx["stats"]["system"]
+    steps = user.shape[0]
+    # the resident table's row order: (tsid, ts), tsid = host index
+    user_flat = np.ascontiguousarray(user.T).reshape(-1)
+    system_flat = np.ascontiguousarray(system.T).reshape(-1)
+
+    def ts_of(r):
+        return T0 + (r % steps) * STEP_S * 1000
+
+    def row_of(r, value):
+        return [f"host_{r // steps}", int(ts_of(r)), float(value)]
+
+    want_j = []
+    for s in range(steps - 1, -1, -1):
+        for h in np.nonzero(user[s] > 90.0)[0][:10 - len(want_j)]:
+            want_j.append(int(h) * steps + s)
+        if len(want_j) == 10:
+            break
+    vk_ = np.partition(user_flat, -100)[-100]
+    cand = np.nonzero(user_flat >= vk_)[0]
+    want_k = cand[np.lexsort((ts_of(cand), -user_flat[cand]))][:100]
+    vl = np.partition(system_flat, 65_535)[65_535]
+    cand = np.nonzero(system_flat <= vl)[0]
+    want_l = cand[np.lexsort((ts_of(cand), system_flat[cand]))][
+        64_536:65_536]
+    ties_k = int((user_flat == user_flat[want_k[-1]]).sum())
+    queries = {
+        "j": ("SELECT * FROM cpu WHERE usage_user > 90 ORDER BY ts DESC "
+              "LIMIT 10", 10, [row_of(r, user_flat[r]) for r in want_j],
+              ("hostname", "ts", "usage_user")),
+        "k": ("SELECT hostname, ts, usage_user FROM cpu "
+              "ORDER BY usage_user DESC, ts LIMIT 100", 100,
+              [row_of(r, user_flat[r]) for r in want_k], None),
+        "l": ("SELECT hostname, ts, usage_system FROM cpu "
+              "ORDER BY usage_system, ts LIMIT 1000 OFFSET 64536", 65_536,
+              [row_of(r, system_flat[r]) for r in want_l], None),
+    }
+    log(f"top-k: (k)'s 100th value {float(user_flat[want_k[-1]])} ties "
+        f"{ties_k:,} rows; (l)'s rows all hold usage_system "
+        f"{sorted({r[2] for r in queries['l'][2]})[:3]}")
+    tk.reset_launch_counts()
+    before = physical.DISPATCH_STATS["topk"]
+    report = {}
+    for name, (sql, k, want, pick) in queries.items():
+
+        def check(res, want=want, pick=pick, name=name):
+            rows = res.rows
+            if pick is not None:
+                idx = [res.column_names.index(c) for c in pick]
+                rows = [[r[i] for i in idx] for r in rows]
+            if rows != want:
+                bad = next(i for i, (a, b) in enumerate(zip(rows, want))
+                           if a != b) if len(rows) == len(want) else -1
+                raise AssertionError(f"top-k ({name}): {len(rows)} rows, "
+                                     f"first difference at {bad}")
+            return "equal row for row to numpy's stable lexsort"
+
+        report[name] = timed_query(db, sql, card, f"{name} top-k", check,
+                                   reps=TOPK_WARM)
+        if report[name]["rows_to_host"] != k:
+            raise AssertionError(f"top-k ({name}): "
+                                 f"{report[name]['rows_to_host']} rows to "
+                                 f"the host, want {k}")
+    runs = physical.DISPATCH_STATS["topk"] - before
+    launches = {"topk_select": tk.topk_select.launches}
+    log(f"top-k path: launches {launches}, {runs} raw scans took the top-k")
+    if launches["topk_select"] <= 0 or runs <= 0:
+        raise AssertionError("topk_select never launched on the top-k path")
+
+    # the kernel at the three queries' shapes, on the resident table
+    table = db.cache.get(db._region_of("cpu"))
+    cols, rm = table.columns, table.row_mask
+    shapes = {
+        "j": ([(cols["ts"], False, None)], rm & (cols["usage_user"] > 90),
+              10),
+        "k": ([(cols["usage_user"], False, None), (cols["ts"], True, None)],
+              rm, 100),
+        "l": ([(cols["usage_system"], True, None), (cols["ts"], True, None)],
+              rm, 65_536),
+    }
+    out = {}
+    for name, (keys, mask, k) in shapes.items():
+        got, gn = tk.topk_select(keys, mask, k)
+        want, wn = tk.topk_select_plain(keys, mask, k)
+        if gn != wn or not torch.equal(got, want):
+            raise AssertionError(f"topk_select ({name}) differs from its "
+                                 f"plain version")
+        ms = time_ms(lambda: tk.topk_select(keys, mask, k))
+        plain = time_ms(lambda: tk.topk_select_plain(keys, mask, k), reps=5)
+        comp = composite_key(tk, keys, mask)
+        lib, same = None, None
+        if comp is not None:
+            def lib_fn():
+                return torch.index_select(
+                    comp, 0, torch.sort(comp, stable=True).indices[:k])
+            lib = time_ms(lib_fn)
+            same = torch.equal(torch.sort(comp, stable=True).indices[:k],
+                               want)
+        bnd, by = bound_ms(nbytes(mask, *[v for v, _a, _n in keys])
+                           + k * 8, 0)
+        lib_s = "null" if lib is None else f"{lib:.4f}"
+        log(f"kernel topk_select[({name}) {len(keys)} key(s), "
+            f"{mask.shape[0]:,} rows, k = {k:,}]: {ms:.4f} ms (plain "
+            f"{plain:.4f} ms, library {lib_s} ms: torch.sort(stable=True) + "
+            f"index_select of one packed int64 key, same rows {same}; bound "
+            f"{bnd:.4f} ms by {by}), max_abs_err 0 — {card}")
+        out[name] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                         library_ms=lib, max_abs_err=0.0)
+        del comp
+    main = dict(out["k"])
+    for name in ("j", "l"):
+        for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+            main[f"{name}_{key}"] = out[name][key]
+    return launches, {"topk_select": main}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: exact vector search (K22)
+# ---------------------------------------------------------------------------
+
+VECTORS = 131_072    # an eighth of SIFT1M's 1,000,000 base vectors
+VEC_DIM = 128        # ann-benchmarks sift-128-euclidean
+VEC_CATS = 64
+COS_BOUND = 1e-6     # |cos distance - numpy f64|: sums exact, 5 roundings
+
+
+def phase_vectors(vk, vectors: int, seed: int, card: str):
+    """A fresh db: items (cat, ts, id, emb VECTOR(128)), one row per
+    distinct integer-valued vector (0..127 components, SIFT's shape, from
+    --seed); k-NN by L2^2, cosine and dot product (LIMIT 10, the host
+    evaluator's path) and a range count (WHERE, the device compile path)
+    through db.sql, each checked against numpy; then vec_distance timed on
+    the table's own [D, 128] matrix."""
+    from greptimedb_tpu_torch.query.exprs import _parse_vec
+    from greptimedb_tpu_torch.standalone import GreptimeDB
+    from greptimedb_tpu_torch.storage.region import RegionOptions
+
+    log(f"cut: {vectors:,} distinct vectors instead of SIFT1M's 1,000,000 "
+        f"(every query re-parses each distinct vector's text on the host, "
+        f"as the reference does)")
+    rng = np.random.default_rng(seed)
+    M = rng.integers(0, 128, (vectors, VEC_DIM), dtype=np.int64)
+    qv = rng.integers(0, 128, VEC_DIM, dtype=np.int64)
+    words = np.array([str(i) for i in range(128)], dtype=object)
+    t0 = time.perf_counter()
+    texts = np.array(["[" + ",".join(r) + "]" for r in words[M].tolist()],
+                     dtype=object)
+    q = "[" + ",".join(str(int(x)) for x in qv) + "]"
+    l2 = ((M - qv) ** 2).sum(1)
+    dot = M @ qv
+    cos = 1.0 - dot / np.maximum(np.linalg.norm(M, axis=1)
+                                 * np.linalg.norm(qv), 1e-30)
+    radius = int(np.sort(l2)[vectors // 100])
+    log(f"vectors: generated {vectors:,} x {VEC_DIM} in "
+        f"{time.perf_counter() - t0:.3f} s; range radius {radius} "
+        f"({int((l2 < radius).sum()):,} rows inside)")
+    home = tempfile.mkdtemp(prefix="chip_smoke_vec_")
+    db = None
+    try:
+        db = GreptimeDB(home, region_options=RegionOptions(
+            wal_enabled=False, flush_threshold_bytes=1 << 40))
+        db.sql(f"CREATE TABLE items (cat STRING, ts TIMESTAMP(3) TIME INDEX,"
+               f" id BIGINT, emb VECTOR({VEC_DIM}), PRIMARY KEY (cat))")
+        ids = np.arange(vectors, dtype=np.int64)
+        cats = np.array([f"cat_{i}" for i in range(VEC_CATS)], dtype=object)
+        t0 = time.perf_counter()
+        db._region_of("items").write({
+            "cat": cats[ids % VEC_CATS], "ts": T0 + ids, "id": ids,
+            "emb": texts})
+        log(f"vectors: {vectors:,} rows written in "
+            f"{time.perf_counter() - t0:.3f} s")
+
+        def knn(values, desc):
+            order = np.argsort(-values if desc else values, kind="stable")
+            return values[order[:10]], values[order[10]]
+
+        def exact_check(values, desc):
+            want, _next = knn(values, desc)
+
+            def check(res):
+                got = values[[r[0] for r in res.rows]]
+                if len(res.rows) != 10 or not np.array_equal(got, want):
+                    raise AssertionError(f"k-NN: {got} vs {want}")
+                return "the 10 distances equal numpy's exactly"
+            return check
+
+        def cos_check(res):
+            want, nxt = knn(cos, False)
+            got_ids = [r[0] for r in res.rows]
+            err = float(np.abs(cos[got_ids] - want).max())
+            if len(res.rows) != 10 or err > COS_BOUND:
+                raise AssertionError(f"cos k-NN: |diff| {err}")
+            same = "not needed (a tie at the 10th)"
+            if nxt - want[-1] > COS_BOUND:
+                if set(got_ids) != set(np.argsort(cos, kind="stable")[:10]
+                                       .tolist()):
+                    raise AssertionError("cos k-NN: other ids")
+                same = "the same ids"
+            return (f"distances within {COS_BOUND} of numpy (max "
+                    f"{err:.3g}), {same}")
+
+        def count_check(res):
+            want = int((l2 < radius).sum())
+            if res.rows != [[want]]:
+                raise AssertionError(f"range: {res.rows} vs {want}")
+            return f"{want:,} rows, exact"
+
+        queries = {
+            "m": (f"SELECT id FROM items ORDER BY vec_l2sq_distance(emb, "
+                  f"'{q}') LIMIT 10", exact_check(l2, False)),
+            "n": (f"SELECT id FROM items ORDER BY vec_cos_distance(emb, "
+                  f"'{q}') LIMIT 10", cos_check),
+            "o": (f"SELECT id FROM items ORDER BY vec_dot_product(emb, "
+                  f"'{q}') DESC LIMIT 10", exact_check(dot, True)),
+            "p": (f"SELECT count(*) FROM items WHERE vec_l2sq_distance(emb,"
+                  f" '{q}') < {radius}", count_check),
+        }
+        vk.reset_launch_counts()
+        for name, (sql, check) in queries.items():
+            before = vk.vec_distance.launches
+            t0 = time.perf_counter()
+            res = db.sql(sql)
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            detail = check(res)
+            db.stage_sink = {}
+            t0 = time.perf_counter()
+            db.sql(sql)
+            torch.cuda.synchronize()
+            warm_ms = (time.perf_counter() - t0) * 1e3
+            stages = {k: v for k, v in db.stage_sink.items()
+                      if k.endswith("_ms")}
+            db.stage_sink = None
+            if vk.vec_distance.launches - before != 2:
+                raise AssertionError(f"vector query {name}: "
+                                     f"{vk.vec_distance.launches - before} "
+                                     f"vec_distance launches in 2 runs")
+            log(f"query {name} vectors: {detail}; first {first_ms:.3f} ms, "
+                f"warm {warm_ms:.3f} ms (1 run); stages {stages} — {card}")
+        launches = {"vec_distance": vk.vec_distance.launches}
+        log(f"vector path: launches {launches}")
+
+        # the kernel on the table's own distinct vectors
+        table = db.cache.get(db._region_of("items"))
+        vocab = table.dicts["emb"]
+        t0 = time.perf_counter()
+        parsed = [_parse_vec(str(t)) for t in vocab]
+        parse_s = time.perf_counter() - t0
+        mat = torch.from_numpy(np.stack(parsed)).cuda()
+        valid = torch.ones(mat.shape[0], dtype=torch.bool, device=mat.device)
+        qd = torch.from_numpy(np.asarray(qv, dtype=np.float32)).cuda()
+        out = {}
+        for name in ("vec_l2sq_distance", "vec_dot_product",
+                     "vec_cos_distance"):
+            got = vk.vec_distance(mat, valid, qd, name)
+            want = vk.vec_distance_plain(mat, valid, qd, name)
+            cos_op = name == "vec_cos_distance"
+            err = max_err(got, want, exact=not cos_op, rel_tol=0.0,
+                          abs_tol=COS_BOUND if cos_op else 0.0)
+            ms = time_ms(lambda: vk.vec_distance(mat, valid, qd, name))
+            plain = time_ms(lambda: vk.vec_distance_plain(mat, valid, qd,
+                                                          name))
+            lib = time_ms(lambda: torch.mv(mat, qd))
+            dev_ms = graph_ms(lambda: vk.vec_distance(mat, valid, qd, name))
+            dev_lib = graph_ms(lambda: torch.mv(mat, qd))
+            bnd, by = bound_ms(nbytes(mat, valid, qd, got),
+                               3 * mat.shape[0] * mat.shape[1])
+            log(f"kernel vec_distance[{name}, {tuple(mat.shape)}]: "
+                f"{ms:.4f} ms (plain {plain:.4f} ms, library {lib:.4f} ms: "
+                f"torch.mv; bound {bnd:.4f} ms by {by}), max_abs_err "
+                f"{err:.3g}; device time alone (CUDA graph of 20 calls) "
+                f"{dev_ms:.4f} ms, torch.mv's {dev_lib:.4f} ms; the host "
+                f"parse of the {len(vocab):,} distinct vectors that every "
+                f"query runs first: {parse_s:.3f} s — {card}")
+            out[name] = dict(ms=ms, plain_ms=plain, bound_ms=bnd,
+                             bound_by=by, library_ms=lib, max_abs_err=err,
+                             graph_ms=dev_ms, library_graph_ms=dev_lib)
+        main = dict(out["vec_l2sq_distance"])
+        main["max_abs_err"] = max(o["max_abs_err"] for o in out.values())
+        for name, tag in (("vec_dot_product", "dot"),
+                          ("vec_cos_distance", "cos")):
+            for key in ("ms", "plain_ms", "graph_ms"):
+                main[f"{tag}_{key}"] = out[name][key]
+        main["host_parse_ms"] = parse_s * 1e3
+        if launches["vec_distance"] <= 0:
+            raise AssertionError("vec_distance never launched on the "
+                                 "vector path")
+        return launches, {"vec_distance": main}
+    finally:
+        if db is not None:
+            db.close()
+        shutil.rmtree(home, ignore_errors=True)
+
+
 def phase_start(name: str) -> int:
     """Drop what earlier phases left (their dbs are closed and unbound),
     then print and return the device memory still allocated."""
@@ -3410,6 +3799,9 @@ def main() -> int:
     ap.add_argument("--log-lines", type=int, default=LOG_LINES,
                     help="lines of the logs phase (1,000,000; fewer is a "
                          "cut)")
+    ap.add_argument("--vectors", type=int, default=VECTORS,
+                    help="distinct vectors of the vector phase (131,072, "
+                         "itself a cut of SIFT1M's 1,000,000)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3420,9 +3812,11 @@ def main() -> int:
     from greptimedb_tpu_torch.ops import promql_kernels as pk
     from greptimedb_tpu_torch.ops import segment_kernels as sk
     from greptimedb_tpu_torch.ops import sketch_kernels as shk
+    from greptimedb_tpu_torch.ops import topk_kernels as tk
+    from greptimedb_tpu_torch.ops import vector_kernels as vk
 
     t_start = time.perf_counter()
-    card, has_arrow = phase_device(gk, pk, sk, shk, fk, lk)
+    card, has_arrow = phase_device(gk, pk, sk, shk, fk, lk, tk, vk)
     phase_start("2")
     kernels = phase_kernels(gk, card)
     phase_start("3")
@@ -3442,6 +3836,10 @@ def main() -> int:
         serve_launches, serve_k = phase_serving(gk, db, ctx, args.hours,
                                                 card)
         kernels.update(serve_k)
+        log(f"elapsed: {time.perf_counter() - t_start:.3f} s")
+        phase_start("11")
+        topk_launches, topk_k = phase_topk(tk, db, ctx, card)
+        kernels.update(topk_k)
     finally:
         db.close()
         shutil.rmtree(home, ignore_errors=True)
@@ -3464,12 +3862,17 @@ def main() -> int:
     phase_start("9")
     log_launches, log_k = phase_logs(lk, pk, args.log_lines, card)
     kernels.update(log_k)
+    log(f"elapsed: {time.perf_counter() - t_start:.3f} s")
+    phase_start("12")
+    vec_launches, vec_k = phase_vectors(vk, args.vectors, args.seed, card)
+    kernels.update(vec_k)
     log(f"launches: SQL grid path {launches}, SQL row path {row_launches}, "
         f"sketches {sketch_launches}, PromQL path {prom_launches}, flows "
-        f"{flow_launches}, logs {log_launches}, serving {serve_launches}")
+        f"{flow_launches}, logs {log_launches}, serving {serve_launches}, "
+        f"top-k {topk_launches}, vectors {vec_launches}")
     launches.update(row_launches)
     for path in (sketch_launches, prom_launches, flow_launches,
-                 log_launches, serve_launches):
+                 log_launches, serve_launches, topk_launches, vec_launches):
         for name, n in path.items():
             launches[name] = launches.get(name, 0) + n
     line = {"kernels": []}
@@ -3481,7 +3884,7 @@ def main() -> int:
                  "subquery_counter", "segment_select", "flow_merge",
                  "hll_fold", "udd_fold", "fp_candidates", "logs_layout",
                  "line_vals", "row_match", "group_merge_stacked",
-                 "series_mask"):
+                 "series_mask", "topk_select", "vec_distance"):
         k = kernels[name]
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -3491,10 +3894,13 @@ def main() -> int:
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
         }
         # the merge modes of the sketch kernels, timed beside the fold;
-        # the stacked merge's 16 solo group_merge pairs
+        # the stacked merge's 16 solo group_merge pairs; the top-k's other
+        # two queries and K22's other two distances and host parse
         entry.update({key: val for key, val in k.items()
-                      if key.startswith("merge_")
-                      or key == "solo_pairs_ms"})
+                      if key.startswith(("merge_", "j_", "l_", "dot_",
+                                         "cos_"))
+                      or key in ("solo_pairs_ms", "host_parse_ms",
+                                 "graph_ms", "library_graph_ms")})
         line["kernels"].append(entry)
     log(f"total: {time.perf_counter() - t_start:.3f} s")
     log(json.dumps(line))

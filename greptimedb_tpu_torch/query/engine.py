@@ -61,6 +61,10 @@ class QueryResult:
 class TableProvider:
     """What the engine needs from the storage/catalog layers."""
 
+    # the device the provider's tables live on; the host evaluator's
+    # vector distances run there too
+    device = None
+
     def table_context(self, table: str) -> TableContext:
         raise NotImplementedError
 
@@ -282,6 +286,8 @@ class QueryEngine:
             env.setdefault("__ts_factor__", ctx.ts_unit_ms_factor())
         except Exception:  # noqa: BLE001 — no time index
             pass
+        # and host vector distances the device to run their kernel on
+        env.setdefault("__device__", self.provider.device)
         # expand stars
         items: list[SelectItem] = []
         for item in plan.items:

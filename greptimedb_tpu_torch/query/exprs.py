@@ -21,8 +21,9 @@ import torch
 
 from greptimedb_tpu_torch.datatypes.batch import DictionaryEncoder
 from greptimedb_tpu_torch.datatypes.schema import Schema
+from greptimedb_tpu_torch.datatypes.types import ConcreteDataType
 from greptimedb_tpu_torch.errors import (
-    ColumnNotFound, PlanError, Unsupported,
+    ColumnNotFound, ExecutionError, PlanError, ResourcesExhausted, Unsupported,
 )
 from greptimedb_tpu_torch.ops.time import (
     date_part_of, date_trunc_bucket, time_bucket,
@@ -953,8 +954,81 @@ def _parse_vec(text: str) -> "np.ndarray | None":
         return None
 
 
-def _vocab_distances(name: str, terms: list, q: "np.ndarray") -> "np.ndarray":
-    raise Unsupported(f"{name}: vector search not ported yet")
+def _vocab_distances_device(name: str, terms: list, q: "np.ndarray",
+                            device) -> torch.Tensor:
+    """Distances from q to every DISTINCT vector term, as f32 on
+    ``device`` (NaN for terms that do not parse to q's width): a host
+    parse into a ``[D, dim]`` matrix, then the ``vec_distance`` kernel
+    (K22).
+
+    Scale guard: exact brute force is the right call up to ~1M DISTINCT
+    vectors; past that the distance matrix and per-query latency grow
+    without bound, so it fails loudly instead of degrading silently.
+    Guarded HERE so every path (device compile, host projection, raw-scan
+    ORDER BY) shares the bound."""
+    import os as _os
+
+    from greptimedb_tpu_torch.ops.vector_kernels import vec_distance
+
+    if device is None:
+        raise ExecutionError(f"{name}: no device to compute distances on")
+    limit = int(_os.environ.get("GREPTIME_VECTOR_MAX_DISTINCT", 1 << 20))
+    if len(terms) > limit:
+        raise ResourcesExhausted(
+            f"{name}: {len(terms)} distinct vectors exceeds the exact-"
+            f"search bound {limit} (raise GREPTIME_VECTOR_MAX_DISTINCT, "
+            "or pre-filter with WHERE to shrink the candidate set)")
+    mat = np.zeros((max(len(terms), 1), q.shape[0]), dtype=np.float32)
+    valid = np.zeros(max(len(terms), 1), dtype=bool)
+    for i, term in enumerate(terms):
+        v = _parse_vec(str(term)) if term is not None else None
+        if v is not None and v.shape == q.shape:
+            mat[i] = v
+            valid[i] = True
+    dev = torch.device(device)
+    return vec_distance(torch.from_numpy(mat).to(dev),
+                        torch.from_numpy(valid).to(dev),
+                        torch.from_numpy(q).to(dev), name)
+
+
+def _vocab_distances(name: str, terms: list, q: "np.ndarray",
+                     device) -> "np.ndarray":
+    """``_vocab_distances_device`` as f64 numpy: the host evaluator's
+    per-term distances, NaN for invalid terms."""
+    d = _vocab_distances_device(name, terms, q, device)
+    return d.cpu().numpy().astype(np.float64)
+
+
+def _compile_vec_distance(e: FuncCall, ctx: TableContext):
+    """Exact vector search with NO index structure: the distance from the
+    query to every DISTINCT vector of the table's dictionary, computed
+    once per call on the table's device (the ``vec_distance`` kernel),
+    then gathered to rows by code; code -1 (padding, a NULL) gives NaN."""
+    args = list(e.args)
+    if len(args) != 2:
+        raise PlanError(f"{e.name}(column, '[...]') takes two arguments")
+    col = next((a for a in args if isinstance(a, Column)), None)
+    lit = next((a for a in args if isinstance(a, Literal)), None)
+    if col is None or lit is None or not isinstance(lit.value, str):
+        raise Unsupported(f"{e.name} needs a vector column and a literal")
+    real = ctx.resolve(col.name)
+    if ctx.schema.column(real).dtype is not ConcreteDataType.VECTOR:
+        raise PlanError(f"{e.name}: {col.name} is not a VECTOR column")
+    vocab = getattr(ctx, "table_dicts", {}).get(real)
+    if vocab is None:
+        raise Unsupported(f"{e.name}: vector column not resident")
+    q = _parse_vec(lit.value)
+    if q is None:
+        raise PlanError(f"{e.name}: bad vector literal {lit.value!r}")
+
+    def fn(env, col_name=real):
+        codes = env[col_name]
+        # on the table's device: where its codes lie
+        dist = _vocab_distances_device(e.name, vocab, q, codes.device)
+        safe = torch.clamp(codes, 0, dist.shape[0] - 1).to(torch.int64)
+        return torch.where(codes >= 0, dist[safe], float("nan"))
+
+    return fn
 
 
 FT_FUNCS = ("matches", "matches_term", "matches_score")
@@ -1081,7 +1155,7 @@ def compile_device_func(e: FuncCall, ctx: TableContext):
 
         return fn
     if name in VEC_FUNCS:
-        raise Unsupported(f"{name}: vector search not ported yet")
+        return _compile_vec_distance(e, ctx)
     if name in FT_FUNCS:
         return _compile_ft_match(e, ctx)
     if name == "abs":
@@ -1211,8 +1285,9 @@ def eval_host(e: Expr, env: dict[str, np.ndarray], n: int):
             hits = np.asarray([pred(str(u)) for u in uniq], dtype=bool)
             return hits[inv]
         if e.name in VEC_FUNCS:
-            # raw-scan projection: distances over DISTINCT vectors
-            # (not ported yet: _vocab_distances raises Unsupported)
+            # raw-scan projection: distances over DISTINCT vectors on the
+            # executor's device (the engine passes it as __device__);
+            # per-row values gather host-side
             col = next((a for a in e.args if isinstance(a, Column)), None)
             lit = next((a for a in e.args if isinstance(a, Literal)), None)
             if col is None or lit is None or not isinstance(lit.value, str):
@@ -1226,7 +1301,8 @@ def eval_host(e: Expr, env: dict[str, np.ndarray], n: int):
                          dtype=object),
                 return_inverse=True,
             )
-            dists = _vocab_distances(e.name, list(uniq), q)
+            dists = _vocab_distances(e.name, list(uniq), q,
+                                     env.get("__device__"))
             return dists[inv]
         if e.name in ("date_trunc", "date_part", "datepart", "to_unixtime",
                       "date_format"):

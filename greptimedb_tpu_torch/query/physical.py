@@ -29,20 +29,24 @@ aggregates (``ops/segment.py`` over the ``segment_reduce`` /
 ``sorted_segment_reduce`` kernels, one wide ``[N, C]`` pass for plain
 float sum/avg/count) → ``compact`` of the groups that have rows → host.
 A raw SELECT compacts the matching rows with the ``compact`` kernel and
-the host shapes them (ORDER BY, LIMIT, DISTINCT, windows).  The row path
-builds its closures per call: there is nothing to compile.  The sketch
-aggregates (``hll``, ``uddsketch_state`` and their ``*_merge`` forms)
-fold on the device through the ``hll_fold`` / ``udd_fold`` kernels
-(``ops/sketch.py``) into ``[groups, width]`` grids that the host encodes
-as state strings.
+the host shapes them (ORDER BY, LIMIT, DISTINCT, windows); one whose
+ORDER BY keys are numeric columns under a small LIMIT (``_topk_spec``)
+selects its first k rows in lexsort order with the ``topk_select`` kernel
+instead, and only they cross to the host.  The row path builds its
+closures per call: there is nothing to compile, so no cache needs the
+reference's ``_vec_fingerprint`` key (vector distances and
+string-dictionary predicates compile against the table of the call).
+The sketch aggregates (``hll``, ``uddsketch_state`` and their
+``*_merge`` forms) fold on the device through the ``hll_fold`` /
+``udd_fold`` kernels (``ops/sketch.py``) into ``[groups, width]`` grids
+that the host encodes as state strings.
 
 The stacked batch dispatch (``execute_grid_batch``) serves a group of
 concurrent aligned-window queries that the serving scheduler coalesced:
 one ``group_merge_stacked`` pair of launches over the resident partials
 for the whole batch, each member's tag-only WHERE entering as a row of the
 mask stack that ``series_mask`` gathers from the member's lookup table
-(``_series_mask``).  Not ported yet: the device top-k of ``_topk_spec``
-(the host sorts the compacted rows instead).
+(``_series_mask``).
 """
 
 from __future__ import annotations
@@ -66,6 +70,7 @@ from greptimedb_tpu_torch.ops.segment import (
     segment_first_last, segment_reduce, sorted_segment_reduce,
 )
 from greptimedb_tpu_torch.ops.time import bucket_index
+from greptimedb_tpu_torch.ops.topk_kernels import topk_select
 from greptimedb_tpu_torch.query.ast import Column, FuncCall, Star
 from greptimedb_tpu_torch.query.exprs import compile_device
 from greptimedb_tpu_torch.query.planner import (
@@ -82,9 +87,9 @@ DENSE_LIMIT = 1 << 22
 # batches refused for a member whose series-mask lookup table would exceed
 # SERIES_MASK_LUT_CAP entries (or whose predicate is not 0/1): the group
 # then runs solo, as the reference's batch does for a member it cannot
-# stack.
+# stack.  ``topk`` counts the raw scans served by the device top-k.
 DISPATCH_STATS = {"sorted": 0, "scatter": 0, "grid": 0, "grid_bm": 0,
-                  "grid_batch": 0, "grid_batch_refused": 0}
+                  "grid_batch": 0, "grid_batch_refused": 0, "topk": 0}
 
 # the largest series-mask lookup table one batch member may have (entries:
 # the product of card+1 over the tags its predicate names)
@@ -1722,11 +1727,51 @@ class Executor:
 
         return kernel
 
+    # ---- raw (non-aggregate) path -------------------------------------
+    @staticmethod
+    def _topk_spec(plan: SelectPlan, ctx, table) -> dict | None:
+        """Eligibility for the device top-k raw scan: ORDER BY keys must
+        all be numeric device columns whose code order equals value order
+        (so NOT tags / string-dict fields), LIMIT must be present and
+        small, and the projection must not contain window functions
+        (their value depends on the full row set)."""
+        from greptimedb_tpu_torch.query.ast import WindowFunc, expr_contains
+
+        if plan.limit is None or not plan.order_by or plan.distinct:
+            return None
+        if plan.having is not None:
+            # HAVING filters on the host AFTER the device truncates;
+            # top-k would drop rows the filter needs
+            return None
+        k = plan.limit + (plan.offset or 0)
+        if k > (1 << 16) or k >= table.padded_rows:
+            return None
+        for item in plan.items:
+            if not isinstance(item.expr, Star) and expr_contains(
+                    item.expr, WindowFunc):
+                return None
+        keys = []
+        for o in plan.order_by:
+            e = o.expr
+            if not isinstance(e, Column):
+                return None
+            try:
+                name = ctx.resolve(e.name)
+            except Exception:  # noqa: BLE001
+                return None
+            if name not in table.columns or not ctx.schema.has_column(name):
+                return None
+            c = ctx.schema.column(name)
+            if c.is_tag or c.dtype.is_string_like:
+                return None
+            keys.append((name, o.asc, o.nulls_first))
+        return {"k": k, "keys": tuple(keys)}
+
     def _execute_raw(
         self, plan: SelectPlan, table, metrics: dict | None = None,
     ) -> tuple[dict[str, np.ndarray], int]:
         ctx = plan.ctx
-        ctx.table_dicts = table.dicts  # string-dict exprs
+        ctx.table_dicts = table.dicts  # vector search / string-dict exprs
         ctx.fulltext = self._fulltext_provider(plan, table)
         ts_name = ctx.schema.time_index.name if ctx.schema.time_index else None
         where_fn = compile_device(plan.where, ctx) if plan.where is not None else None
@@ -1743,19 +1788,37 @@ class Executor:
         cols = sorted(needed & set(table.columns.keys()))
         ts_lo = int(lo) if lo is not None else int(_I64_MIN)
         ts_hi = int(hi) if hi is not None else int(_I64_MAX)
+        # Device top-k: ORDER BY <numeric device columns> LIMIT k selects
+        # the first k rows in lexsort order ON DEVICE (the topk_select
+        # kernel), so only they cross to the host instead of every
+        # matching row.  The host re-sorts them, so device selection only
+        # has to return the right SET.
+        topk = self._topk_spec(plan, ctx, table)
+        if topk is not None:
+            DISPATCH_STATS["topk"] += 1
 
         def run():
+            """The ONE raw-scan filter, shared by both routes so the top-k
+            path can never diverge from the full scan."""
             env = dict(table.columns)
             mask = table.row_mask
             if ts_name is not None:
                 mask = mask & (env[ts_name] >= ts_lo) & (env[ts_name] < ts_hi)
             if where_fn is not None:
                 mask = (mask & where_fn(env)).to(torch.bool)
-            # the matching rows, in row order, to the front: the host sorts
-            # and limits them (the device top-k is not ported)
-            return compact_rows({c: env[c] for c in cols}, mask)
+            if topk is None:
+                # the matching rows, in row order, to the front: the host
+                # sorts and limits them
+                return compact_rows({c: env[c] for c in cols}, mask)
+            rows, n = topk_select(
+                [(env[c], asc, nf) for c, asc, nf in topk["keys"]], mask,
+                topk["k"])
+            rows = rows[:n]
+            return {c: _take(env[c], rows) for c in cols}, n
 
         packed, n = timed_kernel_call(run, False, metrics, table.row_mask.device)
+        if metrics is not None:
+            metrics["rows_to_host"] = n
         env: dict[str, np.ndarray] = {}
         for c in cols:
             arr = packed[c].cpu().numpy()
@@ -1794,6 +1857,18 @@ def _encode_sketches(v: np.ndarray, codec: tuple) -> np.ndarray:
         sparse = {kmin_all + i: int(c) for i, c in enumerate(r[:width]) if c}
         rows.append(sk.encode_udd_doc(sparse, configs[cmin], c_star, width))
     return np.array(rows, dtype=object)
+
+
+# unsigned dtypes torch cannot index on the card, and their same-size
+# signed views
+_SIGNED_VIEW = {torch.uint16: torch.int16, torch.uint32: torch.int32,
+                torch.uint64: torch.int64}
+
+
+def _take(v: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``v[rows]`` for every column dtype (bits unchanged)."""
+    alias = _SIGNED_VIEW.get(v.dtype)
+    return v[rows] if alias is None else v.view(alias)[rows].view(v.dtype)
 
 
 def _ones(mask: torch.Tensor) -> torch.Tensor:

@@ -7,8 +7,8 @@ and ``_rows_match`` (numeric cells within ``1e-5*max(1,|b|)``), with its
 ``monkeypatch``, so the reference's own golden test in the same worker
 sees its own class again.  The list is every golden file the port
 answers whole: the dense grid, all of PromQL, the SQL row path, the
-sketch aggregates, flows and full-text search.  Files that need what the
-port has not ported yet (joins, subqueries, DDL beyond CREATE, vector search,
+sketch aggregates, flows, full-text and vector search.  Files that need
+what the port has not ported yet (joins, subqueries, DDL beyond CREATE,
 the expression-key fold, ...) stay out; ``ROADMAP.md`` queue A names them.
 """
 
@@ -74,6 +74,9 @@ PORTED = [
     "112_hll_merge_golden", "80_flows_batching",
     # INSERT ... SELECT; full-text search (matches / matches_term)
     "114_insert_select_into", "30_fulltext_log", "118_matches_fulltext2",
+    # vector search (vec_cos_distance / vec_l2sq_distance /
+    # vec_dot_product)
+    "28_vector_ops", "117_vector_search2",
 ]
 
 

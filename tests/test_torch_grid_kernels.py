@@ -27,7 +27,8 @@ from greptimedb_tpu.datatypes.schema import ColumnSchema as RefColumn
 from greptimedb_tpu.datatypes.schema import Schema as RefSchema
 from greptimedb_tpu.datatypes.types import ConcreteDataType as RefType
 from greptimedb_tpu.datatypes.types import SemanticType as RefSem
-from greptimedb_tpu.query.ast import Column, Literal, InList
+from greptimedb_tpu.errors import PlanError as RefPlanError
+from greptimedb_tpu.query.ast import Column, FuncCall, InList, Literal
 from greptimedb_tpu.query.exprs import TableContext as RefCtx
 from greptimedb_tpu.query.exprs import compile_device as ref_compile
 from greptimedb_tpu.query.physical import Executor as RefExecutor
@@ -35,7 +36,7 @@ from greptimedb_tpu.storage.grid import GridTable as RefGrid
 from greptimedb_tpu_torch.datatypes.batch import DictionaryEncoder
 from greptimedb_tpu_torch.datatypes.schema import ColumnSchema, Schema
 from greptimedb_tpu_torch.datatypes.types import ConcreteDataType, SemanticType
-from greptimedb_tpu_torch.errors import Unsupported
+from greptimedb_tpu_torch.errors import PlanError, Unsupported
 from greptimedb_tpu_torch.ops import grid_kernels as gk
 from greptimedb_tpu_torch.query import ast as port_ast
 from greptimedb_tpu_torch.query.exprs import TableContext
@@ -349,13 +350,21 @@ def test_bucket_reduce_plain_padding_weight_and_mask():
 
 
 def test_unported_device_nodes_raise_unsupported():
-    # IS NULL and the math functions came with the row path; vector
-    # search, full text and the string functions are still to port
-    _rctx, pctx = contexts({"host": ["h0"], "dc": ["d0"]})
-    for name in ("vec_cos_distance", "matches", "upper"):
+    # IS NULL and the math functions came with the row path, full text and
+    # vector search later; the string functions are still to port.  Full
+    # text over a column with no dictionary is refused; vector search
+    # over a column that is not a VECTOR is the reference's PlanError
+    rctx, pctx = contexts({"host": ["h0"], "dc": ["d0"]})
+    for name in ("matches", "upper"):
         with pytest.raises(Unsupported):
             compile_device(port_ast.FuncCall(
                 name, (port_ast.Column("a"), port_ast.Literal("[1]"))), pctx)
+    with pytest.raises(RefPlanError):
+        ref_compile(FuncCall("vec_cos_distance", (Column("a"),
+                                                   Literal("[1]"))), rctx)
+    with pytest.raises(PlanError):
+        compile_device(port_ast.FuncCall("vec_cos_distance", (
+            port_ast.Column("a"), port_ast.Literal("[1]"))), pctx)
 
 
 # ---------------------------------------------------------------------------

@@ -122,15 +122,17 @@ def test_row_path_matches_reference(name, segments, dbs, monkeypatch):
 
 
 def test_deferred_topk_keeps_tied_rows_in_row_order(dbs, monkeypatch):
-    """ORDER BY <numeric> LIMIT k runs as compact → host stable sort
-    (the device top-k is not ported): ties keep row order, as jnp.lexsort
-    breaks them in the reference."""
+    """ORDER BY <numeric> LIMIT k is served by the device top-k
+    (``topk_select``, its plain version on the CPU): ties keep row order,
+    as jnp.lexsort breaks them in the reference."""
     ref, port = dbs
     monkeypatch.setenv("GREPTIME_GRID", "off")
     sql = ("SELECT hostname, ts, usage_user FROM cpu WHERE usage_user = 100.0"
            " ORDER BY usage_user DESC LIMIT 7")
     want = ref.sql(sql)
+    before = physical.DISPATCH_STATS["topk"]
     got = port.sql(sql)
+    assert physical.DISPATCH_STATS["topk"] == before + 1  # the top-k route
     assert want.num_rows == 7
     assert got.rows == want.rows
     # the clipped walk ties at 100.0: the rows are the first 7 in row
