@@ -29,13 +29,24 @@ Phases, each printing its own lines:
    from --seed) and answers sum by (pod) (rate(http_requests_total[5m]))
    as an instant query at the last scrape through PromEvaluator and as a
    20-step TQL EVAL range query through db.sql, both checked against a
-   numpy float64 computation of the extrapolated rate.
+   numpy float64 computation of the extrapolated rate.  Then K9's count
+   geometry route by route: the instant query with
+   GREPTIME_PLAN_FUSION=off (S*T*L = 2^26; equal to the fused rows and
+   numpy) at the default 1 GiB PromQL budget, where the 512 MiB state
+   does not fit beside the sort layout and is rejected (the searchsorted
+   geometry), then at 4 GiB (the count geometry), then at 1 GiB again,
+   each warm-timed with the cache's events and stats printed; max by
+   (pod) (max_over_time) unfused at 20 steps (S*T*L over 2^27: refused
+   before any build) and the one-pod changes / irate / deriv TQL queries
+   (the count geometry, equal to GREPTIME_PROMQL_CACHE=off's rows).
    Before each main path the kernel launch counts are zeroed; they are
    read just after it.
 5. The PromQL kernels against their plain versions, timed as in phase 2,
    on phase 4's resident table (41.9 M padded rows; 2^20 selected series,
    1 and 20 steps) and on the engine's [S, T, K] subquery matrices of
-   that table: their real shapes and data.
+   that table: their real shapes and data; series_ranges and
+   gather_ts_mat at S = 2^20 against torch.searchsorted of the same
+   bounds, and counter_window at T = 1 in both geometries.
 6. SQL row path, on phase 3's table before its db closes (run between
    phases 3 and 4): (d) query (a) with GREPTIME_GRID=off, once under
    GREPTIME_SORTED_SEGMENTS=auto (the sorted path, sorted_segment_reduce)
@@ -131,7 +142,23 @@ Phases, each printing its own lines:
    must have launched; then it is timed on the table's own [D, 128]
    matrix against its plain version and torch.mv, beside the host parse
    time every query pays.
-13. One JSON line with every kernel's numbers, then the last line
+13. The mesh row path, on phase 3's table while its db is open (after
+   phase 11): a mesh of 4 shards on the one card (db.mesh, which a db
+   never forms by itself) with
+   GREPTIME_GRID=off, so the engine's route order sends the aggregates to
+   the mesh: (m) 12 h double-groupby-all (10 x avg by hostname and hour),
+   (n) last_value / first_value / max / count(*) by hostname, (o) hll +
+   uddsketch_state(128, 0.01) by hostname, (p) a global count / min / max
+   WHERE usage_user > 90, each cold once and warm 5 times and checked:
+   sums and means within the golden bound of the row path's
+   (GREPTIME_MESH=off), counts and min/max equal to it, first/last equal
+   to numpy over the f64 host values, the sketch states equal to the
+   plain route on a CPU copy of one hour's shards and their estimates
+   within 2 % of the row path's.  Prints the shard build's time and
+   bytes, the collectives span, device busy, the row path's times on the
+   same queries, and mesh_merge timed at (m)'s partials; the sharded
+   table is dropped at the end, and phase 3's db closes after it.
+14. One JSON line with every kernel's numbers, then the last line
    {"ok": true, "device": {...}}.
 
 Each phase from 2 on starts by dropping what earlier phases left
@@ -205,6 +232,9 @@ SOURCES = {
     "series_mask": "greptimedb_tpu_torch/csrc/grid_kernels.cu",
     "topk_select": "greptimedb_tpu_torch/csrc/topk_kernels.cu",
     "vec_distance": "greptimedb_tpu_torch/csrc/vector_kernels.cu",
+    "series_ranges": "greptimedb_tpu_torch/csrc/promql_kernels.cu",
+    "gather_ts_mat": "greptimedb_tpu_torch/csrc/promql_kernels.cu",
+    "mesh_merge": "greptimedb_tpu_torch/csrc/mesh_kernels.cu",
 }
 REPLACES = {
     "bucket_reduce": "greptimedb_tpu/query/physical.py:1129",
@@ -235,6 +265,9 @@ REPLACES = {
     "series_mask": "greptimedb_tpu/query/physical.py:1023",
     "topk_select": "greptimedb_tpu/query/physical.py:1961",
     "vec_distance": "greptimedb_tpu/query/exprs.py:853",
+    "series_ranges": "greptimedb_tpu/promql/engine.py:348",
+    "gather_ts_mat": "greptimedb_tpu/promql/engine.py:360",
+    "mesh_merge": "greptimedb_tpu/parallel/dist.py:297",
 }
 PROM_T0 = 1700000000000   # bench_promql.py's epoch
 SCRAPE_MS = 15_000
@@ -592,6 +625,20 @@ def ingest(db, hours: int, has_arrow: bool):
             minlength=11)[:11]
         stats["over99"] |= (user > 99.0).any(0)
         stats["last"] = v32[-1]
+        # the f64 host values of the first and last steps and of usage_user
+        # over 90 (phase 13's first_value / last_value and its global
+        # aggregate: the mesh keeps DOUBLE fields in f64)
+        if hour == 0:
+            stats["first64"] = series[0].copy()
+            stats["hot64"] = [0, np.inf, -np.inf, 0]
+        stats["last64"] = series[-1].copy()
+        u64 = series[:, :, 0]
+        over = u64[u64 > 90.0]
+        h64 = stats["hot64"]
+        h64[0] += len(over)
+        if len(over):
+            h64[1], h64[2] = min(h64[1], over.min()), max(h64[2], over.max())
+        h64[3] += int((over.astype(np.float32) <= np.float32(90.0)).sum())
         user_steps.append(user.copy())
         t0 = time.perf_counter()
         region.write(data)
@@ -792,7 +839,8 @@ def timed_query(db, sql: str, card: str, label: str, check,
     out = dict(rows=len(res.rows), first_ms=first_ms,
                warm_median_ms=float(np.median(warm)), stages=stages,
                segments=metrics.get("segments"), busy_ms=busy_ms,
-               wall_ms=wall_ms, rows_to_host=metrics.get("rows_to_host"))
+               wall_ms=wall_ms, rows_to_host=metrics.get("rows_to_host"),
+               mesh_rows=metrics.get("mesh_rows", False))
     log(f"query {label}: {len(res.rows):,} rows correct ({detail}); first "
         f"{first_ms:.3f} ms, warm median {out['warm_median_ms']:.3f} ms "
         f"({len(warm)} runs); segments={out['segments']}; stages {stages}; "
@@ -1567,6 +1615,172 @@ def _promql_surface(db, held: np.ndarray, start: int, steps: int,
     return report
 
 
+def geometry_route(events) -> str:
+    """The window geometry one evaluation took, from its bounds events: a
+    state served (``bounds_hit``) or built (``bounds_miss`` with neither
+    ``bounds_refused`` nor ``bounds_reject``) is the count geometry."""
+    served = events.get("bounds_hit", 0) + events.get("bounds_miss", 0)
+    refused = events.get("bounds_refused", 0) + events.get("bounds_reject", 0)
+    return "count" if served > refused else "searchsorted"
+
+
+def _count_geometry_checks(db, held: np.ndarray, t_end: int, start: int,
+                           steps: int, card: str) -> None:
+    """K9's count geometry on the full-width table, route by route, each
+    answer equal to numpy and to the fused or searchsorted answer exactly:
+
+    - the instant sum by (pod) (rate) with GREPTIME_PLAN_FUSION=off
+      (S·T·L = 2^20 · 1 · 64 = 2^26): at the default 1 GiB PromQL budget
+      its 512 MiB state does not fit beside the 1.05 GB sort layout and is
+      rejected (the searchsorted geometry); with the budget raised to
+      4 GiB it is built and served (the count geometry).  Warm times of
+      searchsorted, count, searchsorted;
+    - max by (pod) (max_over_time) unfused at 20 steps (S·T·L = 1.3e9 >
+      2^27): refused before any build, the searchsorted geometry;
+    - the one-pod changes/irate/deriv TQL queries: the count geometry at
+      the default budget, equal to GREPTIME_PROMQL_CACHE=off's rows.
+
+    The PromQL cache's stats and sort/bounds events are printed."""
+    from greptimedb_tpu_torch.ops import promql_kernels as pk
+    from greptimedb_tpu_torch.promql.engine import BOUNDS_COMPARE_CAP
+    from greptimedb_tpu_torch.promql.engine import PromEvaluator
+    from greptimedb_tpu_torch.promql.parser import parse_promql
+
+    cache = db.promql_cache
+    rid = db._table_view("http_requests_total").region_id
+    end_s = t_end / 1000.0
+    expr = parse_promql(PROM_QUERY)
+
+    def instant():
+        ev = PromEvaluator(db, end_s, end_s, 1.0)
+        res = ev.eval(expr)
+        torch.cuda.synchronize()
+        return ev, res
+
+    def routed(ev, want_route: str):
+        got = geometry_route(ev.cache_events)
+        if got != want_route:
+            raise AssertionError(f"geometry {got}, wanted {want_route}: "
+                                 f"events {dict(ev.cache_events)}")
+
+    def same(a, b) -> bool:
+        return torch.equal(a.nan_to_num(-7.0), b.nan_to_num(-7.0))
+
+    _fev, fused = instant()
+    want = np_pod_rates(held, t_end)
+    os.environ["GREPTIME_PLAN_FUSION"] = "off"
+    cap0 = cache.capacity
+    try:
+        timings = {}
+        for label, route, capacity in (
+                ("searchsorted", "searchsorted", cap0),
+                ("count", "count", 4 << 30),
+                ("searchsorted again", "searchsorted", cap0)):
+            # each budget starts from an empty PromQL state of the table,
+            # so its first run builds what that budget admits
+            cache.invalidate_region(rid)
+            cache.capacity = capacity
+            for run in ("first run", "second run"):
+                t0 = time.perf_counter()
+                ev, res = instant()
+                ms = (time.perf_counter() - t0) * 1e3
+                routed(ev, route)
+                if not same(res.values, fused.values) or (
+                        list(res.labels) != list(fused.labels)):
+                    raise AssertionError(f"{route} geometry: instant rows "
+                                         f"differ from the fused route's")
+                pods = np.array([int(res.labels[g]["pod"][4:])
+                                 for g in range(res.num_series)])
+                got = np.full(PODS, np.nan)
+                got[pods] = res.values.cpu().numpy()[:, 0]
+                err = check_pod_values(f"instant ({route})", got, want)
+                log(f"promql instant {PROM_QUERY} unfused, {route} geometry "
+                    f"({run}, PromQL budget GREPTIME_PROMQL_CACHE_BYTES = "
+                    f"{capacity:,} B): rows equal to the fused route's and "
+                    f"numpy (max |diff| {err:.3g}); {ms:.3f} ms; events "
+                    f"{dict(ev.cache_events)}; cache {cache.stats()}")
+            warm, win = [], []
+            for _ in range(5):
+                db.stage_sink = {}
+                t0 = time.perf_counter()
+                ev, res = instant()
+                warm.append((time.perf_counter() - t0) * 1e3)
+                win.append(ev.stage_ms.get("window_kernel", 0.0))
+                db.stage_sink = None
+                routed(ev, route)
+                if not same(res.values, fused.values):
+                    raise AssertionError(f"{route}: instant rows differ")
+            timings[label] = (float(np.median(warm)), float(np.median(win)))
+            log(f"promql instant unfused, {label} geometry (budget "
+                f"{capacity:,} B): warm median {timings[label][0]:.3f} ms, "
+                f"window_kernel stage {timings[label][1]:.3f} ms (5 runs); "
+                f"events {dict(ev.cache_events)} — {card}")
+    finally:
+        cache.capacity = cap0
+        cache.invalidate_region(rid)
+        os.environ.pop("GREPTIME_PLAN_FUSION", None)
+    # max by (pod) (max_over_time) unfused at 20 steps: refused by the
+    # S·T·L cap before any build, the searchsorted geometry
+    mexpr = "max by (pod) (max_over_time(http_requests_total[5m]))"
+    end = start + (steps - 1) * SCRAPE_MS
+
+    def range_eval():
+        ev = PromEvaluator(db, start / 1000.0, end / 1000.0, 15.0)
+        res = ev.eval(parse_promql(mexpr))
+        torch.cuda.synchronize()
+        return ev, res
+
+    s_pad = 1 << (PROM_SERIES - 1).bit_length()
+    lw = 1 << (held.shape[0] - 1).bit_length()
+    if s_pad * steps * lw <= BOUNDS_COMPARE_CAP:
+        raise AssertionError(f"{steps} steps: under the S·T·L cap")
+    os.environ["GREPTIME_PLAN_FUSION"] = "off"
+    try:
+        for run in ("first run", "second run"):
+            built = pk.gather_ts_mat.launches
+            ev, res = range_eval()
+            routed(ev, "searchsorted")
+            if ev.cache_events["bounds_refused"] != 1 or (
+                    pk.gather_ts_mat.launches != built):
+                raise AssertionError(f"max_over_time: state built past the "
+                                     f"cap: {dict(ev.cache_events)}")
+            log(f"promql {mexpr} unfused at {steps} steps ({run}): S·T·L = "
+                f"{s_pad:,} x {steps} x {lw} = {s_pad * steps * lw:,} > "
+                f"{BOUNDS_COMPARE_CAP:,}, refused, no state built; events "
+                f"{dict(ev.cache_events)}")
+    finally:
+        os.environ.pop("GREPTIME_PLAN_FUSION")
+    _fev, fres = range_eval()
+    if not same(res.values, fres.values):
+        raise AssertionError("max_over_time: unfused rows differ from "
+                             "the fused route's")
+    # one pod through TQL: the count geometry, equal to the searchsorted
+    # geometry's rows (GREPTIME_PROMQL_CACHE=off keeps no state)
+    pod = 7
+    for fn in ("changes", "irate", "deriv"):
+        sql = (f"TQL EVAL ({start / 1000}, {end / 1000}, 15) "
+               f'{fn}(http_requests_total{{pod="pod-{pod}"}}[5m])')
+        db.stage_sink = {}
+        try:
+            res = db.sql(sql)
+            events = db.stage_sink.get("promql_cache_events") or {}
+        finally:
+            db.stage_sink = None
+        if geometry_route(events) != "count":
+            raise AssertionError(f"{fn}: not the count geometry: {events}")
+        os.environ["GREPTIME_PROMQL_CACHE"] = "off"
+        try:
+            plain = db.sql(sql)
+        finally:
+            os.environ.pop("GREPTIME_PROMQL_CACHE")
+        if res.rows != plain.rows or not res.rows:
+            raise AssertionError(f"{fn}: count geometry rows differ from "
+                                 f"the searchsorted geometry's")
+        log(f"promql count geometry, {fn} of pod-{pod} ({len(res.rows)} "
+            f"rows): equal to the searchsorted geometry's rows; events "
+            f"{events}")
+
+
 def phase_promql(gk, pk, sk, scrapes: int, seed: int, has_arrow: bool,
                  card: str):
     """Returns (launches, db, home): the db stays open for phase 5, which
@@ -1732,7 +1946,10 @@ def _promql_path(gk, pk, sk, db, scrapes, seed, has_arrow, card) -> dict:
         f"device busy {busy_r:.3f} ms of {wall_r:.3f} ms wall; top device "
         f"ops {top_r} — {card}")
     _promql_surface(db, held, start, steps, card)
+    _count_geometry_checks(db, held, t_end, start, steps, card)
     launches = {"prefix_scan": pk.prefix_scan.launches,
+                "series_ranges": pk.series_ranges.launches,
+                "gather_ts_mat": pk.gather_ts_mat.launches,
                 "sort_layout": pk.sort_layout.launches,
                 "counter_window": pk.counter_window.launches,
                 "group_merge": gk.group_merge.launches,
@@ -1755,6 +1972,85 @@ def _promql_path(gk, pk, sk, db, scrapes, seed, has_arrow, card) -> dict:
 # ---------------------------------------------------------------------------
 # phase 5: PromQL kernels against their plain versions
 # ---------------------------------------------------------------------------
+
+def count_geometry_timing(pk, got, want, gd, gd_want, sel, t_end: int,
+                          report) -> dict:
+    """K9's count geometry at the instant query's shapes (S = 2^20, T = 1):
+    series_ranges and gather_ts_mat against their plain versions and
+    torch.searchsorted of the same series bounds, then counter_window at
+    T = 1 in both geometries (rate and instant modes), the outputs of the
+    two geometries equal bit for bit."""
+    key_s, ts_s, kp = got[0], got[1], got[6]
+    n = key_s.shape[0]
+    S = sel.shape[0]
+    out = {}
+    g_start, g_cnt, g_max = pk.series_ranges(key_s, kp, sel)
+    w_start, w_cnt, w_max = pk.series_ranges_plain(want[0], want[6], sel)
+    if g_max != w_max or not (torch.equal(g_start, w_start)
+                              and torch.equal(g_cnt, w_cnt)):
+        raise AssertionError("series_ranges differs from its plain version")
+    L = 1 << (max(g_max, 1) - 1).bit_length()
+    ms = time_ms(lambda: pk.series_ranges(key_s, kp, sel))
+    plain = time_ms(lambda: pk.series_ranges_plain(want[0], want[6], sel))
+    skey = torch.where(sel >= 0, sel.long(), 0) * kp
+    lib = time_ms(lambda: (torch.searchsorted(key_s, skey),
+                           torch.searchsorted(key_s, skey + (kp - 1),
+                                              right=True)))
+    # two binary searches of log2(n) int64 compares a series
+    bnd, by = bound_ms(nbytes(sel, g_start, g_cnt), S * 2 * n.bit_length())
+    report("series_ranges", f"S={S:,}, N={n:,}, cnt_max {g_max}, L {L} "
+           f"(library: torch.searchsorted of the same bounds; the wrapper's "
+           f"one host sync inside)", ms, plain, bnd, by, lib, 0.0)
+    out["series_ranges"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd,
+                                bound_by=by, library_ms=lib, max_abs_err=0.0)
+    g_mat = pk.gather_ts_mat(ts_s, g_start, g_cnt, L)
+    w_mat = pk.gather_ts_mat_plain(want[1], w_start, w_cnt, L)
+    if not torch.equal(g_mat, w_mat):
+        raise AssertionError("gather_ts_mat differs from its plain version")
+    ms = time_ms(lambda: pk.gather_ts_mat(ts_s, g_start, g_cnt, L))
+    plain = time_ms(lambda: pk.gather_ts_mat_plain(want[1], w_start, w_cnt,
+                                                   L))
+    rows = int(g_cnt.long().sum())
+    bnd, by = bound_ms(nbytes(g_start, g_cnt, g_mat) + rows * 8, 0)
+    report("gather_ts_mat", f"[{S:,}, {L}] int64 of {rows:,} rows", ms,
+           plain, bnd, by, None, 0.0)
+    out["gather_ts_mat"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd,
+                                bound_by=by, library_ms=None,
+                                max_abs_err=0.0)
+    bounds = (g_start, g_cnt, g_mat)
+    w_bounds = (w_start, w_cnt, w_mat)
+    t1 = {}
+    for kind, func in (("rate", "rate"), ("instant", None)):
+        kw = dict(step_ms=SCRAPE_MS, num_steps=1, range_ms=RANGE_MS,
+                  kind=kind, func=func,
+                  range_s=RANGE_MS / 1000 if func else None)
+        g = gd if kind != "instant" else None
+        a = pk.counter_window(got, g, sel, t_end, **kw)
+        b = pk.counter_window(got, g, sel, t_end, bounds=bounds, **kw)
+        c = pk.counter_window_plain(want, gd_want, sel, t_end,
+                                    bounds=w_bounds, **kw)
+        if kind == "rate":
+            a, b, c = {"rate": a}, {"rate": b}, {"rate": c}
+        for k in a:
+            if not torch.equal(a[k].nan_to_num(-7.0), b[k].nan_to_num(-7.0)):
+                raise AssertionError(f"counter_window {kind}: the count "
+                                     f"geometry's {k} differs from the "
+                                     f"searchsorted geometry's")
+            max_err(b[k], c[k], exact=k != "rate")
+        ms_s = time_ms(lambda: pk.counter_window(got, g, sel, t_end, **kw))
+        ms_c = time_ms(lambda: pk.counter_window(got, g, sel, t_end,
+                                                 bounds=bounds, **kw))
+        log(f"kernel counter_window[{kind} S={S:,} T=1 in both geometries]: "
+            f"searchsorted {ms_s:.4f} ms, count geometry {ms_c:.4f} ms "
+            f"({ms_s / ms_c:.2f}x; the state: series_ranges "
+            f"{out['series_ranges']['ms']:.4f} + gather_ts_mat "
+            f"{out['gather_ts_mat']['ms']:.4f} ms once per resident "
+            f"selection), outputs equal bit for bit")
+        t1[f"t1_{kind}_searchsorted_ms"] = ms_s
+        t1[f"t1_{kind}_count_ms"] = ms_c
+    out["t1"] = t1
+    return out
+
 
 def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
     """Each PromQL kernel on the PromQL path's resident table (its real
@@ -1872,6 +2168,10 @@ def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
         else:
             results["counter_window"]["max_abs_err"] = max(
                 results["counter_window"]["max_abs_err"], err)
+
+    results.update(count_geometry_timing(pk, got, want, gd, gd_want, sel,
+                                         t_end, report))
+    results["counter_window"].update(results.pop("t1"))
 
     # -- window_stats (K10's gauge_window, counter_rc, regression, irate) --
     geo = dict(step_ms=SCRAPE_MS, num_steps=20, range_ms=RANGE_MS)
@@ -3592,6 +3892,284 @@ def phase_topk(tk, db, ctx: dict, card: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the mesh row path (K20) on phase 3's table
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 4
+MESH_WARM = 5
+MESH_CACHE_BYTES = 32 << 30  # the sharded copy beside the resident table
+UDD_REL = 0.02   # tests/test_parallel.py test_sketch_states_on_mesh
+HLL_REL = 0.02   # the mean over the hosts (see check_o)
+
+
+def _sorted_rows(rows, nkeys: int):
+    return sorted(rows, key=lambda r: tuple(r[:nkeys]))
+
+
+def phase_mesh(mk, sk, shk, db, ctx: dict, hours: int, card: str):
+    """The mesh row path on phase 3's open db: a mesh of MESH_SHARDS
+    shards on the one card, GREPTIME_GRID=off so the engine's route order
+    sends the aggregates to the mesh: (m) 12 h double-groupby-all (10 x
+    avg by hostname and hour, 48,000 groups), (n) last_value / first_value
+    / max / count(*) by hostname, (o) hll + uddsketch_state by hostname,
+    (p) a global count/min/max WHERE usage_user > 90, each cold once and
+    warm MESH_WARM times.  Sums and means within the golden bound of the
+    row path's (GREPTIME_MESH=off), counts and min/max equal to it,
+    first/last equal to numpy over the f64 host values, the sketch states
+    equal to the plain route on a CPU copy of one hour's shards and their
+    estimates within 2 % of the row path's; then mesh_merge timed at
+    (m)'s partials."""
+    from greptimedb_tpu_torch.ops import sketch as shost
+    from greptimedb_tpu_torch.parallel import dist
+    from greptimedb_tpu_torch.query.parser import parse_sql
+
+    stats = ctx["stats"]
+    region = db._region_of("cpu")
+    view = db._table_view("cpu")
+    cap0 = db.cache.capacity
+    db.cache.capacity = max(cap0, MESH_CACHE_BYTES)
+    log(f"mesh: {MESH_SHARDS} shards on cuda:0, GREPTIME_GRID=off; the "
+        f"region cache's budget raised to {db.cache.capacity:,} B for the "
+        f"phase (the sharded copy beside the resident table)")
+    os.environ["GREPTIME_GRID"] = "off"
+    db.mesh = dist.create_mesh(MESH_SHARDS, device=torch.device("cuda", 0))
+    try:
+        t0 = time.perf_counter()
+        st = db.cache.get_sharded(view)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        log(f"mesh: shard build {build_s:.3f} s, {st.nbytes():,} B on the "
+            f"card ({st.rows_per_shard:,} rows a shard, pow2-padded, f64 "
+            f"fields in f64), torch.cuda.memory_allocated() "
+            f"{torch.cuda.memory_allocated()} B")
+
+        def row_path(sql):
+            os.environ["GREPTIME_MESH"] = "off"
+            try:
+                return db.sql(sql)
+            finally:
+                os.environ.pop("GREPTIME_MESH")
+
+        avgs = ", ".join(f"avg({m})" for m in METRICS)
+        hot = stats["hot_count"].sum()
+        sqls = {
+            "m": ctx["a_sql"],
+            "n": ("SELECT hostname, last_value(usage_user), "
+                  "first_value(usage_idle), max(usage_system), count(*) "
+                  "FROM cpu GROUP BY hostname"),
+            "o": ("SELECT hostname, hll(usage_user) AS h, "
+                  "uddsketch_state(128, 0.01, usage_user) AS u FROM cpu "
+                  "GROUP BY hostname"),
+            "p": ("SELECT count(*), min(usage_user), max(usage_user) FROM "
+                  "cpu WHERE usage_user > 90"),
+        }
+        assert avgs in sqls["m"]
+        want = {k: row_path(q) for k, q in sqls.items()}
+
+        def check_m(res):
+            got, ref = (_sorted_rows(r.rows, 2) for r in (res, want["m"]))
+            if len(got) != SCALE * ctx["window_h"] or len(got) != len(ref):
+                raise AssertionError(f"mesh (m): {len(got)} rows")
+            worst = 0.0
+            for a, b in zip(got, ref):
+                if a[:2] != b[:2]:
+                    raise AssertionError(f"mesh (m): keys {a[:2]} {b[:2]}")
+                for x, y in zip(a[2:], b[2:]):
+                    d = abs(x - y)
+                    if d > REL_TOL * max(1.0, abs(y)):
+                        raise AssertionError(f"mesh (m): {a} vs {b}")
+                    worst = max(worst, d)
+            return (f"means within the golden bound of the row path's (max "
+                    f"|diff| {worst:.3g})")
+
+        def check_n(res):
+            got, ref = (_sorted_rows(r.rows, 1) for r in (res, want["n"]))
+            if len(got) != SCALE or len(ref) != SCALE:
+                raise AssertionError(f"mesh (n): {len(got)} rows")
+            for a, b in zip(got, ref):
+                h = int(a[0].split("_")[1])
+                if a[1] != float(stats["last64"][h, 0]) or (
+                        a[2] != float(stats["first64"][h, 2])):
+                    raise AssertionError(f"mesh (n): first/last {a}")
+                if a[3] != b[3] or a[4] != b[4] or a[4] != hours * 360:
+                    raise AssertionError(f"mesh (n): {a} vs {b}")
+            return ("first/last equal to numpy's f64 host values, max and "
+                    "count equal to the row path's")
+
+        est = {}
+
+        def check_o(res):
+            got, ref = (_sorted_rows(r.rows, 1) for r in (res, want["o"]))
+            if len(got) != SCALE or [r[0] for r in got] != [
+                    r[0] for r in ref]:
+                raise AssertionError(f"mesh (o): {len(got)} rows")
+            hll, udd = [], 0.0
+            for a, b in zip(got, ref):
+                ea = shost.hll_estimate(shost.decode_hll(a[1]))
+                eb = shost.hll_estimate(shost.decode_hll(b[1]))
+                hll.append(abs(ea - eb) / eb)
+                for q in (0.5, 0.9, 0.99):
+                    qa = shost.udd_quantile(a[2], q)
+                    qb = shost.udd_quantile(b[2], q)
+                    udd = max(udd, abs(qa - qb) / max(abs(qb), 1e-300))
+            # the mesh hashes the f64 host values, the row path the f32
+            # device values: two independent HLL estimates of nearly one
+            # set, each off by ~1.6 % (1.04 / sqrt(4096)), so a host's two
+            # estimates differ by ~2.3 % (one sigma) and the worst of
+            # 4,000 by several sigma.  The mean over the hosts is held
+            hll_mean, hll_max = float(np.mean(hll)), float(np.max(hll))
+            if hll_mean > HLL_REL or udd > UDD_REL:
+                raise AssertionError(f"mesh (o): estimates apart: HLL mean "
+                                     f"{hll_mean:.4g}, UDD {udd:.4g}")
+            est.update(hll_mean=hll_mean, hll_max=hll_max, udd_max=udd)
+            return (f"HLL estimates {hll_mean:.3%} apart from the row "
+                    f"path's on average (worst host {hll_max:.3%}), UDD "
+                    f"quantiles (0.5, 0.9, 0.99) within {udd:.3%}")
+
+        def check_p(res):
+            # the mesh compares the f64 host values with 90, the row path
+            # their f32 device copies: values just above 90 that round to
+            # 90.0 in f32 count on the mesh only
+            n64, lo64, hi64, edge = stats["hot64"]
+            ref = want["p"].rows[0]
+            got = res.rows[0]
+            if got != [n64, float(np.float32(lo64)), float(np.float32(hi64))]:
+                raise AssertionError(f"mesh (p): {got} vs numpy's f64 "
+                                     f"{[n64, lo64, hi64]}")
+            if ref[0] != hot or got[0] != hot + edge or got[2] != ref[2]:
+                raise AssertionError(f"mesh (p): {got} vs the row path's "
+                                     f"{ref} ({edge} values round to 90.0)")
+            return (f"{n64:,} rows over 90 and their min/max (as f32) equal "
+                    f"to numpy over the f64 host values; the row path's "
+                    f"f32 copies count {hot:,}: {edge} values above 90 "
+                    f"round to 90.0 in f32")
+
+        mk.reset_launch_counts()
+        sk.reset_launch_counts()
+        shk.reset_launch_counts()
+        coll = dist.M_MESH_COLLECTIVE.labels(str(MESH_SHARDS), "execute")
+        c_sum0, c_n0 = coll.sum, coll.total
+        report = {}
+        for name, check in (("m", check_m), ("n", check_n), ("o", check_o),
+                            ("p", check_p)):
+            report[name] = timed_query(db, sqls[name], card,
+                                       f"({name}) mesh", check,
+                                       reps=MESH_WARM)
+            if not report[name]["mesh_rows"]:
+                raise AssertionError(f"mesh ({name}): not the mesh route")
+        launches = {"mesh_merge": mk.mesh_merge.launches,
+                    "segment_reduce": sk.segment_reduce.launches,
+                    "hll_fold": shk.hll_fold.launches,
+                    "udd_fold": shk.udd_fold.launches}
+        coll_ms = (coll.sum - c_sum0) * 1e3 / max(coll.total - c_n0, 1)
+        log(f"mesh path: launches {launches}; collectives span (local "
+            f"partials, copies, merges) {coll_ms:.3f} ms a query on average "
+            f"over {coll.total - c_n0} warm queries")
+        for kname, n in launches.items():
+            if n <= 0:
+                raise AssertionError(f"{kname} never launched on the mesh "
+                                     f"path")
+        # the row path's times on the same queries, for comparison
+        os.environ["GREPTIME_MESH"] = "off"
+        try:
+            row_report = {name: timed_query(
+                db, sql, card, f"({name}) row path, GREPTIME_MESH=off",
+                lambda res, name=name: (
+                    "equal to its first run" if res.rows == want[name].rows
+                    else "differs"), reps=MESH_WARM)
+                for name, sql in sqls.items()}
+        finally:
+            os.environ.pop("GREPTIME_MESH")
+
+        # the sketch states against the plain route: one hour's shards on
+        # the CPU, the same shard assignment and rows as the card's
+        h = hours // 2
+        lo, hi = T0 + h * 3_600_000, T0 + (h + 1) * 3_600_000
+        o_hour = (sqls["o"].replace(" GROUP BY", f" WHERE ts >= {lo} AND "
+                                    f"ts < {hi} GROUP BY"))
+        card_rows = db.sql(o_hour).rows
+        cpu_mesh = dist.create_mesh(MESH_SHARDS, device="cpu")
+        t0 = time.perf_counter()
+        cpu_tab = dist.shard_region(view, cpu_mesh, ts_range=(lo, hi))
+        names, cpu_rows = dist.execute_select_on_mesh(
+            dist.DistAggExecutor(cpu_mesh), cpu_tab, parse_sql(o_hour)[0],
+            db.table_context("cpu"), view.ts_bounds())
+        cpu_s = time.perf_counter() - t0
+        if _sorted_rows(cpu_rows, 1) != _sorted_rows(card_rows, 1):
+            raise AssertionError("mesh (o): the card's sketch states differ "
+                                 "from the plain route's")
+        log(f"mesh (o) over hour {h} (a 1-hour range bounds the CPU time): "
+            f"{len(card_rows):,} HLL and UDD states equal to the plain "
+            f"route's on a CPU copy of the shards ({cpu_s:.1f} s on the "
+            f"CPU)")
+
+        # every merge of the four queries, captured from one more run of
+        # each, against its plain version; then the kernel timed at (m)'s
+        # partials
+        captured = []
+        merge, pick = mk.mesh_merge, mk.mesh_pick
+
+        def capture(parts, op):
+            captured.append(("merge", (parts.clone(), op)))
+            return merge(parts, op)
+
+        def capture_pick(ts, has, vals, last):
+            captured.append(("pick", (ts.clone(), has.clone(), vals.clone(),
+                                      last)))
+            return pick(ts, has, vals, last)
+
+        capture.launches = 0
+        mk.mesh_merge, mk.mesh_pick = capture, capture_pick
+        try:
+            db.sql(sqls["m"])
+            m_calls = len(captured)
+            for name in ("n", "o", "p"):
+                db.sql(sqls[name])
+        finally:
+            mk.mesh_merge, mk.mesh_pick = merge, pick
+        err, modes = 0.0, set()
+        for kind, args in captured:
+            if kind == "pick":
+                got, want = pick(*args), mk.mesh_pick_plain(*args)
+                modes.add(f"pick {args[2].dtype}")
+            else:
+                got, want = (merge(*args),), (mk.mesh_merge_plain(*args),)
+                modes.add(f"{args[1]} {args[0].dtype}")
+            for g_, w_ in zip(got, want):
+                err = max(err, max_err(g_, w_, exact=True))
+        log(f"mesh_merge: {len(captured)} merges of (m), (n), (o), (p) equal "
+            f"to their plain versions; modes {sorted(modes)}")
+        parts, op = max((a for k, a in captured[:m_calls] if k == "merge"),
+                        key=lambda a: a[0].numel())
+        ms = time_ms(lambda: merge(parts, op))
+        plain = time_ms(lambda: mk.mesh_merge_plain(parts, op))
+        lib = time_ms(lambda: parts.sum(0) if op == "sum" else parts.amax(0))
+        out = merge(parts, op)
+        bnd, by = bound_ms(nbytes(parts, out), parts.numel())
+        log(f"kernel mesh_merge[{op} of (m)'s {list(parts.shape)} "
+            f"{parts.dtype} partials; {m_calls} merges in (m)]: "
+            f"{ms:.4f} ms (plain {plain:.4f} ms, library {lib:.4f} ms: "
+            f"torch {'sum' if op == 'sum' else 'amax'}(0) of the stacked "
+            f"partials; bound {bnd:.4f} ms by {by}), max_abs_err {err:.3g} — "
+            f"{card}")
+        def summary(rep):
+            return {k: (round(v["first_ms"], 3), round(v["warm_median_ms"], 3),
+                        round(v["busy_ms"], 3), round(v["wall_ms"], 3))
+                    for k, v in rep.items()}
+
+        log(f"mesh queries (first ms, warm median ms, device busy ms, wall "
+            f"ms): mesh {summary(report)}; row path {summary(row_report)}; "
+            f"estimates apart {est}")
+        return launches, {"mesh_merge": dict(
+            ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+            library_ms=lib, max_abs_err=err)}
+    finally:
+        os.environ.pop("GREPTIME_GRID", None)
+        db.mesh = None  # drops the sharded table
+        db.cache.capacity = cap0
+
+
+# ---------------------------------------------------------------------------
 # phase 12: exact vector search (K22)
 # ---------------------------------------------------------------------------
 
@@ -3809,6 +4387,7 @@ def main() -> int:
     from greptimedb_tpu_torch.ops import flow_kernels as fk
     from greptimedb_tpu_torch.ops import fulltext_kernels as lk
     from greptimedb_tpu_torch.ops import grid_kernels as gk
+    from greptimedb_tpu_torch.ops import mesh_kernels as mk
     from greptimedb_tpu_torch.ops import promql_kernels as pk
     from greptimedb_tpu_torch.ops import segment_kernels as sk
     from greptimedb_tpu_torch.ops import sketch_kernels as shk
@@ -3816,7 +4395,7 @@ def main() -> int:
     from greptimedb_tpu_torch.ops import vector_kernels as vk
 
     t_start = time.perf_counter()
-    card, has_arrow = phase_device(gk, pk, sk, shk, fk, lk, tk, vk)
+    card, has_arrow = phase_device(gk, pk, sk, shk, fk, lk, tk, vk, mk)
     phase_start("2")
     kernels = phase_kernels(gk, card)
     phase_start("3")
@@ -3840,6 +4419,11 @@ def main() -> int:
         phase_start("11")
         topk_launches, topk_k = phase_topk(tk, db, ctx, card)
         kernels.update(topk_k)
+        log(f"elapsed: {time.perf_counter() - t_start:.3f} s")
+        phase_start("13")
+        mesh_launches, mesh_k = phase_mesh(mk, sk, shk, db, ctx, args.hours,
+                                           card)
+        kernels.update(mesh_k)
     finally:
         db.close()
         shutil.rmtree(home, ignore_errors=True)
@@ -3869,10 +4453,12 @@ def main() -> int:
     log(f"launches: SQL grid path {launches}, SQL row path {row_launches}, "
         f"sketches {sketch_launches}, PromQL path {prom_launches}, flows "
         f"{flow_launches}, logs {log_launches}, serving {serve_launches}, "
-        f"top-k {topk_launches}, vectors {vec_launches}")
+        f"top-k {topk_launches}, vectors {vec_launches}, mesh "
+        f"{mesh_launches}")
     launches.update(row_launches)
     for path in (sketch_launches, prom_launches, flow_launches,
-                 log_launches, serve_launches, topk_launches, vec_launches):
+                 log_launches, serve_launches, topk_launches, vec_launches,
+                 mesh_launches):
         for name, n in path.items():
             launches[name] = launches.get(name, 0) + n
     line = {"kernels": []}
@@ -3884,7 +4470,8 @@ def main() -> int:
                  "subquery_counter", "segment_select", "flow_merge",
                  "hll_fold", "udd_fold", "fp_candidates", "logs_layout",
                  "line_vals", "row_match", "group_merge_stacked",
-                 "series_mask", "topk_select", "vec_distance"):
+                 "series_mask", "topk_select", "vec_distance",
+                 "series_ranges", "gather_ts_mat", "mesh_merge"):
         k = kernels[name]
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -3898,7 +4485,7 @@ def main() -> int:
         # two queries and K22's other two distances and host parse
         entry.update({key: val for key, val in k.items()
                       if key.startswith(("merge_", "j_", "l_", "dot_",
-                                         "cos_"))
+                                         "cos_", "t1_"))
                       or key in ("solo_pairs_ms", "host_parse_ms",
                                  "graph_ms", "library_graph_ms")})
         line["kernels"].append(entry)

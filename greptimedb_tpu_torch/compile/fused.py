@@ -88,10 +88,12 @@ def try_fused_aggregation(ev, e):
     if sel.at_ts is not None:
         return None  # pinned @: the unfused path says what it supports
     try:
-        prep = ev._prep_window(sel, _FUNC_KIND[func])
+        # allow_bounds=False: the count geometry's state is an unfused-
+        # route accelerator, as in the reference's fused programs
+        prep = ev._prep_window(sel, _FUNC_KIND[func], allow_bounds=False)
     except TableNotFound:
         return None  # unknown metric: unfused produces the empty vector
-    layout, sel_dev, p, tsids, labels, start, _pinned = prep
+    layout, sel_dev, p, tsids, labels, start, _pinned, _bounds = prep
     if len(tsids) == 0:
         return None
     t0 = time.perf_counter()

@@ -60,7 +60,25 @@
 //   compulsory bytes are the S x T outputs plus the gathered rows, so the
 //   kernel is latency-bound far above its byte bound.  The top levels of
 //   the search stay in L2; a per-series range search is later work.
-
+//
+// series_ranges + gather_ts_mat (the count geometry)
+//   Replace the rest of K9: `_series_ranges` (engine.py:348) and
+//   `_gather_ts_mat` (:360), the state of the reference's second window
+//   geometry (`_sorted_window_bounds` with `bounds`, :313-328).
+//   series_ranges: one thread a selected series, two binary searches for
+//   its row range [start, start + cnt) (start int64, cnt int32) and the
+//   largest cnt by one atomicMax a warp, which the wrapper reads once to
+//   size L (the next power of two).  gather_ts_mat: one thread an element
+//   of the [S, L] int64 timestamp matrix, I64_MAX past cnt.  With that
+//   state window_bounds counts, per window, the series' timestamps <= t -
+//   range and <= t in its L-wide row: O(L) sequential compares instead of
+//   two O(log N) dependent searches, the same integer bounds.
+//   counter_window, window_stats and minmax_window take either geometry
+//   with no change to their bodies.
+//   Bound: series_ranges, 2 log2(N) dependent loads a series (latency);
+//   bytes: the selection read and start/cnt written.  gather_ts_mat:
+//   bytes, the S x L matrix written (512 MiB at S = 2^20, L = 64) and the
+//   selected rows' timestamps read once.
 //
 // window_stats
 //   Replaces K10's other kinds of `_window_body` (engine.py:455-499):
@@ -280,6 +298,11 @@ struct Geometry {  // the window grid over one sort layout
   const long long* kp_p;
   const int32_t* sel;
   long long S, T, start_ms, step_ms, range_ms;
+  // the count geometry's state (null: the searchsorted geometry): each
+  // selected series' first sorted row and its [S, L] timestamp matrix
+  const long long* series_start = nullptr;
+  const long long* ts_mat = nullptr;
+  long long L = 0;
 };
 
 struct Bounds {
@@ -289,16 +312,36 @@ struct Bounds {
 };
 
 // Window w = s * T + t of the grid: the sorted-row range [lo, hi) of
-// (step - range, step], engine.py:330-345.
+// (step - range, step].  Two geometries with the same integer bounds on
+// every selected series: the count geometry (engine.py:313-328) when the
+// state is given, each bound the series' first row plus a count of its
+// timestamps <= the threshold (padding holds I64_MAX and never counts),
+// else two binary searches over the whole layout (engine.py:330-345).
 __device__ __forceinline__ Bounds window_bounds(const Geometry& g,
                                                 long long w) {
   const long long s = w / g.T;
   const long long step = g.start_ms + g.step_ms * (w - s * g.T);
-  const long long ts_min = *g.ts_min_p;
-  const long long kp = *g.kp_p;
   const int sel_t = g.sel[s];
   Bounds b;
   b.sel_ok = sel_t >= 0;
+  if (g.ts_mat != nullptr) {
+    const long long* row = g.ts_mat + s * g.L;
+    const long long lo_t = step - g.range_ms;
+    int lo_off = 0, hi_off = 0;
+    for (long long j = 0; j < g.L; ++j) {
+      const long long t = row[j];
+      lo_off += t <= lo_t ? 1 : 0;
+      hi_off += t <= step ? 1 : 0;
+    }
+    const long long start = g.series_start[s];
+    b.lo = start + lo_off;
+    b.hi = start + hi_off;
+    b.cnt = hi_off - lo_off;
+    b.has = b.cnt > 0 && b.sel_ok;
+    return b;
+  }
+  const long long ts_min = *g.ts_min_p;
+  const long long kp = *g.kp_p;
   const long long skey = (b.sel_ok ? (long long)sel_t : 0LL) * kp;
   const long long rel_lo = clampll(step - g.range_ms + 1 - ts_min, 0, kp - 1);
   const long long rel_hi = clampll(step - ts_min, -1, kp - 1);
@@ -400,6 +443,54 @@ __global__ void counter_window_kernel(Geometry g, const long long* ts_s,
   }
   o.rate[i] = extrapolated_rate(ft_i, lt_i, (double)step, fcount, fv, d_adj,
                                 d_raw, counter, is_rate, range_s);
+}
+
+// ---------------------------------------------------------------------------
+// series_ranges, gather_ts_mat: the count geometry's state
+// ---------------------------------------------------------------------------
+
+// Series s's rows in the sorted layout, [start, start + cnt): skey =
+// sel * kp starts the series and skey + kp - 1 lies above its every key
+// (rel <= kp - 2) and below the next series' first (engine.py:349-357).
+// A pad selection (sel < 0) reads series 0's range and gets cnt 0.  The
+// largest count goes to *cnt_max (one atomic a warp), which sizes L.
+__global__ void series_ranges_kernel(const long long* key_s, long long n,
+                                     const long long* kp_p,
+                                     const int32_t* sel, long long S,
+                                     long long* start, int32_t* cnt,
+                                     int* cnt_max) {
+  const long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  int c = 0;
+  if (s < S) {
+    const long long kp = *kp_p;
+    const int sel_t = sel[s];
+    const long long skey = (sel_t >= 0 ? (long long)sel_t : 0LL) * kp;
+    const long long lo = search_left(key_s, n, skey);
+    const long long hi = search_right(key_s, n, skey + (kp - 1));
+    start[s] = lo;
+    c = sel_t >= 0 ? (int)(hi - lo) : 0;
+    cnt[s] = c;
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    const int o = __shfl_down_sync(0xffffffffu, c, off);
+    c = o > c ? o : c;
+  }
+  if ((threadIdx.x & 31) == 0 && c > 0) atomicMax(cnt_max, c);
+}
+
+// The [S, L] timestamp matrix (engine.py:360-368): ts_s[start + j] for j
+// < cnt, I64_MAX after, so a threshold count never takes the padding.
+// Only j < cnt reads ts_s, and there start + j < n: a pad row or a series
+// starting at n reads nothing.  One thread an element, row-major.
+__global__ void gather_ts_mat_kernel(const long long* ts_s,
+                                     const long long* start,
+                                     const int32_t* cnt, long long S,
+                                     long long L, long long* out) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= S * L) return;
+  const long long s = i / L;
+  const long long j = i - s * L;
+  out[i] = j < cnt[s] ? ts_s[start[s] + j] : kI64Max;
 }
 
 // ---------------------------------------------------------------------------
@@ -811,21 +902,46 @@ int gt_layout_gather(const long long* key_sorted, const int32_t* idx,
   return 0;
 }
 
+int gt_series_ranges(const long long* key_s, long long n,
+                     const long long* kp, const int32_t* sel, long long S,
+                     long long* start, int32_t* cnt, int* cnt_max,
+                     void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (int e = (int)cudaMemsetAsync(cnt_max, 0, sizeof(int), st)) return e;
+  if (S <= 0) return (int)cudaGetLastError();
+  series_ranges_kernel<<<blocks_for(S), kThreads, 0, st>>>(
+      key_s, n, kp, sel, S, start, cnt, cnt_max);
+  return last_error();
+}
+
+int gt_gather_ts_mat(const long long* ts_s, const long long* start,
+                     const int32_t* cnt, long long S, long long L,
+                     long long* out, void* stream) {
+  if (S * L <= 0) return (int)cudaGetLastError();
+  gather_ts_mat_kernel<<<blocks_for(S * L), kThreads, 0,
+                         (cudaStream_t)stream>>>(ts_s, start, cnt, S, L,
+                                                 out);
+  return last_error();
+}
+
 int gt_counter_window(const long long* key_s, const long long* ts_s,
                       const float* val_s, const double* gdrop, long long n,
                       const long long* ts_min, const long long* kp,
                       const int32_t* sel, long long S, long long T,
                       long long start_ms, long long step_ms,
-                      long long range_ms, int mode, int counter, int is_rate,
-                      double range_s, float* count, long long* first_ts,
-                      long long* last_ts, float* first_val, float* last_val,
-                      float* delta_adj, float* delta_raw, float* last,
-                      float* rate, void* stream) {
+                      long long range_ms, const long long* series_start,
+                      const long long* ts_mat, long long L, int mode,
+                      int counter, int is_rate, double range_s, float* count,
+                      long long* first_ts, long long* last_ts,
+                      float* first_val, float* last_val, float* delta_adj,
+                      float* delta_raw, float* last, float* rate,
+                      void* stream) {
   const long long total = S * T;
   if (total <= 0 || n <= 0) return (int)cudaGetLastError();
   WindowOut o{count, first_ts, last_ts, first_val, last_val,
               delta_adj, delta_raw, last, rate};
-  Geometry g{key_s, n, ts_min, kp, sel, S, T, start_ms, step_ms, range_ms};
+  Geometry g{key_s, n, ts_min, kp, sel, S, T, start_ms, step_ms, range_ms,
+             series_start, ts_mat, L};
   counter_window_kernel<<<blocks_for(total), kThreads, 0,
                           (cudaStream_t)stream>>>(
       g, ts_s, val_s, gdrop, mode, counter, is_rate, range_s, o);
@@ -837,7 +953,9 @@ int gt_window_stats(const long long* key_s, const long long* ts_s,
                     const float* val_s, long long n, const long long* ts_min,
                     const long long* kp, const int32_t* sel, long long S,
                     long long T, long long start_ms, long long step_ms,
-                    long long range_ms, int kind, float* count, float* sum,
+                    long long range_ms, const long long* series_start,
+                    const long long* ts_mat, long long L, int kind,
+                    float* count, float* sum,
                     float* avg, float* var, float* last, float* first,
                     long long* first_ts, long long* last_ts, float* resets,
                     float* changes, float* slope, float* intercept,
@@ -845,7 +963,8 @@ int gt_window_stats(const long long* key_s, const long long* ts_s,
                     void* stream) {
   const long long total = S * T;
   if (total <= 0 || n <= 0) return (int)cudaGetLastError();
-  Geometry g{key_s, n, ts_min, kp, sel, S, T, start_ms, step_ms, range_ms};
+  Geometry g{key_s, n, ts_min, kp, sel, S, T, start_ms, step_ms, range_ms,
+             series_start, ts_mat, L};
   StatsOut o{count, sum, avg, var, last, first, first_ts, last_ts, resets,
              changes, slope, intercept, prev_ts, last_val, prev_val};
   window_stats_kernel<<<blocks_for(total), kThreads, 0,
@@ -857,11 +976,13 @@ int gt_minmax_window(const long long* key_s, const float* val_s, long long n,
                      const long long* ts_min, const long long* kp,
                      const int32_t* sel, long long S, long long T,
                      long long start_ms, long long step_ms,
-                     long long range_ms, float* out_min, float* out_max,
-                     void* stream) {
+                     long long range_ms, const long long* series_start,
+                     const long long* ts_mat, long long L, float* out_min,
+                     float* out_max, void* stream) {
   const long long total = S * T;
   if (total <= 0 || n <= 0) return (int)cudaGetLastError();
-  Geometry g{key_s, n, ts_min, kp, sel, S, T, start_ms, step_ms, range_ms};
+  Geometry g{key_s, n, ts_min, kp, sel, S, T, start_ms, step_ms, range_ms,
+             series_start, ts_mat, L};
   minmax_window_kernel<<<blocks_for(total), kThreads, 0,
                          (cudaStream_t)stream>>>(g, val_s, out_min, out_max);
   return last_error();

@@ -52,6 +52,10 @@
 //   (__match_any_sync groups a warp's lanes by bucket); the first ng threads also
 //   write the group's k_min and c into columns nb and nb + 1.  Counts add
 //   exactly in any order.
+//   The two passes also run alone (`passes`): the mesh's local phase
+//   (greptimedb_tpu/parallel/dist.py:404-424) runs pass 1 on each shard,
+//   merges the shards' extremes into the global ones, then runs pass 2 on
+//   each shard against those, so every shard buckets with one collapse.
 //   Merge mode: one block a row adds its vocabulary count row into its
 //   group (int64 atomicAdd) and thread 0 folds the row's config id into the
 //   group's (min, max) columns.
@@ -118,6 +122,11 @@ __global__ void hll_merge_kernel(const int32_t* __restrict__ codes,
     if (v > 0) atomicMax(&dst[r], v);
   }
 }
+
+// gt_udd_fold's passes: the key extremes, the bucket counts, or both.  The
+// mesh runs them apart, with the shards' extremes merged in between.
+constexpr int kUddExtremes = 1;
+constexpr int kUddCounts = 2;
 
 template <typename T>
 __device__ __forceinline__ bool udd_key(const T* vals, long long i,
@@ -299,10 +308,10 @@ int gt_hll_merge(const int32_t* codes, const int32_t* vocab, long long nv,
 // int64 zeroed.
 int gt_udd_fold(const void* vals, int is_f64, const int32_t* gid,
                 const bool* mask, long long n, long long ng,
-                double log_gamma, long long nb, long long* kmin,
+                double log_gamma, long long nb, int passes, long long* kmin,
                 long long* kmax, long long* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n > 0) {
+  if ((passes & kUddExtremes) && n > 0) {
     if (is_f64)
       udd_extremes_kernel<double><<<blocks(n), kThreads, 0, s>>>(
           static_cast<const double*>(vals), gid, mask, n, ng, log_gamma,
@@ -315,7 +324,7 @@ int gt_udd_fold(const void* vals, int is_f64, const int32_t* gid,
     if (e != cudaSuccess) return (int)e;
   }
   const long long m = n > ng ? n : ng;
-  if (m > 0) {
+  if ((passes & kUddCounts) && m > 0) {
     if (is_f64)
       udd_count_kernel<double><<<blocks(m), kThreads, 0, s>>>(
           static_cast<const double*>(vals), gid, mask, n, ng, log_gamma, nb,

@@ -1,4 +1,5 @@
-"""The PromQL kernels: prefix_scan, sort_layout and counter_window.
+"""The PromQL kernels: prefix_scan, sort_layout, the count geometry's
+series_ranges and gather_ts_mat, and the window kernels.
 
 Hand-written CUDA kernels (``csrc/promql_kernels.cu``) carry the device
 work of the PromQL range-vector path; each has a plain PyTorch version
@@ -15,6 +16,11 @@ incremented only where it launches its kernel.
 - ``counter_window`` replaces K9's searchsorted geometry
   (``engine.py:288``), K10's ``counter``/``instant`` kinds (``:383``) and,
   in rate mode, the ``_extrapolated`` epilogue (``:1839``) of K11.
+- ``series_ranges`` and ``gather_ts_mat`` replace the rest of K9,
+  ``_series_ranges`` (``:348``) and ``_gather_ts_mat`` (``:360``): the
+  state of the count geometry (``:313-328``), which ``counter_window``,
+  ``window_stats`` and ``minmax_window`` take through ``bounds`` in place
+  of their binary searches, with the same integer bounds.
 - ``window_stats`` replaces K10's other kinds (``gauge_window``,
   ``counter_rc``, ``regression``, ``irate``; ``engine.py:455-499``): it
   sums each window directly in f64 where the reference differences
@@ -101,12 +107,15 @@ def _load():
             "gt_radix_pass": [vp, vp, ll, i, vp, vp, vp, vp, vp],
             "gt_layout_gather": [vp, vp, vp, vp, vp, vp, ll, vp, vp, vp, vp,
                                  vp, vp],
+            "gt_series_ranges": [vp, ll, vp, vp, ll, vp, vp, vp, vp],
+            "gt_gather_ts_mat": [vp, vp, vp, ll, ll, vp, vp],
             "gt_counter_window": [vp, vp, vp, vp, ll, vp, vp, vp, ll, ll, ll,
-                                  ll, ll, i, i, i, d] + [vp] * 10,
+                                  ll, ll, vp, vp, ll, i, i, i, d]
+            + [vp] * 10,
             "gt_window_stats": [vp, vp, vp, ll, vp, vp, vp, ll, ll, ll, ll,
-                                ll, i] + [vp] * 16,
+                                ll, vp, vp, ll, i] + [vp] * 16,
             "gt_minmax_window": [vp, vp, ll, vp, vp, vp, ll, ll, ll, ll, ll,
-                                 vp, vp, vp],
+                                 vp, vp, ll, vp, vp, vp],
             "gt_window_count_max": [vp, ll, vp, vp, vp, ll, ll, ll, ll, ll,
                                     vp, vp],
             "gt_window_matrix": [vp, vp, ll, vp, vp, vp, ll, ll, ll, ll, ll,
@@ -261,19 +270,127 @@ sort_layout.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# series_ranges + gather_ts_mat: the count geometry's state (K9)
+# ---------------------------------------------------------------------------
+
+def series_ranges_plain(key_s, kp, sel):
+    """The reference's ``_series_ranges`` (engine.py:348): each selected
+    series' rows ``[start, start + cnt)`` of the sorted layout (``start``
+    int64, ``cnt`` int32, 0 on pad selections), and the largest count."""
+    sel_ok = sel >= 0
+    skey = torch.where(sel_ok, sel.to(torch.int64), 0) * kp
+    start = torch.searchsorted(key_s, skey, side="left")
+    end = torch.searchsorted(key_s, skey + (kp - 1), side="right")
+    cnt = torch.where(sel_ok, (end - start).to(torch.int32), 0)
+    return start, cnt, int(cnt.max()) if cnt.numel() else 0
+
+
+def series_ranges(key_s, kp, sel):
+    """``(start [S] int64, cnt [S] int32, cnt_max)`` of the selected series
+    ``sel`` ``[S]`` int32 (padding -1) over a sort layout's ``key_s`` and
+    ``kp``.  ``cnt_max`` is a Python int: reading it is the one host sync
+    of the count geometry, as in the reference."""
+    key_s = _flat("series_ranges", key_s, torch.int64)
+    sel = _flat("series_ranges", sel, torch.int32)
+    if _on_cpu("series_ranges", key_s, sel, kp):
+        return series_ranges_plain(key_s, kp, sel)
+    if kp.dtype != torch.int64:
+        raise ValueError("series_ranges: kp must be int64")
+    S, dev = sel.shape[0], key_s.device
+    start = torch.empty(S, dtype=torch.int64, device=dev)
+    cnt = torch.empty(S, dtype=torch.int32, device=dev)
+    cnt_max = torch.empty(1, dtype=torch.int32, device=dev)
+    rc = _load().gt_series_ranges(
+        key_s.data_ptr(), key_s.shape[0], kp.data_ptr(), sel.data_ptr(), S,
+        start.data_ptr(), cnt.data_ptr(), cnt_max.data_ptr(),
+        _stream_ptr(key_s))
+    series_ranges.launches += 1
+    _check(rc, "series_ranges")
+    return start, cnt, int(cnt_max.item())
+
+
+series_ranges.launches = 0
+
+
+def gather_ts_mat_plain(ts_s, start, cnt, L: int):
+    """The reference's ``_gather_ts_mat`` (engine.py:360): ``[S, L]`` int64,
+    ``ts_s[clip(start + j, 0, n - 1)]`` where ``j < cnt``, else I64_MAX."""
+    n = ts_s.shape[0]
+    j = torch.arange(L, dtype=torch.int64, device=ts_s.device)
+    idx = torch.clamp(start[:, None] + j[None, :], 0, max(n - 1, 0))
+    mat = ts_s[idx] if n else torch.zeros(idx.shape, dtype=torch.int64,
+                                          device=ts_s.device)
+    return torch.where(j[None, :] < cnt[:, None], mat, I64_MAX)
+
+
+def gather_ts_mat(ts_s, start, cnt, L: int):
+    """The count geometry's ``[S, L]`` timestamp matrix of the series rows
+    ``series_ranges`` found (padding I64_MAX)."""
+    n = ts_s.shape[0]
+    ts_s = _flat("gather_ts_mat", ts_s, torch.int64)
+    start = _flat("gather_ts_mat", start, torch.int64)
+    cnt = _flat("gather_ts_mat", cnt, torch.int32, start.shape[0])
+    if L < 1:
+        raise ValueError(f"gather_ts_mat: L must be >= 1, got {L}")
+    if _on_cpu("gather_ts_mat", ts_s, start, cnt):
+        return gather_ts_mat_plain(ts_s, start, cnt, L)
+    S = start.shape[0]
+    out = torch.empty((S, L), dtype=torch.int64, device=ts_s.device)
+    rc = _load().gt_gather_ts_mat(ts_s.data_ptr() if n else None,
+                                  start.data_ptr(), cnt.data_ptr(), S, L,
+                                  out.data_ptr(), _stream_ptr(ts_s))
+    gather_ts_mat.launches += 1
+    _check(rc, "gather_ts_mat")
+    return out
+
+
+gather_ts_mat.launches = 0
+
+
+def _bounds_args(what: str, bounds, S: int):
+    """Validated ``(series_start, cnt, ts_mat)`` of the count geometry (or
+    None, the searchsorted geometry): ``(tensors, start_ptr, ts_mat_ptr,
+    L)`` for a kernel's entry point."""
+    if bounds is None:
+        return [], None, None, 0
+    start, cnt, ts_mat = bounds
+    start = _flat(what, start, torch.int64, S)
+    cnt = _flat(what, cnt, torch.int32, S)
+    if (ts_mat.dtype != torch.int64 or ts_mat.dim() != 2
+            or ts_mat.shape[0] != S or ts_mat.shape[1] < 1):
+        raise ValueError(f"{what}: ts_mat must be int64 [{S}, L], got "
+                         f"{ts_mat.dtype} {tuple(ts_mat.shape)}")
+    ts_mat = ts_mat.contiguous()
+    return ([start, cnt, ts_mat], start.data_ptr(), ts_mat.data_ptr(),
+            ts_mat.shape[1])
+
+
+# ---------------------------------------------------------------------------
 # counter_window
 # ---------------------------------------------------------------------------
 
 def window_bounds_plain(key_s, ts_min, kp, sel, start_ms: int, step_ms: int,
-                        num_steps: int, range_ms: int):
-    """The reference's searchsorted geometry (engine.py:330-345): per
-    (series, step) the half-open sorted-row range ``[lo, hi)`` of the
-    left-exclusive window ``(t - range, t]``.  Returns
-    ``(lo, hi, cnt, has, sel_ok)``."""
+                        num_steps: int, range_ms: int, bounds=None):
+    """Per (series, step) the half-open sorted-row range ``[lo, hi)`` of
+    the left-exclusive window ``(t - range, t]``: the reference's
+    searchsorted geometry (engine.py:330-345), or with ``bounds`` =
+    ``(series_start, cnt, ts_mat)`` its count geometry (:313-328), which
+    gives the same bounds on every selected series (pad rows differ; both
+    leave them empty).  Returns ``(lo, hi, cnt, has, sel_ok)``."""
     S = sel.shape[0]
     steps = start_ms + step_ms * torch.arange(num_steps, dtype=torch.int64,
                                               device=key_s.device)
     sel_ok = sel >= 0
+    if bounds is not None:
+        series_start, _cnt, ts_mat = bounds
+        lo_off = (ts_mat[:, None, :] <= (steps - range_ms)[None, :, None]
+                  ).sum(-1, dtype=torch.int32)
+        hi_off = (ts_mat[:, None, :] <= steps[None, :, None]).sum(
+            -1, dtype=torch.int32)
+        cnt = hi_off - lo_off
+        has = (cnt > 0) & sel_ok[:, None]
+        return (series_start[:, None] + lo_off,
+                series_start[:, None] + hi_off, cnt, has, sel_ok)
     skey = torch.where(sel_ok, sel.to(torch.int64), 0) * kp
     zero = torch.zeros((), dtype=torch.int64, device=key_s.device)
     rel_lo = torch.minimum(torch.maximum(steps - range_ms + 1 - ts_min, zero),
@@ -291,12 +408,14 @@ def window_bounds_plain(key_s, ts_min, kp, sel, start_ms: int, step_ms: int,
 
 
 def counter_stats_plain(kind, key_s, ts_s, val_s, gdrop, ts_min, kp, sel,
-                       start_ms, step_ms, num_steps, range_ms) -> dict:
+                       start_ms, step_ms, num_steps, range_ms,
+                       bounds=None) -> dict:
     """The reference's window body (engine.py:401-454) for the
     ``instant`` and ``counter`` kinds: ``[S, T]`` outputs of KIND_KEYS."""
     n = key_s.shape[0]
     lo, hi, cnt, has, sel_ok = window_bounds_plain(
-        key_s, ts_min, kp, sel, start_ms, step_ms, num_steps, range_ms)
+        key_s, ts_min, kp, sel, start_ms, step_ms, num_steps, range_ms,
+        bounds)
     has2 = (cnt >= 2) & sel_ok[:, None]
     first_i = torch.clamp(lo, 0, n - 1)
     last_i = torch.clamp(hi - 1, 0, n - 1)
@@ -356,11 +475,13 @@ def extrapolated(out: dict, range_s: float, range_end_ms,
 
 
 def counter_window_plain(layout, gdrop, sel, start_ms, *, step_ms,
-                         num_steps, range_ms, kind, func=None, range_s=None):
+                         num_steps, range_ms, kind, func=None, range_s=None,
+                         bounds=None):
     key_s, ts_s, val_s, _tsid_s, _valid_s, ts_min, kp = layout
     stats_kind = "counter" if kind == "rate" else kind
     out = counter_stats_plain(stats_kind, key_s, ts_s, val_s, gdrop, ts_min,
-                              kp, sel, start_ms, step_ms, num_steps, range_ms)
+                              kp, sel, start_ms, step_ms, num_steps, range_ms,
+                              bounds)
     if kind != "rate":
         return out
     range_end = start_ms + step_ms * torch.arange(
@@ -371,13 +492,16 @@ def counter_window_plain(layout, gdrop, sel, start_ms, *, step_ms,
 
 def counter_window(layout, gdrop, sel, start_ms: int, *, step_ms: int,
                    num_steps: int, range_ms: int, kind: str, func=None,
-                   range_s: float | None = None):
+                   range_s: float | None = None, bounds=None):
     """Window statistics of the selected series over a sort layout.
 
     ``layout`` is ``sort_layout``'s tuple, ``sel`` ``[S]`` int32 selected
     tsids (padding -1), ``gdrop`` the layout's ``prefix_scan`` (the
     ``counter`` and ``rate`` kinds; None for ``instant``).  Windows are
-    ``(t - range_ms, t]`` at ``t = start_ms + step_ms * j``.
+    ``(t - range_ms, t]`` at ``t = start_ms + step_ms * j``, their bounds
+    from the searchsorted geometry or, with ``bounds`` = ``(series_start,
+    cnt, ts_mat)`` (``series_ranges`` + ``gather_ts_mat``), the count
+    geometry.
     ``kind`` ``instant``/``counter`` returns the dict of ``KIND_KEYS`` ``[S,
     T]`` tensors; ``rate`` returns ``[S, T]`` f32 of ``func``
     (rate/increase/delta) over ``range_s`` seconds."""
@@ -393,7 +517,9 @@ def counter_window(layout, gdrop, sel, start_ms: int, *, step_ms: int,
     ts_s = _flat("counter_window", ts_s, torch.int64, n)
     val_s = _flat("counter_window", val_s, torch.float32, n)
     sel = _flat("counter_window", sel, torch.int32)
-    tensors = [key_s, ts_s, val_s, sel, ts_min, kp]
+    btensors, bstart, bmat, L = _bounds_args("counter_window", bounds,
+                                             sel.shape[0])
+    tensors = [key_s, ts_s, val_s, sel, ts_min, kp, *btensors]
     if kind != "instant":
         gdrop = _flat("counter_window", gdrop, torch.float64, n)
         tensors.append(gdrop)
@@ -401,7 +527,8 @@ def counter_window(layout, gdrop, sel, start_ms: int, *, step_ms: int,
         return counter_window_plain(
             (key_s, ts_s, val_s, None, None, ts_min, kp), gdrop, sel,
             start_ms, step_ms=step_ms, num_steps=num_steps,
-            range_ms=range_ms, kind=kind, func=func, range_s=range_s)
+            range_ms=range_ms, kind=kind, func=func, range_s=range_s,
+            bounds=btensors or None)
     S, T, dev = sel.shape[0], int(num_steps), key_s.device
     if ts_min.dtype != torch.int64 or kp.dtype != torch.int64:
         raise ValueError("counter_window: ts_min/kp must be int64")
@@ -420,8 +547,8 @@ def counter_window(layout, gdrop, sel, start_ms: int, *, step_ms: int,
     rc = _load().gt_counter_window(
         key_s.data_ptr(), ts_s.data_ptr(), val_s.data_ptr(), _ptr(gdrop), n,
         ts_min.data_ptr(), kp.data_ptr(), sel.data_ptr(), S, T,
-        int(start_ms), int(step_ms), int(range_ms), _MODES[kind],
-        int(func != "delta"), int(func == "rate"),
+        int(start_ms), int(step_ms), int(range_ms), bstart, bmat, L,
+        _MODES[kind], int(func != "delta"), int(func == "rate"),
         float(range_s) if range_s is not None else 0.0,
         *(_ptr(outs.get(k)) for k in order), _stream_ptr(key_s))
     counter_window.launches += 1
@@ -500,14 +627,15 @@ def _cs(x: torch.Tensor) -> torch.Tensor:
 
 
 def window_stats_plain(kind, layout, sel, start_ms, *, step_ms, num_steps,
-                       range_ms) -> dict:
+                       range_ms, bounds=None) -> dict:
     """The reference's window body (engine.py:401-499) for the
     ``gauge_window``, ``counter_rc``, ``regression`` and ``irate`` kinds,
     by its full-table f64 prefix-sum differences."""
     key_s, ts_s, val_s, tsid_s, valid_s, ts_min, kp = layout
     n = key_s.shape[0]
     lo, hi, cnt, has, sel_ok = window_bounds_plain(
-        key_s, ts_min, kp, sel, start_ms, step_ms, num_steps, range_ms)
+        key_s, ts_min, kp, sel, start_ms, step_ms, num_steps, range_ms,
+        bounds)
     has2 = (cnt >= 2) & sel_ok[:, None]
     first_i = torch.clamp(lo, 0, n - 1)
     last_i = torch.clamp(hi - 1, 0, n - 1)
@@ -596,21 +724,26 @@ def var_slack(val_s, valid_s, cnt, sums) -> torch.Tensor:
 
 
 def window_stats(layout, sel, start_ms: int, *, step_ms: int,
-                 num_steps: int, range_ms: int, kind: str) -> dict:
+                 num_steps: int, range_ms: int, kind: str,
+                 bounds=None) -> dict:
     """Window statistics of ``kind`` (``gauge_window``, ``counter_rc``,
     ``regression``, ``irate``) of the selected series over a sort layout:
     the dict of ``KIND_KEYS[kind]`` ``[S, T]`` tensors (``*_ts`` int64,
     the rest f32), for windows ``(t - range_ms, t]`` at
     ``t = start_ms + step_ms * j``.  ``regression`` measures time in
-    seconds from ``start_ms``."""
+    seconds from ``start_ms``.  ``bounds``: the count geometry's state, as
+    for ``counter_window``."""
     if kind not in _STATS_KINDS:
         raise ValueError(f"window_stats: unknown kind {kind!r}")
     key_s, ts_s, val_s, sel, ts_min, kp = _layout_inputs(
         "window_stats", layout, sel)
-    if _on_cpu("window_stats", key_s, ts_s, val_s, sel, ts_min, kp):
+    btensors, bstart, bmat, L = _bounds_args("window_stats", bounds,
+                                             sel.shape[0])
+    if _on_cpu("window_stats", key_s, ts_s, val_s, sel, ts_min, kp,
+               *btensors):
         return window_stats_plain(kind, layout, sel, start_ms,
                                   step_ms=step_ms, num_steps=num_steps,
-                                  range_ms=range_ms)
+                                  range_ms=range_ms, bounds=btensors or None)
     S, T, n, dev = sel.shape[0], int(num_steps), key_s.shape[0], key_s.device
     outs = {k: torch.empty((S, T), dtype=torch.int64 if k.endswith("_ts")
                            else torch.float32, device=dev)
@@ -621,7 +754,8 @@ def window_stats(layout, sel, start_ms: int, *, step_ms: int,
     rc = _load().gt_window_stats(
         key_s.data_ptr(), ts_s.data_ptr(), val_s.data_ptr(), n,
         ts_min.data_ptr(), kp.data_ptr(), sel.data_ptr(), S, T,
-        int(start_ms), int(step_ms), int(range_ms), _STATS_KINDS[kind],
+        int(start_ms), int(step_ms), int(range_ms), bstart, bmat, L,
+        _STATS_KINDS[kind],
         *(_ptr(outs.get(k)) for k in order), _stream_ptr(key_s))
     window_stats.launches += 1
     _check(rc, "window_stats")
@@ -636,7 +770,7 @@ window_stats.launches = 0
 # ---------------------------------------------------------------------------
 
 def minmax_window_plain(layout, sel, start_ms, *, step_ms, num_steps,
-                        range_ms) -> dict:
+                        range_ms, bounds=None) -> dict:
     """min/max of each window's samples, gathered by the window bounds
     (the reference scatters each sample into every window it falls in;
     the same sets, so the same extremes).  A window without samples, or
@@ -644,7 +778,8 @@ def minmax_window_plain(layout, sel, start_ms, *, step_ms, num_steps,
     key_s, _ts_s, val_s, _tsid_s, _valid_s, ts_min, kp = layout
     n = key_s.shape[0]
     lo, _hi, cnt, has, _sel_ok = window_bounds_plain(
-        key_s, ts_min, kp, sel, start_ms, step_ms, num_steps, range_ms)
+        key_s, ts_min, kp, sel, start_ms, step_ms, num_steps, range_ms,
+        bounds)
     width = max(int(cnt.max()) if cnt.numel() else 0, 1)
     j = torch.arange(width, device=key_s.device)
     ok = (j < cnt[..., None]) & has[..., None]
@@ -658,23 +793,27 @@ def minmax_window_plain(layout, sel, start_ms, *, step_ms, num_steps,
 
 
 def minmax_window(layout, sel, start_ms: int, *, step_ms: int,
-                  num_steps: int, range_ms: int) -> dict:
+                  num_steps: int, range_ms: int, bounds=None) -> dict:
     """``{"min", "max"}`` ``[S, T]`` f32 of each window ``(t - range_ms,
     t]`` of the selected series over a sort layout (NaN where a window is
-    empty or its extreme is infinite).  Exact."""
+    empty or its extreme is infinite).  Exact.  ``bounds``: the count
+    geometry's state, as for ``counter_window``."""
     key_s, ts_s, val_s, sel, ts_min, kp = _layout_inputs(
         "minmax_window", layout, sel)
-    if _on_cpu("minmax_window", key_s, val_s, sel, ts_min, kp):
+    btensors, bstart, bmat, L = _bounds_args("minmax_window", bounds,
+                                             sel.shape[0])
+    if _on_cpu("minmax_window", key_s, val_s, sel, ts_min, kp, *btensors):
         return minmax_window_plain(layout, sel, start_ms, step_ms=step_ms,
-                                   num_steps=num_steps, range_ms=range_ms)
+                                   num_steps=num_steps, range_ms=range_ms,
+                                   bounds=btensors or None)
     S, T, dev = sel.shape[0], int(num_steps), key_s.device
     mn = torch.empty((S, T), dtype=torch.float32, device=dev)
     mx = torch.empty_like(mn)
     rc = _load().gt_minmax_window(
         key_s.data_ptr(), val_s.data_ptr(), key_s.shape[0],
         ts_min.data_ptr(), kp.data_ptr(), sel.data_ptr(), S, T,
-        int(start_ms), int(step_ms), int(range_ms), mn.data_ptr(),
-        mx.data_ptr(), _stream_ptr(key_s))
+        int(start_ms), int(step_ms), int(range_ms), bstart, bmat, L,
+        mn.data_ptr(), mx.data_ptr(), _stream_ptr(key_s))
     minmax_window.launches += 1
     _check(rc, "minmax_window")
     return {"min": mn, "max": mx}
@@ -1004,6 +1143,8 @@ subquery_counter.launches = 0
 
 def reset_launch_counts() -> None:
     prefix_scan.launches = 0
+    series_ranges.launches = 0
+    gather_ts_mat.launches = 0
     sort_layout.launches = 0
     counter_window.launches = 0
     window_stats.launches = 0

@@ -13,7 +13,9 @@ wrapper launches it (both modes of a kernel count on it).
   merge mode (``:80`` ``hll_merge_fold``).
 - ``udd_fold`` replaces K19 (``ops/sketch.py:136-200``: ``udd_keys``,
   ``udd_key_extremes``, ``udd_bucket_counts``, ``udd_fold``);
-  ``udd_merge`` is its merge mode (``:203`` ``udd_merge_fold``).
+  ``udd_merge`` is its merge mode (``:203`` ``udd_merge_fold``);
+  ``udd_extremes`` runs its key pass alone and ``udd_fold(extremes=...)``
+  its count pass alone, for the mesh's local phase.
 
 Where the reference's CPU arithmetic and its own docstrings part, the port
 keeps the docstrings, in integers on both routes:
@@ -73,7 +75,8 @@ def _load():
         sigs = {
             "gt_hll_fold": [vp, i, vp, vp, ll, ll, vp, vp],
             "gt_hll_merge": [vp, vp, ll, vp, vp, ll, ll, vp, vp],
-            "gt_udd_fold": [vp, i, vp, vp, ll, ll, d, ll, vp, vp, vp, vp],
+            "gt_udd_fold": [vp, i, vp, vp, ll, ll, d, ll, i, vp, vp, vp,
+                            vp],
             "gt_udd_merge": [vp, vp, ll, ll, vp, vp, vp, ll, ll, vp, vp],
         }
         for name, args in sigs.items():
@@ -279,10 +282,18 @@ def udd_bucket_counts_plain(k, ok, gid, ng: int, nb: int, kmin, kmax):
     return grid[:-1].reshape(ng, nb), c
 
 
-def udd_fold_plain(vals, gid, ng: int, mask, gamma: float, nb: int):
+def udd_extremes_plain(vals, gid, ng: int, mask, gamma: float):
+    mask = _rows_args("udd_extremes", vals, gid, ng, mask)
+    k, ok = udd_keys_plain(vals, mask, gamma)
+    return udd_key_extremes_plain(k, ok, gid, ng)
+
+
+def udd_fold_plain(vals, gid, ng: int, mask, gamma: float, nb: int,
+                   extremes=None):
     mask = _rows_args("udd_fold", vals, gid, ng, mask)
     k, ok = udd_keys_plain(vals, mask, gamma)
-    kmin, kmax = udd_key_extremes_plain(k, ok, gid, ng)
+    kmin, kmax = (udd_key_extremes_plain(k, ok, gid, ng) if extremes is None
+                  else extremes)
     counts, c = udd_bucket_counts_plain(k, ok, gid, ng, nb, kmin, kmax)
     return torch.cat([counts, kmin[:, None], c[:, None]], dim=1)
 
@@ -305,27 +316,62 @@ def udd_merge_plain(codes, vocab, cfg_ids, gid, ng: int, mask=None):
     return torch.cat([grid[:ng], cmin[:ng, None], cmax[:ng, None]], dim=1)
 
 
-def udd_fold(vals, gid, ng: int, mask, gamma: float, nb: int):
-    """[ng, nb + 2] int64: the bucket counts of ``vals`` (f32 or f64)
-    per group, then k_min and the collapse factor c."""
-    mask = _rows_args("udd_fold", vals, gid, ng, mask)
-    if nb < 1:
-        raise ValueError("udd_fold: nb must be >= 1")
-    if _on_cpu("udd_fold", vals, gid, mask):
-        return udd_fold_plain(vals, gid, ng, mask, gamma, nb)
+def _udd_launch(what, vals, gid, ng, mask, gamma, nb, passes, kmin, kmax,
+                out):
     if vals.dtype not in (torch.float32, torch.float64):
         vals = vals.to(torch.float64)
     vals, gid, mask = vals.contiguous(), _i32(gid), mask.contiguous()
+    rc = _load().gt_udd_fold(
+        vals.data_ptr(), int(vals.dtype == torch.float64), gid.data_ptr(),
+        mask.data_ptr(), gid.shape[0], ng, math.log(gamma), nb, passes,
+        kmin.data_ptr(), kmax.data_ptr(),
+        out.data_ptr() if out is not None else None, _stream_ptr(gid))
+    udd_fold.launches += 1
+    _check(rc, what)
+
+
+def udd_extremes(vals, gid, ng: int, mask, gamma: float):
+    """The key pass of ``udd_fold`` alone: per group (k_min, k_max) int64
+    [ng] of the live rows' base-gamma keys, the sentinels (2^30, -2^30)
+    where a group has none.  The mesh merges these across shards and hands
+    the global extremes to ``udd_fold(extremes=...)``."""
+    mask = _rows_args("udd_extremes", vals, gid, ng, mask)
+    if _on_cpu("udd_extremes", vals, gid, mask):
+        return udd_extremes_plain(vals, gid, ng, mask, gamma)
     dev = gid.device
     kmin = torch.full((ng,), K_SENTINEL, dtype=torch.int64, device=dev)
     kmax = torch.full((ng,), -K_SENTINEL, dtype=torch.int64, device=dev)
+    _udd_launch("udd_fold (extremes)", vals, gid, ng, mask, gamma, 1, 1,
+                kmin, kmax, None)
+    return kmin, kmax
+
+
+def udd_fold(vals, gid, ng: int, mask, gamma: float, nb: int,
+             extremes=None):
+    """[ng, nb + 2] int64: the bucket counts of ``vals`` (f32 or f64)
+    per group, then k_min and the collapse factor c.  ``extremes``:
+    (k_min, k_max) int64 [ng] from outside (the mesh's global extremes)
+    in place of the groups' own; the key pass is then skipped."""
+    mask = _rows_args("udd_fold", vals, gid, ng, mask)
+    if nb < 1:
+        raise ValueError("udd_fold: nb must be >= 1")
+    if extremes is not None and any(
+            e.dtype != torch.int64 or e.shape != (ng,) for e in extremes):
+        raise ValueError(f"udd_fold: extremes must be int64 [{ng}]")
+    if _on_cpu("udd_fold", vals, gid, mask,
+               *(extremes if extremes is not None else ())):
+        return udd_fold_plain(vals, gid, ng, mask, gamma, nb, extremes)
+    dev = gid.device
+    if extremes is None:
+        kmin = torch.full((ng,), K_SENTINEL, dtype=torch.int64, device=dev)
+        kmax = torch.full((ng,), -K_SENTINEL, dtype=torch.int64, device=dev)
+        passes = 3
+    else:
+        kmin, kmax = (e.contiguous() for e in extremes)
+        passes = 2
     out = torch.zeros((ng, nb + 2), dtype=torch.int64, device=dev)
-    rc = _load().gt_udd_fold(
-        vals.data_ptr(), int(vals.dtype == torch.float64), gid.data_ptr(),
-        mask.data_ptr(), gid.shape[0], ng, math.log(gamma), nb,
-        kmin.data_ptr(), kmax.data_ptr(), out.data_ptr(), _stream_ptr(gid))
-    udd_fold.launches += 1
-    _check(rc, "udd_fold")
+    _udd_launch("udd_fold", vals, gid, ng, mask, gamma, nb, passes, kmin,
+                kmax, out)
     return out
 
 

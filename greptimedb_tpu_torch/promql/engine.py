@@ -305,6 +305,12 @@ def group_reduce(v: torch.Tensor, layout: gk.GroupLayout,
 # Window geometry parameters
 # ---------------------------------------------------------------------------
 
+# the count geometry serves evaluations of at most this many steps whose
+# S·T·L compare sweep stays within the cap (the reference's
+# ``_prep_window``): beyond them the binary searches are cheaper
+BOUNDS_MAX_STEPS = 64
+BOUNDS_COMPARE_CAP = 1 << 27
+
 @dataclass(frozen=True)
 class WindowParams:
     """Shape of one window evaluation: step, steps, window width (the
@@ -426,6 +432,56 @@ class SelectorData:
                 self.events["sort_reject"] += 1
         return arrays
 
+    def window_bounds(self, fieldcol: str, layout: tuple, sel_dev,
+                      matcher_key: tuple, num_steps: int):
+        """The resident count-geometry state of one (selection, field):
+        each selected series' row range in the sorted layout and its
+        ``[S, L]`` timestamp matrix (``L`` the next power of two of the
+        most samples a series holds; finding it is one host sync).
+        Window bounds then cost ``O(T·L)`` sequential compares per series
+        instead of ``O(T·log N)`` binary searches, with the same integer
+        bounds.  Returns ``(series_start, cnt, ts_mat)``, or None, and the
+        caller takes the searchsorted geometry: when the cache is off,
+        past ``BOUNDS_MAX_STEPS`` steps, when the ``S·T·L`` compare sweep
+        passes ``BOUNDS_COMPARE_CAP`` (``bounds_refused``), and when the
+        state would not fit the cache beside the sort layout it derives
+        from (``bounds_reject``).  Refusals build nothing; the width ``L``
+        is kept as a zero-byte ``width`` entry, so a repeat runs no
+        search."""
+        cache = self.promql_cache()
+        rid = getattr(self.region, "region_id", None)
+        if cache is None or rid is None or num_steps > BOUNDS_MAX_STEPS:
+            return None  # a transient build would cost more than it saves
+        version = self.table.dicts_version
+        ckey = (matcher_key, fieldcol)
+        S = int(sel_dev.shape[0])
+        payload = cache.lookup("bounds", rid, ckey, version)
+        if payload is not None:
+            if S * num_steps * payload[2].shape[1] > BOUNDS_COMPARE_CAP:
+                self.events["bounds_refused"] += 1
+                return None
+            self.events["bounds_hit"] += 1
+            return payload
+        self.events["bounds_miss"] += 1
+        key_s, ts_s, kp = layout[0], layout[1], layout[6]
+        ranges = None
+        L = cache.lookup("width", rid, ckey, version)
+        if L is None:
+            ranges = pk.series_ranges(key_s, kp, sel_dev)
+            L = max(1, 1 << (max(ranges[2], 1) - 1).bit_length())
+            cache.store("width", rid, ckey, version, L, 0)
+        if S * num_steps * L > BOUNDS_COMPARE_CAP:
+            self.events["bounds_refused"] += 1
+            return None
+        nbytes = S * (8 + 4) + S * L * 8  # start, cnt, ts_mat
+        if not cache.admit(nbytes, keep=(rid, "sort", (fieldcol,))):
+            self.events["bounds_reject"] += 1
+            return None
+        start, cnt, _lmax = ranges or pk.series_ranges(key_s, kp, sel_dev)
+        payload = (start, cnt, pk.gather_ts_mat(ts_s, start, cnt, L))
+        cache.store("bounds", rid, ckey, version, payload, nbytes)
+        return payload
+
 
 class PromEvaluator:
     def __init__(self, db, start_s: float, end_s: float, step_s: float,
@@ -480,12 +536,15 @@ class PromEvaluator:
                            device=self.device)
 
     def _prep_window(self, sel: VectorSelector, kind: str,
-                     range_ms: int | None = None):
+                     range_ms: int | None = None, allow_bounds: bool = True):
         """Selector → window inputs: (layout, sel_dev, p, tsids, labels,
-        start, pinned).  The ``@`` modifier pins evaluation to one step at
-        ``at_ts - offset`` (``pinned``; callers broadcast it over the
-        grid).  Raises TableNotFound for unknown metrics (callers map it
-        to an empty vector, Prometheus semantics)."""
+        start, pinned, bounds).  The ``@`` modifier pins evaluation to one
+        step at ``at_ts - offset`` (``pinned``; callers broadcast it over
+        the grid).  ``bounds`` is the resident count-geometry state
+        (``SelectorData.window_bounds``) where ``allow_bounds`` holds and
+        the state serves this evaluation (else None: the searchsorted
+        geometry).  Raises TableNotFound for unknown metrics (callers map
+        it to an empty vector, Prometheus semantics)."""
         t0 = time.perf_counter()
         with TRACER.stage("device_table"):
             d = self.data_for(sel.metric)
@@ -507,22 +566,29 @@ class PromEvaluator:
         t0 = time.perf_counter()
         with TRACER.stage("sort_layout"):
             layout = d.sort_layout(fieldcol)
+            # the count geometry: a resident-only accelerator for few-step
+            # windows (the S·T·L compare sweep must stay cheaper than the
+            # S·T·log N binary searches it replaces)
+            bounds = (d.window_bounds(fieldcol, layout, sel_dev,
+                                      labels.matcher_key, num_steps)
+                      if allow_bounds else None)
             self._sync_for_stages()
         self._stage_mark("sort_layout", t0)
         p = WindowParams(step_ms=self.step_ms, num_steps=num_steps,
                          range_ms=int(rng), num_sel=int(sel_dev.shape[0]),
                          kind=kind)
-        return layout, sel_dev, p, tsids, labels, start, pinned
+        return layout, sel_dev, p, tsids, labels, start, pinned, bounds
 
     def _window(self, layout, sel_dev, p: WindowParams, start: int,
-                func=None, range_s=None):
+                func=None, range_s=None, bounds=None):
         """The window statistics of ``p.kind`` over the padded selection:
         ``counter_window`` for counter/instant (rate mode when ``func`` is
         given, after K10's counter-drop prefix scan), ``window_stats`` for
         the gauge_window/counter_rc/regression/irate kinds,
-        ``minmax_window`` for minmax."""
+        ``minmax_window`` for minmax; each in the count geometry when
+        ``bounds`` is given."""
         geo = dict(step_ms=p.step_ms, num_steps=p.num_steps,
-                   range_ms=p.range_ms)
+                   range_ms=p.range_ms, bounds=bounds)
         if p.kind in ("counter", "instant"):
             gdrop = None
             if p.kind == "counter":
@@ -552,11 +618,11 @@ class PromEvaluator:
             if func is not None:
                 return self._empty(), []
             return {k: self._empty() for k in pk.KIND_KEYS[kind]}, []
-        layout, sel_dev, p, tsids, labels, start, pinned = prep
+        layout, sel_dev, p, tsids, labels, start, pinned, bounds = prep
         t0 = time.perf_counter()
         with TRACER.stage("window_kernel", kind=kind):
             out = self._window(layout, sel_dev, p, start, func=func,
-                               range_s=sel.range_s)
+                               range_s=sel.range_s, bounds=bounds)
             self._sync_for_stages()
         self._stage_mark("window_kernel", t0)
         n = len(tsids)
@@ -574,10 +640,10 @@ class PromEvaluator:
         ``window_matrix``.  ``extras`` are ``[num_steps]`` f32 parameter
         vectors (φ / sf, tf)."""
         try:
-            prep = self._prep_window(sel, kind)
+            prep = self._prep_window(sel, kind, allow_bounds=False)
         except TableNotFound:
             return self._empty(), []
-        layout, sel_dev, p, tsids, labels, start, pinned = prep
+        layout, sel_dev, p, tsids, labels, start, pinned, _bounds = prep
         geo = dict(step_ms=p.step_ms, num_steps=p.num_steps,
                    range_ms=p.range_ms)
         t0 = time.perf_counter()

@@ -4,18 +4,23 @@ Torch counterpart of the reference's ``query/engine.py``: planning and
 result shaping on host, the middle on the device via ``query.physical``.
 Routes, in the reference's order: the dense grid (the
 ``bucket_reduce``/``group_merge`` kernels) for the aggregates it can
-serve, then the row path over the resident ``DeviceTable`` (the
+serve; then, where the provider has a device mesh, the mesh row path
+(``provider.mesh_select``, ``parallel/dist.py``: the table sharded on the
+series axis, local partials through the row-path kernels, merged by
+``mesh_merge``) for the aggregates that decompose at the commutativity
+boundary, with ORDER BY / LIMIT finished here (``_finish_merged``); then
+the row path over the resident ``DeviceTable`` (the
 ``segment_reduce``/``sorted_segment_reduce``/``compact``/
 ``radix_argsort`` kernels) for every other aggregate and every raw
-SELECT.  ``GREPTIME_GRID=off`` forces the row path.  Post-aggregation
-shaping (HAVING → ORDER BY → LIMIT → projection) mirrors the standard SQL
-operator order.
+SELECT.  ``GREPTIME_GRID=off`` skips the grid, ``GREPTIME_MESH=off`` the
+mesh (both read at query time).  Post-aggregation shaping (HAVING →
+ORDER BY → LIMIT → projection) mirrors the standard SQL operator order.
 
 ``execute_select_batch`` serves a group of Selects that the serving
 scheduler coalesced through one stacked grid dispatch
-(``Executor.execute_grid_batch``).  Not ported yet: joins, subqueries,
-the mesh route and the expression-key host fold (``_execute_expr_key_agg``; its
-plans take the row path, as the reference's do when it declines).
+(``Executor.execute_grid_batch``).  Not ported yet: joins, subqueries and
+the expression-key host fold (``_execute_expr_key_agg``; its plans take
+the mesh or the row path, as the reference's do when it declines).
 """
 
 from __future__ import annotations
@@ -173,6 +178,24 @@ class QueryEngine:
                     scanned = grid.spad * grid.tpad
                     if metrics is not None:
                         metrics["grid"] = True
+        if res is None and os.environ.get("GREPTIME_MESH", "auto") != "off":
+            # the mesh row path: tables the grid refuses still aggregate
+            # across the mesh when the query decomposes at the
+            # commutativity boundary (merged but unordered rows; the
+            # ORDER BY / LIMIT suffix finishes here)
+            mesh_fn = getattr(self.provider, "mesh_select", None)
+            if mesh_fn is not None and self._mesh_shapeable(sel):
+                with TRACER.stage("execute"):
+                    mres = mesh_fn(sel)
+                if mres is not None:
+                    t = mark("device_exec_ms", t)
+                    with TRACER.stage("materialize"):
+                        result = self._finish_merged(sel, plan, *mres)
+                    mark("shape_ms", t)
+                    if metrics is not None:
+                        metrics["mesh_rows"] = True
+                        metrics["output_rows"] = len(result.rows)
+                    return result
         if res is None:
             table, ts_bounds = self.provider.device_table(sel.table, plan)
             t = mark("scan_cache_ms", t)
@@ -191,6 +214,34 @@ class QueryEngine:
             metrics["output_rows"] = len(result.rows)
             metrics["scanned_rows_padded"] = scanned
         return result
+
+    @staticmethod
+    def _mesh_shapeable(sel: Select) -> bool:
+        """The mesh path returns merged rows keyed by OUTPUT names; every
+        ORDER BY key must be one (by alias or expression text) or the
+        suffix cannot be applied here: the row path serves it."""
+        names = {it.output_name for it in sel.items
+                 if not isinstance(it.expr, Star)}
+        return all(str(o.expr) in names for o in sel.order_by)
+
+    def _finish_merged(self, sel: Select, plan: SelectPlan,
+                       names: list[str], rows: list[list]) -> QueryResult:
+        """ORDER BY / LIMIT over the merged mesh partials (the frontend
+        side of the split).  No OFFSET: split_partial refuses it, so no
+        such query reaches the mesh."""
+        if sel.order_by:
+            idx = {n: i for i, n in enumerate(names)}
+
+            def sort_key(row):
+                return [SortVal(row[idx[str(ob.expr)]], ob.asc)
+                        for ob in sel.order_by]
+
+            rows = sorted(rows, key=sort_key)
+        if sel.limit is not None:
+            rows = rows[: sel.limit]
+        return QueryResult(names, rows, column_types=[
+            _infer_type(it.expr, plan) for it in plan.items
+        ])
 
     # ---- cross-query stacked execution --------------------------------
     def execute_select_batch(

@@ -29,7 +29,14 @@ is the flow checkpoint drain.  ``db.processes`` lists queued and running
 statements.  Not ported yet (the reference's ``__init__`` wires them
 up): the AOT warmup and scrubber idle consumers, the slow-query table,
 EXPLAIN ANALYZE, metric and file engines, partitioned tables, views, the
-mesh, the compile cache, the memory quotas and the servers.
+mesh's GSPMD placements (grids, PromQL rows, flow state), the compile
+cache, the memory quotas and the servers.
+
+The mesh row path (``mesh_select``, ``parallel/dist.py``): with a mesh
+installed (``db.mesh = parallel.dist.create_mesh(...)``; a db never forms
+one by itself), aggregates the dense grid refuses are sharded on the
+series axis and merged by the ``mesh_merge`` kernel before the
+single-device row path is tried.
 """
 
 from __future__ import annotations
@@ -148,6 +155,14 @@ class GreptimeDB(TableProvider):
         )
         self.cache = RegionCacheManager(cache_capacity_bytes,
                                         device=self.device)
+        # the series-axis mesh (parallel/dist.py) of the mesh row path,
+        # mesh_select: installed by assigning db.mesh (e.g.
+        # parallel.dist.create_mesh() for one shard on each card, or
+        # create_mesh(8, "cpu")), never formed by itself: on one card its
+        # host fold made every measured aggregate slower than the row path.
+        # GREPTIME_MESH=off forces single-device execution at query time.
+        self._mesh = None
+        self._dist_exec = None
         self.engine = QueryEngine(self)
         # a region leaving residency drops its derived bucket-major layouts
         self.cache.derived_layouts = self.engine.executor.layout_cache
@@ -268,6 +283,21 @@ class GreptimeDB(TableProvider):
         if hasattr(self.kv, "close"):
             self.kv.close()
 
+    @property
+    def mesh(self):
+        """The device mesh of the mesh row path (a tuple of
+        ``torch.device``s, one per shard), or None."""
+        return self._mesh
+
+    @mesh.setter
+    def mesh(self, mesh) -> None:
+        """Install a mesh (or None): the sharded tables of the old one
+        leave the cache and the executor is rebuilt on the next query."""
+        self._mesh = tuple(mesh) if mesh is not None else None
+        self.cache.drop_sharded()
+        self.cache.mesh = self._mesh
+        self._dist_exec = None
+
     # ---- TableProvider -------------------------------------------------
     def _split_name(self, table: str) -> tuple[str, str]:
         if "." in table:
@@ -318,6 +348,38 @@ class GreptimeDB(TableProvider):
         view = self._table_view(table)
         gt = self.cache.get_grid(view)
         return gt, view.ts_bounds() or (0, 0)
+
+    def mesh_select(self, sel):
+        """The mesh row path for tables the dense grid refuses (irregular or
+        sparse cadence): the table's rows sharded on the series axis across
+        the mesh and aggregated through the commutativity split
+        (parallel/dist.py).  Returns (names, rows) unordered, or None when
+        there is no mesh, the table is below ``GREPTIME_MESH_MIN_ROWS``
+        live rows (default 65,536: below it one device wins) or the query
+        does not decompose: the engine then takes the row path."""
+        if self.mesh is None:
+            return None
+        view = self._table_view(sel.table)
+        min_rows = int(os.environ.get("GREPTIME_MESH_MIN_ROWS", "65536"))
+        live = view.memtable.num_rows + sum(m.num_rows
+                                            for m in view.sst_files)
+        if live < min_rows:
+            return None
+        from greptimedb_tpu_torch.rpc.partial import split_partial
+
+        ts_name = (view.schema.time_index.name
+                   if view.schema.time_index is not None else None)
+        if split_partial(sel, ts_column=ts_name) is None:
+            return None  # cheap pre-check before building the shard table
+        from greptimedb_tpu_torch.parallel.dist import (
+            DistAggExecutor, execute_select_on_mesh,
+        )
+
+        if self._dist_exec is None:
+            self._dist_exec = DistAggExecutor(self.mesh)
+        return execute_select_on_mesh(
+            self._dist_exec, self.cache.get_sharded(view), sel,
+            self.table_context(sel.table), view.ts_bounds())
 
     # ---- SQL entry -----------------------------------------------------
     def sql(self, query: str, client: str = "",

@@ -255,8 +255,10 @@ class _Entry:
 
 
 class RegionCacheManager:
-    """LRU of resident GridTables keyed by (region, base_version) and
-    DeviceTables keyed by (region, generation)."""
+    """LRU of resident GridTables keyed by (region, base_version),
+    DeviceTables keyed by (region, generation) and, with a mesh,
+    series-sharded tables (``get_sharded``) keyed by (region,
+    generation)."""
 
     def __init__(self, capacity_bytes: int = 8 << 30, *, device):
         # delta volume beyond max(min_extend_rows, fraction * resident
@@ -265,6 +267,9 @@ class RegionCacheManager:
         self.min_extend_rows = 4096
         self.capacity = capacity_bytes
         self.device = device
+        # the device mesh (parallel/dist.py) the sharded tables live on, or
+        # None: get_sharded then serves nothing.  GreptimeDB.mesh sets it
+        self.mesh = None
         # optional DerivedLayoutCache chained into invalidate_region (set
         # by GreptimeDB): a region leaving residency drops its derived
         # bucket-major layouts too
@@ -312,6 +317,44 @@ class RegionCacheManager:
             self._bytes += table.nbytes()
             self._shrink()
         return table
+
+    def get_sharded(self, region):
+        """Series-sharded row table (parallel/dist.py ShardedTable) for the
+        mesh aggregation of regions the dense grid refuses, or None without
+        a mesh.  Keyed by generation: any write rebuilds (row order under
+        the shard permutation does not extend in place) and the older
+        generation's table is evicted."""
+        if self.mesh is None:
+            return None
+        from greptimedb_tpu_torch.parallel.dist import shard_region
+
+        key = (region.region_id, "sharded", region.generation)
+        entry = self._lru.get(key)
+        if entry is not None:
+            M_CACHE_EVENTS.labels("region_device", "sharded", "hit").inc()
+            with self._struct_lock:
+                self.hits += 1
+                if key in self._lru:
+                    self._lru.move_to_end(key)
+            return entry.table
+        with self._struct_lock:
+            self.misses += 1
+        M_CACHE_EVENTS.labels("region_device", "sharded", "miss").inc()
+        table = shard_region(region, self.mesh)
+        with self._struct_lock:
+            for k in [k for k in self._lru
+                      if k[0] == key[0] and k[1:2] == ("sharded",)]:
+                self._evict(k)
+            self._lru[key] = _Entry(table)
+            self._bytes += table.nbytes()
+            self._shrink()
+        return table
+
+    def drop_sharded(self) -> None:
+        """Evict every series-sharded table (a new mesh, or none)."""
+        with self._struct_lock:
+            for k in [k for k in self._lru if k[1:2] == ("sharded",)]:
+                self._evict(k)
 
     def peek_table(self, region):
         """The region's resident DeviceTable if one is ALREADY resident at
@@ -492,17 +535,19 @@ class _ByteLRUCache:
             self._evict(key)
         return None
 
-    def admit(self, nbytes: int) -> bool:
+    def admit(self, nbytes: int, keep: tuple | None = None) -> bool:
         """Reject-to-fallback admission: evict LRU entries to make room,
         then consult the workload memory probe.  False means the caller
-        serves from its uncached fallback path."""
-        if nbytes > self.capacity:
+        serves from its uncached fallback path.  ``keep`` names an entry
+        the new one must not evict (the entry it derives from)."""
+        kept = self._lru[keep].nbytes if keep in self._lru else 0
+        if nbytes + kept > self.capacity:
             self.rejects += 1
             M_CACHE_EVENTS.labels(
                 self.metric_cache, "any", "quota_reject").inc()
             return False
-        while self._bytes + nbytes > self.capacity and self._lru:
-            self._evict(next(iter(self._lru)))
+        while self._bytes + nbytes > self.capacity:
+            self._evict(next(k for k in self._lru if k != keep))
         if self.memory_probe is not None and not self.memory_probe(nbytes):
             self.rejects += 1
             M_CACHE_EVENTS.labels(
@@ -585,7 +630,7 @@ class DerivedLayoutCache(_ByteLRUCache):
 
 
 class PromLayoutCache(_ByteLRUCache):
-    """Resident derived state of the PromQL evaluation hot path, three
+    """Resident derived state of the PromQL evaluation hot path, five
     kinds of entries:
 
     - ``selection``: per (region, matcher set) the matched tsid vector and
@@ -593,19 +638,27 @@ class PromLayoutCache(_ByteLRUCache):
       index walk;
     - ``sort``: per (region, field column) the composite (tsid, ts)-key
       sort of the resident table (``ops/promql_kernels.sort_layout``);
+    - ``bounds``: per (selection, field column) the series row ranges and
+      ``[S, L]`` timestamp matrix of the count geometry
+      (``series_ranges`` + ``gather_ts_mat``), which turns few-step window
+      boundaries into sequential compares instead of binary searches; it
+      is admitted only beside the ``sort`` entry it derives from;
+    - ``width``: per (selection, field column) the state's width ``L``, a
+      zero-byte entry that lets a refused state be refused again without
+      a search;
     - ``group``: per (selection, by/without grouping) the device group-id
       vector and its CSR layout.
 
     Every entry stores the version it was derived from (the region's
     ``series_generation`` for selection/group, the DeviceTable's
-    ``dicts_version`` for sort) and a mismatch at lookup evicts and
-    rebuilds.  Capacity is LRU by bytes with reject-to-fallback: a
-    rejected build serves its evaluation uncached from the same code, so
-    results are equal either way.  (The reference's fourth kind,
-    ``bounds``, feeds the count geometry, which is not ported.)
+    ``dicts_version`` for sort, bounds and width) and a mismatch at lookup
+    evicts and rebuilds.  Capacity is LRU by bytes with reject-to-fallback: a
+    rejected build serves its evaluation uncached from the same code (a
+    rejected ``bounds`` entry from the searchsorted geometry), so results
+    are equal either way.
     """
 
-    KINDS = ("selection", "sort", "group")
+    KINDS = ("selection", "sort", "group", "bounds", "width")
     metric_cache = "promql"
 
     def _kind_of(self, key: tuple) -> str:
