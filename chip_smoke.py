@@ -994,9 +994,11 @@ def phase_row_kernels(sk, db, ctx: dict, card: str) -> dict:
             f"max_abs_err {err:.3g} — {card}")
 
     def keep(name, **kw):
-        if name in results:
+        if name in results:  # a second shape: its error, and its own keys
             results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
-                                               kw["max_abs_err"])
+                                               kw.pop("max_abs_err"))
+            for key, val in kw.items():
+                results[name].setdefault(key, val)
         else:
             results[name] = kw
 
@@ -1166,9 +1168,15 @@ def phase_row_kernels(sk, db, ctx: dict, card: str) -> dict:
     plain = time_ms(lambda: sk.radix_argsort_plain(hosts.to(torch.int64),
                                                    over), reps=5)
     bnd, by = bound_ms(nbytes(hosts, over) + n * 4, 0)
-    report("radix_argsort", f"hostname codes N={n:,} (distinct value sweep)",
-           ms, plain, bnd, by, None, err)
-    keep("radix_argsort", max_abs_err=err)
+    masked = torch.where(over, hosts.to(torch.int64), sk.I64_MAX)
+    lib = time_ms(lambda: torch.sort(masked, stable=True))
+    del masked
+    report("radix_argsort", f"hostname codes N={n:,} (distinct value sweep; "
+           f"library: torch.sort(stable=True) of the masked codes)",
+           ms, plain, bnd, by, lib, err)
+    keep("radix_argsort", max_abs_err=err, hostname_ms=ms,
+         hostname_plain_ms=plain, hostname_bound_ms=bnd,
+         hostname_library_ms=lib)
     return results
 
 
@@ -1966,6 +1974,14 @@ def _promql_path(gk, pk, sk, db, scrapes, seed, has_arrow, card) -> dict:
     for kname, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{kname} never launched on the PromQL path")
+    # the resident table is in (tsid, ts) order: every layout build must
+    # take sort_layout's presorted route (one partition pass)
+    routes = {"presorted": pk.sort_layout.presorted,
+              "general": pk.sort_layout.general}
+    log(f"promql path: sort_layout routes {routes}")
+    if routes["general"] or routes["presorted"] != launches["sort_layout"]:
+        raise AssertionError(f"sort_layout left the presorted route on the "
+                             f"PromQL path: {routes}")
     return launches
 
 
@@ -2052,6 +2068,36 @@ def count_geometry_timing(pk, got, want, gd, gd_want, sel, t_end: int,
     return out
 
 
+def select_route_checks(sk, device) -> int:
+    """segment_select against its plain version at its route boundaries:
+    groups of 0, 1, 2, 31, 32 (a thread a group and step), 33 and 1,024 (a
+    warp sort), 1,025 and more (the radix select; two large groups in one
+    1,024-position chunk, 40 steps in two slices), rows shuffled within
+    the groups, NaN, +-inf, +-0.0 and ties, an all-NaN step and R = 32
+    rank sets with ranks clamped at both ends.  Exact."""
+    cases = (([0, 1, 2, 31, 32, 0, 33, 1024, 1025, 3, 2100], 5, 32),
+             ([700, 1025, 1, 2047, 10, 1500], 40, 2),
+             ([70_000], 3, 1))
+    for k, (sizes, T, R) in enumerate(cases):
+        rng = np.random.default_rng(100 + k)
+        sizes = np.asarray(sizes, np.int64)
+        S, ng = int(sizes.sum()), len(sizes)
+        v = rng.normal(0, 100, (S, T)).astype(np.float32)
+        for frac, x in ((0.1, np.nan), (0.03, np.inf), (0.03, -np.inf),
+                        (0.03, 0.0), (0.03, -0.0), (0.05, 7.0)):
+            v[rng.random((S, T)) < frac] = x
+        v[:, T - 1] = np.nan
+        offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+        order = rng.permutation(S).astype(np.int32)
+        ranks = rng.integers(-2, np.maximum(sizes, 1)[:, None] + 2,
+                             (R, ng, T)).astype(np.int32)
+        args = [torch.from_numpy(a).to(device)
+                for a in (v, order, offsets, ranks)]
+        max_err(sk.segment_select(*args), sk.segment_select_plain(*args),
+                exact=True)
+    return len(cases)
+
+
 def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
     """Each PromQL kernel on the PromQL path's resident table (its real
     shapes and data) against its plain version, and group_merge at the
@@ -2073,8 +2119,13 @@ def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
             f"library {lib_s} ms, bound {bound:.4f} ms by {by}), "
             f"max_abs_err {err:.3g} — {card}")
 
-    # -- sort_layout (K8) --
+    # -- sort_layout (K8): the resident table takes the presorted route;
+    #    the general route on a seeded permutation of the same columns --
+    pk.reset_launch_counts()
     got = pk.sort_layout(ts, val, tsid, mask)
+    if pk.sort_layout.presorted != 1:
+        raise AssertionError("sort_layout: the resident table did not take "
+                             "the presorted route")
     want = pk.sort_layout_plain(ts, val, tsid, mask)
     err = max(max_err(g, w, exact=True) for g, w in zip(got, want))
     ms = time_ms(lambda: pk.sort_layout(ts, val, tsid, mask))
@@ -2089,14 +2140,32 @@ def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
 
     lib = time_ms(lib_sort)
     bnd, by = bound_ms(nbytes(ts, val, tsid, mask, *got[:5]), 0)
-    passes = int((got[3][got[4]].max().long() + 1) * got[6]).bit_length()
-    report("sort_layout", f"N={n:,} rows, {passes} radix passes", ms, plain,
-           bnd, by, lib, err)
+    report("sort_layout", f"N={n:,} rows, presorted route (one partition "
+           f"pass after the scan)", ms, plain, bnd, by, lib, err)
     results["sort_layout"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd,
                                   bound_by=by, library_ms=lib,
                                   max_abs_err=err)
     del key, valid
-
+    gen = torch.Generator(device=ts.device)
+    gen.manual_seed(11)
+    perm = torch.randperm(n, device=ts.device, generator=gen)
+    pcols = [c.index_select(0, perm) for c in (ts, val, tsid, mask)]
+    del perm
+    gen_out = pk.sort_layout(*pcols)
+    if pk.sort_layout.general != 1:
+        raise AssertionError("sort_layout: the permuted table did not take "
+                             "the general route")
+    gen_want = pk.sort_layout_plain(*pcols)
+    gen_err = max(max_err(g, w, exact=True) for g, w in zip(gen_out, gen_want))
+    del gen_out, gen_want
+    gen_ms = time_ms(lambda: pk.sort_layout(*pcols), reps=5)
+    passes = int((got[3][got[4]].max().long() + 1) * got[6]).bit_length()
+    log(f"kernel sort_layout[general route: N={n:,} rows permuted (seed "
+        f"11), {passes} radix passes]: {gen_ms:.4f} ms, max_abs_err "
+        f"{gen_err:.3g} — {card}")
+    results["sort_layout"]["max_abs_err"] = max(err, gen_err)
+    results["sort_layout"]["general_ms"] = gen_ms
+    del pcols
     # -- prefix_scan (K10's f64 cumsum, with the drop prologue) --
     key_s, ts_s, val_s, tsid_s, valid_s, ts_min, kp = got
     gd = pk.prefix_scan(val_s, tsid_s, valid_s)
@@ -2427,8 +2496,12 @@ def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
     report("segment_select", f"quantile by pod: 2 ranks of {PODS:,} groups "
            f"of 10 x 20 steps (library: torch.sort)", ms, plain, bnd, by,
            lib, err)
-    results["segment_select"]["max_abs_err"] = max(
-        results["segment_select"]["max_abs_err"], err)
+    results["segment_select"].update(
+        max_abs_err=max(results["segment_select"]["max_abs_err"], err),
+        quantile_ms=ms, quantile_plain_ms=plain, quantile_bound_ms=bnd,
+        quantile_library_ms=lib)
+    log(f"segment_select route boundaries: "
+        f"{select_route_checks(sk, ts.device)} cases exact")
 
     # -- group_merge at the PromQL shape: the 20-step rates of 2^20
     #    selected series (padding routed to the overflow id) into 100,000
@@ -4485,9 +4558,11 @@ def main() -> int:
         # two queries and K22's other two distances and host parse
         entry.update({key: val for key, val in k.items()
                       if key.startswith(("merge_", "j_", "l_", "dot_",
-                                         "cos_", "t1_"))
+                                         "cos_", "t1_", "quantile_",
+                                         "hostname_"))
                       or key in ("solo_pairs_ms", "host_parse_ms",
-                                 "graph_ms", "library_graph_ms")})
+                                 "graph_ms", "library_graph_ms",
+                                 "general_ms")})
         line["kernels"].append(entry)
     log(f"total: {time.perf_counter() - t_start:.3f} s")
     log(json.dumps(line))

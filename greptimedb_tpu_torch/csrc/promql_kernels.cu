@@ -24,26 +24,42 @@
 //   (phases 1 and 3: 18 B/row) and writes 8 B/row; at N = 41.9 M padded rows
 //   ~1.1 GB, ~0.33 ms at 3.35 TB/s against a 0.44 GB one-pass bound.
 //
-// sort_layout (layout_key + radix_split passes + layout_gather)
+// sort_layout (layout_scan + layout_finalize, then one of two routes)
 //   Replaces K8, `_build_sort_layout` (engine.py:257): the query-
-//   independent composite-key stable sort of a resident table.
-//   layout_key: one grid-stride reduction finds ts_min/ts_max/max tsid over
-//   the valid rows (valid = mask & !isnan(val); 64-bit atomicMin/Max — order
-//   free, so deterministic), then key[i] = tsid*kp + (ts - ts_min) with
-//   kp = ts_max - ts_min + 2 on valid rows.  Invalid rows take the sort key
-//   (max_tsid + 1) * kp, above every valid key, so a stable sort puts them
-//   last in row order, exactly where the reference's I64_MAX ties land.
-//   radix_split: a stable LSD radix sort of (key, row index), one bit per
-//   pass, each pass scan.cuh's radix_pass (a "bit is zero" scan plus a scatter:
-//   dst = zero ? zeros_before : total_zeros + ones_before); only as many
-//   passes run as the invalid-row key has bits (40 at 1 M series x 585 s).
-//   layout_gather writes key_s (I64_MAX on invalid rows), ts_s, val_s,
-//   tsid_s and valid_s in one launch.
-//   Bound: bytes.  One pass per bit reads the key twice for the scan and
-//   once more with the row index for the scatter, which writes both again:
-//   ~44 B/row/pass.  The one-pass bound (read ts/val/tsid/mask 17 B, write
-//   the five sorted arrays 25 B) is 42 B/row; the 40 passes are the price
-//   of the simple design (a onesweep radix sort is later work).
+//   independent composite-key stable sort of a resident table, key =
+//   tsid*kp + (ts - ts_min) with kp = ts_max - ts_min + 2 on valid rows
+//   (valid = mask & !isnan(val)), I64_MAX on the rest.
+//   layout_scan: a warp a segment of 1,024 rows (coalesced, 4 groups of
+//   32 in flight) finds its valid rows' count, ts and tsid ranges, first
+//   and last (tsid, ts), and whether a valid row falls below the valid row
+//   before it (the nearest valid lane below by ballot, else the segment's
+//   last valid row, across any invalid rows); a block's 8 segments combine
+//   in order into one summary.  layout_finalize (one block, a fixed order:
+//   deterministic) reduces those to ts_min / kp / the invalid rows' key,
+//   checks the order across blocks (each first key against the largest
+//   last key before it) and scans the counts into each block's first
+//   valid slot.  The partition pass is queued right behind it and returns
+//   at once unless the keys were in order; the wrapper then reads the
+//   scalars: the one host sync.
+//   Presorted route (the valid keys non-decreasing in row order, as on
+//   every resident DeviceTable: storage/scan.py's merge_parts leaves it in
+//   (tsid, ts, seq) order, pad rows last): the stable argsort is one
+//   stable partition, valid rows in row order then invalid rows in row
+//   order.  layout_partition writes it straight into key_s, ts_s, val_s,
+//   tsid_s and valid_s: a warp a segment, its slots from the counts and a
+//   ballot a group.  No look-back: pass 1 is compulsory (ts_min and kp
+//   come before any key), and its per-segment counts make the offsets.
+//   General route (any other input): layout_key writes (key, row index)
+//   with the invalid rows' key (max tsid + 1) * kp, above every valid key,
+//   then a stable LSD radix sort, one bit per pass, each scan.cuh's
+//   radix_pass (a "bit is zero" scan plus a scatter); only as many passes
+//   run as that key has bits (40 at 1 M series x 585 s); layout_gather
+//   writes the five columns.
+//   Bound: bytes, 42 B/row (read ts/val/tsid/mask 17 B, write the five
+//   sorted arrays 25 B).  The presorted route moves 59 B/row (pass 1 reads
+//   the 17 B again).  The general route adds ~44 B/row a pass (the key read
+//   twice for the scan and once with the row index for the scatter, both
+//   written again); moving it onto 8-bit digit passes is later work.
 //
 // counter_window
 //   Replaces K9's searchsorted geometry (`_sorted_window_bounds`,
@@ -177,65 +193,376 @@ struct DropSrc {  // counter-reset drop of the sorted layout, as f64
 // sort_layout
 // ---------------------------------------------------------------------------
 
-// acc: [0] ts_min, [1] ts_max, [2] max tsid, [3] any valid row
-__global__ void layout_init_kernel(long long* acc) {
-  acc[0] = kI64Max;
-  acc[1] = -(1LL << 62);
-  acc[2] = -1;
-  acc[3] = 0;
+// Row geometry of layout_scan and layout_partition: warp s of the grid
+// walks segment s, kSegRows consecutive rows, in groups of 32 (one row a
+// lane, coalesced), kLayoutUnroll groups loaded before any is used.
+constexpr int kLayoutUnroll = 4;
+constexpr int kSegIters = 8;
+constexpr int kSegRows = 32 * kLayoutUnroll * kSegIters;  // 1024
+constexpr int kLayoutWarps = kThreads / 32;
+constexpr int kFinThreads = 1024;
+constexpr unsigned kFull = 0xffffffffu;
+
+// One segment's valid rows, written by layout_scan_kernel.
+struct SegSum {
+  long long cnt;                 // valid rows
+  long long ts_lo, ts_hi;        // their timestamp range
+  long long first_ts, last_ts;   // the first and the last valid row
+  int tsid_lo, tsid_hi;
+  int first_tsid, last_tsid;
+  int flags;                     // kSegAny | kSegBad
+  int pad;
+};
+static_assert(sizeof(SegSum) == 64, "ops/promql_kernels.py _SEG_BYTES");
+constexpr int kSegAny = 1;  // the segment holds a valid row
+constexpr int kSegBad = 2;  // a valid row sorts below the valid row before it
+
+// scal (int64, 5 words: ops/promql_kernels.py _SCAL_WORDS): [0] ts_min,
+// [1] kp, [2] the invalid rows' sort key, [3] 1 when the valid keys are
+// non-decreasing in row order, [4] valid rows
+
+__device__ __forceinline__ bool pair_less(int a_id, long long a_ts, int b_id,
+                                          long long b_ts) {
+  return a_id < b_id || (a_id == b_id && a_ts < b_ts);
 }
 
-__global__ void layout_minmax_kernel(const long long* ts, const float* val,
-                                     const int32_t* tsid, const uint8_t* mask,
-                                     long long n, long long* acc) {
-  long long lo = kI64Max, hi = -(1LL << 62), tmax = -1, any = 0;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    if (mask[i] != 0 && !isnan(val[i])) {
-      const long long t = ts[i];
-      lo = t < lo ? t : lo;
-      hi = t > hi ? t : hi;
-      tmax = tsid[i] > tmax ? tsid[i] : tmax;
-      any = 1;
+struct SumOp {
+  __device__ long long operator()(long long a, long long b) const {
+    return a + b;
+  }
+};
+struct MinOp {
+  __device__ long long operator()(long long a, long long b) const {
+    return a < b ? a : b;
+  }
+};
+struct MaxOp {
+  __device__ long long operator()(long long a, long long b) const {
+    return a > b ? a : b;
+  }
+};
+
+// Every thread gets op over the block (blockDim.x a power of two).
+template <typename Op>
+__device__ long long block_allreduce(long long v, long long* sm, Op op) {
+  sm[threadIdx.x] = v;
+  __syncthreads();
+  for (int off = blockDim.x / 2; off > 0; off >>= 1) {
+    if (threadIdx.x < off) sm[threadIdx.x] = op(sm[threadIdx.x],
+                                                 sm[threadIdx.x + off]);
+    __syncthreads();
+  }
+  const long long r = sm[0];
+  __syncthreads();
+  return r;
+}
+
+// Exclusive scan over the block's threads in a fixed order (Hillis-Steele).
+template <typename Op>
+__device__ long long block_exclusive(long long v, long long* sm, Op op,
+                                     long long identity) {
+  const int tid = threadIdx.x;
+  sm[tid] = v;
+  __syncthreads();
+  for (int off = 1; off < blockDim.x; off <<= 1) {
+    const long long add = tid >= off ? sm[tid - off] : identity;
+    __syncthreads();
+    sm[tid] = op(sm[tid], add);
+    __syncthreads();
+  }
+  const long long ex = tid > 0 ? sm[tid - 1] : identity;
+  __syncthreads();
+  return ex;
+}
+
+// Pass 1 (both routes): per segment the valid rows' count, timestamp and
+// tsid ranges, first and last (tsid, ts), and whether a valid row's
+// (tsid, ts) falls below that of the valid row before it.  The previous
+// valid row of a lane is the nearest valid lane below it (ballot), else
+// the segment's last valid row so far, however many invalid rows lie in
+// between.  Each segment's count goes to seg_cnt; the block's segments
+// combine in order (the same check across them) into one summary a
+// block, and layout_finalize checks across blocks.
+__global__ void __launch_bounds__(kThreads)
+    layout_scan_kernel(const long long* __restrict__ ts,
+                       const float* __restrict__ val,
+                       const int32_t* __restrict__ tsid,
+                       const uint8_t* __restrict__ mask, long long n,
+                       long long nseg, int32_t* __restrict__ seg_cnt,
+                       SegSum* __restrict__ blk) {
+  __shared__ SegSum wsum[kLayoutWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long s = (long long)blockIdx.x * kLayoutWarps + warp;
+  const long long base = s < nseg ? s * kSegRows : n;  // none: no rows
+  const unsigned below = (1u << lane) - 1u;
+  long long lo = kI64Max, hi = -(1LL << 62), cnt = 0;
+  int id_lo = 0x7fffffff, id_hi = -0x7fffffff - 1;
+  bool have = false, bad = false;
+  int first_id = 0, last_id = 0;
+  long long first_ts = 0, last_ts = 0;
+  for (int it = 0; it < kSegIters; ++it) {
+    long long t[kLayoutUnroll];
+    int id[kLayoutUnroll];
+    bool ok[kLayoutUnroll];
+#pragma unroll
+    for (int u = 0; u < kLayoutUnroll; ++u) {
+      const long long i =
+          base + (long long)(it * kLayoutUnroll + u) * 32 + lane;
+      t[u] = 0;
+      id[u] = 0;
+      ok[u] = false;
+      if (i < n) {
+        t[u] = ts[i];
+        id[u] = tsid[i];
+        ok[u] = mask[i] != 0 && !isnan(val[i]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kLayoutUnroll; ++u) {
+      const unsigned bal = __ballot_sync(kFull, ok[u]);
+      if (bal == 0) continue;  // warp-uniform
+      const unsigned prior = bal & below;
+      const int src = prior ? 31 - __clz(prior) : 0;
+      const int p_id = __shfl_sync(kFull, id[u], src);
+      const long long p_ts = __shfl_sync(kFull, t[u], src);
+      if (ok[u]) {
+        lo = t[u] < lo ? t[u] : lo;
+        hi = t[u] > hi ? t[u] : hi;
+        id_lo = id[u] < id_lo ? id[u] : id_lo;
+        id_hi = id[u] > id_hi ? id[u] : id_hi;
+        if (prior) {
+          bad |= pair_less(id[u], t[u], p_id, p_ts);
+        } else if (have) {
+          bad |= pair_less(id[u], t[u], last_id, last_ts);
+        }
+      }
+      const int fl = __ffs((int)bal) - 1;
+      const int ll = 31 - __clz(bal);
+      const int f_id = __shfl_sync(kFull, id[u], fl);
+      const long long f_ts = __shfl_sync(kFull, t[u], fl);
+      const int l_id = __shfl_sync(kFull, id[u], ll);
+      const long long l_ts = __shfl_sync(kFull, t[u], ll);
+      if (!have) {
+        first_id = f_id;
+        first_ts = f_ts;
+        have = true;
+      }
+      last_id = l_id;
+      last_ts = l_ts;
+      cnt += __popc(bal);
     }
   }
   for (int off = 16; off > 0; off >>= 1) {
-    const long long olo = __shfl_down_sync(0xffffffffu, lo, off);
-    const long long ohi = __shfl_down_sync(0xffffffffu, hi, off);
-    const long long otm = __shfl_down_sync(0xffffffffu, tmax, off);
-    const long long oan = __shfl_down_sync(0xffffffffu, any, off);
+    const long long olo = __shfl_xor_sync(kFull, lo, off);
+    const long long ohi = __shfl_xor_sync(kFull, hi, off);
+    const int oil = __shfl_xor_sync(kFull, id_lo, off);
+    const int oih = __shfl_xor_sync(kFull, id_hi, off);
     lo = olo < lo ? olo : lo;
     hi = ohi > hi ? ohi : hi;
-    tmax = otm > tmax ? otm : tmax;
-    any = oan > any ? oan : any;
+    id_lo = oil < id_lo ? oil : id_lo;
+    id_hi = oih > id_hi ? oih : id_hi;
   }
-  if ((threadIdx.x & 31) == 0 && any) {
-    atomicMin(&acc[0], lo);
-    atomicMax(&acc[1], hi);
-    atomicMax(&acc[2], tmax);
-    atomicMax(&acc[3], any);
+  bad = __any_sync(kFull, bad);
+  if (lane == 0) {
+    if (s < nseg) seg_cnt[s] = (int32_t)cnt;
+    SegSum& q = wsum[warp];
+    q.cnt = cnt;
+    q.ts_lo = lo;
+    q.ts_hi = hi;
+    q.first_ts = first_ts;
+    q.last_ts = last_ts;
+    q.tsid_lo = id_lo;
+    q.tsid_hi = id_hi;
+    q.first_tsid = first_id;
+    q.last_tsid = last_id;
+    q.flags = (have ? kSegAny : 0) | (bad ? kSegBad : 0);
+    q.pad = 0;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {  // the block's segments in row order
+    SegSum b = wsum[0];
+    for (int w = 1; w < kLayoutWarps; ++w) {
+      const SegSum& q = wsum[w];
+      b.flags |= q.flags & kSegBad;
+      if (!(q.flags & kSegAny)) continue;
+      if (!(b.flags & kSegAny)) {
+        const int bad_so_far = b.flags & kSegBad;
+        b = q;
+        b.flags |= bad_so_far;
+        continue;
+      }
+      if (pair_less(q.first_tsid, q.first_ts, b.last_tsid, b.last_ts)) {
+        b.flags |= kSegBad;
+      }
+      b.cnt += q.cnt;
+      b.ts_lo = q.ts_lo < b.ts_lo ? q.ts_lo : b.ts_lo;
+      b.ts_hi = q.ts_hi > b.ts_hi ? q.ts_hi : b.ts_hi;
+      b.tsid_lo = q.tsid_lo < b.tsid_lo ? q.tsid_lo : b.tsid_lo;
+      b.tsid_hi = q.tsid_hi > b.tsid_hi ? q.tsid_hi : b.tsid_hi;
+      b.last_ts = q.last_ts;
+      b.last_tsid = q.last_tsid;
+    }
+    blk[blockIdx.x] = b;
   }
 }
 
-// scal: [0] ts_min, [1] kp, [2] the invalid rows' sort key
-__global__ void layout_key_kernel(const long long* ts, const float* val,
-                                  const int32_t* tsid, const uint8_t* mask,
-                                  long long n, const long long* acc,
-                                  long long* key, int32_t* idx,
-                                  long long* scal) {
-  const bool any = acc[3] != 0;
-  const long long ts_min = any ? acc[0] : 0;
-  const long long ts_max = any ? acc[1] : 0;
+// One block: the table's ts_min / kp / invalid-row key from the block
+// summaries (a fixed reduction order: deterministic), the route flag and
+// each scan block's first output slot for its valid rows (an exclusive
+// scan of the counts).  The valid keys are in row order when no block saw a
+// descent inside and every block's first valid key is at least the
+// largest last key of the blocks before it.  Within a block the check
+// compared (tsid, ts) pairs, whose order is the key order while every key
+// fits: tsid >= 0 and (max tsid + 1) * kp <= I64_MAX, required here.
+__global__ void __launch_bounds__(kFinThreads)
+    layout_finalize_kernel(const SegSum* __restrict__ seg, long long nseg,
+                           long long* __restrict__ blk_off,
+                           long long* __restrict__ scal) {
+  __shared__ long long sm[kFinThreads];
+  const int tid = threadIdx.x;
+  const long long per = (nseg + kFinThreads - 1) / kFinThreads;
+  long long k0 = (long long)tid * per;
+  k0 = k0 < nseg ? k0 : nseg;
+  const long long k1 = k0 + per < nseg ? k0 + per : nseg;
+  long long cnt = 0, lo = kI64Max, hi = -(1LL << 62);
+  long long id_lo = kI64Max, id_hi = -(1LL << 62);
+  bool bad = false;
+  for (long long k = k0; k < k1; ++k) {
+    const SegSum& q = seg[k];
+    if (q.flags & kSegAny) {
+      cnt += q.cnt;
+      lo = q.ts_lo < lo ? q.ts_lo : lo;
+      hi = q.ts_hi > hi ? q.ts_hi : hi;
+      id_lo = q.tsid_lo < id_lo ? q.tsid_lo : id_lo;
+      id_hi = q.tsid_hi > id_hi ? q.tsid_hi : id_hi;
+    }
+    bad |= (q.flags & kSegBad) != 0;
+  }
+  const long long total = block_allreduce(cnt, sm, SumOp());
+  lo = block_allreduce(lo, sm, MinOp());
+  hi = block_allreduce(hi, sm, MaxOp());
+  id_lo = block_allreduce(id_lo, sm, MinOp());
+  id_hi = block_allreduce(id_hi, sm, MaxOp());
+  const bool any = total > 0;
+  const long long ts_min = any ? lo : 0;
+  const long long ts_max = any ? hi : 0;
   const long long kp = ts_max - ts_min + 2;
-  const long long invalid_key = (acc[2] + 1) * kp;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i == 0) {
+  const long long max_tsid = any ? id_hi : -1;
+  const bool fits = !any || (id_lo >= 0 && max_tsid + 1 <= kI64Max / kp);
+  if (fits) {
+    // keys are >= 0 here: -1 is "no valid row yet"
+    long long run = -1, first = -1;
+    for (long long k = k0; k < k1; ++k) {
+      const SegSum& q = seg[k];
+      if (!(q.flags & kSegAny)) continue;
+      const long long fk = (long long)q.first_tsid * kp + (q.first_ts - ts_min);
+      const long long lk = (long long)q.last_tsid * kp + (q.last_ts - ts_min);
+      if (first < 0) first = fk;
+      bad |= fk < run;
+      run = lk > run ? lk : run;
+    }
+    const long long before = block_exclusive(run, sm, MaxOp(), -1LL);
+    bad |= first >= 0 && first < before;
+  }
+  const int sorted = __syncthreads_or(bad ? 1 : 0) == 0 && fits;
+  long long off = block_exclusive(cnt, sm, SumOp(), 0LL);
+  for (long long k = k0; k < k1; ++k) {
+    blk_off[k] = off;
+    if (seg[k].flags & kSegAny) off += seg[k].cnt;
+  }
+  if (tid == 0) {
     scal[0] = ts_min;
     scal[1] = kp;
-    scal[2] = invalid_key;
+    scal[2] = (max_tsid + 1) * kp;
+    scal[3] = sorted ? 1 : 0;
+    scal[4] = total;
   }
+}
+
+// The presorted route: one stable partition, the valid rows in row order
+// then the invalid ones, written straight into the five sorted columns.
+// Segment s's valid rows start at v = blk_off[its block] + the counts of
+// the block's segments before it, its invalid rows at n_valid + (its
+// first row - v); inside, a ballot a group of 32.
+__global__ void __launch_bounds__(kThreads)
+    layout_partition_kernel(const long long* __restrict__ ts,
+                            const float* __restrict__ val,
+                            const int32_t* __restrict__ tsid,
+                            const uint8_t* __restrict__ mask, long long n,
+                            long long nseg,
+                            const int32_t* __restrict__ seg_cnt,
+                            const long long* __restrict__ blk_off,
+                            const long long* __restrict__ scal,
+                            long long* __restrict__ key_s,
+                            long long* __restrict__ ts_s,
+                            float* __restrict__ val_s,
+                            int32_t* __restrict__ tsid_s,
+                            uint8_t* __restrict__ valid_s) {
+  const int lane = threadIdx.x & 31;
+  const long long s =
+      (long long)blockIdx.x * kLayoutWarps + (threadIdx.x >> 5);
+  // launched right after the scan, before the host reads the route: a
+  // table out of order leaves it to the general route
+  if (s >= nseg || scal[3] == 0) return;  // warp-uniform
+  const long long ts_min = scal[0], kp = scal[1], n_valid = scal[4];
+  const long long base = s * kSegRows;
+  const unsigned below = (1u << lane) - 1u;
+  long long vpos = blk_off[blockIdx.x];
+  for (long long k = s - (threadIdx.x >> 5); k < s; ++k) vpos += seg_cnt[k];
+  long long ipos = n_valid + (base - vpos);
+  for (int it = 0; it < kSegIters; ++it) {
+    long long t[kLayoutUnroll];
+    float v[kLayoutUnroll];
+    int id[kLayoutUnroll];
+    bool in[kLayoutUnroll], ok[kLayoutUnroll];
+#pragma unroll
+    for (int u = 0; u < kLayoutUnroll; ++u) {
+      const long long i =
+          base + (long long)(it * kLayoutUnroll + u) * 32 + lane;
+      in[u] = i < n;
+      t[u] = 0;
+      v[u] = 0.f;
+      id[u] = 0;
+      ok[u] = false;
+      if (in[u]) {
+        t[u] = ts[i];
+        v[u] = val[i];
+        id[u] = tsid[i];
+        ok[u] = mask[i] != 0 && !isnan(v[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kLayoutUnroll; ++u) {
+      const unsigned bal = __ballot_sync(kFull, ok[u]);
+      const unsigned inr = __ballot_sync(kFull, in[u]);
+      const int r = __popc(bal & below);
+      if (in[u]) {
+        const long long dst = ok[u] ? vpos + r : ipos + (lane - r);
+        key_s[dst] = ok[u] ? (long long)id[u] * kp + (t[u] - ts_min)
+                           : kI64Max;
+        ts_s[dst] = t[u];
+        val_s[dst] = v[u];
+        tsid_s[dst] = id[u];
+        valid_s[dst] = ok[u] ? 1 : 0;
+      }
+      vpos += __popc(bal);
+      ipos += __popc(inr) - __popc(bal);
+    }
+  }
+}
+
+// The general route's radix input: key[i] = tsid*kp + (ts - ts_min) on
+// valid rows, the invalid rows' key (max tsid + 1) * kp on the rest (above
+// every valid key, so a stable sort puts them last in row order, exactly
+// where the reference's I64_MAX ties land), idx[i] = i.
+__global__ void layout_key_kernel(const long long* ts, const float* val,
+                                  const int32_t* tsid, const uint8_t* mask,
+                                  long long n, const long long* scal,
+                                  long long* key, int32_t* idx) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  const long long ts_min = scal[0], kp = scal[1], invalid_key = scal[2];
   const bool ok = mask[i] != 0 && !isnan(val[i]);
   key[i] = ok ? (long long)tsid[i] * kp + (ts[i] - ts_min) : invalid_key;
   idx[i] = (int32_t)i;
@@ -861,24 +1188,53 @@ int gt_scan_drop_f64(const float* val, const int32_t* tsid,
                                       out, (cudaStream_t)stream);
 }
 
-int gt_layout_key(const long long* ts, const float* val, const int32_t* tsid,
-                  const uint8_t* mask, long long n, long long* acc,
-                  long long* key, int32_t* idx, long long* scal,
-                  void* stream) {
+// Pass 1 of both sort_layout routes: segment counts (seg_cnt [nseg]) and
+// block summaries (blk: scratch of nblk SegSums, 64 bytes each, nblk =
+// ceil(nseg / 8)), then the scalars (scal, 5 words) and each block's
+// valid-row offset (blk_off [nblk]).
+int gt_layout_scan(const long long* ts, const float* val, const int32_t* tsid,
+                   const uint8_t* mask, long long n, int32_t* seg_cnt,
+                   void* blk, long long* blk_off, long long* scal,
+                   void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  layout_init_kernel<<<1, 1, 0, st>>>(acc);
-  if (int e = last_error()) return e;
-  if (n > 0) {
-    const long long want = blocks_for(n);
-    const unsigned grid = (unsigned)(want < 4096 ? want : 4096);
-    layout_minmax_kernel<<<grid, kThreads, 0, st>>>(ts, val, tsid,
-                                                            mask, n, acc);
+  const long long nseg = (n + kSegRows - 1) / kSegRows;
+  const long long nblk = (nseg + kLayoutWarps - 1) / kLayoutWarps;
+  if (nblk > 0) {
+    layout_scan_kernel<<<(unsigned)nblk, kThreads, 0, st>>>(
+        ts, val, tsid, mask, n, nseg, seg_cnt, (SegSum*)blk);
     if (int e = last_error()) return e;
   }
-  layout_key_kernel<<<blocks_for(n > 0 ? n : 1), kThreads, 0, st>>>(
-      ts, val, tsid, mask, n, acc, key, idx, scal);
-  if (int e = last_error()) return e;
-  return 0;
+  layout_finalize_kernel<<<1, kFinThreads, 0, st>>>((const SegSum*)blk,
+                                                    nblk, blk_off, scal);
+  return last_error();
+}
+
+// The presorted route's one pass (after gt_layout_scan; a no-op unless
+// scal[3] says the valid keys are in row order): the five sorted columns,
+// each [n].
+int gt_layout_partition(const long long* ts, const float* val,
+                        const int32_t* tsid, const uint8_t* mask, long long n,
+                        const int32_t* seg_cnt, const long long* blk_off,
+                        const long long* scal, long long* key_s,
+                        long long* ts_s, float* val_s, int32_t* tsid_s,
+                        uint8_t* valid_s, void* stream) {
+  const long long nseg = (n + kSegRows - 1) / kSegRows;
+  if (nseg <= 0) return (int)cudaGetLastError();
+  const unsigned grid = (unsigned)((nseg + kLayoutWarps - 1) / kLayoutWarps);
+  layout_partition_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      ts, val, tsid, mask, n, nseg, seg_cnt, blk_off, scal, key_s, ts_s,
+      val_s, tsid_s, valid_s);
+  return last_error();
+}
+
+// The general route's radix input (after gt_layout_scan): key, idx [n].
+int gt_layout_key(const long long* ts, const float* val, const int32_t* tsid,
+                  const uint8_t* mask, long long n, const long long* scal,
+                  long long* key, int32_t* idx, void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  layout_key_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      ts, val, tsid, mask, n, scal, key, idx);
+  return last_error();
 }
 
 int gt_radix_pass(const long long* key_in, const int32_t* idx_in, long long n,

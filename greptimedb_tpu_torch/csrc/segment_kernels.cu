@@ -96,21 +96,32 @@
 //   ranks[r, g, t] of the group's column in ascending order, NaN last and
 //   -0.0 below +0.0 (the keys are the bits of the value, so the result is
 //   the value itself, bit for bit).  Only order statistics are read, so no
-//   column is sorted in full:
-//   - groups of up to kSelSmall rows: one warp per (group, step) sorts the
-//     group's keys in shared memory (bitonic, padded to a power of two)
-//     and reads every rank set;
-//   - larger groups (up to ng == 1 over 2^20 series): a radix select per
-//     (rank set, group, step) over the sign-flipped 32-bit keys, 8 bits per
-//     pass: a histogram of the keys that match the digits chosen so far
-//     (many blocks per task, shared-memory bins, one atomicAdd per bin and
-//     block), then one thread per task walks its 256 bins to the digit
-//     that holds the rank.  Four passes fix the key.  The wrapper hands
-//     the large groups' columns over as one [T, rows] slab, so each pass
-//     reads them contiguously.
-//   Bound: bytes.  The small path reads each group's column once (row ids
-//   and values) and writes R values per (group, step); the large path
-//   reads the slab 4 x R times, against a one-read bound.
+//   column is sorted in full, and every route is chosen on the device from
+//   the group sizes (no host sync, no host-built group lists):
+//   - groups of up to kSelTiny (32) rows (`quantile by (pod)`: 10): one
+//     thread a (group, step), lanes along the steps so a warp reads a
+//     series' T consecutive floats; the keys sit in registers, a bitonic
+//     network unrolled for 4, 8, 16 or 32 keys sorts them and each rank
+//     set's rank is picked by compare-and-select.  The same launch files
+//     the larger groups (step-0 thread): mid groups into a list by
+//     warp-aggregated appends, large groups into slots;
+//   - groups of 33 to kSelSmall (1,024) rows: persistent warps, one a
+//     (listed group, step), sort the keys in shared memory (bitonic,
+//     padded to a power of two) and read every rank set;
+//   - larger groups (topk/bottomk without grouping: ng = 1 over 2^20
+//     series): an MSD radix select per (rank set, group, step) over the
+//     32-bit keys, 8 bits a pass, four launches.  [S, T] is read in place
+//     through row_order (blocks stage 256 rows x their steps in shared
+//     memory; no transposed copy); a warp owns a step, so each histogram
+//     in shared memory is the warp's own (no other warp's atomics on the
+//     shared top byte), and a block adds each nonzero bin once into the
+//     group's global histogram.  The second pass writes the keys whose top
+//     byte was chosen to a candidate buffer; the last two read only those.
+//     The last block of a (group, step slice) to finish a pass picks the
+//     digits (a warp a task), so no separate pick launch.
+//   Bound: bytes.  Small groups: [S, T] once, ranks and out once.  Large
+//   groups: [S, T] twice plus the candidates of the first digit written
+//   once and read twice, against a one-read bound.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -811,156 +822,539 @@ __global__ void argsort_key_kernel(const long long* __restrict__ key,
 // segment_select
 // ---------------------------------------------------------------------------
 
-constexpr int kSelSmall = 1024;   // largest group the warp sort takes
+constexpr int kSelTiny = 32;      // largest group a thread selects in
+constexpr int kSelSmall = 1024;   // largest group a warp sorts
 constexpr int kSelWarps = 8;
+constexpr int kSelMidBlocks = 1056;  // 8 a streaming multiprocessor
 constexpr int kSelBins = 256;
+constexpr int kSelChunk = 1024;   // positions of row_order a pass block
+constexpr int kSelTile = 256;     // rows a pass block stages at a time
+constexpr int kSelBatch = 8;      // candidate loads a lane has in flight
+constexpr int kSelHistCap = 64;   // rank sets x steps of a pass block
+constexpr unsigned kSelFull = 0xffffffffu;
 
-// values [S, T]; groups: the small groups' ids; ranks / out [R, ng, T].
-__global__ void select_small_kernel(const float* values, long long T,
-                                    const int32_t* row_order,
-                                    const long long* offsets,
-                                    const int32_t* groups, long long n_groups,
-                                    const int32_t* ranks, int R, long long ng,
-                                    float* out) {
+// Arguments and scratch of one segment_select call (select_layout).
+struct SelArgs {
+  const float* values;
+  long long T;
+  const int32_t* row_order;
+  const long long* offsets;
+  long long ng;
+  const int32_t* ranks;
+  int R;
+  float* out;
+  long long S;
+  int* ctr;              // [0] mid groups, [1] large groups
+  int32_t* slot_of;      // [ng]: a large group's slot
+  int32_t* mid_list;     // [max_mid]
+  unsigned* slots;       // [nslots][slot_words]: histograms, done counts
+  long long slot_words;
+  unsigned* prefix;      // [R][nslots][T]: the key's digits chosen so far
+  int32_t* want;         // [R][nslots][T]: the rank left among them
+  unsigned* cand;        // [R][T][S]: candidates of a (rank set, step)
+  int32_t* cand_cnt;     // [R][T][nchunks][2]
+  long long max_mid, nslots, nchunks;
+  int TS, nslices;
+};
+
+// Scratch bytes of a call, and the pointers into it (base may be null to
+// size only).  Small and mid groups need the counters, slot_of and
+// mid_list; large groups (> kSelSmall rows: at most S / 1025 of them)
+// the rest.
+inline long long select_layout(SelArgs& a, unsigned char* base) {
+  a.max_mid = a.S / (kSelTiny + 1) < a.ng ? a.S / (kSelTiny + 1) : a.ng;
+  a.nslots = a.S / (kSelSmall + 1) < a.ng ? a.S / (kSelSmall + 1) : a.ng;
+  a.nchunks = (a.S + kSelChunk - 1) / kSelChunk;
+  int ts = kSelHistCap / a.R;
+  ts = ts < 32 ? ts : 32;
+  ts = ts < 1 ? 1 : ts;
+  a.TS = a.T < ts ? (int)a.T : ts;
+  a.nslices = a.TS > 0 ? (int)((a.T + a.TS - 1) / a.TS) : 0;
+  a.slot_words =
+      ((long long)a.R * a.T * kSelBins + 4LL * a.nslices + 3) & ~3LL;
+  const bool large = a.nslots > 0;
+  long long off = 0;
+  auto take = [&](long long bytes) {
+    const long long at = off;
+    off += (bytes + 255) & ~255LL;
+    return base == nullptr ? nullptr : base + at;
+  };
+  a.ctr = (int*)take(2 * sizeof(int));
+  a.slot_of = (int32_t*)take(a.ng * 4);
+  a.mid_list = (int32_t*)take(a.max_mid * 4);
+  a.slots = (unsigned*)take(large ? a.nslots * a.slot_words * 4 : 0);
+  a.prefix = (unsigned*)take(large ? (long long)a.R * a.nslots * a.T * 4 : 0);
+  a.want = (int32_t*)take(large ? (long long)a.R * a.nslots * a.T * 4 : 0);
+  a.cand = (unsigned*)take(large ? (long long)a.R * a.T * a.S * 4 : 0);
+  a.cand_cnt =
+      (int32_t*)take(large ? (long long)a.R * a.T * a.nchunks * 2 * 4 : 0);
+  return off;
+}
+
+// The value at each rank set's rank of a group of up to P keys: the keys
+// in registers (padded with kPadKey, above every sort key), an ascending
+// bitonic network unrolled at compile time, then the rank picked by
+// compare-and-select (no dynamic register index).
+template <int P>
+__device__ __forceinline__ void tiny_select(const SelArgs& a, long long g,
+                                            long long t, long long off,
+                                            int size) {
+  uint32_t k[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    k[j] = j < size ? f32_sort_key(
+                          a.values[(long long)a.row_order[off + j] * a.T + t])
+                    : kPadKey;
+  }
+#pragma unroll
+  for (int kk = 2; kk <= P; kk <<= 1) {
+#pragma unroll
+    for (int j = kk >> 1; j > 0; j >>= 1) {
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
+        const int p = i ^ j;
+        if (p > i) {
+          const uint32_t x = k[i], y = k[p];
+          const uint32_t lo = x < y ? x : y, hi = x < y ? y : x;
+          k[i] = (i & kk) == 0 ? lo : hi;
+          k[p] = (i & kk) == 0 ? hi : lo;
+        }
+      }
+    }
+  }
+  for (int r = 0; r < a.R; ++r) {
+    const long long o = ((long long)r * a.ng + g) * a.T + t;
+    int rr = a.ranks[o];
+    rr = rr < 0 ? 0 : (rr >= size ? size - 1 : rr);
+    uint32_t v = k[0];
+#pragma unroll
+    for (int j = 1; j < P; ++j) v = j == rr ? k[j] : v;
+    a.out[o] = size > 0 ? f32_of_key(v) : NAN;
+  }
+}
+
+// One thread a (group, step), consecutive threads on consecutive steps:
+// a warp reads a series' T consecutive floats.  Groups of up to kSelTiny
+// rows are answered here; the step-0 thread of a larger group files it:
+// mid groups into mid_list (warp-aggregated appends), large groups get a
+// slot.
+__global__ void __launch_bounds__(kThreads) select_tiny_kernel(SelArgs a) {
+  const int lane = threadIdx.x & 31;
+  const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = q < a.ng * a.T;
+  long long g = 0, t = 0, off = 0, size = 0;
+  if (live) {
+    g = q / a.T;
+    t = q - g * a.T;
+    off = a.offsets[g];
+    size = a.offsets[g + 1] - off;
+  }
+  const bool mid = live && t == 0 && size > kSelTiny && size <= kSelSmall;
+  const unsigned mm = __ballot_sync(kSelFull, mid);
+  if (mm != 0) {
+    const int leader = __ffs((int)mm) - 1;
+    int at = 0;
+    if (lane == leader) at = atomicAdd(&a.ctr[0], __popc(mm));
+    at = __shfl_sync(kSelFull, at, leader);
+    if (mid) a.mid_list[at + __popc(mm & ((1u << lane) - 1u))] = (int32_t)g;
+  }
+  if (live && t == 0 && size > kSelSmall) {
+    a.slot_of[g] = atomicAdd(&a.ctr[1], 1);
+  }
+  if (!live || size > kSelTiny) return;
+  if (size <= 4) {
+    tiny_select<4>(a, g, t, off, (int)size);
+  } else if (size <= 8) {
+    tiny_select<8>(a, g, t, off, (int)size);
+  } else if (size <= 16) {
+    tiny_select<16>(a, g, t, off, (int)size);
+  } else {
+    tiny_select<32>(a, g, t, off, (int)size);
+  }
+}
+
+// Persistent warps: first zero the large groups' histograms and done
+// counts (their slots are known now), then one warp a (mid group, step)
+// sorts the group's keys in shared memory (bitonic, padded to a power of
+// two) and reads every rank set.
+__global__ void __launch_bounds__(kSelWarps * 32)
+    select_mid_kernel(SelArgs a) {
   __shared__ uint32_t sm[kSelWarps][kSelSmall];
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long quads = (long long)a.ctr[1] * a.slot_words / 4;
+  uint4* z = reinterpret_cast<uint4*>(a.slots);
+  for (long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       w < quads; w += stride) {
+    z[w] = make_uint4(0u, 0u, 0u, 0u);
+  }
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const long long task = (long long)blockIdx.x * kSelWarps + warp;
-  if (task >= n_groups * T) return;  // warp-uniform
-  const long long gi = task / T;
-  const long long t = task - gi * T;
-  const long long g = groups[gi];
-  const long long off = offsets[g];
-  const int size = (int)(offsets[g + 1] - off);
-  int P = 1;
-  while (P < size) P <<= 1;
-  uint32_t* buf = sm[warp];
-  for (int j = lane; j < P; j += 32) {
-    buf[j] = j < size
-                 ? f32_sort_key(values[(long long)row_order[off + j] * T + t])
-                 : kPadKey;
-  }
-  __syncwarp();
-  warp_bitonic_sort(buf, P, lane);
-  if (lane < R) {
-    const long long o = ((long long)lane * ng + g) * T + t;
-    int r = ranks[o];
-    r = r < 0 ? 0 : (r >= size ? size - 1 : r);
-    out[o] = size > 0 ? f32_of_key(buf[r]) : NAN;
+  const long long tasks = (long long)a.ctr[0] * a.T;
+  for (long long task = (long long)blockIdx.x * kSelWarps + warp;
+       task < tasks; task += (long long)gridDim.x * kSelWarps) {
+    const long long gi = task / a.T;
+    const long long t = task - gi * a.T;
+    const long long g = a.mid_list[gi];
+    const long long off = a.offsets[g];
+    const int size = (int)(a.offsets[g + 1] - off);
+    int P = 1;
+    while (P < size) P <<= 1;
+    uint32_t* buf = sm[warp];
+    for (int j = lane; j < P; j += 32) {
+      buf[j] = j < size ? f32_sort_key(
+                              a.values[(long long)a.row_order[off + j] * a.T +
+                                       t])
+                        : kPadKey;
+    }
+    __syncwarp();
+    warp_bitonic_sort(buf, P, lane);
+    if (lane < a.R) {
+      const long long o = ((long long)lane * a.ng + g) * a.T + t;
+      int r = a.ranks[o];
+      r = r < 0 ? 0 : (r >= size ? size - 1 : r);
+      a.out[o] = f32_of_key(buf[r]);
+    }
+    __syncwarp();  // buf is rewritten by the warp's next task
   }
 }
 
-// Task q = (r * n_large + l) * T + t selects in row t of the slab, columns
-// [lbase[l], lbase[l] + lsize[l]).  Block b takes chunk b % nchunks of
-// task b / nchunks.
-__global__ void select_hist_kernel(const float* slab, long long width,
-                                   const long long* lbase,
-                                   const long long* lsize, long long n_large,
-                                   long long T, const unsigned int* prefix,
-                                   int shift, long long chunk,
-                                   long long nchunks, unsigned int* hist) {
-  __shared__ unsigned int bins[kSelBins];
-  const long long q = (long long)blockIdx.x / nchunks;
-  const long long c = (long long)blockIdx.x - q * nchunks;
-  const long long lt = q % (n_large * T);
-  const long long l = lt / T;
-  const long long t = lt - l * T;
-  const long long size = lsize[l];
-  const long long begin = c * chunk;
-  if (begin >= size) return;  // block-uniform
-  const long long end = begin + chunk < size ? begin + chunk : size;
-  for (int b = threadIdx.x; b < kSelBins; b += blockDim.x) bins[b] = 0;
+// Count `bin` of an active lane into the warp's own shared histogram (a
+// warp owns its steps, so no other warp touches these bins).  One
+// atomicAdd a lane: on the H100 this timed faster than aggregating the
+// lanes of a bin first with __match_any_sync, whose cost every group of
+// 32 pays, even where a step's keys share their top byte.
+__device__ __forceinline__ void hist_add(unsigned* h, unsigned bin,
+                                         bool act) {
+  if (act) atomicAdd(&h[bin], 1u);
+}
+
+// The group holding position p of row_order (offsets[g] <= p <
+// offsets[g + 1]; p < offsets[ng]).
+__device__ __forceinline__ long long group_of(const long long* offsets,
+                                              long long ng, long long p) {
+  long long lo = 0, hi = ng;  // the last g with offsets[g] <= p
+  while (hi - lo > 1) {
+    const long long mid = (lo + hi) >> 1;
+    if (offsets[mid] <= p) lo = mid; else hi = mid;
+  }
+  return lo;
+}
+
+// One MSD radix-select pass over the large groups: 8 bits of the sort
+// key a pass, from the top (pass 0, shift 24) down.  Block (c, slice)
+// takes the positions [c * kSelChunk, +kSelChunk) of row_order and the
+// steps [slice * TS, +TS); a large group has more rows than a chunk, so
+// at most two meet it.  Per (rank set, step) a warp owns the step and
+// counts into its own shared histogram (hist_add), then the block adds
+// each nonzero bin once into the group's slot.  Passes 0 and 1 stage the
+// rows (row_order's order, [S, T] read in place: no transposed copy) in a
+// shared tile; pass 1 also writes the keys whose top byte is the chosen
+// one to cand (compaction after the first digit), in the chunk's part of
+// the (rank set, step) region, and passes 2 and 3 read only those (pass 2
+// compacts them again in place).  The last block of a (group, slice) to
+// flush (a done count per pass) picks each task's digit: one warp a task,
+// 8 bins a lane and a warp scan; pass 3 writes the value.
+template <int pass>
+__global__ void __launch_bounds__(kThreads) select_pass_kernel(SelArgs a) {
+  extern __shared__ unsigned sel_smem[];
+  __shared__ long long s_lo, s_hi, s_g[2];
+  __shared__ int s_n, s_last;
+  if (a.ctr[1] == 0) return;  // no large group: block-uniform
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  constexpr int shift = 24 - 8 * pass;
+  const long long c = blockIdx.x / a.nslices;
+  const int slice = (int)(blockIdx.x - c * a.nslices);
+  const long long t0 = (long long)slice * a.TS;
+  const int tn = (int)(a.T - t0 < a.TS ? a.T - t0 : a.TS);
+  const long long pend = a.offsets[a.ng];
+  const long long lo = c * kSelChunk;
+  if (lo >= pend) return;  // positions past every group: block-uniform
+  const long long hi = lo + kSelChunk < pend ? lo + kSelChunk : pend;
+  const int Rh = pass == 0 ? 1 : a.R;  // pass 0's histogram serves every r
+  const int stride = a.TS | 1;          // odd: conflict-free column reads
+  unsigned* hist = sel_smem;                              // [R][TS][256]
+  unsigned* pre = hist + (long long)a.R * a.TS * kSelBins;  // [R][TS]
+  int* cbase = (int*)(pre + a.R * a.TS);                  // [R][TS]
+  int* rowid = cbase + a.R * a.TS;                        // [kSelTile]
+  float* tile = (float*)(rowid + kSelTile);               // [kSelTile][stride]
+
+  if (threadIdx.x == 0) {
+    s_n = 0;
+    s_lo = group_of(a.offsets, a.ng, lo);
+    s_hi = group_of(a.offsets, a.ng, hi - 1);
+  }
   __syncthreads();
-  const unsigned int want = prefix[q];
-  const unsigned int above =
-      shift + 8 >= 32 ? 0u : (0xffffffffu << (shift + 8));
-  const float* row = slab + t * width + lbase[l];
-  for (long long i = begin + threadIdx.x; i < end; i += blockDim.x) {
-    const unsigned int k = f32_sort_key(row[i]);
-    if ((k & above) == (want & above)) {
-      atomicAdd(&bins[(k >> shift) & 0xffu], 1u);
+  for (long long g = s_lo + threadIdx.x; g <= s_hi; g += blockDim.x) {
+    if (a.offsets[g + 1] - a.offsets[g] > kSelSmall) {
+      s_g[atomicAdd(&s_n, 1)] = g;
     }
   }
   __syncthreads();
-  for (int b = threadIdx.x; b < kSelBins; b += blockDim.x) {
-    if (bins[b] != 0) atomicAdd(&hist[q * kSelBins + b], bins[b]);
+  for (int e = 0; e < s_n; ++e) {
+    const long long g = s_g[e];
+    const long long goff = a.offsets[g];
+    const long long gend = a.offsets[g + 1];
+    const long long seg_a = goff > lo ? goff : lo;
+    const long long seg_b = gend < hi ? gend : hi;
+    const int j = goff > lo ? 1 : 0;  // which of the chunk's two segments
+    const long long slot = a.slot_of[g];
+    unsigned* ghist = a.slots + slot * a.slot_words;
+    for (int i = threadIdx.x; i < Rh * a.TS * kSelBins; i += blockDim.x) {
+      hist[i] = 0;
+    }
+    for (int i = threadIdx.x; i < a.R * tn; i += blockDim.x) {
+      const int r = i / tn, tl = i - r * tn;
+      pre[r * a.TS + tl] =
+          pass == 0 ? 0u
+                    : __ldcg(&a.prefix[((long long)r * a.nslots + slot) *
+                                           a.T + t0 + tl]);
+      cbase[r * a.TS + tl] = 0;
+    }
+    __syncthreads();
+    if (pass <= 1) {
+      for (long long r0 = seg_a; r0 < seg_b; r0 += kSelTile) {
+        const int rows = (int)(seg_b - r0 < kSelTile ? seg_b - r0 : kSelTile);
+        // the row ids first, so the value loads do not wait on them
+        if (threadIdx.x < rows) rowid[threadIdx.x] = a.row_order[r0 +
+                                                                threadIdx.x];
+        __syncthreads();
+#pragma unroll 8
+        for (int i = threadIdx.x; i < rows * tn; i += blockDim.x) {
+          const int row = i / tn, tl = i - row * tn;
+          tile[row * stride + tl] =
+              a.values[(long long)rowid[row] * a.T + t0 + tl];
+        }
+        __syncthreads();
+        for (int tl = warp; tl < tn; tl += kSelWarps) {
+          if (pass == 0) {
+            for (int rb = 0; rb < rows; rb += 32) {
+              const int row = rb + lane;
+              const bool in = row < rows;
+              const unsigned key =
+                  in ? f32_sort_key(tile[row * stride + tl]) : 0u;
+              hist_add(hist + tl * kSelBins, key >> 24, in);
+            }
+            continue;
+          }
+          for (int r = 0; r < a.R; ++r) {  // the warp owns (r, tl)
+            const int ti = r * a.TS + tl;
+            const unsigned top = pre[ti] >> 24;
+            unsigned* dst =
+                a.cand + ((long long)r * a.T + t0 + tl) * a.S + seg_a;
+            int at = cbase[ti];
+            for (int rb = 0; rb < rows; rb += 32) {
+              const int row = rb + lane;
+              const bool in = row < rows;
+              const unsigned key =
+                  in ? f32_sort_key(tile[row * stride + tl]) : 0u;
+              const bool m = in && (key >> 24) == top;
+              const unsigned bal = __ballot_sync(kSelFull, m);
+              if (m) dst[at + __popc(bal & below)] = key;
+              at += __popc(bal);
+              hist_add(hist + ti * kSelBins, (key >> 16) & 0xffu, m);
+            }
+            if (lane == 0) cbase[ti] = at;
+          }
+        }
+        __syncthreads();  // the tile is rewritten next
+      }
+      if (pass == 1) {
+        for (int i = threadIdx.x; i < a.R * tn; i += blockDim.x) {
+          const int r = i / tn, tl = i - r * tn;
+          a.cand_cnt[(((long long)r * a.T + t0 + tl) * a.nchunks + c) * 2 +
+                     j] = cbase[r * a.TS + tl];
+        }
+      }
+    } else {
+      const unsigned hmask =
+          shift + 8 >= 32 ? 0u : 0xffffffffu << ((shift + 8) & 31);
+      for (int tl = warp; tl < tn; tl += kSelWarps) {
+        for (int r = 0; r < a.R; ++r) {
+          const int ti = r * a.TS + tl;
+          const long long ci =
+              (((long long)r * a.T + t0 + tl) * a.nchunks + c) * 2 + j;
+          const int cnt = a.cand_cnt[ci];
+          unsigned* src =
+              a.cand + ((long long)r * a.T + t0 + tl) * a.S + seg_a;
+          const unsigned want_hi = pre[ti] & hmask;
+          int kept = 0;
+          for (int i0 = 0; i0 < cnt; i0 += 32 * kSelBatch) {
+            unsigned key[kSelBatch];  // loads in flight before any use
+#pragma unroll
+            for (int q = 0; q < kSelBatch; ++q) {
+              const int i = i0 + q * 32 + lane;
+              key[q] = i < cnt ? src[i] : 0u;
+            }
+#pragma unroll
+            for (int q = 0; q < kSelBatch; ++q) {
+              const int i = i0 + q * 32 + lane;
+              const bool m = i < cnt && (key[q] & hmask) == want_hi;
+              const unsigned bal = __ballot_sync(kSelFull, m);
+              // in place: slot kept + rank is never past i, read already
+              if (pass == 2 && m) src[kept + __popc(bal & below)] = key[q];
+              kept += __popc(bal);
+              hist_add(hist + ti * kSelBins, (key[q] >> shift) & 0xffu, m);
+            }
+          }
+          if (pass == 2 && lane == 0) a.cand_cnt[ci] = kept;
+        }
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < Rh * tn * kSelBins; i += blockDim.x) {
+      const int r = i / (tn * kSelBins);
+      const int rest = i - r * tn * kSelBins;
+      const int tl = rest / kSelBins, bin = rest - tl * kSelBins;
+      const unsigned v = hist[(r * a.TS + tl) * kSelBins + bin];
+      if (v != 0) {
+        atomicAdd(&ghist[((long long)r * a.T + t0 + tl) * kSelBins + bin], v);
+      }
+    }
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      unsigned* done = ghist + (long long)a.R * a.T * kSelBins +
+                       pass * a.nslices + slice;
+      const long long chunks = (gend - 1) / kSelChunk - goff / kSelChunk + 1;
+      s_last = atomicAdd(done, 1u) == (unsigned)(chunks - 1) ? 1 : 0;
+    }
+    __syncthreads();
+    if (s_last) {  // block-uniform: every chunk of the group has flushed
+      __threadfence();
+      const long long size = gend - goff;
+      for (int task = warp; task < a.R * tn; task += kSelWarps) {
+        const int r = task / tn, tl = task - r * tn;
+        const long long t = t0 + tl;
+        const long long ti = ((long long)r * a.nslots + slot) * a.T + t;
+        const unsigned* h =
+            ghist + ((long long)(pass == 0 ? 0 : r) * a.T + t) * kSelBins;
+        unsigned w;
+        if (pass == 0) {
+          long long rr = a.ranks[((long long)r * a.ng + g) * a.T + t];
+          rr = rr < 0 ? 0 : (rr >= size ? size - 1 : rr);
+          w = (unsigned)rr;
+        } else {
+          w = (unsigned)__ldcg(&a.want[ti]);
+        }
+        unsigned c8[8], sum = 0;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          c8[q] = __ldcg(&h[lane * 8 + q]);
+          sum += c8[q];
+        }
+        unsigned incl = sum;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const unsigned v = __shfl_up_sync(kSelFull, incl, o);
+          if (lane >= o) incl += v;
+        }
+        const unsigned excl = incl - sum;
+        const unsigned hit = __ballot_sync(kSelFull, excl <= w && w < incl);
+        if (lane == __ffs((int)hit) - 1) {
+          unsigned cum = excl;
+          int d = lane * 8 + 7;
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            if (cum + c8[q] > w) {
+              d = lane * 8 + q;
+              break;
+            }
+            cum += c8[q];
+          }
+          const unsigned key =
+              (pass == 0 ? 0u : __ldcg(&a.prefix[ti])) |
+              ((unsigned)d << shift);
+          if (pass == 3) {
+            a.out[((long long)r * a.ng + g) * a.T + t] = f32_of_key(key);
+          } else {
+            a.prefix[ti] = key;
+            a.want[ti] = (int32_t)(w - cum);
+          }
+        }
+      }
+      if (pass < 3) {  // the next pass reuses the bins
+        __syncthreads();
+        for (int i = threadIdx.x; i < Rh * tn * kSelBins; i += blockDim.x) {
+          const int r = i / (tn * kSelBins);
+          const int rest = i - r * tn * kSelBins;
+          ghist[((long long)r * a.T + t0 + rest / kSelBins) * kSelBins +
+                rest % kSelBins] = 0u;
+        }
+      }
+    }
+    __syncthreads();  // shared state is reset for the next segment
   }
 }
 
-// One thread per task: the digit holding the remaining rank; clears the
-// task's bins for the next pass; the last pass writes the value.
-__global__ void select_pick_kernel(unsigned int* hist, unsigned int* prefix,
-                                   int32_t* want, long long tasks,
-                                   long long n_large, long long T,
-                                   const int32_t* large_groups, long long ng,
-                                   int shift, float* out) {
-  const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= tasks) return;
-  unsigned int* h = hist + q * kSelBins;
-  const unsigned int w = (unsigned int)want[q];
-  unsigned int cum = 0;
-  int digit = kSelBins - 1;
-  for (int d = 0; d < kSelBins; ++d) {
-    const unsigned int c = h[d];
-    if (cum + c > w) {
-      digit = d;
-      break;
-    }
-    cum += c;
+
+template <int pass>
+int launch_pass(const SelArgs& a, unsigned grid, int smem, cudaStream_t st) {
+  if (int e = (int)cudaFuncSetAttribute(
+          select_pass_kernel<pass>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) {
+    return e;
   }
-  for (int d = 0; d < kSelBins; ++d) h[d] = 0;
-  const unsigned int key = prefix[q] | ((unsigned int)digit << shift);
-  prefix[q] = key;
-  want[q] = (int32_t)(w - cum);
-  if (shift == 0) {
-    const long long r = q / (n_large * T);
-    const long long lt = q - r * n_large * T;
-    const long long l = lt / T;
-    const long long t = lt - l * T;
-    out[(r * ng + large_groups[l]) * T + t] = f32_of_key(key);
-  }
+  select_pass_kernel<pass><<<grid, kThreads, smem, st>>>(a);
+  return last_error();
 }
 
 }  // namespace
 
 extern "C" {
 
-// values [S, T] f32; row_order [S]; offsets [ng + 1]; ranks / out
-// [R, ng, T].  Small groups: small_groups [n_small].  Large groups:
-// large_groups / lbase / lsize [n_large], slab [T, width] (their columns),
-// scratch prefix / want [R * n_large * T] (prefix zeroed, want = the
-// clamped ranks) and hist [R * n_large * T, 256] zeroed.
+// Scratch bytes gt_segment_select needs for these shapes.
+long long gt_segment_select_scratch(long long S, long long T, long long ng,
+                                    int R) {
+  SelArgs a{};
+  a.S = S;
+  a.T = T;
+  a.ng = ng;
+  a.R = R;
+  return select_layout(a, nullptr);
+}
+
+// values [S, T] f32; row_order [S]; offsets [ng + 1] (offsets[ng] <= S);
+// ranks / out [R, ng, T] (1 <= R <= 32); scratch: the bytes
+// gt_segment_select_scratch gives, 256-byte aligned.
 int gt_segment_select(const float* values, long long T,
                       const int32_t* row_order, const long long* offsets,
-                      long long ng, const int32_t* ranks, int R,
-                      const int32_t* small_groups, long long n_small,
-                      const int32_t* large_groups, const long long* lbase,
-                      const long long* lsize, long long n_large,
-                      long long max_large, const float* slab,
-                      long long width, unsigned int* prefix, int32_t* want,
-                      unsigned int* hist, float* out, void* stream) {
+                      long long ng, const int32_t* ranks, int R, long long S,
+                      void* scratch, float* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (n_small > 0 && T > 0) {
-    const long long tasks = n_small * T;
-    select_small_kernel<<<(unsigned)((tasks + kSelWarps - 1) / kSelWarps),
-                          kSelWarps * 32, 0, st>>>(
-        values, T, row_order, offsets, small_groups, n_small, ranks, R, ng,
-        out);
+  if (ng <= 0 || T <= 0) return (int)cudaGetLastError();
+  SelArgs a{};
+  a.values = values;
+  a.T = T;
+  a.row_order = row_order;
+  a.offsets = offsets;
+  a.ng = ng;
+  a.ranks = ranks;
+  a.R = R;
+  a.out = out;
+  a.S = S;
+  select_layout(a, (unsigned char*)scratch);
+  if (int e = (int)cudaMemsetAsync(a.ctr, 0, 2 * sizeof(int), st)) return e;
+  select_tiny_kernel<<<blocks_for(ng * T), kThreads, 0, st>>>(a);
+  if (int e = last_error()) return e;
+  if (a.max_mid > 0) {
+    const long long want = (a.max_mid * T + kSelWarps - 1) / kSelWarps;
+    const long long quads = a.nslots * a.slot_words / 4;
+    const long long zero = (quads + kSelWarps * 32 - 1) / (kSelWarps * 32);
+    long long grid = want > zero ? want : zero;
+    grid = grid < kSelMidBlocks ? grid : kSelMidBlocks;
+    select_mid_kernel<<<(unsigned)grid, kSelWarps * 32, 0, st>>>(a);
     if (int e = last_error()) return e;
   }
-  if (n_large > 0 && T > 0) {
-    const long long tasks = (long long)R * n_large * T;
-    const long long chunk = 16384;
-    const long long nchunks = (max_large + chunk - 1) / chunk;
-    for (int shift = 24; shift >= 0; shift -= 8) {
-      select_hist_kernel<<<(unsigned)(tasks * nchunks), kThreads, 0, st>>>(
-          slab, width, lbase, lsize, n_large, T, prefix, shift, chunk,
-          nchunks, hist);
-      if (int e = last_error()) return e;
-      select_pick_kernel<<<blocks_for(tasks), kThreads, 0, st>>>(
-          hist, prefix, want, tasks, n_large, T, large_groups, ng, shift, out);
-      if (int e = last_error()) return e;
-    }
+  if (a.nslots > 0) {
+    const int smem = (int)(((long long)a.R * a.TS * (kSelBins + 2) +
+                            (long long)kSelTile * ((a.TS | 1) + 1)) * 4);
+    const unsigned grid = (unsigned)(a.nchunks * a.nslices);
+    if (int e = launch_pass<0>(a, grid, smem, st)) return e;
+    if (int e = launch_pass<1>(a, grid, smem, st)) return e;
+    if (int e = launch_pass<2>(a, grid, smem, st)) return e;
+    if (int e = launch_pass<3>(a, grid, smem, st)) return e;
   }
   return 0;
 }

@@ -11,8 +11,13 @@ incremented only where it launches its kernel.
 - ``prefix_scan`` (the f64 scan with the counter-reset drop fused in)
   replaces the cumulative sums of the JAX reference's window body
   (``greptimedb_tpu/promql/engine.py:405-425``); the radix passes of
-  ``sort_layout`` run the same scan and count as its launches too.
+  ``sort_layout``'s general route run the same scan (and count under
+  ``sort_layout``).
 - ``sort_layout`` replaces K8, ``_build_sort_layout`` (``engine.py:257``).
+  Two routes: a table whose valid keys are already non-decreasing in row
+  order (every resident DeviceTable) takes one stable-partition pass
+  (``sort_layout.presorted``); any other input the radix passes
+  (``sort_layout.general``).
 - ``counter_window`` replaces K9's searchsorted geometry
   (``engine.py:288``), K10's ``counter``/``instant`` kinds (``:383``) and,
   in rate mode, the ``_extrapolated`` epilogue (``:1839``) of K11.
@@ -58,6 +63,12 @@ LIBRARY = cuda_build.BUILD_DIR / "libgreptime_promql.so"
 NVCC_FLAGS = [*cuda_build.BASE_FLAGS, "-fmad=false"]
 I64_MAX = (1 << 63) - 1
 _SCAN_TILE = 4096
+# sort_layout's pass 1: rows a segment (csrc kSegRows), segments a block
+# (kLayoutWarps), bytes of a block summary (sizeof(SegSum)), int64 scalars
+_LAYOUT_SEG = 1024
+_LAYOUT_BLOCK_SEGS = 8
+_SEG_BYTES = 64
+_SCAL_WORDS = 5
 # counter_window modes (csrc WindowMode) and the outputs each one writes
 _MODES = {"instant": 0, "counter": 1, "rate": 2}
 KIND_KEYS = {
@@ -103,7 +114,10 @@ def _load():
                         ctypes.c_double)
         sigs = {
             "gt_scan_drop_f64": [vp, vp, vp, ll, vp, vp, vp],
-            "gt_layout_key": [vp, vp, vp, vp, ll, vp, vp, vp, vp, vp],
+            "gt_layout_scan": [vp, vp, vp, vp, ll, vp, vp, vp, vp, vp],
+            "gt_layout_partition": [vp, vp, vp, vp, ll, vp, vp, vp, vp, vp,
+                                    vp, vp, vp, vp],
+            "gt_layout_key": [vp, vp, vp, vp, ll, vp, vp, vp, vp],
             "gt_radix_pass": [vp, vp, ll, i, vp, vp, vp, vp, vp],
             "gt_layout_gather": [vp, vp, vp, vp, vp, vp, ll, vp, vp, vp, vp,
                                  vp, vp],
@@ -225,48 +239,102 @@ def sort_layout(ts, val, tsid, mask) -> tuple:
     mask = _flat("sort_layout", mask, torch.bool, n)
     if _on_cpu("sort_layout", ts, val, tsid, mask):
         return sort_layout_plain(ts, val, tsid, mask)
+    return sort_layout_routed(ts, val, tsid, mask)
+
+
+def sort_layout_routed(ts, val, tsid, mask, allow_presorted: bool = True):
+    """``sort_layout``'s kernels on CUDA tensors (checked by the caller).
+    Pass 1 finds ts_min, kp and whether the valid keys are non-decreasing
+    in row order; the presorted route's one stable-partition pass is
+    queued behind it and does nothing unless they are.  Reading the route
+    is the one host sync; the general route (radix passes) follows it.
+    ``allow_presorted=False`` takes the general route on any table (the
+    tests and ``chip_smoke.py`` hold both routes on one table)."""
+    n = ts.shape[0]
     if n >= 1 << 31:
         raise ValueError(f"sort_layout: {n} rows exceed int32 row indices")
     dev = ts.device
     lib = _load()
     stream = _stream_ptr(ts)
-    key = torch.empty(n, dtype=torch.int64, device=dev)
-    idx = torch.empty(n, dtype=torch.int32, device=dev)
-    acc = torch.empty(4, dtype=torch.int64, device=dev)
-    scal = torch.empty(3, dtype=torch.int64, device=dev)
-    _check(lib.gt_layout_key(ts.data_ptr(), val.data_ptr(), tsid.data_ptr(),
-                             mask.data_ptr(), n, acc.data_ptr(),
-                             key.data_ptr(), idx.data_ptr(), scal.data_ptr(),
-                             stream), "sort_layout (layout_key)")
-    # the invalid rows' key is the largest: its bits are the passes needed
-    passes = int(scal[2]).bit_length()
-    if passes:
-        key2, idx2 = torch.empty_like(key), torch.empty_like(idx)
-        zeros = torch.empty(n, dtype=torch.int32, device=dev)
-        sums = torch.empty(_tiles(n), dtype=torch.int32, device=dev)
-        for shift in range(passes):
-            rc = lib.gt_radix_pass(key.data_ptr(), idx.data_ptr(), n, shift,
-                                   zeros.data_ptr(), sums.data_ptr(),
-                                   key2.data_ptr(), idx2.data_ptr(), stream)
-            prefix_scan.launches += 1
-            _check(rc, f"sort_layout (radix pass {shift})")
-            key, key2, idx, idx2 = key2, key, idx2, idx
-        del key2, idx2, zeros, sums
+    nseg = -(-n // _LAYOUT_SEG)
+    nblk = max(1, -(-nseg // _LAYOUT_BLOCK_SEGS))
+    seg_cnt = torch.empty(max(nseg, 1), dtype=torch.int32, device=dev)
+    blk = torch.empty(nblk * _SEG_BYTES, dtype=torch.uint8, device=dev)
+    blk_off = torch.empty(nblk, dtype=torch.int64, device=dev)
+    scal = torch.empty(_SCAL_WORDS, dtype=torch.int64, device=dev)
     out = (torch.empty(n, dtype=torch.int64, device=dev),
            torch.empty(n, dtype=torch.int64, device=dev),
            torch.empty(n, dtype=torch.float32, device=dev),
            torch.empty(n, dtype=torch.int32, device=dev),
            torch.empty(n, dtype=torch.bool, device=dev))
+    _check(lib.gt_layout_scan(ts.data_ptr(), val.data_ptr(), tsid.data_ptr(),
+                              mask.data_ptr(), n, seg_cnt.data_ptr(),
+                              blk.data_ptr(), blk_off.data_ptr(),
+                              scal.data_ptr(), stream),
+           "sort_layout (layout_scan)")
+    if allow_presorted:
+        # queued before the host reads the route, so the card does not wait
+        # on the host; it writes nothing unless the table is presorted
+        _check(lib.gt_layout_partition(
+            ts.data_ptr(), val.data_ptr(), tsid.data_ptr(), mask.data_ptr(),
+            n, seg_cnt.data_ptr(), blk_off.data_ptr(), scal.data_ptr(),
+            *(t.data_ptr() for t in out), stream),
+            "sort_layout (layout_partition)")
+    _ts_min, _kp, invalid_key, presorted, _n_valid = scal.tolist()
+    if presorted and allow_presorted:
+        sort_layout.launches += 1
+        sort_layout.presorted += 1
+        return out + (scal[0], scal[1])
+    del seg_cnt, blk, blk_off
+    key = torch.empty(n, dtype=torch.int64, device=dev)
+    idx = torch.empty(n, dtype=torch.int32, device=dev)
+    _check(lib.gt_layout_key(ts.data_ptr(), val.data_ptr(), tsid.data_ptr(),
+                             mask.data_ptr(), n, scal.data_ptr(),
+                             key.data_ptr(), idx.data_ptr(), stream),
+           "sort_layout (layout_key)")
+    # the invalid rows' key is the largest: its bits are the passes needed
+    passes = invalid_key.bit_length()
+    if passes:
+        key2, idx2 = torch.empty_like(key), torch.empty_like(idx)
+        zeros = torch.empty(n, dtype=torch.int32, device=dev)
+        sums = torch.empty(_tiles(n), dtype=torch.int32, device=dev)
+        for shift in range(passes):
+            _check(lib.gt_radix_pass(key.data_ptr(), idx.data_ptr(), n,
+                                     shift, zeros.data_ptr(),
+                                     sums.data_ptr(), key2.data_ptr(),
+                                     idx2.data_ptr(), stream),
+                   f"sort_layout (radix pass {shift})")
+            key, key2, idx, idx2 = key2, key, idx2, idx
+        del key2, idx2, zeros, sums
     rc = lib.gt_layout_gather(key.data_ptr(), idx.data_ptr(), ts.data_ptr(),
                               val.data_ptr(), tsid.data_ptr(),
                               mask.data_ptr(), n, *(t.data_ptr() for t in out),
                               stream)
     sort_layout.launches += 1
+    sort_layout.general += 1
     _check(rc, "sort_layout (layout_gather)")
     return out + (scal[0], scal[1])
 
 
+def sort_layout_presorted_plain(ts, val, tsid, mask) -> bool:
+    """Whether ``sort_layout``'s presorted route applies: the valid rows'
+    keys are non-decreasing in row order and every key fits (tsid >= 0,
+    ``(max tsid + 1) * kp`` within int64).  The plain version of pass 1's
+    route flag, for the tests' check of the resident tables."""
+    valid = mask & ~torch.isnan(val)
+    if not bool(valid.any()):
+        return True
+    t, s = ts[valid], tsid[valid].to(torch.int64)
+    kp = int(t.max()) - int(t.min()) + 2
+    if int(s.min()) < 0 or int(s.max()) + 1 > I64_MAX // kp:
+        return False
+    key = s * kp + (t - t.min())
+    return bool((key[1:] >= key[:-1]).all())
+
+
 sort_layout.launches = 0
+sort_layout.presorted = 0
+sort_layout.general = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1146,6 +1214,8 @@ def reset_launch_counts() -> None:
     series_ranges.launches = 0
     gather_ts_mat.launches = 0
     sort_layout.launches = 0
+    sort_layout.presorted = 0
+    sort_layout.general = 0
     counter_window.launches = 0
     window_stats.launches = 0
     minmax_window.launches = 0

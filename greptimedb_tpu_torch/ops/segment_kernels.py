@@ -22,7 +22,10 @@ incremented only where it launches its kernel.
 - ``segment_select`` replaces K12's sorts, the per-step two-key sorts of
   the PromQL ``quantile`` and ``topk``/``bottomk`` aggregations
   (``greptimedb_tpu/promql/engine.py:1601-1651``): it reads order
-  statistics of group-contiguous columns without sorting them in full.
+  statistics of group-contiguous columns without sorting them in full,
+  by a route per group size chosen on the device (a thread a (group,
+  step) up to ``SELECT_TINY`` rows, a warp sort up to ``SELECT_SMALL``,
+  a radix select above).
 
 Contract shared by both reductions: a row is live when ``mask`` (if given)
 is set and ``0 <= ids < ns``; an element of a live row counts when it is
@@ -84,8 +87,7 @@ def _load():
             "gt_rank_scatter": [vp, vp, vp, ll, ll, vp, vp, vp, vp, vp],
             "gt_argsort_keys": [vp, vp, ll, vp, vp, vp, vp, vp],
             "gt_radix_pass": [vp, vp, ll, i, vp, vp, vp, vp, vp],
-            "gt_segment_select": [vp, ll, vp, vp, ll, vp, i, vp, ll, vp, vp,
-                                  vp, ll, ll, vp, ll, vp, vp, vp, vp, vp],
+            "gt_segment_select": [vp, ll, vp, vp, ll, vp, i, ll, vp, vp, vp],
         }
         for sfx in _SUFFIX.values():
             sigs[f"gt_segment_reduce_{sfx}"] = [vp, ll, i, vp, vp, ll, i, i,
@@ -96,6 +98,8 @@ def _load():
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = i
+        lib.gt_segment_select_scratch.argtypes = [ll, ll, ll, i]
+        lib.gt_segment_select_scratch.restype = ll
         _lib = lib
         return lib
 
@@ -536,6 +540,7 @@ radix_argsort.launches = 0
 # segment_select (K12's sorts)
 # ---------------------------------------------------------------------------
 
+SELECT_TINY = 32     # largest group a thread selects in (csrc kSelTiny)
 SELECT_SMALL = 1024  # largest group the warp sort takes (csrc kSelSmall)
 
 
@@ -586,37 +591,17 @@ def segment_select(values, row_order, offsets, ranks) -> torch.Tensor:
     if _on_cpu("segment_select", values, row_order, offsets, ranks):
         return segment_select_plain(values, row_order, offsets, ranks)
     R, dev = ranks.shape[0], values.device
-    off_h = offsets.cpu()
-    sizes_h = torch.diff(off_h)
-    small = torch.nonzero(sizes_h <= SELECT_SMALL)[:, 0]
-    large = torch.nonzero(sizes_h > SELECT_SMALL)[:, 0]
     out = torch.empty((R, ng, T), dtype=torch.float32, device=dev)
-    small_d = small.to(device=dev, dtype=torch.int32)
-    n_large = large.numel()
-    slab = lbase = lsize = large_d = prefix = want = hist = None
-    width = max_large = 0
-    if n_large:
-        lsize_h = sizes_h[large]
-        lbase_h = torch.cumsum(lsize_h, 0) - lsize_h
-        width, max_large = int(lsize_h.sum()), int(lsize_h.max())
-        idx = torch.cat([row_order[int(off_h[g]):int(off_h[g + 1])]
-                         for g in large.tolist()])
-        # the large groups' columns, each step a contiguous row
-        slab = values.index_select(0, idx.long()).t().contiguous()
-        large_d = large.to(device=dev, dtype=torch.int32)
-        lsize = lsize_h.to(dev)
-        lbase = lbase_h.to(dev)
-        want = torch.minimum(ranks[:, large_d.long(), :].clamp(min=0),
-                             (lsize - 1)[None, :, None].to(torch.int32))
-        want = want.to(torch.int32).contiguous()
-        prefix = torch.zeros(want.numel(), dtype=torch.int32, device=dev)
-        hist = torch.zeros(want.numel() * 256, dtype=torch.int32, device=dev)
-    rc = _load().gt_segment_select(
+    if ng == 0 or T == 0:
+        return out
+    lib = _load()
+    # routes are picked per group on the device: no host sync, no host copy
+    scratch = torch.empty(lib.gt_segment_select_scratch(S, T, ng, R),
+                          dtype=torch.uint8, device=dev)
+    rc = lib.gt_segment_select(
         values.data_ptr(), T, row_order.data_ptr(), offsets.data_ptr(), ng,
-        ranks.data_ptr(), R, small_d.data_ptr(), small.numel(),
-        _ptr(large_d), _ptr(lbase), _ptr(lsize), n_large, max_large,
-        _ptr(slab), width, _ptr(prefix), _ptr(want), _ptr(hist),
-        out.data_ptr(), _stream_ptr(values))
+        ranks.data_ptr(), R, S, scratch.data_ptr(), out.data_ptr(),
+        _stream_ptr(values))
     segment_select.launches += 1
     _check(rc, "segment_select")
     return out

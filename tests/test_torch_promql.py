@@ -466,6 +466,7 @@ def test_cuda_path_matches_cpu(cuda_device, monkeypatch):
         for q in QUERIES:
             rows_match(gpu.sql(q), cpu.sql(q))
         assert pk.sort_layout.launches == 1
+        assert pk.sort_layout.presorted == 1  # the resident table's order
         assert pk.counter_window.launches > 0 and pk.prefix_scan.launches > 0
         monkeypatch.setenv("GREPTIME_PLAN_FUSION", "off")
         bare = [tql(f"{f}({M}[2m])", 0, 700_000, 30)

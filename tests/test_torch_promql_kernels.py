@@ -394,5 +394,9 @@ def test_cuda_kernels_match_plain(cuda_device):
                 g = pk.counter_window(got, gd, sel_c, T0 + off, **kw)
                 close(g.cpu().numpy(), w.numpy())
     torch.cuda.synchronize()
-    assert pk.prefix_scan.launches > 8 and pk.sort_layout.launches == 4
+    # four prefix_scan calls (the general route's radix passes count under
+    # sort_layout); the shuffled tables take the general route, the
+    # all-NaN one (no valid row) the presorted partition
+    assert pk.prefix_scan.launches == 4 and pk.sort_layout.launches == 4
+    assert pk.sort_layout.general == 3 and pk.sort_layout.presorted == 1
     assert pk.counter_window.launches == 4 * len(GEOMETRY) * 5
