@@ -46,7 +46,9 @@ Phases, each printing its own lines:
    1 and 20 steps) and on the engine's [S, T, K] subquery matrices of
    that table: their real shapes and data; series_ranges and
    gather_ts_mat at S = 2^20 against torch.searchsorted of the same
-   bounds, and counter_window at T = 1 in both geometries.
+   bounds, and counter_window at T = 1 in both geometries.  sort_layout's
+   general route prints its 8-bit digit passes and the device time a pass
+   (torch.profiler); prefix_scan must repeat bit for bit over two calls.
 6. SQL row path, on phase 3's table before its db closes (run between
    phases 3 and 4): (d) query (a) with GREPTIME_GRID=off, once under
    GREPTIME_SORTED_SEGMENTS=auto (the sorted path, sorted_segment_reduce)
@@ -62,9 +64,10 @@ Phases, each printing its own lines:
    launch counts are zeroed before the queries and read after them.
 7. The row-path kernels against their plain versions and one library
    call, timed as in phase 2, on phase 3's resident table with the ids,
-   masks and keys the row path gives them; and min/max of signed f32 and
-   f64 values with -0.0, +0.0 and +-inf entries through both reductions,
-   exactly equal to their plain versions.
+   masks and keys the row path gives them (radix_argsort with its 8-bit
+   digit passes and the device time a pass, by torch.profiler); and
+   min/max of signed f32 and f64 values with -0.0, +0.0 and +-inf entries
+   through both reductions, exactly equal to their plain versions.
    Then the sketch aggregates on the same table, while its db is open:
    hll(usage_user) and uddsketch_state(128, 0.01, usage_user) by hostname
    over all rows (registers and bucket counts exact against a numpy
@@ -361,16 +364,19 @@ def max_err(got: torch.Tensor, want: torch.Tensor, exact: bool,
     return err
 
 
-def device_busy(fn, top_n: int = 3, sessions: int = 3):
-    """Warm runs of ``fn``, each under its own torch.profiler session: the
-    summed self device time of every device op, the run's wall time and
-    the ``top_n`` ops with the most device time, from the session that
-    recorded the most device time.  On the card, some sessions recorded
-    none of the kernels the ctypes-bound csrc/ libraries launched while
-    others did; a session can only miss records, never invent them, so
-    the largest sum is the closest to the truth.  A profiler that records
-    no device time reports 0."""
+def profile_ops(fn, sessions: int = 3) -> tuple[dict, float]:
+    """Runs ``fn`` once under each of ``sessions`` torch.profiler sessions
+    and returns, from the session that recorded the most device time,
+    every device op's (self device ms, launches) by name and that run's
+    wall time (ms).  On the card, some sessions recorded none of the
+    kernels the ctypes-bound csrc/ libraries launched while others did; a
+    session can only miss records, never invent them, so the largest sum
+    is the closest to the truth.  A profiler that records no device time
+    gives no ops."""
     from torch.profiler import ProfilerActivity, profile
+
+    def busy(ops):
+        return sum(ms for ms, _n in ops.values())
 
     best = None
     for _ in range(sessions):
@@ -380,19 +386,48 @@ def device_busy(fn, top_n: int = 3, sessions: int = 3):
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        rows = []
+        ops = {}
         for e in prof.key_averages():
             us = getattr(e, "self_device_time_total", None)
             if us is None:
                 us = getattr(e, "self_cuda_time_total", 0)
             if us > 0:
-                rows.append((us, e.key))
-        rows.sort(reverse=True)
-        busy = sum(us for us, _k in rows) / 1e3
-        if best is None or busy > best[0]:
-            top = [f"{k[:40]}={us / 1e3:.3f}ms" for us, k in rows[:top_n]]
-            best = (busy, wall_ms, top)
+                ops[e.key] = (us / 1e3, e.count)
+        if best is None or busy(ops) > busy(best[0]):
+            best = (ops, wall_ms)
     return best
+
+
+def device_busy(fn, top_n: int = 3, sessions: int = 3):
+    """(summed self device ms of every device op, the run's wall ms, the
+    ``top_n`` ops with the most device time) of warm runs of ``fn``, from
+    ``profile_ops``; 0 device ms when the profiler records none."""
+    ops, wall_ms = profile_ops(fn, sessions)
+    rows = sorted(ops.items(), key=lambda kv: -kv[1][0])
+    top = [f"{k[:40]}={ms:.3f}ms" for k, (ms, _n) in rows[:top_n]]
+    return sum(ms for ms, _n in ops.values()), wall_ms, top
+
+
+def pass_split(fn, kernel: str) -> tuple[int | None, float | None, str]:
+    """(launches of ``kernel`` in one warm call of ``fn``, its device ms a
+    launch, a printable split of the call by kernel), all read from one
+    ``profile_ops`` session; the first two are None when the profiler
+    recorded none of ``kernel``'s launches."""
+    fn()
+    torch.cuda.synchronize()
+    ops, _wall = profile_ops(fn)
+    hits = [v for k, v in ops.items() if kernel in k]
+    launches = sum(n for _ms, n in hits) or None
+    per = sum(ms for ms, _n in hits) / launches if launches else None
+
+    def short(k):
+        k = k.replace("void ", "").replace("(anonymous namespace)::", "")
+        return k.split("<")[0].split("(")[0].strip()[:32]
+
+    parts = sorted(ops.items(), key=lambda kv: -kv[1][0])
+    text = ", ".join(f"{short(k)} {ms:.4f}"
+                     for k, (ms, _n) in parts[:6]) or "not measured"
+    return launches, per, text
 
 
 # ---------------------------------------------------------------------------
@@ -1141,10 +1176,13 @@ def phase_row_kernels(sk, db, ctx: dict, card: str) -> dict:
     masked = torch.where(window, keys, sk.I64_MAX)
     lib = time_ms(lambda: torch.sort(masked, stable=True))
     bnd, by = bound_ms(nbytes(keys, window) + n * 4, 0)
-    report("radix_argsort", f"decile keys N={n:,} (4 bits)", ms, plain, bnd,
-           by, lib, err)
+    passes, per, split = pass_split(lambda: sk.radix_argsort(keys, window),
+                                    "radix_scatter")
+    report("radix_argsort", f"decile keys N={n:,} ({passes} digit pass(es), "
+           f"{per if per is None else round(per, 4)} ms a pass; one call by "
+           f"kernel: {split})", ms, plain, bnd, by, lib, err)
     keep("radix_argsort", ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-         library_ms=lib, max_abs_err=err)
+         library_ms=lib, max_abs_err=err, passes=passes, pass_ms=per)
 
     # -- rank_scatter: (g)'s decile ranks, as compact_groups gives them --
     order = got
@@ -1171,12 +1209,17 @@ def phase_row_kernels(sk, db, ctx: dict, card: str) -> dict:
     masked = torch.where(over, hosts.to(torch.int64), sk.I64_MAX)
     lib = time_ms(lambda: torch.sort(masked, stable=True))
     del masked
+    passes, per, split = pass_split(lambda: sk.radix_argsort(hosts, over),
+                                    "radix_scatter")
     report("radix_argsort", f"hostname codes N={n:,} (distinct value sweep; "
-           f"library: torch.sort(stable=True) of the masked codes)",
-           ms, plain, bnd, by, lib, err)
+           f"{passes} digit pass(es), "
+           f"{per if per is None else round(per, 4)} ms a pass; one call by "
+           f"kernel: {split}; library: torch.sort(stable=True) of the "
+           f"masked codes)", ms, plain, bnd, by, lib, err)
     keep("radix_argsort", max_abs_err=err, hostname_ms=ms,
          hostname_plain_ms=plain, hostname_bound_ms=bnd,
-         hostname_library_ms=lib)
+         hostname_library_ms=lib, hostname_passes=passes,
+         hostname_pass_ms=per)
     return results
 
 
@@ -2159,16 +2202,26 @@ def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
     gen_err = max(max_err(g, w, exact=True) for g, w in zip(gen_out, gen_want))
     del gen_out, gen_want
     gen_ms = time_ms(lambda: pk.sort_layout(*pcols), reps=5)
-    passes = int((got[3][got[4]].max().long() + 1) * got[6]).bit_length()
+    passes, per, split = pass_split(lambda: pk.sort_layout(*pcols),
+                                    "radix_scatter")
     log(f"kernel sort_layout[general route: N={n:,} rows permuted (seed "
-        f"11), {passes} radix passes]: {gen_ms:.4f} ms, max_abs_err "
-        f"{gen_err:.3g} — {card}")
+        f"11), {passes} digit pass(es) profiled, "
+        f"{per if per is None else round(per, 4)} ms a pass; one call by "
+        f"kernel: {split}]: {gen_ms:.4f} ms, max_abs_err {gen_err:.3g} — "
+        f"{card}")
     results["sort_layout"]["max_abs_err"] = max(err, gen_err)
     results["sort_layout"]["general_ms"] = gen_ms
+    results["sort_layout"]["general_passes"] = passes
+    results["sort_layout"]["general_pass_ms"] = per
     del pcols
-    # -- prefix_scan (K10's f64 cumsum, with the drop prologue) --
+    # -- prefix_scan (K10's f64 cumsum, with the drop prologue): two calls
+    #    equal bit for bit --
     key_s, ts_s, val_s, tsid_s, valid_s, ts_min, kp = got
     gd = pk.prefix_scan(val_s, tsid_s, valid_s)
+    if not torch.equal(gd.view(torch.int64),
+                       pk.prefix_scan(val_s, tsid_s, valid_s).view(
+                           torch.int64)):
+        raise AssertionError("prefix_scan: two calls differ")
     gd_want = pk.prefix_scan_plain(val_s, tsid_s, valid_s)
     # f64 sums in two tree orders differ by ~1e-16 relative; 1e-9 keeps a
     # margin and stays below any one drop (a counter value >= ~100) even
@@ -2179,8 +2232,9 @@ def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
     drops = torch.diff(gd_want, prepend=gd_want.new_zeros(1))
     lib = time_ms(lambda: torch.cumsum(drops, 0))
     bnd, by = bound_ms(nbytes(val_s, tsid_s, valid_s, gd), n, F64_FLOPS)
-    report("prefix_scan", f"f64 counter drops N={n:,}", ms, plain, bnd, by,
-           lib, err)
+    report("prefix_scan", f"f64 counter drops N={n:,}, one single-pass "
+           f"launch, two calls equal bit for bit; library: torch.cumsum of "
+           f"the f64 drops", ms, plain, bnd, by, lib, err)
     results["prefix_scan"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd,
                                   bound_by=by, library_ms=lib,
                                   max_abs_err=err)
@@ -4562,7 +4616,8 @@ def main() -> int:
                                          "hostname_"))
                       or key in ("solo_pairs_ms", "host_parse_ms",
                                  "graph_ms", "library_graph_ms",
-                                 "general_ms")})
+                                 "general_ms", "general_passes",
+                                 "general_pass_ms", "passes", "pass_ms")})
         line["kernels"].append(entry)
     log(f"total: {time.perf_counter() - t_start:.3f} s")
     log(json.dumps(line))

@@ -15,14 +15,16 @@
 // prefix_scan
 //   Replaces the cumulative sums of the JAX reference's window body
 //   (greptimedb_tpu/promql/engine.py:405-425, `_window_body`: the f64
-//   cumsum of counter-reset drops) and serves the split counts of the
-//   radix sort below.  It runs scan.cuh's launch_scan (the one scan of
-//   the csrc/ libraries) with a fused prologue: the counter drop (f64)
-//   drop[i] = (tsid[i] == tsid[i-1] && valid[i] && valid[i-1] &&
-//   val[i-1] > val[i]) ? val[i-1] : 0.
-//   Bound: bytes.  The f64 mode reads val f32 + tsid i32 + valid u8 twice
-//   (phases 1 and 3: 18 B/row) and writes 8 B/row; at N = 41.9 M padded rows
-//   ~1.1 GB, ~0.33 ms at 3.35 TB/s against a 0.44 GB one-pass bound.
+//   cumsum of counter-reset drops).  It runs scan.cuh's launch_scan (the
+//   one scan of the csrc/ libraries: a single pass with decoupled
+//   look-back, whose f64 tile prefixes are the left fold of the tile sums,
+//   so the result repeats bit for bit) with a fused prologue: the counter
+//   drop (f64) drop[i] = (tsid[i] == tsid[i-1] && valid[i] && valid[i-1] &&
+//   val[i-1] > val[i]) ? val[i-1] : 0; row i-1 of a tile's first row is the
+//   previous tile's last, read again from cache.
+//   Bound: bytes.  Reads val f32 + tsid i32 + valid u8 once (9 B/row) and
+//   writes 8 B/row: at N = 41.9 M padded rows 0.71 GB, 0.213 ms at 3.35
+//   TB/s; the tile status adds 20 B a 4,096-row tile.
 //
 // sort_layout (layout_scan + layout_finalize, then one of two routes)
 //   Replaces K8, `_build_sort_layout` (engine.py:257): the query-
@@ -49,17 +51,19 @@
 //   tsid_s and valid_s: a warp a segment, its slots from the counts and a
 //   ballot a group.  No look-back: pass 1 is compulsory (ts_min and kp
 //   come before any key), and its per-segment counts make the offsets.
-//   General route (any other input): layout_key writes (key, row index)
-//   with the invalid rows' key (max tsid + 1) * kp, above every valid key,
-//   then a stable LSD radix sort, one bit per pass, each scan.cuh's
-//   radix_pass (a "bit is zero" scan plus a scatter); only as many passes
-//   run as that key has bits (40 at 1 M series x 585 s); layout_gather
-//   writes the five columns.
+//   General route (any other input): layout_key writes the key with the
+//   invalid rows' key (max tsid + 1) * kp, above every valid key, and
+//   builds the histogram of each 8-bit digit in the same read; then a
+//   stable LSD radix sort, one scan.cuh radix_pass a digit (onesweep: a
+//   scatter with decoupled look-back; the first pass reads no row indices,
+//   the last writes no keys), only as many digits as that key has bits
+//   (5 at 1 M series x 585 s, 40 bits); layout_gather writes the five
+//   columns, recomputing the key from the gathered ts and tsid.
 //   Bound: bytes, 42 B/row (read ts/val/tsid/mask 17 B, write the five
 //   sorted arrays 25 B).  The presorted route moves 59 B/row (pass 1 reads
-//   the 17 B again).  The general route adds ~44 B/row a pass (the key read
-//   twice for the scan and once with the row index for the scatter, both
-//   written again); moving it onto 8-bit digit passes is later work.
+//   the 17 B again).  The general route adds layout_key's 25 B/row and
+//   16-24 B/row a digit (u64 key and row index read and written), and
+//   layout_gather's reads are scattered.
 //
 // counter_window
 //   Replaces K9's searchsorted geometry (`_sorted_window_bounds`,
@@ -176,16 +180,28 @@ namespace {
 // prefix_scan
 // ---------------------------------------------------------------------------
 
-struct DropSrc {  // counter-reset drop of the sorted layout, as f64
+// Counter-reset drop of the sorted layout, as f64.  launch_scan calls it
+// by whole warps on consecutive rows: row i - 1 comes from lane l - 1 by
+// shuffle, and only lane 0 reads it (a tile's first row reads the previous
+// tile's last, from cache).
+struct DropSrc {
   const float* val;
   const int32_t* tsid;
   const uint8_t* valid;
   __device__ double operator()(long long i) const {
-    if (i == 0) return 0.0;
-    const bool prev_same =
-        tsid[i] == tsid[i - 1] && valid[i] != 0 && valid[i - 1] != 0;
-    const float pv = val[i - 1];
-    return (prev_same && pv > val[i]) ? (double)pv : 0.0;
+    const float v = val[i];
+    const int32_t id = tsid[i];
+    const int ok = valid[i] != 0;
+    float pv = __shfl_up_sync(kAllLanes, v, 1);
+    int32_t pid = __shfl_up_sync(kAllLanes, id, 1);
+    int pok = __shfl_up_sync(kAllLanes, ok, 1);
+    if ((threadIdx.x & 31) == 0 && i > 0) {
+      pv = val[i - 1];
+      pid = tsid[i - 1];
+      pok = valid[i - 1] != 0;
+    }
+    const bool prev_same = i > 0 && id == pid && ok && pok;
+    return (prev_same && pv > v) ? (double)pv : 0.0;
   }
 };
 
@@ -555,34 +571,52 @@ __global__ void __launch_bounds__(kThreads)
 // The general route's radix input: key[i] = tsid*kp + (ts - ts_min) on
 // valid rows, the invalid rows' key (max tsid + 1) * kp on the rest (above
 // every valid key, so a stable sort puts them last in row order, exactly
-// where the reference's I64_MAX ties land), idx[i] = i.
+// where the reference's I64_MAX ties land), and the histograms of its
+// `passes` digits (hist: [passes][256], zeroed).
 __global__ void layout_key_kernel(const long long* ts, const float* val,
                                   const int32_t* tsid, const uint8_t* mask,
                                   long long n, const long long* scal,
-                                  long long* key, int32_t* idx) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+                                  int passes, unsigned long long* key,
+                                  unsigned* hist) {
+  __shared__ unsigned sh[kRadixMaxPasses * kRadixBins];
+  radix_hist_zero(sh, passes);
+  __syncthreads();
   const long long ts_min = scal[0], kp = scal[1], invalid_key = scal[2];
-  const bool ok = mask[i] != 0 && !isnan(val[i]);
-  key[i] = ok ? (long long)tsid[i] * kp + (ts[i] - ts_min) : invalid_key;
-  idx[i] = (int32_t)i;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i0 = (long long)blockIdx.x * blockDim.x; i0 < n;
+       i0 += stride) {
+    const long long i = i0 + threadIdx.x;
+    const bool in = i < n;
+    unsigned long long k = 0;
+    if (in) {
+      const bool ok = mask[i] != 0 && !isnan(val[i]);
+      k = (unsigned long long)(ok ? (long long)tsid[i] * kp + (ts[i] - ts_min)
+                                  : invalid_key);
+      key[i] = k;
+    }
+    radix_hist_add(sh, k, passes, in);
+  }
+  __syncthreads();
+  radix_hist_flush(sh, hist, passes);
 }
 
 
 __global__ void layout_gather_kernel(
-    const long long* key_sorted, const int32_t* idx, const long long* ts,
-    const float* val, const int32_t* tsid, const uint8_t* mask, long long n,
-    long long* key_s, long long* ts_s, float* val_s, int32_t* tsid_s,
-    uint8_t* valid_s) {
+    const int32_t* idx, const long long* ts, const float* val,
+    const int32_t* tsid, const uint8_t* mask, long long n,
+    const long long* scal, long long* key_s, long long* ts_s, float* val_s,
+    int32_t* tsid_s, uint8_t* valid_s) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const long long r = idx[i];
   const float v = val[r];
   const bool ok = mask[r] != 0 && !isnan(v);
-  key_s[i] = ok ? key_sorted[i] : kI64Max;
-  ts_s[i] = ts[r];
+  const long long t = ts[r];
+  const int32_t id = tsid[r];
+  key_s[i] = ok ? (long long)id * scal[1] + (t - scal[0]) : kI64Max;
+  ts_s[i] = t;
   val_s[i] = v;
-  tsid_s[i] = tsid[r];
+  tsid_s[i] = id;
   valid_s[i] = ok ? 1 : 0;
 }
 
@@ -1181,10 +1215,11 @@ __global__ void subquery_counter_kernel(
 
 extern "C" {
 
+// scratch: the scan's tile status (scan.cuh ScanTiles, f64).
 int gt_scan_drop_f64(const float* val, const int32_t* tsid,
-                     const uint8_t* valid, long long n, double* tile_sums,
+                     const uint8_t* valid, long long n, void* scratch,
                      double* out, void* stream) {
-  return launch_scan<double, DropSrc>(DropSrc{val, tsid, valid}, n, tile_sums,
+  return launch_scan<double, DropSrc>(DropSrc{val, tsid, valid}, n, scratch,
                                       out, (cudaStream_t)stream);
 }
 
@@ -1227,35 +1262,48 @@ int gt_layout_partition(const long long* ts, const float* val,
   return last_error();
 }
 
-// The general route's radix input (after gt_layout_scan): key, idx [n].
+// The general route's radix input (after gt_layout_scan): key [n] u64 and
+// hist [passes][256] uint32, the histograms of its digits.
 int gt_layout_key(const long long* ts, const float* val, const int32_t* tsid,
                   const uint8_t* mask, long long n, const long long* scal,
-                  long long* key, int32_t* idx, void* stream) {
-  if (n <= 0) return (int)cudaGetLastError();
-  layout_key_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      ts, val, tsid, mask, n, scal, key, idx);
+                  int passes, unsigned long long* key, unsigned* hist,
+                  void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (passes < 1 || passes > kRadixMaxPasses) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (int e = (int)cudaMemsetAsync(hist, 0, sizeof(unsigned) * kRadixBins *
+                                                passes, st)) {
+    return e;
+  }
+  if (n <= 0) return last_error();
+  layout_key_kernel<<<radix_hist_grid(n), kThreads, 0, st>>>(
+      ts, val, tsid, mask, n, scal, passes, key, hist);
   return last_error();
 }
 
-int gt_radix_pass(const long long* key_in, const int32_t* idx_in, long long n,
-                  int shift, int32_t* zeros, int32_t* tile_sums,
-                  long long* key_out, int32_t* idx_out, void* stream) {
-  return radix_pass(key_in, idx_in, n, shift, zeros, tile_sums, key_out,
-                    idx_out, (cudaStream_t)stream);
+// One 8-bit digit pass (scan.cuh radix_pass): keys u64 (wide) or u32.
+int gt_radix_pass(const void* key_in, const int32_t* idx_in, long long n,
+                  int wide, int shift, const unsigned* hist,
+                  unsigned long long* status, void* key_out, int32_t* idx_out,
+                  void* stream) {
+  return radix_pass_any(key_in, idx_in, n, wide, shift, hist, status,
+                        key_out, idx_out, (cudaStream_t)stream);
 }
 
-int gt_layout_gather(const long long* key_sorted, const int32_t* idx,
-                     const long long* ts, const float* val,
-                     const int32_t* tsid, const uint8_t* mask, long long n,
+// idx: the sorted row order; the five sorted columns [n] (scal from
+// gt_layout_scan).
+int gt_layout_gather(const int32_t* idx, const long long* ts,
+                     const float* val, const int32_t* tsid,
+                     const uint8_t* mask, long long n, const long long* scal,
                      long long* key_s, long long* ts_s, float* val_s,
                      int32_t* tsid_s, uint8_t* valid_s, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   layout_gather_kernel<<<blocks_for(n), kThreads, 0,
-                                 (cudaStream_t)stream>>>(
-      key_sorted, idx, ts, val, tsid, mask, n, key_s, ts_s, val_s, tsid_s,
-      valid_s);
-  if (int e = last_error()) return e;
-  return 0;
+                         (cudaStream_t)stream>>>(idx, ts, val, tsid, mask, n,
+                                                 scal, key_s, ts_s, val_s,
+                                                 tsid_s, valid_s);
+  return last_error();
 }
 
 int gt_series_ranges(const long long* key_s, long long n,

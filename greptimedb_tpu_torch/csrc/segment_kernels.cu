@@ -7,8 +7,9 @@
 // and bound with ctypes (plain C entry points, no PyTorch headers).  Every
 // entry point launches on the caller's stream, allocates nothing (the
 // wrapper passes outputs and scratch) and returns the first nonzero
-// cudaGetLastError() of its launches.  The scan and the one-bit radix pass
-// come from scan.cuh, shared with promql_kernels.cu.
+// cudaGetLastError() of its launches.  The single-pass scan and the 8-bit
+// radix pass come from scan.cuh, shared with promql_kernels.cu and
+// topk_kernels.cu.
 //
 // A row i is live when mask[i] (if a mask is given) and 0 <= ids[i] < ns;
 // an element (i, c) of a live row counts when its value is not NaN.  Every
@@ -64,28 +65,35 @@
 //   Replaces ops/masks.py:37 `compact_rows` (the stable argsort of the mask
 //   in physical.py:1986) and the rank scatter of K6 `compact_groups`
 //   (ops/segment.py:353).  compact_order: an int32 inclusive scan of the
-//   mask (scan.cuh), then order[rows before i that are set] = i for every
-//   set row i: the kept rows in row order (incl[n - 1] of them; the clear
-//   rows are not listed).  gather: dst[i] = src[order[i]] over the kept
-//   rows, for 1-, 2-, 4- and 8-byte elements, one launch per column.  rank_scatter: an int32 scan of "sorted key differs
-//   from the previous one" gives each sorted row its dense rank; one pass
-//   writes dense[order[i]] (num_groups on invalid rows) and group_keys[rank]
-//   = key.  Bound: bytes (compact reads the mask and the kept rows of each
-//   column and writes them; rank_scatter reads key, order and valid and
-//   writes dense and group_keys).
+//   mask (scan.cuh's single-pass look-back scan), then order[rows before i
+//   that are set] = i for every set row i: the kept rows in row order
+//   (incl[n - 1] of them; the clear rows are not listed).  gather: dst[i] =
+//   src[order[i]] over the kept rows, for 1-, 2-, 4- and 8-byte elements,
+//   one launch per column.  rank_scatter: the same scan of "sorted key
+//   differs from the previous one" gives each sorted row its dense rank;
+//   one pass writes dense[order[i]] (num_groups on invalid rows) and
+//   group_keys[rank] = key.  Bound: bytes (compact reads the mask and the
+//   kept rows of each column and writes them; rank_scatter reads key,
+//   order and valid and writes dense and group_keys).
 //
 // radix_argsort
 //   Replaces K6's sorts: the jnp.argsort of compact_groups
 //   (ops/segment.py:353) and the jnp.lexsort((values, ids)) of
 //   segment_distinct_count (:206, as two stable sweeps).  Stable LSD radix
-//   argsort of int64 keys, one bit per pass (scan.cuh's radix_pass, as
-//   sort_layout's), over only the bits the key range needs: argsort_keys
-//   finds min and max over the valid rows (64-bit atomicMin/Max, order
-//   free), maps key -> key - min (unsigned) and gives invalid rows the key
-//   (max - min) + 1, so they sort last in row order.  When the valid keys
-//   span all 2^64 values the wrapper instead runs 64 passes and then one
-//   pass on the invalid flag.  Bound: bytes; each pass moves ~44 B/row
-//   against the one-pass bound of 8 B in + 4 B out per row.
+//   argsort of int64 keys on 8-bit digits (scan.cuh's radix_pass, as
+//   sort_layout's general route), over only the bits the key range needs:
+//   argsort_minmax finds min and max over the valid rows (64-bit
+//   atomicMin/Max, order free), which the wrapper reads (the one host
+//   sync) to pick the key width and the digits; argsort_keys maps key ->
+//   key - min (u32 when the range fits 32 bits, else u64), gives invalid
+//   rows the key (max - min) + 1, so they sort last in row order, and
+//   builds every digit's histogram in the same read; then one scatter
+//   launch a digit (ceil(bits / 8)): the first reads no row indices, the
+//   last writes none of the keys.  When the valid keys span all 2^64
+//   values the wrapper instead runs 8 passes and then one pass on the
+//   invalid flag (argsort_flag).  Bound: bytes, the key and the mask read
+//   once and the order written once (13 B/row); the passes move 12 B/row
+//   each with u32 keys (the hostname codes: 13 bits, 2 passes).
 //
 // segment_select
 //   Replaces K12's sorts: the two-key lax.sort of (group id, value) per
@@ -706,11 +714,17 @@ struct MaskSrc {  // 1 where the row is kept
   __device__ int operator()(long long i) const { return mask[i] != 0; }
 };
 
-struct KeyChangeSrc {  // 1 where the sorted key differs from the previous
+// 1 where the sorted key differs from the previous.  launch_scan calls it
+// by whole warps on consecutive rows: the previous key comes from lane
+// l - 1 by shuffle, and only lane 0 gathers it.
+struct KeyChangeSrc {
   const long long* key;
   const int32_t* order;
   __device__ int operator()(long long i) const {
-    return i > 0 && key[order[i]] != key[order[i - 1]] ? 1 : 0;
+    const long long k = key[order[i]];
+    long long pk = __shfl_up_sync(kAllLanes, k, 1);
+    if ((threadIdx.x & 31) == 0 && i > 0) pk = key[order[i - 1]];
+    return i > 0 && k != pk ? 1 : 0;
   }
 };
 
@@ -793,29 +807,60 @@ __global__ void argsort_minmax_kernel(const long long* __restrict__ key,
   }
 }
 
-// scal: [0] the invalid rows' relative key (the largest one), [1] 1 when
-// the valid keys span all 2^64 values (no room above them)
+// The relative keys (K: u32 when they fit, else u64): key - mn on valid
+// rows, `inv` (above every valid key) on the rest, so a stable sort puts
+// the invalid rows last in row order; and, in the same read, the 256-bin
+// histograms of the `passes` digits (hist: [passes][256], zeroed).
+template <typename K>
 __global__ void argsort_key_kernel(const long long* __restrict__ key,
                                    const uint8_t* __restrict__ valid,
-                                   long long n, const long long* acc,
-                                   long long* __restrict__ rel,
-                                   int32_t* __restrict__ idx,
-                                   long long* scal) {
-  const bool any = acc[2] != 0;
-  const unsigned long long mn = any ? (unsigned long long)acc[0] : 0ull;
-  const unsigned long long mx = any ? (unsigned long long)acc[1] : 0ull;
-  const unsigned long long range = mx - mn;
-  const bool full = range == ~0ull;
-  const unsigned long long inv = full ? 0ull : range + 1ull;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i == 0) {
-    scal[0] = (long long)inv;
-    scal[1] = full ? 1 : 0;
+                                   long long n, unsigned long long mn,
+                                   unsigned long long inv, int passes,
+                                   K* __restrict__ rel, unsigned* hist) {
+  __shared__ unsigned sh[kRadixMaxPasses * kRadixBins];
+  radix_hist_zero(sh, passes);
+  __syncthreads();
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i0 = (long long)blockIdx.x * blockDim.x; i0 < n;
+       i0 += stride) {
+    const long long i = i0 + threadIdx.x;
+    const bool in = i < n;
+    K r = 0;
+    if (in) {
+      const bool ok = valid == nullptr || valid[i] != 0;
+      r = (K)(ok ? (unsigned long long)key[i] - mn : inv);
+      rel[i] = r;
+    }
+    radix_hist_add(sh, r, passes, in);
   }
-  if (i >= n) return;
-  const bool ok = valid == nullptr || valid[i] != 0;
-  rel[i] = (long long)(ok ? (unsigned long long)key[i] - mn : inv);
-  idx[i] = (int32_t)i;
+  __syncthreads();
+  radix_hist_flush(sh, hist, passes);
+}
+
+// The extra pass of a key range that spans all 2^64 values: flag[i] = 1
+// where row idx[i] is invalid, and its one-digit histogram (hist: [256],
+// zeroed).
+__global__ void argsort_flag_kernel(const uint8_t* __restrict__ valid,
+                                    const int32_t* __restrict__ idx,
+                                    long long n, uint32_t* __restrict__ flag,
+                                    unsigned* hist) {
+  __shared__ unsigned sh[kRadixBins];
+  radix_hist_zero(sh, 1);
+  __syncthreads();
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i0 = (long long)blockIdx.x * blockDim.x; i0 < n;
+       i0 += stride) {
+    const long long i = i0 + threadIdx.x;
+    const bool in = i < n;
+    uint32_t f = 0;
+    if (in) {
+      f = valid[idx[i]] != 0 ? 0u : 1u;
+      flag[i] = f;
+    }
+    radix_hist_add(sh, f, 1, in);
+  }
+  __syncthreads();
+  radix_hist_flush(sh, hist, 1);
 }
 
 // ---------------------------------------------------------------------------
@@ -1421,13 +1466,13 @@ int gt_sorted_reduce_i64(const void* const* cols, long long ld,
 }
 
 // incl: [n] int32 (the inclusive scan of the mask; incl[n-1] is the number
-// of set rows), tile_sums: [ceil(n / 4096)] int32 scratch; order: [n] int32,
-// of which the first incl[n-1] entries are written.
+// of set rows), scratch: the scan's tile status (scan.cuh ScanTiles, int32);
+// order: [n] int32, of which the first incl[n-1] entries are written.
 int gt_compact_order(const uint8_t* mask, long long n, int32_t* incl,
-                     int32_t* tile_sums, int32_t* order, void* stream) {
+                     void* scratch, int32_t* order, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (n <= 0) return last_error();
-  if (int e = launch_scan<int32_t, MaskSrc>(MaskSrc{mask}, n, tile_sums, incl,
+  if (int e = launch_scan<int32_t, MaskSrc>(MaskSrc{mask}, n, scratch, incl,
                                             st)) {
     return e;
   }
@@ -1466,10 +1511,11 @@ int gt_gather(const void* src, const int32_t* order, long long n,
 }
 
 // key: [n] int64 (I64_MAX on invalid rows), order: the stable argsort of
-// key, valid: [n]; rank: [n] int32 scratch; group_keys: [num_groups + 1].
+// key, valid: [n]; rank: [n] int32 scratch; scratch: the scan's tile
+// status (int32); group_keys: [num_groups + 1].
 int gt_rank_scatter(const long long* key, const int32_t* order,
                     const uint8_t* valid, long long n, long long num_groups,
-                    int32_t* rank, int32_t* tile_sums, int32_t* dense,
+                    int32_t* rank, void* scratch, int32_t* dense,
                     long long* group_keys, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   fill_i64_kernel<<<blocks_for(num_groups + 1), kThreads, 0, st>>>(
@@ -1477,7 +1523,7 @@ int gt_rank_scatter(const long long* key, const int32_t* order,
   if (int e = last_error()) return e;
   if (n <= 0) return 0;
   if (int e = launch_scan<int32_t, KeyChangeSrc>(KeyChangeSrc{key, order}, n,
-                                                 tile_sums, rank, st)) {
+                                                 scratch, rank, st)) {
     return e;
   }
   rank_scatter_kernel<<<blocks_for(n), kThreads, 0, st>>>(
@@ -1485,11 +1531,10 @@ int gt_rank_scatter(const long long* key, const int32_t* order,
   return last_error();
 }
 
-// acc: [3] int64 scratch; rel: [n] int64 relative keys; idx: [n] int32 row
-// indices; scal: [2] int64 (see argsort_key_kernel).
-int gt_argsort_keys(const long long* key, const uint8_t* valid, long long n,
-                    long long* acc, long long* rel, int32_t* idx,
-                    long long* scal, void* stream) {
+// acc: [3] int64: the valid rows' min and max, and whether any row is
+// valid (the wrapper reads it: the one host sync of radix_argsort).
+int gt_argsort_minmax(const long long* key, const uint8_t* valid, long long n,
+                      long long* acc, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   argsort_init_kernel<<<1, 1, 0, st>>>(acc);
   if (int e = last_error()) return e;
@@ -1497,18 +1542,57 @@ int gt_argsort_keys(const long long* key, const uint8_t* valid, long long n,
     const long long want = blocks_for(n);
     const unsigned grid = (unsigned)(want < 4096 ? want : 4096);
     argsort_minmax_kernel<<<grid, kThreads, 0, st>>>(key, valid, n, acc);
-    if (int e = last_error()) return e;
   }
-  argsort_key_kernel<<<blocks_for(n > 0 ? n : 1), kThreads, 0, st>>>(
-      key, valid, n, acc, rel, idx, scal);
   return last_error();
 }
 
-int gt_radix_pass(const long long* key_in, const int32_t* idx_in, long long n,
-                  int shift, int32_t* zeros, int32_t* tile_sums,
-                  long long* key_out, int32_t* idx_out, void* stream) {
-  return radix_pass(key_in, idx_in, n, shift, zeros, tile_sums, key_out,
-                    idx_out, (cudaStream_t)stream);
+// rel: [n] u64 (wide) or u32 relative keys; hist: [passes][256] uint32.
+int gt_argsort_keys(const long long* key, const uint8_t* valid, long long n,
+                    long long mn, unsigned long long inv, int wide,
+                    int passes, void* rel, unsigned* hist, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (passes < 1 || passes > kRadixMaxPasses) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (int e = (int)cudaMemsetAsync(hist, 0, sizeof(unsigned) * kRadixBins *
+                                                passes, st)) {
+    return e;
+  }
+  if (n <= 0) return last_error();
+  const unsigned grid = radix_hist_grid(n);
+  if (wide) {
+    argsort_key_kernel<unsigned long long><<<grid, kThreads, 0, st>>>(
+        key, valid, n, (unsigned long long)mn, inv, passes,
+        (unsigned long long*)rel, hist);
+  } else {
+    argsort_key_kernel<uint32_t><<<grid, kThreads, 0, st>>>(
+        key, valid, n, (unsigned long long)mn, inv, passes, (uint32_t*)rel,
+        hist);
+  }
+  return last_error();
+}
+
+// flag: [n] u32; hist: [256] uint32 (see argsort_flag_kernel).
+int gt_argsort_flag(const uint8_t* valid, const int32_t* idx, long long n,
+                    uint32_t* flag, unsigned* hist, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (int e = (int)cudaMemsetAsync(hist, 0, sizeof(unsigned) * kRadixBins,
+                                   st)) {
+    return e;
+  }
+  if (n <= 0) return last_error();
+  argsort_flag_kernel<<<radix_hist_grid(n), kThreads, 0, st>>>(valid, idx, n,
+                                                               flag, hist);
+  return last_error();
+}
+
+// One 8-bit digit pass (scan.cuh radix_pass): keys u64 (wide) or u32.
+int gt_radix_pass(const void* key_in, const int32_t* idx_in, long long n,
+                  int wide, int shift, const unsigned* hist,
+                  unsigned long long* status, void* key_out, int32_t* idx_out,
+                  void* stream) {
+  return radix_pass_any(key_in, idx_in, n, wide, shift, hist, status,
+                        key_out, idx_out, (cudaStream_t)stream);
 }
 
 }  // extern "C"

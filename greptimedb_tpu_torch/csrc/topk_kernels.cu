@@ -31,7 +31,8 @@
 //   above the prefix for good (one byte a row).  A device flag stops the
 //   remaining levels as soon as the rows equal to the prefix all fit, so
 //   the host launches every level without waiting on any.  Then one
-//   tile scan (scan.cuh) over (below, equal) counts collects, in row
+//   single-pass scan (scan.cuh's launch_scan_with, the collect as its
+//   epilogue) over (below, equal) counts, 31 bits each, collects, in row
 //   order, every row below the prefix and the first k_rem rows equal to
 //   it: exactly k row indices, whatever the ties.  `topk_words` then
 //   writes the survivors' keys as int64 words whose signed order is the
@@ -278,7 +279,8 @@ __global__ void topk_pick_kernel(const unsigned* __restrict__ hist, int l,
 }
 
 // A row's class against the final prefix, as scan input: 1 below the
-// prefix, 1 << 32 equal to it, 0 above.
+// prefix, 1 << 31 equal to it, 0 above.  Both counts stay below 2^31
+// (n < 2^31), so their sum fits the 62 bits of the scan's status word.
 struct ClassSrc {
   Desc ds;
   const uint8_t* mask;
@@ -292,52 +294,30 @@ struct ClassSrc {
       const unsigned p = (unsigned)st[kPicked + last];
       c = d < p ? kBelow : (d == p ? kAlive : kAbove);
     }
-    return c == kBelow ? 1LL : (c == kAlive ? (1LL << 32) : 0LL);
+    return c == kBelow ? 1LL : (c == kAlive ? (1LL << 31) : 0LL);
   }
 };
 
-// scan_apply_kernel's tile scan with a scatter for an epilogue: a row below
-// the prefix goes to (rows below before it) + min(equal rows before it,
-// k_rem); an equal row with fewer than k_rem equal rows before it to
-// (rows below before it) + (equal rows before it).  Row order throughout.
-__global__ void __launch_bounds__(kScanThreads)
-    topk_collect_kernel(ClassSrc src, long long n,
-                        const long long* __restrict__ tile_offsets,
-                        int32_t* __restrict__ sel) {
-  __shared__ long long tile[kScanTile + kScanTile / 16];
-  __shared__ long long sm[kScanThreads];
-  const long long base = (long long)blockIdx.x * kScanTile;
-  for (int j = 0; j < kScanItems; ++j) {
-    const int k = j * kScanThreads + threadIdx.x;
-    const long long i = base + k;
-    tile[sidx(k)] = i < n ? src(i) : 0LL;
-  }
-  __syncthreads();
-  const int k0 = threadIdx.x * kScanItems;
-  long long own[kScanItems];
-  long long acc = 0;
-  for (int j = 0; j < kScanItems; ++j) {
-    own[j] = tile[sidx(k0 + j)];
-    acc += own[j];
-  }
-  long long total;
-  long long run = tile_offsets[blockIdx.x] + block_exclusive_scan(acc, sm,
-                                                                  total);
-  const long long rem = src.st[kRem];
-  for (int j = 0; j < kScanItems; ++j) {
-    const long long i = base + k0 + j;
-    const long long below = run & 0xffffffffLL;
-    const long long equal = run >> 32;
-    if (i < n) {
-      if (own[j] == 1) {
-        sel[below + (equal < rem ? equal : rem)] = (int32_t)i;
-      } else if (own[j] != 0 && equal < rem) {
-        sel[below + equal] = (int32_t)i;
-      }
+// The scan's epilogue: a row below the prefix goes to (rows below before
+// it) + min(equal rows before it, k_rem); an equal row with fewer than
+// k_rem equal rows before it to (rows below before it) + (equal rows
+// before it).  Row order throughout.
+struct CollectOut {
+  const long long* st;
+  int32_t* sel;
+  __device__ void operator()(long long i, long long run,
+                             long long incl) const {
+    const long long own = incl - run;  // exact: integer counts
+    const long long below = run & 0x7fffffffLL;
+    const long long equal = run >> 31;
+    const long long rem = st[kRem];
+    if (own == 1) {
+      sel[below + (equal < rem ? equal : rem)] = (int32_t)i;
+    } else if (own != 0 && equal < rem) {
+      sel[below + equal] = (int32_t)i;
     }
-    run += own[j];
   }
-}
+};
 
 // One thread a survivor: its valid flag and its key words, per key the
 // rank (floats) then the value, as int64 whose signed order is the key
@@ -369,13 +349,13 @@ extern "C" {
 
 // desc: the descriptors above (device); mask: [n] bool; cand: [n] uint8
 // scratch; hist: [levels, 256] uint32 scratch; st: [4 + levels] int64
-// (st[3] receives the number of rows with the mask set); tile_sums:
-// [ceil(n / 4096)] int64 scratch; sel: [k] int32, the selected row indices
-// in row order.  1 <= k <= n.
+// (st[3] receives the number of rows with the mask set); scratch: the
+// scan's tile status (scan.cuh ScanTiles, int64); sel: [k] int32, the
+// selected row indices in row order.  1 <= k <= n.
 int gt_topk_select(const long long* desc, int nkeys, int levels,
                    const uint8_t* mask, long long n, long long k,
                    uint8_t* cand, unsigned* hist, long long* st,
-                   long long* tile_sums, int32_t* sel, void* stream) {
+                   void* scratch, int32_t* sel, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (n <= 0 || k <= 0 || k > n) return (int)cudaErrorInvalidValue;
   const Desc ds{desc, nkeys, levels};
@@ -394,16 +374,8 @@ int gt_topk_select(const long long* desc, int nkeys, int levels,
     topk_pick_kernel<<<1, 1, 0, s>>>(hist, l, st);
     if (int e = last_error()) return e;
   }
-  const ClassSrc src{ds, mask, cand, st};
-  const long long ntiles = (n + kScanTile - 1) / kScanTile;
-  scan_reduce_kernel<long long, ClassSrc>
-      <<<(unsigned)ntiles, kScanThreads, 0, s>>>(src, n, tile_sums);
-  if (int e = last_error()) return e;
-  scan_top_kernel<long long><<<1, kTopThreads, 0, s>>>(tile_sums, ntiles);
-  if (int e = last_error()) return e;
-  topk_collect_kernel<<<(unsigned)ntiles, kScanThreads, 0, s>>>(
-      src, n, tile_sums, sel);
-  return last_error();
+  return launch_scan_with<long long, ClassSrc, CollectOut>(
+      ClassSrc{ds, mask, cand, st}, n, scratch, CollectOut{st, sel}, s);
 }
 
 // words: [parts, k] int64 (parts: one per key, two for a float key);

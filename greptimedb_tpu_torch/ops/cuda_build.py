@@ -22,6 +22,9 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = REPO / "build" / "kernels"
 BASE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
+SCAN_TILE = 4096   # elements a tile of scan.cuh's launch_scan (kScanTile)
+SORT_TILE = 4096   # keys a tile of scan.cuh's radix_pass (kSortTile)
+RADIX_BINS = 256   # 8-bit digits (kRadixBins)
 
 
 def nvcc() -> str:
@@ -67,6 +70,36 @@ def check(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} "
                            f"({torch.cuda.get_device_name()})")
+
+
+def scan_scratch(n: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """Tile status of one ``launch_scan`` over n elements of ``dtype``
+    (scan.cuh ``ScanTiles``), then the tile counter: for integer sums a
+    64-bit status word a tile (flag and value in one), for float sums each
+    tile's aggregate and inclusive prefix and its flag."""
+    tiles = max(1, -(-n // SCAN_TILE))
+    if dtype.is_floating_point:
+        size = tiles * (2 * torch.finfo(dtype).bits // 8 + 4) + 4
+    else:
+        size = tiles * 8 + 4
+    return torch.empty(size, dtype=torch.uint8, device=device)
+
+
+def radix_status(n: int, device) -> torch.Tensor:
+    """Status words of one ``radix_pass`` over n keys: the tile counter,
+    then a word a (tile, digit).  Every pass resets them."""
+    tiles = max(1, -(-n // SORT_TILE))
+    return torch.empty(1 + tiles * RADIX_BINS, dtype=torch.int64,
+                       device=device)
+
+
+def radix_digits(bits: int) -> tuple[bool, list[int]]:
+    """The digit plan of an LSD radix sort of keys below ``2**bits``:
+    whether the keys need 64 bits (else 32), and the shift of each 8-bit
+    digit pass, least significant first (at least one pass)."""
+    if not 0 <= bits <= 64:
+        raise ValueError(f"radix_digits: {bits} bits")
+    return bits > 32, list(range(0, max(bits, 1), 8))
 
 
 def stream_ptr(t: torch.Tensor) -> int:

@@ -10,14 +10,14 @@ incremented only where it launches its kernel.
 
 - ``prefix_scan`` (the f64 scan with the counter-reset drop fused in)
   replaces the cumulative sums of the JAX reference's window body
-  (``greptimedb_tpu/promql/engine.py:405-425``); the radix passes of
-  ``sort_layout``'s general route run the same scan (and count under
-  ``sort_layout``).
+  (``greptimedb_tpu/promql/engine.py:405-425``): one single-pass
+  look-back scan launch, bit-for-bit repeatable.
 - ``sort_layout`` replaces K8, ``_build_sort_layout`` (``engine.py:257``).
   Two routes: a table whose valid keys are already non-decreasing in row
   order (every resident DeviceTable) takes one stable-partition pass
-  (``sort_layout.presorted``); any other input the radix passes
-  (``sort_layout.general``).
+  (``sort_layout.presorted``); any other input an LSD radix sort on
+  8-bit digits, one pass a digit (``sort_layout.general``; its passes
+  count there, not under ``radix_argsort``).
 - ``counter_window`` replaces K9's searchsorted geometry
   (``engine.py:288``), K10's ``counter``/``instant`` kinds (``:383``) and,
   in rate mode, the ``_extrapolated`` epilogue (``:1839``) of K11.
@@ -62,7 +62,6 @@ SOURCE = cuda_build.CSRC / "promql_kernels.cu"
 LIBRARY = cuda_build.BUILD_DIR / "libgreptime_promql.so"
 NVCC_FLAGS = [*cuda_build.BASE_FLAGS, "-fmad=false"]
 I64_MAX = (1 << 63) - 1
-_SCAN_TILE = 4096
 # sort_layout's pass 1: rows a segment (csrc kSegRows), segments a block
 # (kLayoutWarps), bytes of a block summary (sizeof(SegSum)), int64 scalars
 _LAYOUT_SEG = 1024
@@ -117,9 +116,9 @@ def _load():
             "gt_layout_scan": [vp, vp, vp, vp, ll, vp, vp, vp, vp, vp],
             "gt_layout_partition": [vp, vp, vp, vp, ll, vp, vp, vp, vp, vp,
                                     vp, vp, vp, vp],
-            "gt_layout_key": [vp, vp, vp, vp, ll, vp, vp, vp, vp],
-            "gt_radix_pass": [vp, vp, ll, i, vp, vp, vp, vp, vp],
-            "gt_layout_gather": [vp, vp, vp, vp, vp, vp, ll, vp, vp, vp, vp,
+            "gt_layout_key": [vp, vp, vp, vp, ll, vp, i, vp, vp, vp],
+            "gt_radix_pass": [vp, vp, ll, i, i, vp, vp, vp, vp, vp],
+            "gt_layout_gather": [vp, vp, vp, vp, vp, ll, vp, vp, vp, vp, vp,
                                  vp, vp],
             "gt_series_ranges": [vp, ll, vp, vp, ll, vp, vp, vp, vp],
             "gt_gather_ts_mat": [vp, vp, vp, ll, ll, vp, vp],
@@ -159,10 +158,6 @@ def _flat(what: str, t: torch.Tensor, dtype, n: int | None = None):
     return t.contiguous()
 
 
-def _tiles(n: int) -> int:
-    return max(1, -(-n // _SCAN_TILE))
-
-
 # ---------------------------------------------------------------------------
 # prefix_scan
 # ---------------------------------------------------------------------------
@@ -190,7 +185,7 @@ def prefix_scan(val_s, tsid_s, valid_s) -> torch.Tensor:
     if _on_cpu("prefix_scan", val_s, tsid_s, valid_s):
         return prefix_scan_plain(val_s, tsid_s, valid_s)
     out = torch.empty(n, dtype=torch.float64, device=val_s.device)
-    sums = torch.empty(_tiles(n), dtype=torch.float64, device=val_s.device)
+    sums = cuda_build.scan_scratch(n, torch.float64, val_s.device)
     rc = _load().gt_scan_drop_f64(
         val_s.data_ptr(), tsid_s.data_ptr(), valid_s.data_ptr(), n,
         sums.data_ptr(), out.data_ptr(), _stream_ptr(val_s))
@@ -247,7 +242,8 @@ def sort_layout_routed(ts, val, tsid, mask, allow_presorted: bool = True):
     Pass 1 finds ts_min, kp and whether the valid keys are non-decreasing
     in row order; the presorted route's one stable-partition pass is
     queued behind it and does nothing unless they are.  Reading the route
-    is the one host sync; the general route (radix passes) follows it.
+    is the one host sync; the general route (8-bit digit passes) follows
+    it.
     ``allow_presorted=False`` takes the general route on any table (the
     tests and ``chip_smoke.py`` hold both routes on one table)."""
     n = ts.shape[0]
@@ -286,29 +282,34 @@ def sort_layout_routed(ts, val, tsid, mask, allow_presorted: bool = True):
         sort_layout.presorted += 1
         return out + (scal[0], scal[1])
     del seg_cnt, blk, blk_off
+    # the invalid rows' key is the largest: its bits are the digits needed
+    # (the keys stay u64 whatever their width)
+    shifts = cuda_build.radix_digits(invalid_key.bit_length())[1]
     key = torch.empty(n, dtype=torch.int64, device=dev)
-    idx = torch.empty(n, dtype=torch.int32, device=dev)
+    hist = torch.empty((len(shifts), cuda_build.RADIX_BINS),
+                       dtype=torch.int32, device=dev)
     _check(lib.gt_layout_key(ts.data_ptr(), val.data_ptr(), tsid.data_ptr(),
                              mask.data_ptr(), n, scal.data_ptr(),
-                             key.data_ptr(), idx.data_ptr(), stream),
+                             len(shifts), key.data_ptr(), hist.data_ptr(),
+                             stream),
            "sort_layout (layout_key)")
-    # the invalid rows' key is the largest: its bits are the passes needed
-    passes = invalid_key.bit_length()
-    if passes:
-        key2, idx2 = torch.empty_like(key), torch.empty_like(idx)
-        zeros = torch.empty(n, dtype=torch.int32, device=dev)
-        sums = torch.empty(_tiles(n), dtype=torch.int32, device=dev)
-        for shift in range(passes):
-            _check(lib.gt_radix_pass(key.data_ptr(), idx.data_ptr(), n,
-                                     shift, zeros.data_ptr(),
-                                     sums.data_ptr(), key2.data_ptr(),
-                                     idx2.data_ptr(), stream),
-                   f"sort_layout (radix pass {shift})")
-            key, key2, idx, idx2 = key2, key, idx2, idx
-        del key2, idx2, zeros, sums
-    rc = lib.gt_layout_gather(key.data_ptr(), idx.data_ptr(), ts.data_ptr(),
-                              val.data_ptr(), tsid.data_ptr(),
-                              mask.data_ptr(), n, *(t.data_ptr() for t in out),
+    key2 = torch.empty_like(key) if len(shifts) > 1 else None
+    idx = torch.empty(n, dtype=torch.int32, device=dev)
+    idx2 = torch.empty_like(idx)
+    status = cuda_build.radix_status(n, dev)
+    for p, shift in enumerate(shifts):
+        last = p == len(shifts) - 1
+        _check(lib.gt_radix_pass(key.data_ptr(),
+                                 idx.data_ptr() if p else None, n, 1, shift,
+                                 hist[p].data_ptr(), status.data_ptr(),
+                                 None if last else key2.data_ptr(),
+                                 idx2.data_ptr(), stream),
+               f"sort_layout (digit at bit {shift})")
+        key, key2, idx, idx2 = key2, key, idx2, idx
+    del key, key2, idx2, status, hist
+    rc = lib.gt_layout_gather(idx.data_ptr(), ts.data_ptr(), val.data_ptr(),
+                              tsid.data_ptr(), mask.data_ptr(), n,
+                              scal.data_ptr(), *(t.data_ptr() for t in out),
                               stream)
     sort_layout.launches += 1
     sort_layout.general += 1

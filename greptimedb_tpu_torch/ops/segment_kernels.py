@@ -57,8 +57,8 @@ LIBRARY = cuda_build.BUILD_DIR / "libgreptime_segment.so"
 NVCC_FLAGS = cuda_build.BASE_FLAGS
 I64_MAX = (1 << 63) - 1
 I64_MIN = -(1 << 63)
+_U64 = (1 << 64) - 1
 _OPS = {"sum": 0, "min": 1, "max": 2}
-_SCAN_TILE = 4096
 _WIDE_C = 16  # columns of one wide segment_reduce launch (csrc kWideC)
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.int64: "i64"}
 
@@ -80,13 +80,16 @@ def _load():
             return _lib
         lib = ctypes.CDLL(str(build()))
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        ull = ctypes.c_ulonglong
         sigs = {
             "gt_segment_bounds": [vp, ll, i, vp, vp, vp],
             "gt_compact_order": [vp, ll, vp, vp, vp, vp],
             "gt_gather": [vp, vp, ll, i, vp, vp],
             "gt_rank_scatter": [vp, vp, vp, ll, ll, vp, vp, vp, vp, vp],
-            "gt_argsort_keys": [vp, vp, ll, vp, vp, vp, vp, vp],
-            "gt_radix_pass": [vp, vp, ll, i, vp, vp, vp, vp, vp],
+            "gt_argsort_minmax": [vp, vp, ll, vp, vp],
+            "gt_argsort_keys": [vp, vp, ll, ll, ull, i, i, vp, vp, vp],
+            "gt_argsort_flag": [vp, vp, ll, vp, vp, vp],
+            "gt_radix_pass": [vp, vp, ll, i, i, vp, vp, vp, vp, vp],
             "gt_segment_select": [vp, ll, vp, vp, ll, vp, i, ll, vp, vp, vp],
         }
         for sfx in _SUFFIX.values():
@@ -106,10 +109,6 @@ def _load():
 
 def _ptr(t: torch.Tensor | None):
     return t.data_ptr() if t is not None else None
-
-
-def _tiles(n: int) -> int:
-    return max(1, -(-n // _SCAN_TILE))
 
 
 def value_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -382,7 +381,7 @@ def compact(columns: dict, mask):
     stream = _stream_ptr(mask)
     mask = mask.contiguous()
     incl = torch.empty(n, dtype=torch.int32, device=dev)
-    sums = torch.empty(_tiles(n), dtype=torch.int32, device=dev)
+    sums = cuda_build.scan_scratch(n, torch.int32, dev)
     order = torch.empty(n, dtype=torch.int32, device=dev)
     _check(lib.gt_compact_order(mask.data_ptr(), n, incl.data_ptr(),
                                 sums.data_ptr(), order.data_ptr(), stream),
@@ -439,7 +438,7 @@ def rank_scatter(key, order, valid, num_groups: int):
     dev = key.device
     order = order.to(torch.int32).contiguous()
     rank = torch.empty(n, dtype=torch.int32, device=dev)
-    sums = torch.empty(_tiles(n), dtype=torch.int32, device=dev)
+    sums = cuda_build.scan_scratch(n, torch.int32, dev)
     dense = torch.empty(n, dtype=torch.int32, device=dev)
     gk = torch.empty(num_groups + 1, dtype=torch.int64, device=dev)
     rc = _load().gt_rank_scatter(
@@ -484,6 +483,20 @@ def radix_argsort_plain(keys, valid=None):
     return order.to(torch.int32)
 
 
+def argsort_bits(lo: int, hi: int, any_valid: bool) -> tuple:
+    """The relative keys of ``radix_argsort`` from the valid rows' int64
+    ``lo`` / ``hi`` (ignored when no row is valid): ``(inv, full, bits)``,
+    ``inv`` the invalid rows' key ``(hi - lo) + 1``, ``full`` when the
+    valid keys span all 2^64 values (no key is left above them), ``bits``
+    the width of the largest key."""
+    if not any_valid:
+        lo = hi = 0
+    span = (hi - lo) & _U64
+    if span == _U64:
+        return 0, True, 64
+    return span + 1, False, (span + 1).bit_length()
+
+
 def radix_argsort(values, valid=None) -> torch.Tensor:
     """Stable ascending argsort (int32 row indices) of ``values`` [N]
     (integers, bools or floats, through ``order_key``); rows where
@@ -497,38 +510,56 @@ def radix_argsort(values, valid=None) -> torch.Tensor:
     n, dev = keys.shape[0], keys.device
     if n >= 1 << 31:
         raise ValueError(f"radix_argsort: {n} rows exceed int32 indices")
+    if n == 0:
+        return torch.empty(0, dtype=torch.int32, device=dev)
     lib = _load()
     stream = _stream_ptr(keys)
     valid = valid.contiguous() if valid is not None else None
     acc = torch.empty(3, dtype=torch.int64, device=dev)
-    rel = torch.empty(n, dtype=torch.int64, device=dev)
-    idx = torch.empty(n, dtype=torch.int32, device=dev)
-    scal = torch.empty(2, dtype=torch.int64, device=dev)
+    _check(lib.gt_argsort_minmax(keys.data_ptr(), _ptr(valid), n,
+                                 acc.data_ptr(), stream),
+           "radix_argsort (min/max)")
+    lo, hi, any_valid = acc.tolist()  # the one host sync
+    inv, full, bits = argsort_bits(lo, hi, any_valid)
+    wide, shifts = cuda_build.radix_digits(bits)
+    rel = torch.empty(n, dtype=torch.int64 if wide else torch.int32,
+                      device=dev)
+    hist = torch.empty((len(shifts), cuda_build.RADIX_BINS),
+                       dtype=torch.int32, device=dev)
     _check(lib.gt_argsort_keys(keys.data_ptr(), _ptr(valid), n,
-                               acc.data_ptr(), rel.data_ptr(), idx.data_ptr(),
-                               scal.data_ptr(), stream),
+                               lo if any_valid else 0, inv, int(wide),
+                               len(shifts), rel.data_ptr(), hist.data_ptr(),
+                               stream),
            "radix_argsort (keys)")
-    inv, full = scal.tolist()
-    passes = 64 if full else (inv & ((1 << 64) - 1)).bit_length()
-    zeros = torch.empty(n, dtype=torch.int32, device=dev)
-    sums = torch.empty(_tiles(n), dtype=torch.int32, device=dev)
-    rel2, idx2 = torch.empty_like(rel), torch.empty_like(idx)
+    status = cuda_build.radix_status(n, dev)
+    rel2 = torch.empty_like(rel) if len(shifts) > 1 else None
+    idx = torch.empty(n, dtype=torch.int32, device=dev)
+    idx2 = torch.empty_like(idx)
+    first = True
 
-    def one_pass(key, shift):
-        nonlocal idx, idx2
-        rc = lib.gt_radix_pass(key.data_ptr(), idx.data_ptr(), n, shift,
-                               zeros.data_ptr(), sums.data_ptr(),
-                               rel2.data_ptr(), idx2.data_ptr(), stream)
-        _check(rc, f"radix_argsort (pass {shift})")
-        idx, idx2 = idx2, idx
+    def one_pass(key, wide, shift, hist_row, key_out):
+        nonlocal idx, idx2, first
+        rc = lib.gt_radix_pass(key.data_ptr(),
+                               None if first else idx.data_ptr(), n,
+                               int(wide), shift, hist_row.data_ptr(),
+                               status.data_ptr(), _ptr(key_out),
+                               idx2.data_ptr(), stream)
+        _check(rc, f"radix_argsort (digit at bit {shift})")
+        idx, idx2, first = idx2, idx, False
 
-    for shift in range(passes):
-        one_pass(rel, shift)
+    for p, shift in enumerate(shifts):
+        last = p == len(shifts) - 1
+        one_pass(rel, wide, shift, hist[p], None if last else rel2)
         rel, rel2 = rel2, rel
     if full and valid is not None:
         # the valid keys fill all 2^64 values: one more stable pass on the
         # invalid flag puts the invalid rows last
-        one_pass((~valid)[idx].to(torch.int64), 0)
+        flag = torch.empty(n, dtype=torch.int32, device=dev)
+        _check(lib.gt_argsort_flag(valid.data_ptr(), idx.data_ptr(), n,
+                                   flag.data_ptr(), hist[0].data_ptr(),
+                                   stream),
+               "radix_argsort (invalid flag)")
+        one_pass(flag, False, 0, hist[0], None)
     radix_argsort.launches += 1
     return idx
 

@@ -43,7 +43,6 @@ _TYPES = {torch.float32: (0, 32), torch.float64: (1, 64),
           torch.int64: (2, 64), torch.int32: (3, 32), torch.int16: (4, 16),
           torch.int8: (5, 8), torch.uint8: (6, 8), torch.uint16: (7, 16),
           torch.uint32: (8, 32)}
-_SCAN_TILE = 4096
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -186,7 +185,7 @@ def topk_select(keys, mask, k: int):
     cand = torch.empty(n, dtype=torch.uint8, device=dev)
     hist = torch.empty((nl, 256), dtype=torch.int32, device=dev)
     st = torch.empty(4 + nl, dtype=torch.int64, device=dev)
-    tiles = torch.empty(-(-n // _SCAN_TILE), dtype=torch.int64, device=dev)
+    tiles = cuda_build.scan_scratch(n, torch.int64, dev)
     sel = torch.empty(k, dtype=torch.int32, device=dev)
     lib = _load()
     stream = _stream_ptr(mask)

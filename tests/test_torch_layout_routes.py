@@ -21,8 +21,9 @@ masked rows, no invalid row, every row invalid, duplicate (tsid, ts)
 ties, N not a multiple of a segment, more segments than the scalar pass
 has threads) with the route counters checked, and one out-of-order pair
 at a segment, block and thread boundary, which must take the general
-route; ``segment_select`` against its plain version at the route
-boundaries.  Every comparison is exact (integer and gather work; the
+route; the general route forced on shuffled tables whose keys need 8, 9,
+33 and 40 bits (one to five 8-bit digit passes); ``segment_select``
+against its plain version at the route boundaries.  Every comparison is exact (integer and gather work; the
 value at a rank).
 """
 
@@ -296,6 +297,49 @@ PRESORTED = {
 def test_cuda_sort_layout_presorted(cuda_device, name):
     t = _presorted_table(np.random.default_rng(7), **PRESORTED[name])
     _routes(t, cuda_device, "presorted")
+
+
+def _wide_key_table(rng, n, series, span_ms):
+    """Rows in random order: tsid below ``series``, ts over ``span_ms``
+    (duplicate (tsid, ts) ties included), 5 % NaN and 5 % masked rows."""
+    val = rng.uniform(0, 100, n).astype(np.float32)
+    val[rng.random(n) < 0.05] = np.nan
+    ts = T0 + rng.integers(0, span_ms, n, endpoint=True)
+    ts[0] = T0
+    ts[1] = T0 + span_ms
+    val[:2] = 1.0
+    tsid = rng.integers(0, series, n).astype(np.int32)
+    tsid[1] = series - 1
+    mask = rng.random(n) < 0.95
+    mask[:2] = True  # the key's extremes are valid rows
+    return dict(ts=ts.astype(np.int64), val=val, tsid=tsid, mask=mask)
+
+
+# (rows, series, ts span in ms): the key (max tsid + 1) * kp needs 8, 9,
+# 33 and 40 bits, so 1, 2, 5 and 5 digit passes
+WIDE_KEYS = {"8_bits": (3_000_017, 4, 50), "9_bits": (4_097, 4, 100),
+             "33_bits": (3_000_017, 1000, 5_000_000),
+             "40_bits": (3_000_017, 1000, 1 << 30)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(WIDE_KEYS))
+def test_cuda_sort_layout_general_digit_passes(cuda_device, name):
+    """The general route's 8-bit digit passes, forced on shuffled tables
+    whose keys need 8 to 40 bits, exact against the plain version."""
+    n, series, span = WIDE_KEYS[name]
+    t = _wide_key_table(np.random.default_rng(n + series), n, series, span)
+    valid = t["mask"] & ~np.isnan(t["val"])
+    kp = int(t["ts"][valid].max()) - int(t["ts"][valid].min()) + 2
+    bits = ((int(t["tsid"][valid].max()) + 1) * kp).bit_length()
+    assert bits == int(name.split("_")[0])
+    args = _args(t)
+    want = pk.sort_layout_plain(*args)
+    dev = [a.to(cuda_device) for a in args]
+    pk.reset_launch_counts()
+    _same_layout(pk.sort_layout_routed(*dev, allow_presorted=False), want)
+    assert pk.sort_layout.general == 1 and pk.prefix_scan.launches == 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

@@ -19,8 +19,10 @@ the CPU the wrappers take the plain versions, so the launch counters stay
 at 0.  Tolerances: integers, bounds, counts, timestamps, min and max
 exact; float sums and rates ``|a-b| <= 1e-5*max(1,|b|)`` (the golden
 comparer's bound, tests/test_golden.py) — the scan and the group sums add
-in another order than XLA.  The last test runs the CUDA kernels against
-the plain versions and needs the card.
+in another order than XLA.  The last tests run the CUDA kernels against
+the plain versions and need the card; ``prefix_scan`` must also repeat
+bit for bit over two calls (its look-back folds f64 tile sums in one
+fixed order) from 1 to 41,943,040 rows.
 """
 
 import jax
@@ -400,3 +402,32 @@ def test_cuda_kernels_match_plain(cuda_device):
     assert pk.prefix_scan.launches == 4 and pk.sort_layout.launches == 4
     assert pk.sort_layout.general == 3 and pk.sort_layout.presorted == 1
     assert pk.counter_window.launches == 4 * len(GEOMETRY) * 5
+
+
+def _drop_layout(n, seed):
+    """A sorted layout of n rows: series of 1 to 400 samples, counters
+    with frequent resets of large values (so the f64 running sum grows to
+    ~1e9 and rounds differently in other summation orders), invalid
+    rows."""
+    rng = np.random.default_rng(seed)
+    tsid = np.cumsum(rng.random(n) < 1 / 200).astype(np.int32)
+    val = rng.uniform(0, 1e4, n).astype(np.float32)
+    valid = rng.random(n) < 0.95
+    return [torch.from_numpy(a) for a in (val, tsid, valid)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 4095, 4096, 4097, 3_000_017,
+                               41_943_040])
+def test_cuda_prefix_scan_repeats_bit_for_bit(cuda_device, n):
+    """The single-pass scan's f64 prefixes are one left fold of the tile
+    sums whichever tiles a look-back reads: two calls agree bit for bit,
+    and both within 1e-9 of the plain version's sequential cumsum."""
+    args = _drop_layout(n, n % 1000)
+    want = pk.prefix_scan_plain(*args)
+    dev = [a.to(cuda_device) for a in args]
+    first = pk.prefix_scan(*dev)
+    second = pk.prefix_scan(*dev)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int64), second.view(torch.int64))
+    close(first.cpu().numpy(), want.numpy(), rel=1e-9)

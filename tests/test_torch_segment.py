@@ -20,6 +20,7 @@ import torch
 from greptimedb_tpu.ops import masks as ref_masks
 from greptimedb_tpu.ops import segment as ref_seg
 from greptimedb_tpu_torch.ops import masks as port_masks
+from greptimedb_tpu_torch.ops import cuda_build
 from greptimedb_tpu_torch.ops import segment as port_seg
 from greptimedb_tpu_torch.ops import segment_kernels as sk
 
@@ -261,6 +262,65 @@ def test_radix_argsort_plain_orders_floats_and_invalid_rows():
     assert order.dtype == np.int32
 
 
+# radix_argsort's plan: the key width and the 8-bit digit passes
+@pytest.mark.parametrize("bits,wide,shifts", [
+    (0, False, [0]), (1, False, [0]), (8, False, [0]), (9, False, [0, 8]),
+    (13, False, [0, 8]), (32, False, [0, 8, 16, 24]),
+    (33, True, [0, 8, 16, 24, 32]), (40, True, [0, 8, 16, 24, 32]),
+    (64, True, [0, 8, 16, 24, 32, 40, 48, 56])])
+def test_radix_digit_plan(bits, wide, shifts):
+    assert cuda_build.radix_digits(bits) == (wide, shifts)
+
+
+@pytest.mark.parametrize("bits", [-1, 65])
+def test_radix_digit_plan_rejects_widths(bits):
+    with pytest.raises(ValueError, match="radix_digits"):
+        cuda_build.radix_digits(bits)
+
+
+@pytest.mark.parametrize("lo,hi,any_valid,want", [
+    (0, 9, True, (10, False, 4)),                  # decile keys
+    (0, 4095, True, (4096, False, 13)),            # hostname codes
+    (7, 7, True, (1, False, 1)),                   # one key value
+    (sk.I64_MAX, sk.I64_MIN, False, (1, False, 1)),  # no valid row
+    (-5, (1 << 32) - 7, True, ((1 << 32) - 1, False, 32)),
+    (-5, (1 << 32) - 6, True, (1 << 32, False, 33)),
+    (sk.I64_MIN, sk.I64_MAX - 1, True, ((1 << 64) - 1, False, 64)),
+    (sk.I64_MIN, sk.I64_MAX, True, (0, True, 64)),  # all 2^64 values
+])
+def test_argsort_bits(lo, hi, any_valid, want):
+    assert sk.argsort_bits(lo, hi, any_valid) == want
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_argsort_bits_hold_every_relative_key(seed):
+    """Every valid relative key lies below the invalid rows' key, and that
+    key below 2^bits, so the digit passes see every bit that differs."""
+    rng = np.random.default_rng(seed)
+    for _ in range(50):
+        width = int(rng.integers(1, 63))
+        lo = int(rng.integers(-(1 << 62), 1 << 62))
+        keys = lo + rng.integers(0, 1 << width, 64, dtype=np.int64)
+        inv, full, bits = sk.argsort_bits(int(keys.min()), int(keys.max()),
+                                          True)
+        rel = [k - int(keys.min()) for k in keys.tolist()]
+        assert not full and max(rel) < inv < 1 << bits
+        assert bits == 1 or inv >= 1 << (bits - 1)
+
+
+@pytest.mark.parametrize("n", [0, 1, 4096, 4097])
+def test_scan_and_radix_scratch_sizes(n):
+    tiles = max(1, -(-n // 4096))
+    assert cuda_build.scan_scratch(n, torch.float64, "cpu").numel() == (
+        tiles * 20 + 4)
+    assert cuda_build.scan_scratch(n, torch.float32, "cpu").numel() == (
+        tiles * 12 + 4)
+    for dtype in (torch.int32, torch.int64):
+        assert cuda_build.scan_scratch(n, dtype, "cpu").numel() == (
+            tiles * 8 + 4)
+    assert cuda_build.radix_status(n, "cpu").numel() == 1 + tiles * 256
+
+
 # ---------------------------------------------------------------------------
 # the kernels against their plain versions, on the card
 # ---------------------------------------------------------------------------
@@ -388,6 +448,131 @@ def test_cuda_compact_and_argsort_match_plain(cuda_device, n):
     key = _t(np.where(mask, rng.integers(0, 50, n), sk.I64_MAX))
     order = sk.radix_argsort(key, _t(mask))
     for ng in (n, 7):
+        want = sk.rank_scatter(key, order, _t(mask), ng)
+        got = sk.rank_scatter(key.to(cuda_device), order.to(cuda_device),
+                              _t(mask).to(cuda_device), ng)
+        for g, w in zip(got, want):
+            _close(g, w, exact=True)
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# radix_argsort's 8-bit digit passes and the single-pass scan, on the card,
+# at sizes that chain many 4,096-row tiles
+# ---------------------------------------------------------------------------
+
+BIG = 3_000_017  # 733 tiles of the scan and of each digit pass
+
+
+def _keys_of_bits(rng, n, bits):
+    """int64 keys whose range needs exactly ``bits`` bits in radix_argsort
+    (the largest relative key, max - min + 1, has that bit length; 64: the
+    whole int64 range); rows 0 and 1 hold the extremes."""
+    if bits == 64:
+        k = rng.integers(sk.I64_MIN, sk.I64_MAX, n, dtype=np.int64,
+                         endpoint=True)
+        k[:2] = [sk.I64_MIN, sk.I64_MAX]
+        return k
+    span = (1 << bits) - 2
+    base = int(rng.integers(-(1 << 40), 1 << 40))
+    k = base + rng.integers(0, span, n, dtype=np.int64, endpoint=True)
+    k[:2] = [base, base + span]
+    return k
+
+
+def _argsort_case(cuda_device, k, valid):
+    want = sk.radix_argsort(_t(k), None if valid is None else _t(valid))
+    got = sk.radix_argsort(
+        _t(k).to(cuda_device),
+        None if valid is None else _t(valid).to(cuda_device))
+    _close(got, want, exact=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("bits", [1, 8, 9, 13, 32, 33, 40, 64])
+def test_cuda_radix_argsort_key_widths(cuda_device, bits, masked):
+    rng = np.random.default_rng(bits)
+    k = _keys_of_bits(rng, BIG, bits)
+    valid = None
+    if masked:
+        valid = rng.random(BIG) < 0.7
+        valid[:2] = True  # the extremes stay valid: the range is exact
+    assert sk.argsort_bits(int(k[valid if masked else slice(None)].min()),
+                           int(k[valid if masked else slice(None)].max()),
+                           True)[2] == bits
+    _argsort_case(cuda_device, k, valid)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 4095, 4096, 4097, 8191, 8193])
+def test_cuda_radix_argsort_tile_edges(cuda_device, n):
+    rng = np.random.default_rng(n)
+    k = rng.integers(0, 5000, n).astype(np.int64)  # 13 bits: two digits
+    _argsort_case(cuda_device, k, None)
+    _argsort_case(cuda_device, k, rng.random(n) < 0.5)
+    torch.cuda.synchronize()
+
+
+def _tie_case(name, rng, n):
+    """(values, valid) with many equal keys across tiles and warps."""
+    if name == "one_bin":
+        # every key has the low digit 7: one bin of the first pass holds all
+        # n rows; the second pass sorts by the high digit
+        return (rng.integers(0, 32, n) << 8 | 7).astype(np.int64), None
+    if name == "one_key":
+        return np.full(n, -12345, dtype=np.int64), rng.random(n) < 0.5
+    if name == "long_runs":
+        # runs of 10,000 equal keys crossing tile boundaries
+        return ((np.arange(n) // 10_000) % 7).astype(np.int64), None
+    if name == "few_keys":
+        # three values spread over every tile and warp: a tile ranking its
+        # keys in striped rather than row order, or a look-back mixing two
+        # digits, reorders equal keys
+        return rng.integers(0, 3, n).astype(np.int64), rng.random(n) < 0.9
+    if name == "signed_zeros":
+        v = rng.choice(np.array([-0.0, 0.0, 1.0, -1.0, np.inf],
+                                dtype=np.float32), n)
+        return v, rng.random(n) < 0.8
+    if name == "full_range_invalid":
+        k = _keys_of_bits(rng, n, 64)
+        valid = rng.random(n) < 0.6
+        valid[:2] = True
+        return k, valid
+    raise ValueError(name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["one_bin", "one_key", "long_runs",
+                                  "few_keys", "signed_zeros",
+                                  "full_range_invalid"])
+def test_cuda_radix_argsort_is_stable(cuda_device, name):
+    rng = np.random.default_rng(len(name))
+    v, valid = _tie_case(name, rng, BIG)
+    _argsort_case(cuda_device, v, valid)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4095, 4096, 4097, BIG])
+def test_cuda_compact_and_rank_scatter_chain_tiles(cuda_device, n):
+    """compact's mask scan and rank_scatter's rank scan on the single-pass
+    scan, exact against the plain versions."""
+    rng = np.random.default_rng(n)
+    mask = rng.random(n) < 0.4
+    mask[-1] = True
+    cols = {"i": np.arange(n, dtype=np.int64),
+            "f": rng.normal(size=n).astype(np.float32)}
+    want, wn = sk.compact({k: _t(a) for k, a in cols.items()}, _t(mask))
+    got, gn = sk.compact({k: _t(a).to(cuda_device) for k, a in cols.items()},
+                         _t(mask).to(cuda_device))
+    assert gn == wn == int(mask.sum())
+    for k in cols:
+        _close(got[k], want[k], exact=True)
+    key = _t(np.where(mask, rng.integers(0, 5000, n), sk.I64_MAX))
+    order = sk.radix_argsort(key, _t(mask))
+    for ng in (n, 4000):
         want = sk.rank_scatter(key, order, _t(mask), ng)
         got = sk.rank_scatter(key.to(cuda_device), order.to(cuda_device),
                               _t(mask).to(cuda_device), ng)
