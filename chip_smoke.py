@@ -13,8 +13,14 @@ Phases, each printing its own lines:
    source, started together; timed).
 2. The grid kernels against their plain PyTorch versions, on the card,
    at the SQL path's shapes (TSBS double-groupby-all at scale 4000, 24 h
-   @ 10 s): time (median of 20 CUDA-event-timed runs), the bound from the
-   bytes moved, the plain version's time and one library call's time.
+   @ 10 s): time (median of 20 CUDA-event-timed runs), device time alone
+   (graph_ms: 20 calls in one CUDA graph), the bound from the bytes
+   moved, the plain version's time and one library call's time, each
+   also as device time; bucket_reduce on the f32 partials, the u8 valid
+   plane and the masked 12 h + 5 min window, two calls equal bit for bit;
+   group_merge, and group_merge_pair against the two group_merge
+   launches and elementwise kernels it replaces (bit for bit); the host
+   path of a ctypes-bound kernel call beside index_add_'s.
 3. SQL main path: a port GreptimeDB ingests TSBS cpu data (scale 4000,
    10 DOUBLE metrics, random walk from seed 7, one region.write per hour
    plus a Parquet flush when pyarrow is present) and answers three SQL
@@ -121,8 +127,10 @@ Phases, each printing its own lines:
    largest batch, the device-busy share of one batched run under
    torch.profiler beside the two kernels' own CUDA-event times x their
    launches, and the two kernels timed on the largest batches' captured
-   arguments: group_merge_stacked at B = 16 against 16 solo group_merge
-   pairs (each member equal to its pair bit for bit), its plain version
+   arguments: group_merge_stacked at B = 16 against 16 solo
+   group_merge_pair launches (each member equal to its pair, and to the
+   two group_merge launches the pair replaced, bit for bit), its plain
+   version
    and index_add_ over the stacked windows; series_mask against its plain
    version; each with its byte bound.
 11. Top-k, on phase 3's table while its db is open (after phase 10):
@@ -209,6 +217,7 @@ REL_TOL = 1e-5              # golden comparer: |a-b| <= 1e-5 * max(1, |b|)
 SOURCES = {
     "bucket_reduce": "greptimedb_tpu_torch/csrc/grid_kernels.cu",
     "group_merge": "greptimedb_tpu_torch/csrc/grid_kernels.cu",
+    "group_merge_pair": "greptimedb_tpu_torch/csrc/grid_kernels.cu",
     "prefix_scan": "greptimedb_tpu_torch/csrc/promql_kernels.cu",
     "sort_layout": "greptimedb_tpu_torch/csrc/promql_kernels.cu",
     "counter_window": "greptimedb_tpu_torch/csrc/promql_kernels.cu",
@@ -242,6 +251,7 @@ SOURCES = {
 REPLACES = {
     "bucket_reduce": "greptimedb_tpu/query/physical.py:1129",
     "group_merge": "greptimedb_tpu/query/physical.py:1176",
+    "group_merge_pair": "greptimedb_tpu/query/physical.py:1176",
     "prefix_scan": "greptimedb_tpu/promql/engine.py:410",
     "sort_layout": "greptimedb_tpu/promql/engine.py:257",
     "counter_window": "greptimedb_tpu/promql/engine.py:383",
@@ -329,6 +339,18 @@ def graph_ms(fn, reps: int = 20) -> float:
         times.append(start.elapsed_time(end) / reps)
     del graph
     return float(np.median(times))
+
+
+# launches by shape over every main path, for the kernels that count them
+SHAPES: dict = {}
+
+
+def take_shapes(name: str, wrapper) -> None:
+    """Adds ``wrapper.shapes`` (launches by shape since the last reset) to
+    ``SHAPES[name]``; called where a path's launch counts are read."""
+    into = SHAPES.setdefault(name, {})
+    for label, n in wrapper.shapes.items():
+        into[label] = into.get(label, 0) + n
 
 
 def nbytes(*tensors) -> int:
@@ -466,6 +488,53 @@ def phase_device(*mods) -> tuple[str, bool]:
 # phase 2
 # ---------------------------------------------------------------------------
 
+def host_us(fn, n: int = 1000) -> float:
+    """Host microseconds a call of ``fn`` on inputs so small that the card
+    keeps up: a wrapper's own cost (checks, allocation, the launch call)."""
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+def host_path(gk, card: str) -> dict:
+    """The host path of the ctypes-bound grid kernels beside one PyTorch
+    op's (``index_add_``), and the profiler's CPU split of 200 calls of
+    ``group_merge``: what remains of a µs-scale kernel's event time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = torch.device("cuda")
+    x = torch.ones((1, 2, 4), device=dev)
+    lay = gk.group_layout(torch.zeros(2, dtype=torch.int32, device=dev), 1)
+    buf = torch.zeros((1, 2, 4), device=dev)
+    ids = lay.ids.long()
+    out = {
+        "group_merge": host_us(lambda: gk.group_merge(x, lay, "sum")),
+        "group_merge_pair": host_us(
+            lambda: gk.group_merge_pair(x[0], x, lay)),
+        "bucket_reduce": host_us(
+            lambda: gk.bucket_reduce(x[0], "sum", r=2, nb=2)),
+        "index_add_": host_us(lambda: buf.index_add_(1, ids, x)),
+        "torch.empty": host_us(lambda: torch.empty((1, 1, 4), device=dev)),
+    }
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(200):
+            gk.group_merge(x, lay, "sum")
+        torch.cuda.synchronize()
+    rows = sorted(((e.self_cpu_time_total / 200, e.key)
+                   for e in prof.key_averages()), reverse=True)[:4]
+    split = ", ".join(f"{k} {us:.2f} us" for us, k in rows)
+    log(f"host path, us a call: {json.dumps(out)}; profiler CPU split of "
+        f"group_merge (self time a call): {split or 'not measured'} — "
+        f"{card}")
+    return out
+
+
 def phase_kernels(gk, card: str) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -477,18 +546,25 @@ def phase_kernels(gk, card: str) -> dict:
     values *= valid  # invalid cells are zero-filled, as in the grid
     results = {}
 
-    def report(name, variant, ms, plain, bound, by, lib, err):
+    def report(name, variant, ms, plain, bound, by, lib, err, gms=None,
+               lib_gms=None):
         lib_s = "null" if lib is None else f"{lib:.4f}"
-        log(f"kernel {name}[{variant}]: {ms:.4f} ms (plain {plain:.4f} ms, "
-            f"library {lib_s} ms, bound {bound:.4f} ms by {by}), "
-            f"max_abs_err {err:.3g} — {card}")
+        dev_s = "" if gms is None else f", device time {gms:.4f} ms"
+        lib_d = "" if lib_gms is None else f" (device {lib_gms:.4f} ms)"
+        log(f"kernel {name}[{variant}]: {ms:.4f} ms{dev_s} (plain "
+            f"{plain:.4f} ms, library {lib_s} ms{lib_d}, bound {bound:.4f} "
+            f"ms by {by}), max_abs_err {err:.3g} — {card}")
 
     # -- bucket_reduce: K1 partial sums over the whole grid (headline) --
     geo = dict(r=r, nb=nb, pad_l=0, pad_r=nb * r - t)
     got = gk.bucket_reduce(values, "sum", **geo)
     want = gk.bucket_reduce_plain(values, "sum", **geo)
     err = max_err(got, want, exact=False)
+    again = gk.bucket_reduce(values, "sum", **geo)
+    if not torch.equal(again, got):
+        raise AssertionError("bucket_reduce: two calls differ")
     ms = time_ms(lambda: gk.bucket_reduce(values, "sum", **geo))
+    gms = graph_ms(lambda: gk.bucket_reduce(values, "sum", **geo))
     plain = time_ms(lambda: gk.bucket_reduce_plain(values, "sum", **geo))
     lengths = torch.full((c, s, nb), r, dtype=torch.int64, device=dev)
     lengths[..., -1] = t - (nb - 1) * r
@@ -497,21 +573,28 @@ def phase_kernels(gk, card: str) -> dict:
     max_err(lib_out, want, exact=False)
     lib = time_ms(lambda: torch.segment_reduce(
         values, "sum", lengths=lengths, axis=2, unsafe=True))
+    lib_g = graph_ms(lambda: torch.segment_reduce(
+        values, "sum", lengths=lengths, axis=2, unsafe=True))
     bnd, by = bound_ms(nbytes(values, got), values.numel())
     report("bucket_reduce", "sum [10,4096,10240] r=360", ms, plain, bnd, by,
-           lib, err)
+           lib, err, gms, lib_g)
     results["bucket_reduce"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd,
                                     bound_by=by, library_ms=lib,
-                                    max_abs_err=err)
+                                    max_abs_err=err, graph_ms=gms,
+                                    library_graph_ms=lib_g)
+    del again, lib_out
 
-    # -- bucket_reduce: K1 validity counts (exact) --
+    # -- bucket_reduce: K1 validity counts, the u8 plane (exact) --
     got = gk.bucket_reduce(valid, "sum", **geo)
     err_c = max_err(got, gk.bucket_reduce_plain(valid, "sum", **geo), True)
     ms = time_ms(lambda: gk.bucket_reduce(valid, "sum", **geo))
+    gms = graph_ms(lambda: gk.bucket_reduce(valid, "sum", **geo))
     plain = time_ms(lambda: gk.bucket_reduce_plain(valid, "sum", **geo))
     bnd, by = bound_ms(nbytes(valid, got), valid.numel())
-    report("bucket_reduce", "count [4096,10240] r=360", ms, plain, bnd, by,
-           None, err_c)
+    report("bucket_reduce", "u8 counts [4096,10240] r=360", ms, plain, bnd,
+           by, None, err_c, gms)
+    results["bucket_reduce"].update(u8_ms=ms, u8_graph_ms=gms,
+                                    u8_bound_ms=bnd, u8_plain_ms=plain)
 
     # -- bucket_reduce: K3 unaligned window, masked sum / min / max --
     w_raw, s0, pad_l = 12 * r, 6 * r + 30, 330
@@ -527,15 +610,19 @@ def phase_kernels(gk, card: str) -> dict:
         got = gk.bucket_reduce(nan_vals, op, **kw)
         want = gk.bucket_reduce_plain(nan_vals, op, **kw)
         err_w = max_err(got, want, exact=op != "sum")
+        if not torch.equal(gk.bucket_reduce(nan_vals, op, **kw), got):
+            raise AssertionError(f"bucket_reduce {op}: two calls differ")
         ms = time_ms(lambda: gk.bucket_reduce(nan_vals, op, **kw))
+        gms = graph_ms(lambda: gk.bucket_reduce(nan_vals, op, **kw))
         plain = time_ms(lambda: gk.bucket_reduce_plain(nan_vals, op, **kw))
         window = c * s * w_raw
         bnd, by = bound_ms(window * 4 + s * w_raw + nbytes(got), window)
-        lib = None
+        lib = lib_g = None
         if op == "sum":
             # one matmul of the masked window (zeros where masked or NaN,
             # made beforehand) by the 0/1 bucket matrix: the reference's
-            # bdot as one library call
+            # bdot as one library call — not the same function, the
+            # masking is left out of its time
             win = nan_vals.narrow(2, s0, w_raw)
             vz = torch.where(v2[None] & ~torch.isnan(win), win, 0.0).reshape(
                 c * s, w_raw).contiguous()
@@ -546,11 +633,17 @@ def phase_kernels(gk, card: str) -> dict:
             max_err(torch.matmul(vz, onehot).reshape(c, s, 13), want,
                     exact=False)
             lib = time_ms(lambda: torch.matmul(vz, onehot))
+            lib_g = graph_ms(lambda: torch.matmul(vz, onehot))
             del win, vz
         report("bucket_reduce", f"masked {op} window 12 h +5 min", ms, plain,
-               bnd, by, lib, err_w)
+               bnd, by, lib, err_w, gms, lib_g)
+        results["bucket_reduce"].update({
+            f"masked_{op}_ms": ms, f"masked_{op}_graph_ms": gms})
         results["bucket_reduce"]["max_abs_err"] = max(
             results["bucket_reduce"]["max_abs_err"], err_w)
+    results["bucket_reduce"]["masked_bound_ms"] = bnd
+    del values, valid, nan_vals, v2
+    torch.cuda.empty_cache()
 
     # -- group_merge: series → group merge [10, 4096, 24] into 4096 --
     ngt, nbm = 4096, 24
@@ -561,20 +654,26 @@ def phase_kernels(gk, card: str) -> dict:
     lay = gk.group_layout(ids, ngt)
     factor = (torch.rand(s, generator=gen, device=dev) > 0.1).float()
     got = gk.group_merge(x, lay, "sum")
-    want = gk.group_merge_plain(x, lay, "sum")
-    err = max_err(got, want, exact=False)
+    want = gk.group_merge_plain(x.cpu(), gk.group_layout(ids.cpu(), ngt),
+                                "sum")
+    # exact: the kernel and the CPU's index_add_ both add a group's series
+    # in ascending order
+    err = max_err(got.cpu(), want, exact=True)
     ms = time_ms(lambda: gk.group_merge(x, lay, "sum"))
+    gms = graph_ms(lambda: gk.group_merge(x, lay, "sum"))
     plain = time_ms(lambda: gk.group_merge_plain(x, lay, "sum"))
     lib_buf = torch.zeros((c, ngt + 1, nbm), device=dev)
     ids64 = ids.long()
     lib = time_ms(lambda: lib_buf.index_add_(1, ids64, x))
+    lib_g = graph_ms(lambda: lib_buf.index_add_(1, ids64, x))
     bnd, by = bound_ms(nbytes(x, lay.ids, lay.order, lay.offsets, got),
                        x.numel())
     report("group_merge", "sum [10,4096,24] -> 4096", ms, plain, bnd, by,
-           lib, err)
+           lib, err, gms, lib_g)
     results["group_merge"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd,
                                   bound_by=by, library_ms=lib,
-                                  max_abs_err=err)
+                                  max_abs_err=err, graph_ms=gms,
+                                  library_graph_ms=lib_g)
     for op, fac in (("sum", factor), ("min", factor), ("max", None)):
         got = gk.group_merge(x, lay, op, factor=fac)
         err_g = max_err(got, gk.group_merge_plain(x, lay, op, factor=fac),
@@ -591,7 +690,48 @@ def phase_kernels(gk, card: str) -> dict:
     err_i = max_err(gk.group_merge(cnt, lay, "sum"),
                     gk.group_merge_plain(cnt, lay, "sum"), exact=True)
     log(f"kernel group_merge[int64 counts]: exact (max_abs_err {err_i})")
-    del values, valid, nan_vals, x
+
+    # -- group_merge_pair: the grid path's count plane and 10 sum planes
+    #    over one layout, windows of the resident partials, with a WHERE
+    #    factor, against the two group_merge launches and the two
+    #    elementwise kernels it replaces --
+    full = 2 * nbm
+    cfull = torch.randint(0, 361, (s, full), generator=gen,
+                          device=dev).float()
+    sfull = torch.rand((c, s, full), generator=gen, device=dev) * 1000
+    cw, sw = cfull.narrow(1, 6, nbm), sfull.narrow(2, 6, nbm)
+
+    def two_merges():
+        return (gk.group_merge((cw * factor[:, None]).to(torch.int64), lay,
+                               "sum"),
+                gk.group_merge(sw, lay, "sum", factor=factor))
+
+    pc, ps = gk.group_merge_pair(cw, sw, lay, factor=factor)
+    tc, ts = two_merges()
+    err_p = max(max_err(pc, tc, exact=True), max_err(ps, ts, exact=True))
+    wc, ws = gk.group_merge_pair_plain(cw, sw, lay, factor=factor)
+    err_p = max(err_p, max_err(pc, wc, exact=True),
+                max_err(ps, ws, exact=False))
+    ms = time_ms(lambda: gk.group_merge_pair(cw, sw, lay, factor=factor))
+    gms = graph_ms(lambda: gk.group_merge_pair(cw, sw, lay, factor=factor))
+    two_ms = time_ms(two_merges)
+    two_g = graph_ms(two_merges)
+    plain = time_ms(lambda: gk.group_merge_pair_plain(cw, sw, lay,
+                                                      factor=factor))
+    bnd, by = bound_ms(nbm * s * (c + 1) * 4 + nbytes(
+        lay.ids, lay.order, lay.offsets, factor, pc, ps), (c + 1) * s * nbm)
+    log(f"kernel group_merge_pair[counts + sum [10,4096,24] windows -> 4096, "
+        f"factor]: {ms:.4f} ms, device time {gms:.4f} ms (the two "
+        f"group_merge launches and two elementwise kernels it replaces: "
+        f"{two_ms:.4f} ms, device {two_g:.4f} ms, equal bit for bit; plain "
+        f"{plain:.4f} ms, library null — no one call, bound {bnd:.4f} ms by "
+        f"{by}), max_abs_err {err_p:.3g} — {card}")
+    results["group_merge_pair"] = dict(
+        ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None,
+        max_abs_err=err_p, graph_ms=gms, two_merges_ms=two_ms,
+        two_merges_graph_ms=two_g)
+    results["group_merge"]["host_us"] = host_path(gk, card)
+    del x, cnt, cfull, sfull
     torch.cuda.empty_cache()
     return results
 
@@ -818,7 +958,9 @@ def phase_main_path(gk, hours: int, has_arrow: bool, card: str) -> dict:
                 f"profiler: device busy {busy_ms:.3f} ms of {wall_ms:.3f} ms "
                 f"wall; top device ops {top} — {card}")
         launches = {"bucket_reduce": gk.bucket_reduce.launches,
-                    "group_merge": gk.group_merge.launches}
+                    "group_merge": gk.group_merge.launches,
+                    "group_merge_pair": gk.group_merge_pair.launches}
+        take_shapes("bucket_reduce", gk.bucket_reduce)
         peak = torch.cuda.max_memory_allocated()
         log(f"main path: launches {launches}, max_memory_allocated "
             f"{peak} B")
@@ -991,6 +1133,7 @@ def phase_row_path(sk, db, ctx: dict, card: str) -> dict:
 
     report["g_distinct"] = timed_query(db, distinct, card,
                                        "g count(DISTINCT)", check_g2)
+    take_shapes("segment_reduce", sk.segment_reduce)
     launches = {"segment_reduce": sk.segment_reduce.launches,
                 "sorted_segment_reduce": sk.sorted_segment_reduce.launches,
                 "compact": sk.compact.launches,
@@ -2569,14 +2712,21 @@ def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
     out = gk.group_merge(x, lay, "sum")
     err = max_err(out, gk.group_merge_plain(x, lay, "sum"), exact=False)
     ms = time_ms(lambda: gk.group_merge(x, lay, "sum"))
+    gms = graph_ms(lambda: gk.group_merge(x, lay, "sum"))
     plain = time_ms(lambda: gk.group_merge_plain(x, lay, "sum"))
     lib_buf = torch.zeros((PODS + 1, 20), device=x.device)
     ids64 = ids.long()
     lib = time_ms(lambda: lib_buf.index_add_(0, ids64, x))
+    lib_g = graph_ms(lambda: lib_buf.index_add_(0, ids64, x))
     bnd, by = bound_ms(nbytes(x, lay.ids, lay.order, lay.offsets, out),
                        x.numel())
     report("group_merge", f"sum [{s_pad:,},20] -> {PODS:,} (PromQL path)",
            ms, plain, bnd, by, lib, err)
+    log(f"kernel group_merge[PromQL path]: device time {gms:.4f} ms "
+        f"(index_add_ {lib_g:.4f} ms) — {card}")
+    results["group_merge_prom"] = dict(
+        prom_ms=ms, prom_graph_ms=gms, prom_plain_ms=plain,
+        prom_library_ms=lib, prom_library_graph_ms=lib_g, prom_bound_ms=bnd)
     return results
 
 
@@ -2787,6 +2937,7 @@ def phase_sketches(shk, sk, db, ctx: dict, card: str):
         db, "SELECT grp, hll_merge(hs), uddsketch_merge(us) FROM cpu_states "
             "GROUP BY grp", card, "sketch hll_merge + uddsketch_merge",
         check_merges)
+    take_shapes("segment_reduce", sk.segment_reduce)
     launches = {"hll_fold": shk.hll_fold.launches,
                 "udd_fold": shk.udd_fold.launches,
                 "segment_reduce": sk.segment_reduce.launches,
@@ -3075,6 +3226,7 @@ def phase_flows(fk, sk, series: int, card: str):
                 flow_device.flow_merge = real_merge
         task = db.flow_engine.flows["f"]
         mode = flow_mode(task)
+        take_shapes("segment_reduce", sk.segment_reduce)
         launches = {"flow_merge": fk.flow_merge.launches,
                     "segment_reduce": sk.segment_reduce.launches}
         peak = torch.cuda.max_memory_allocated()
@@ -3787,22 +3939,26 @@ def phase_serving(gk, db, ctx: dict, hours: int, card: str):
     err = max(max_err(got[0], want[0], exact=True),
               max_err(got[1], want[1], exact=False))
     # member == solo, bit for bit: each member's window through the solo
-    # path's two group_merge launches
+    # path's one group_merge_pair launch, and through the two group_merge
+    # launches that the pair replaced
     starts = [gk.clamp_start(b, nbw, nb) for b in b_lo.tolist()]
     x_all = sums.index_select(0, planes.long())
 
     def solo_pairs():
-        out = []
-        for m, b0 in enumerate(starts):
-            c_w = cnts.narrow(1, b0, nbw) * mask[m][:, None]
-            out.append((gk.group_merge(c_w.to(torch.int64), lay, "sum"),
-                        gk.group_merge(x_all.narrow(2, b0, nbw), lay, "sum",
-                                       factor=mask[m])))
-        return out
+        return [gk.group_merge_pair(cnts.narrow(1, b0, nbw),
+                                    x_all.narrow(2, b0, nbw), lay,
+                                    factor=mask[m])
+                for m, b0 in enumerate(starts)]
 
     for m, (c1, s1) in enumerate(solo_pairs()):
         max_err(got[0][m], c1, exact=True)
         max_err(got[1][m], s1, exact=True)
+        b0 = starts[m]
+        c_w = cnts.narrow(1, b0, nbw) * mask[m][:, None]
+        max_err(c1, gk.group_merge(c_w.to(torch.int64), lay, "sum"),
+                exact=True)
+        max_err(s1, gk.group_merge(x_all.narrow(2, b0, nbw), lay, "sum",
+                                   factor=mask[m]), exact=True)
     ms = time_ms(lambda: gk.group_merge_stacked(*args, **kw))
     solo_ms = time_ms(solo_pairs)
     plain = time_ms(lambda: gk.group_merge_stacked_plain(*args, **kw),
@@ -3822,7 +3978,8 @@ def phase_serving(gk, db, ctx: dict, hours: int, card: str):
         mask, b_lo, planes, lay.order, lay.offsets, got[0], got[1]))
     bnd, by = bound_ms(gms_bytes, B * (p_n + 1) * s_n * nbw)
     log(f"kernel group_merge_stacked[B={B}, masked, [{p_n},{s_n},{nb}] "
-        f"window {nbw} -> {ngt}]: {ms:.4f} ms (16 solo group_merge pairs "
+        f"window {nbw} -> {ngt}]: {ms:.4f} ms (16 solo group_merge_pair "
+        f"launches "
         f"{solo_ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms "
         f"index_add_ over the stacked windows, bound {bnd:.4f} ms by {by}), "
         f"max_abs_err {err:.3g}; every member == its solo pair bit for bit "
@@ -4184,6 +4341,7 @@ def phase_mesh(mk, sk, shk, db, ctx: dict, hours: int, card: str):
                                        reps=MESH_WARM)
             if not report[name]["mesh_rows"]:
                 raise AssertionError(f"mesh ({name}): not the mesh route")
+        take_shapes("segment_reduce", sk.segment_reduce)
         launches = {"mesh_merge": mk.mesh_merge.launches,
                     "segment_reduce": sk.segment_reduce.launches,
                     "hll_fold": shk.hll_fold.launches,
@@ -4588,8 +4746,10 @@ def main() -> int:
                  mesh_launches):
         for name, n in path.items():
             launches[name] = launches.get(name, 0) + n
+    kernels["group_merge"].update(kernels.pop("group_merge_prom", {}))
     line = {"kernels": []}
-    for name in ("bucket_reduce", "group_merge", "prefix_scan",
+    for name in ("bucket_reduce", "group_merge", "group_merge_pair",
+                 "prefix_scan",
                  "sort_layout", "counter_window", "segment_reduce",
                  "sorted_segment_reduce", "compact", "rank_scatter",
                  "radix_argsort", "window_stats", "minmax_window",
@@ -4608,16 +4768,22 @@ def main() -> int:
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
         }
         # the merge modes of the sketch kernels, timed beside the fold;
-        # the stacked merge's 16 solo group_merge pairs; the top-k's other
-        # two queries and K22's other two distances and host parse
+        # the stacked merge's 16 solo group_merge_pair launches; the
+        # top-k's other two queries and K22's other two distances and host
+        # parse; bucket_reduce's u8 plane and masked windows; the pair's
+        # two-merge yardstick; the grid kernels' host path
         entry.update({key: val for key, val in k.items()
                       if key.startswith(("merge_", "j_", "l_", "dot_",
                                          "cos_", "t1_", "quantile_",
-                                         "hostname_"))
+                                         "hostname_", "u8_", "masked_",
+                                         "two_merges_", "prom_"))
                       or key in ("solo_pairs_ms", "host_parse_ms",
                                  "graph_ms", "library_graph_ms",
                                  "general_ms", "general_passes",
-                                 "general_pass_ms", "passes", "pass_ms")})
+                                 "general_pass_ms", "passes", "pass_ms",
+                                 "host_us")})
+        if name in SHAPES:
+            entry["launches_by_shape"] = SHAPES[name]
         line["kernels"].append(entry)
     log(f"total: {time.perf_counter() - t_start:.3f} s")
     log(json.dumps(line))

@@ -13,18 +13,21 @@ incremented only where it launches the kernel.
   (``_bucket_major_partials.build_fn``) and the ``bdot``/``breduce``
   reductions of ``physical.py:1255`` (``_build_grid_kernel.kernel``).
 - ``group_merge`` replaces their series→group ``segment_sum``/``_min``/
-  ``_max`` merge (``physical.py:1176`` and ``:1255``).
+  ``_max`` merge (``physical.py:1176`` and ``:1255``);
+  ``group_merge_pair`` merges the grid path's count plane and sum planes
+  over one layout in one launch.
 - ``group_merge_stacked`` replaces the stacked dispatch's
   ``jax.jit(jax.vmap(bm kernel))`` (``physical.py:979``): the aligned-
   window merge of every member of a coalesced batch in two launches.
 - ``series_mask`` replaces ``_series_mask`` (``physical.py:1008``): the
   members' tag-only WHERE masks, gathered from lookup tables.
 
-Bounds and design notes live in the CUDA source.  The shared library is
-built from the repository's sources by ``nvcc`` at first use into
-``build/kernels/`` (plain C entry points, bound with ctypes — no PyTorch
-headers, so the build takes seconds).
-"""
+Bounds, design notes and the summation orders live in the CUDA source.
+``bucket_reduce.shapes`` and ``segment_kernels.segment_reduce.shapes``
+split the launches by shape (a label per kind of call).  The shared
+library is built from the repository's sources by ``nvcc`` at first use
+into ``build/kernels/`` (plain C entry points, bound with ctypes — no
+PyTorch headers, so the build takes seconds)."""
 
 from __future__ import annotations
 
@@ -55,37 +58,41 @@ def build(force: bool = False):
     return cuda_build.build_many([(SOURCE, LIBRARY, NVCC_FLAGS)], force)[0]
 
 
+def _bind(lib):
+    """Declare the C entry points' argument types on a loaded library."""
+    vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    reduce_args = [vp, ll, ll, vp, ll, vp, vp, i, i, i, i, i, i, i, i, i, vp]
+    for name in ("gt_bucket_reduce_f32", "gt_bucket_reduce_u8"):
+        fn = getattr(lib, name)
+        fn.argtypes = reduce_args
+        fn.restype = i
+    lib.gt_group_merge_f32.argtypes = [vp, ll, ll, vp, vp, vp, vp, i, i, i,
+                                       i, vp]
+    lib.gt_group_merge_f32.restype = i
+    lib.gt_group_merge_i64.argtypes = [vp, ll, ll, vp, vp, vp, i, i, i, vp]
+    lib.gt_group_merge_i64.restype = i
+    lib.gt_group_merge_pair.argtypes = [vp, ll, vp, ll, ll, vp, vp, vp, vp,
+                                        vp, i, i, i, vp]
+    lib.gt_group_merge_pair.restype = i
+    lib.gt_group_merge_stacked_count.argtypes = [vp, ll, vp, vp, vp, vp, ll,
+                                                 vp, i, i, i, i, vp]
+    lib.gt_group_merge_stacked_count.restype = i
+    lib.gt_group_merge_stacked_sum.argtypes = [vp, ll, ll, vp, vp, vp, vp,
+                                               vp, ll, vp, i, i, i, i, i, vp]
+    lib.gt_group_merge_stacked_sum.restype = i
+    lib.gt_series_mask.argtypes = [vp, ll, i, i, vp, vp, vp, vp, i, vp, i,
+                                   vp]
+    lib.gt_series_mask.restype = i
+    return lib
+
+
 def _load():
     """Build (if needed) and bind the library once per process."""
     global _lib
     with _lib_lock:
-        if _lib is not None:
-            return _lib
-        lib = ctypes.CDLL(str(build()))
-        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        reduce_args = [vp, ll, ll, vp, ll, vp, vp, i, i, i, i, i, i, i, i, vp]
-        for name in ("gt_bucket_reduce_f32", "gt_bucket_reduce_u8"):
-            fn = getattr(lib, name)
-            fn.argtypes = reduce_args
-            fn.restype = i
-        lib.gt_group_merge_f32.argtypes = [vp, ll, ll, vp, vp, vp, vp, i, i,
-                                           i, i, vp]
-        lib.gt_group_merge_f32.restype = i
-        lib.gt_group_merge_i64.argtypes = [vp, ll, ll, vp, vp, vp, i, i, i,
-                                           vp]
-        lib.gt_group_merge_i64.restype = i
-        lib.gt_group_merge_stacked_count.argtypes = [vp, ll, vp, vp, vp, vp,
-                                                     ll, vp, i, i, i, i, vp]
-        lib.gt_group_merge_stacked_count.restype = i
-        lib.gt_group_merge_stacked_sum.argtypes = [vp, ll, ll, vp, vp, vp, vp,
-                                                   vp, ll, vp, i, i, i, i, i,
-                                                   vp]
-        lib.gt_group_merge_stacked_sum.restype = i
-        lib.gt_series_mask.argtypes = [vp, ll, i, i, vp, vp, vp, vp, i, vp, i,
-                                       vp]
-        lib.gt_series_mask.restype = i
-        _lib = lib
-        return lib
+        if _lib is None:
+            _lib = _bind(ctypes.CDLL(str(build())))
+        return _lib
 
 
 def clamp_start(start: int, width: int, size: int) -> int:
@@ -151,9 +158,56 @@ def _window(x, r, nb, s0, w_raw, pad_l, pad_r, mask, mask_s0, weight
     return _Window(xs, ms, weight, squeeze, w_raw, pad_l, pad_r)
 
 
+VECTOR_BYTES = 16    # one vector load a lane (csrc: float4 / 16 u8)
+REDUCE_UNROLL = 4    # vectors a lane issues before use (kReduceUnroll)
+
+
+def bucket_lanes(r: int, itemsize: int) -> int:
+    """Lanes G (a power of two, at most a warp) that share one bucket of
+    ``r`` cells in the kernel: enough that each issues about
+    ``REDUCE_UNROLL`` 16-byte vectors (r = 360: 32 lanes for f32, 8 for
+    u8; r = 8: one lane)."""
+    want = -(-r // (VECTOR_BYTES // itemsize * REDUCE_UNROLL))
+    g = 1
+    while g < min(want, 32):
+        g *= 2
+    return g
+
+
+def bucket_split(lo: int, hi: int, mis: int, cells: int) -> tuple[int, int]:
+    """The kernel's split of a bucket's live range ``[lo, hi)``: a scalar
+    head ``[lo, a)``, a body ``[a, e)`` of whole vectors of ``cells``
+    elements and a scalar tail ``[e, hi)``.  ``mis`` is the row start's
+    offset in elements from a 16-byte boundary: element ``t`` opens a
+    vector when ``(t + mis) % cells == 0``.  Returns ``(a, e)``."""
+    a = min(lo + (cells - (lo + mis) % cells) % cells, hi)
+    return a, a + (hi - a) // cells * cells
+
+
+def _shape_label(w: _Window, x, op) -> str:
+    """``bucket_reduce.shapes``' key: input type, op, and whether the call
+    reads the whole grid or a window, under a mask and/or a weight."""
+    parts = ["u8" if x.dtype == torch.bool else "f32", op]
+    if w.mask is not None:
+        parts.append("masked")
+    if w.weight is not None:
+        parts.append("weighted")
+    parts.append("window" if w.w_raw < x.shape[-1] else "grid")
+    return " ".join(parts)
+
+
+def _out_check(out, shape, device):
+    if out is not None and (out.dtype != torch.float32
+                            or tuple(out.shape) != shape
+                            or out.device != device
+                            or not out.is_contiguous()):
+        raise ValueError(f"bucket_reduce: out must be a contiguous float32 "
+                         f"{shape} on {device}")
+
+
 def bucket_reduce_plain(x, op, *, r, nb, s0=0, w_raw=None, pad_l=0,
                         pad_r=None, mask=None, mask_s0=None, weight=None,
-                        skip_nan=False):
+                        skip_nan=False, out=None):
     """The plain PyTorch version: window slice → mask → pad → view
     ``[..., nb, r]`` → sum/amin/amax over the last axis."""
     w = _window(x, r, nb, s0, w_raw, pad_l, pad_r, mask, mask_s0, weight)
@@ -184,14 +238,19 @@ def bucket_reduce_plain(x, op, *, r, nb, s0=0, w_raw=None, pad_l=0,
     v = F.pad(v, (w.pad_l, w.pad_r), value=fill)
     v = v.reshape(v.shape[0], v.shape[1], nb, r)
     if op in ("sum", "count"):
-        out = v.sum(-1)
+        res = v.sum(-1)
     else:
-        out = v.amin(-1) if op == "min" else v.amax(-1)
-    return out[0] if w.squeeze else out
+        res = v.amin(-1) if op == "min" else v.amax(-1)
+    res = res[0] if w.squeeze else res
+    if out is None:
+        return res
+    _out_check(out, tuple(res.shape), res.device)
+    return out.copy_(res)
 
 
 def bucket_reduce(x, op, *, r, nb, s0=0, w_raw=None, pad_l=0, pad_r=None,
-                  mask=None, mask_s0=None, weight=None, skip_nan=False):
+                  mask=None, mask_s0=None, weight=None, skip_nan=False,
+                  out=None):
     """Per-time-bucket reduction of a window of the grid's time axis.
 
     ``x`` is ``[P, S, W]`` (or ``[S, W]``), float32 or bool.  The window is
@@ -202,7 +261,8 @@ def bucket_reduce(x, op, *, r, nb, s0=0, w_raw=None, pad_l=0, pad_r=None,
     ``mask[s, mask_s0 + t]`` (if given; ``mask_s0`` defaults to ``s0``)
     and, with ``skip_nan``, its value is not NaN.  ``weight`` ``[w_raw]``
     multiplies sums and counts; a zero weight drops the cell from min/max.
-    Returns ``[P, S, nb]`` (or ``[S, nb]``) float32."""
+    Returns ``[P, S, nb]`` (or ``[S, nb]``) float32, written into ``out``
+    (contiguous, that shape) when it is given."""
     if op not in _OPS:
         raise ValueError(f"bucket_reduce: unknown op {op!r}")
     if not x.is_cuda:
@@ -210,8 +270,13 @@ def bucket_reduce(x, op, *, r, nb, s0=0, w_raw=None, pad_l=0, pad_r=None,
             raise ValueError(f"bucket_reduce: unsupported device {x.device}")
         return bucket_reduce_plain(
             x, op, r=r, nb=nb, s0=s0, w_raw=w_raw, pad_l=pad_l, pad_r=pad_r,
-            mask=mask, mask_s0=mask_s0, weight=weight, skip_nan=skip_nan)
+            mask=mask, mask_s0=mask_s0, weight=weight, skip_nan=skip_nan,
+            out=out)
     w = _window(x, r, nb, s0, w_raw, pad_l, pad_r, mask, mask_s0, weight)
+    return _bucket_reduce_cuda(w, x, op, r, nb, skip_nan, out)
+
+
+def _bucket_reduce_cuda(w: _Window, x, op, r, nb, skip_nan, out):
     xs = w.x
     if xs.stride(-1) != 1:
         xs = xs.contiguous()
@@ -227,22 +292,30 @@ def bucket_reduce(x, op, *, r, nb, s0=0, w_raw=None, pad_l=0, pad_r=None,
         if wt.device != xs.device:
             raise ValueError("bucket_reduce: weight on another device")
         wt = wt.contiguous()
-    out = torch.empty((p, s, nb), dtype=torch.float32, device=xs.device)
+    shape = (s, nb) if w.squeeze else (p, s, nb)
+    if out is None:
+        out = xs.new_empty(shape, dtype=torch.float32)
+    else:
+        _out_check(out, shape, xs.device)
     lib = _load()
     fn = (lib.gt_bucket_reduce_f32 if xs.dtype == torch.float32
           else lib.gt_bucket_reduce_u8)
+    glog = bucket_lanes(r, xs.element_size()).bit_length() - 1
     rc = fn(xs.data_ptr(), xs.stride(0), xs.stride(1),
             ms.data_ptr() if ms is not None else None,
             ms.stride(0) if ms is not None else 0,
             wt.data_ptr() if wt is not None else None,
             out.data_ptr(), p, s, w.w_raw, w.pad_l, r, nb, _OPS[op],
-            int(bool(skip_nan)), _stream_ptr(xs))
+            int(bool(skip_nan)), glog, _stream_ptr(xs))
     bucket_reduce.launches += 1
+    label = _shape_label(w, x, op)
+    bucket_reduce.shapes[label] = bucket_reduce.shapes.get(label, 0) + 1
     _check(rc, "bucket_reduce")
-    return out[0] if w.squeeze else out
+    return out
 
 
 bucket_reduce.launches = 0
+bucket_reduce.shapes = {}
 
 
 # ---------------------------------------------------------------------------
@@ -253,13 +326,38 @@ bucket_reduce.launches = 0
 class GroupLayout:
     """Series→group routing in CSR form: ``ids`` ``[S]`` int32 in
     ``[0, ngt]`` (``ngt`` = overflow, dropped); ``order`` lists series by
-    group, ascending series within a group (stable sort);
-    ``offsets[g]:offsets[g+1]`` is group g's slice of ``order``."""
+    group, ascending series within a group (stable sort; overflow series
+    may be left out); ``offsets[g]:offsets[g+1]`` is group g's slice of
+    ``order``.  Checked once, here, so the kernels' wrappers only compare
+    the series count and the device."""
 
     ids: torch.Tensor
     order: torch.Tensor
     offsets: torch.Tensor
     ngt: int
+
+    def __post_init__(self):
+        self.ngt = int(self.ngt)
+        dev = self.ids.device
+        if (self.order.dtype != torch.int32 or self.order.dim() != 1
+                or self.order.shape[0] > self.ids.shape[0]):
+            raise ValueError(f"GroupLayout: order must be int32 [<= "
+                             f"{self.ids.shape[0]}], got {self.order.dtype} "
+                             f"{tuple(self.order.shape)}")
+        if (self.offsets.dtype != torch.int64
+                or tuple(self.offsets.shape) != (self.ngt + 1,)):
+            raise ValueError(f"GroupLayout: offsets must be int64 "
+                             f"[{self.ngt + 1}], got {self.offsets.dtype} "
+                             f"{tuple(self.offsets.shape)}")
+        if self.order.device != dev or self.offsets.device != dev:
+            raise ValueError("GroupLayout: ids, order and offsets on "
+                             "different devices")
+        self.order = self.order.contiguous()
+        self.offsets = self.offsets.contiguous()
+
+    @property
+    def device(self) -> torch.device:
+        return self.ids.device
 
 
 def group_layout(ids: torch.Tensor, ngt: int) -> GroupLayout:
@@ -289,6 +387,24 @@ def _merge_input(x, factor, op):
         raise TypeError(f"group_merge: x must be float32 or int64, got "
                         f"{x.dtype}")
     return x, squeeze
+
+
+def _merge_operands(what, x, layout: GroupLayout, factor):
+    """The CUDA path's per-call checks (the layout checked itself when it
+    was built): x's series count, one device, a contiguous f32 factor."""
+    if x.stride(-1) != 1:
+        x = x.contiguous()
+    s = x.shape[-2]
+    if layout.ids.shape[0] != s:
+        raise ValueError(f"{what}: layout has {layout.ids.shape[0]} "
+                         f"series, x has {s}")
+    if layout.device != x.device:
+        raise ValueError(f"{what}: layout on another device")
+    if factor is not None:
+        if factor.device != x.device or tuple(factor.shape) != (s,):
+            raise ValueError(f"{what}: factor must be [S] on x's device")
+        factor = factor.to(torch.float32).contiguous()
+    return x, factor
 
 
 def group_merge_plain(x, layout: GroupLayout, op, factor=None):
@@ -326,17 +442,14 @@ def group_merge(x, layout: GroupLayout, op, factor=None):
         if x.device.type != "cpu":
             raise ValueError(f"group_merge: unsupported device {x.device}")
         return group_merge_plain(x, layout, op, factor)
+    return _group_merge_cuda(x, layout, op, factor)
+
+
+def _group_merge_cuda(x, layout, op, factor):
     x, squeeze = _merge_input(x, factor, op)
-    if x.stride(-1) != 1:
-        x = x.contiguous()
-    p, s, nb = x.shape
-    if layout.ids.shape[0] != s:
-        raise ValueError(f"group_merge: layout has {layout.ids.shape[0]} "
-                         f"series, x has {s}")
-    for t in (layout.order, layout.offsets):
-        if t.device != x.device:
-            raise ValueError("group_merge: layout on another device")
-    out = torch.empty((p, layout.ngt, nb), dtype=x.dtype, device=x.device)
+    x, fac = _merge_operands("group_merge", x, layout, factor)
+    p, _s, nb = x.shape
+    out = x.new_empty((p, layout.ngt, nb))
     lib = _load()
     if x.dtype == torch.int64:
         rc = lib.gt_group_merge_i64(
@@ -344,12 +457,6 @@ def group_merge(x, layout: GroupLayout, op, factor=None):
             layout.offsets.data_ptr(), out.data_ptr(), p, layout.ngt, nb,
             _stream_ptr(x))
     else:
-        fac = None
-        if factor is not None:
-            if factor.device != x.device or factor.shape != (s,):
-                raise ValueError("group_merge: factor must be [S] on x's "
-                                 "device")
-            fac = factor.to(torch.float32).contiguous()
         rc = lib.gt_group_merge_f32(
             x.data_ptr(), x.stride(0), x.stride(1), layout.order.data_ptr(),
             layout.offsets.data_ptr(),
@@ -361,6 +468,76 @@ def group_merge(x, layout: GroupLayout, op, factor=None):
 
 
 group_merge.launches = 0
+
+
+def _pair_input(cnts, sums):
+    if cnts.dtype != torch.float32 or cnts.dim() != 2:
+        raise ValueError(f"group_merge_pair: cnts must be float32 [S, NB], "
+                         f"got {cnts.dtype} {tuple(cnts.shape)}")
+    if sums is not None and (sums.dtype != torch.float32 or sums.dim() != 3
+                             or sums.shape[1:] != cnts.shape):
+        raise ValueError(f"group_merge_pair: sums must be float32 "
+                         f"[P, {cnts.shape[0]}, {cnts.shape[1]}], got "
+                         f"{sums.dtype} {tuple(sums.shape)}")
+
+
+def group_merge_pair_plain(cnts, sums, layout: GroupLayout, factor=None):
+    """The plain PyTorch version: the two ``group_merge_plain`` calls the
+    grid path made before the pair — counts times the factor, truncated to
+    int64, then the sums with the factor."""
+    _pair_input(cnts, sums)
+    c = cnts if factor is None else cnts * factor[:, None]
+    cnt = group_merge_plain(c.to(torch.int64), layout, "sum")
+    sg = None if sums is None else group_merge_plain(sums, layout, "sum",
+                                                     factor=factor)
+    return cnt, sg
+
+
+def group_merge_pair(cnts, sums, layout: GroupLayout, factor=None):
+    """The grid path's count and sum merges over one layout, in one launch.
+
+    ``cnts`` ``[S, NB]`` float32 holds per-(series, bucket) counts (exact
+    integers), ``sums`` ``[P, S, NB]`` float32 (or None) the sum planes;
+    both may be windows (strided views).  Returns the int64 counts
+    ``[ngt, NB]`` — ``(int64)(cnts[s, b] * factor[s])`` summed over each
+    group's series — and the float32 sums ``[P, ngt, NB]`` (None without
+    ``sums``), ``group_merge``'s sums with ``factor``.  Bit for bit the
+    pair of ``group_merge`` calls it replaces."""
+    if not cnts.is_cuda:
+        if cnts.device.type != "cpu":
+            raise ValueError(f"group_merge_pair: unsupported device "
+                             f"{cnts.device}")
+        return group_merge_pair_plain(cnts, sums, layout, factor)
+    return _group_merge_pair_cuda(cnts, sums, layout, factor)
+
+
+def _group_merge_pair_cuda(cnts, sums, layout, factor):
+    _pair_input(cnts, sums)
+    cnts, fac = _merge_operands("group_merge_pair", cnts, layout, factor)
+    if sums is not None:
+        if sums.device != cnts.device:
+            raise ValueError("group_merge_pair: sums on another device")
+        if sums.stride(-1) != 1:
+            sums = sums.contiguous()
+    nb = cnts.shape[1]
+    p = 0 if sums is None else sums.shape[0]
+    cnt = cnts.new_empty((layout.ngt, nb), dtype=torch.int64)
+    sg = sums.new_empty((p, layout.ngt, nb)) if sums is not None else None
+    rc = _load().gt_group_merge_pair(
+        cnts.data_ptr(), cnts.stride(0),
+        sums.data_ptr() if sums is not None else None,
+        sums.stride(0) if sums is not None else 0,
+        sums.stride(1) if sums is not None else 0,
+        layout.order.data_ptr(), layout.offsets.data_ptr(),
+        fac.data_ptr() if fac is not None else None, cnt.data_ptr(),
+        sg.data_ptr() if sg is not None else None, p, layout.ngt, nb,
+        _stream_ptr(cnts))
+    group_merge_pair.launches += 1
+    _check(rc, "group_merge_pair")
+    return cnt, sg
+
+
+group_merge_pair.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -553,6 +730,8 @@ series_mask.launches = 0
 
 def reset_launch_counts() -> None:
     bucket_reduce.launches = 0
+    bucket_reduce.shapes = {}
     group_merge.launches = 0
+    group_merge_pair.launches = 0
     group_merge_stacked.launches = 0
     series_mask.launches = 0

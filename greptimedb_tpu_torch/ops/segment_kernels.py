@@ -260,15 +260,22 @@ def segment_reduce(values, ids, ns: int, op: str, mask=None):
     mask = mask.contiguous() if mask is not None else None
     fn = getattr(_load(), f"gt_segment_reduce_{_SUFFIX[dtype]}")
     stream = _stream_ptr(ids)
+    before = segment_reduce.launches
     _launch_columns(
         ptrs, ld, val, cnt, "segment_reduce", segment_reduce,
         lambda arr, ld_, c, out_p, cnt_p: fn(
             arr, ld_, c, ids.data_ptr(), _ptr(mask), n, ns, _OPS[op], out_p,
             shape[1] if len(shape) == 2 else 1, cnt_p, stream))
+    # launches by shape: value type, op and columns ("count": no values)
+    label = ("count" if values is None else
+             f"{_SUFFIX[dtype]} {op} x{1 if ptrs is None else len(ptrs)}")
+    segment_reduce.shapes[label] = (segment_reduce.shapes.get(label, 0)
+                                    + segment_reduce.launches - before)
     return val, cnt
 
 
 segment_reduce.launches = 0
+segment_reduce.shapes = {}
 
 
 # ---------------------------------------------------------------------------
@@ -643,6 +650,7 @@ segment_select.launches = 0
 
 def reset_launch_counts() -> None:
     segment_reduce.launches = 0
+    segment_reduce.shapes = {}
     sorted_segment_reduce.launches = 0
     compact.launches = 0
     rank_scatter.launches = 0

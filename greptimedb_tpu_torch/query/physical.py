@@ -4,9 +4,11 @@ kernels → host result columns.
 Torch counterpart of the grid half of the reference's
 ``query/physical.py``.  Per query, the device computes per-(series, time
 bucket) partials with ``bucket_reduce`` and merges series into tag groups
-with ``group_merge`` (the two hand-written CUDA kernels of
-``ops/grid_kernels.py``); the mean/NaN epilogue, ``__gmask__`` and the
-``__comps__``/``__bts__`` key decomposition are torch elementwise ops.
+with ``group_merge`` (the hand-written CUDA kernels of
+``ops/grid_kernels.py``; ``group_merge_pair`` merges the shared count
+and the sum planes in one launch); the mean/NaN epilogue, ``__gmask__``
+and the ``__comps__``/``__bts__`` key decomposition are torch
+elementwise ops.
 The host then shapes the (small) result: decode tag codes, HAVING, ORDER
 BY, LIMIT, final projections (query/engine.py).
 
@@ -60,7 +62,7 @@ import torch
 
 from greptimedb_tpu_torch.errors import ExecutionError, PlanError, Unsupported
 from greptimedb_tpu_torch.ops.grid_kernels import (
-    bucket_reduce, clamp_start, group_layout, group_merge,
+    bucket_reduce, clamp_start, group_layout, group_merge, group_merge_pair,
     group_merge_stacked, series_mask,
 )
 from greptimedb_tpu_torch.ops import segment_kernels as sk
@@ -987,16 +989,16 @@ class Executor:
                 smf = torch.broadcast_to(
                     _as_tensor(where_fn(env_s), device), (spad,)
                 ).to(torch.float32)
-                c_w = c_w * smf[:, None]
             lay = layout_of(tag_codes, tag_arrays, spad, device)
-            cnt_all = group_merge(c_w.to(torch.int64), lay, "sum")  # [ngt, NB]
-            merged = {}
+            x = None
             if planes:
                 x = s_w if planes == list(range(s_w.shape[0])) else (
                     s_w.index_select(0, torch.as_tensor(planes,
                                                          device=device)))
-                sg_all = group_merge(x, lay, "sum", factor=smf)
-                merged = {ci: sg_all[i] for i, ci in enumerate(planes)}
+            # counts (times the WHERE factor, truncated to int64) and the
+            # sum planes, merged in one launch: [ngt, NB], [P, ngt, NB]
+            cnt_all, sg_all = group_merge_pair(c_w, x, lay, factor=smf)
+            merged = {ci: sg_all[i] for i, ci in enumerate(planes)}
             out = {}
             for name, op, ci in bm_specs:
                 if op == "count":
@@ -1105,30 +1107,39 @@ class Executor:
             else:
                 cnt_all_sb = bucket_reduce(valid, "sum", s0=s0, weight=w4,
                                            **geo)
-                if smf is not None:
-                    cnt_all_sb = cnt_all_sb * smf[:, None]
-            cnt_all = group_merge(cnt_all_sb.to(torch.int64), lay, "sum")
+            # fast path: zero-filled invalid cells contribute +0 — each raw
+            # plane straight into the reduce, into one [F, S, NB] buffer
+            # that merges with the shared count (times the WHERE factor)
+            # in one launch
+            fast = [(name, arg_fn, ci)
+                    for name, op, arg_fn, no_nan_plain, ci in specs
+                    if op in ("sum", "mean") and no_nan_plain
+                    and not elementwise]
+            sbuf = None
+            if fast:
+                sbuf = torch.empty((len(fast), spad, nb),
+                                   dtype=torch.float32, device=device)
+                for i, (_name, arg_fn, ci) in enumerate(fast):
+                    x, xs0 = arg_plane(arg_fn, ci)
+                    bucket_reduce(x, "sum", s0=xs0, weight=w4, out=sbuf[i],
+                                  **geo)
+            cnt_all, sg = group_merge_pair(cnt_all_sb, sbuf, lay, factor=smf)
 
             out = {}
             cnts: dict[str, torch.Tensor] = {}
-            sums: dict[str, torch.Tensor] = {}
+            sums = {name: sg[i] for i, (name, _f, _c) in enumerate(fast)}
             cnt_items = []
             for name, op, arg_fn, no_nan_plain, ci in specs:
                 if op == "count" and (arg_fn is None or no_nan_plain):
                     continue  # resolves to the shared cnt_all
+                if name in sums:
+                    continue  # merged with the shared count above
                 x, xs0 = arg_plane(arg_fn, ci)
                 if op in ("sum", "mean"):
-                    if no_nan_plain and not elementwise:
-                        # fast path: zero-filled invalid cells contribute
-                        # +0 — raw plane straight into the reduce
-                        sb = bucket_reduce(x, "sum", s0=xs0, weight=w4,
-                                           **geo)
-                        sums[name] = group_merge(sb, lay, "sum", factor=smf)
-                    else:
-                        sb = bucket_reduce(
-                            x, "sum", s0=xs0, mask=get_v2(), mask_s0=0,
-                            skip_nan=not no_nan_plain, **geo)
-                        sums[name] = group_merge(sb, lay, "sum")
+                    sb = bucket_reduce(
+                        x, "sum", s0=xs0, mask=get_v2(), mask_s0=0,
+                        skip_nan=not no_nan_plain, **geo)
+                    sums[name] = group_merge(sb, lay, "sum")
                 elif op in ("min", "max"):
                     red = bucket_reduce(
                         x, op, s0=xs0, mask=get_v2(), mask_s0=0,
@@ -1138,10 +1149,10 @@ class Executor:
                     cnt_items.append((name, x, xs0))
 
             for name, x, xs0 in cnt_items:
-                cnts[name] = group_merge(
+                cnts[name] = group_merge_pair(
                     bucket_reduce(x, "count", s0=xs0, mask=get_v2(),
-                                  mask_s0=0, skip_nan=True, **geo
-                                  ).to(torch.int64), lay, "sum")
+                                  mask_s0=0, skip_nan=True, **geo),
+                    None, lay)[0]
 
             for name, op, arg_fn, no_nan_plain, _ci in specs:
                 if op in ("min", "max"):

@@ -126,6 +126,7 @@ def _launches_stay_zero():
     yield
     assert gk.bucket_reduce.launches == 0
     assert gk.group_merge.launches == 0
+    assert gk.group_merge_pair.launches == 0
 
 
 # ---------------------------------------------------------------------------
@@ -349,6 +350,129 @@ def test_bucket_reduce_plain_padding_weight_and_mask():
         gk.bucket_reduce(x.double(), "sum", r=5, nb=2)
 
 
+# ---------------------------------------------------------------------------
+# the kernels' geometry and the fused pair's plain version, on the CPU
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("cells", [4, 16])
+@pytest.mark.parametrize("mis", [0, 1, 2, 3, 15])
+@pytest.mark.parametrize("lo,hi", [(0, 0), (0, 3), (5, 6), (1, 40),
+                                   (330, 690), (0, 360), (7, 7 + 16 * 3)])
+def test_bucket_split_covers_the_range(lo, hi, mis, cells):
+    """The kernel's head/body/tail split of a bucket's live range: the
+    three parts tile [lo, hi), the body is whole vectors that start on a
+    16-byte boundary of the row, head and tail are shorter than a
+    vector."""
+    mis %= cells
+    a, e = gk.bucket_split(lo, hi, mis, cells)
+    assert lo <= a <= e <= hi
+    assert (e - a) % cells == 0
+    if e > a:
+        assert (a + mis) % cells == 0
+    assert a - lo < cells and hi - e < cells
+    # every cell of [lo, hi) that starts a whole aligned vector inside the
+    # range is in the body
+    starts = [t for t in range(lo, hi - cells + 1) if (t + mis) % cells == 0]
+    assert (e - a) // cells == len(starts)
+
+
+def test_bucket_lanes():
+    assert gk.bucket_lanes(360, 4) == 32   # TSBS f32: 90 vectors a bucket
+    assert gk.bucket_lanes(360, 1) == 8    # the u8 valid plane: 22.5
+    assert gk.bucket_lanes(36, 4) == 4
+    assert gk.bucket_lanes(8, 4) == 1
+    assert gk.bucket_lanes(1, 1) == 1
+    assert gk.bucket_lanes(100_000, 4) == 32
+    for r in range(1, 2000, 37):
+        g = gk.bucket_lanes(r, 4)
+        assert g & (g - 1) == 0 and 1 <= g <= 32
+
+
+def _seq_fold(x, order, offsets, factor=None, count=False):
+    """A sequential fold in ascending series order, one f32 (or int64)
+    accumulator an output, each product rounded before its add: the
+    summation order the group kernels document."""
+    p, _s, nb = x.shape
+    ngt = len(offsets) - 1
+    out = np.zeros((p, ngt, nb), np.int64 if count else np.float32)
+    for g in range(ngt):
+        acc = np.zeros((p, nb), out.dtype)
+        for k in range(offsets[g], offsets[g + 1]):
+            s = order[k]
+            v = x[:, s, :]
+            if factor is not None:
+                v = (v * np.float32(factor[s])).astype(np.float32)
+            if count:
+                acc = acc + v.astype(np.int64)   # truncation, as .to(int64)
+            else:
+                acc = (acc + v).astype(np.float32)
+        out[:, g] = acc
+    return out
+
+
+@pytest.mark.parametrize("with_factor", [False, True])
+@pytest.mark.parametrize("with_sums", [False, True])
+def test_group_merge_pair_plain_is_the_two_merges(with_factor, with_sums):
+    """The pair's plain version equals the two group_merge calls the grid
+    path made before it (counts times the factor, truncated, then merged
+    in int64; sums with the factor), and a sequential ascending fold, bit
+    for bit, over window views of the partials."""
+    rng = np.random.default_rng(21)
+    s, nb, ngt = 90, 11, 13
+    ids = rng.integers(0, ngt + 1, s).astype(np.int32)
+    lay = gk.group_layout(torch.from_numpy(ids), ngt)
+    cfull = rng.integers(0, 361, (s, nb + 4)).astype(np.float32)
+    sfull = (rng.random((3, s, nb + 4)) * 1000).astype(np.float32)
+    c = torch.from_numpy(cfull)[:, 3:3 + nb]
+    sums = torch.from_numpy(sfull)[:, :, 1:1 + nb] if with_sums else None
+    fac = (torch.from_numpy((rng.random(s) > 0.3).astype(np.float32))
+           if with_factor else None)
+    cnt, sg = gk.group_merge_pair(c, sums, lay, factor=fac)
+    cw = c if fac is None else c * fac[:, None]
+    assert torch.equal(cnt, gk.group_merge(cw.to(torch.int64), lay, "sum"))
+    order, offs = lay.order.numpy(), lay.offsets.numpy()
+    fnp = None if fac is None else fac.numpy()
+    assert np.array_equal(cnt.numpy(), _seq_fold(
+        c.numpy()[None], order, offs, fnp, count=True)[0])
+    if with_sums:
+        assert torch.equal(sg, gk.group_merge(sums, lay, "sum", factor=fac))
+        assert np.array_equal(sg.numpy(), _seq_fold(sums.numpy(), order,
+                                                     offs, fnp))
+    else:
+        assert sg is None
+
+
+def test_bucket_reduce_out_and_layout_checks():
+    x = torch.arange(1, 25, dtype=torch.float32).reshape(2, 12)
+    buf = torch.full((3, 2, 3), -1.0)
+    got = gk.bucket_reduce(x, "sum", r=4, nb=3, out=buf[1])
+    assert got.data_ptr() == buf[1].data_ptr()
+    assert torch.equal(buf[1], gk.bucket_reduce_plain(x, "sum", r=4, nb=3))
+    assert (buf[0] == -1).all() and (buf[2] == -1).all()
+    with pytest.raises(ValueError):
+        gk.bucket_reduce(x, "sum", r=4, nb=3, out=torch.empty(3, 2))
+    ids = torch.tensor([0, 1, 1], dtype=torch.int32)
+    lay = gk.group_layout(ids, 2)
+    with pytest.raises(ValueError):
+        gk.GroupLayout(ids, lay.order.long(), lay.offsets, 2)
+    with pytest.raises(ValueError):
+        gk.GroupLayout(ids, lay.order, lay.offsets[:2], 2)
+    with pytest.raises(ValueError):
+        gk.GroupLayout(ids, lay.order, lay.offsets.int(), 2)
+
+
+def test_bucket_reduce_shape_labels():
+    x = torch.zeros((2, 3, 40))
+    v = torch.zeros((3, 40), dtype=torch.bool)
+    geo = dict(r=8, nb=5, pad_l=0, pad_r=0)
+    w = gk._window(x, mask=None, mask_s0=None, weight=None, s0=0, w_raw=40,
+                   **geo)
+    assert gk._shape_label(w, x, "sum") == "f32 sum grid"
+    w = gk._window(v, r=8, nb=4, s0=3, w_raw=32, pad_l=0, pad_r=0,
+                   mask=v, mask_s0=0, weight=torch.ones(32))
+    assert gk._shape_label(w, v, "count") == "u8 count masked weighted window"
+
+
 def test_unported_device_nodes_raise_unsupported():
     # IS NULL and the math functions came with the row path, full text and
     # vector search later; the string functions are still to port.  Full
@@ -458,4 +582,142 @@ def test_cuda_stacked_kernels_match_plain(cuda_device, masked):
     assert torch.equal(torch.nan_to_num(got_sg), torch.nan_to_num(want_sg))
     assert gk.series_mask.launches == 1
     assert gk.group_merge_stacked.launches == 2
+    gk.reset_launch_counts()
+
+
+def _same(got, want):
+    """Bit for bit, NaN where NaN."""
+    got, want = got.cpu(), want.cpu()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.is_floating_point():
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        got, want = torch.nan_to_num(got), torch.nan_to_num(want)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["f32", "u8"])
+@pytest.mark.parametrize("r", [7, 36, 360])
+@pytest.mark.parametrize("s0", [0, 1, 2, 3])
+def test_cuda_bucket_reduce_edges(cuda_device, dtype, r, s0):
+    """The streaming bucket_reduce against its plain version on the card:
+    window starts 0-3 mod 4 (the x row's head), pad_l not a multiple of
+    4 (vectors straddling a bucket edge), a mask whose rows sit at other
+    alignments than x's, weights with zeros, NaN and +-inf under
+    skip_nan, the u8 input, a window narrower than a vector; two calls
+    equal bit for bit."""
+    rng = np.random.default_rng(100 + r + s0)
+    p, s, width = 3, 37, 3 * r + 21
+    if dtype == "f32":
+        xn = (rng.random((p, s, width)) * 100).astype(np.float32)
+        xn[0, ::3, ::7] = np.nan
+        xn[1, 2, 5::13] = np.inf
+        xn[2, 4, 3::11] = -np.inf
+        x = torch.from_numpy(xn).to(cuda_device)
+    else:
+        x = torch.from_numpy(rng.random((p, s, width)) > 0.4).to(cuda_device)
+    cases = []
+    for w_raw, pad_l in ((2 * r + 5, 3), (2 * r, 0), (3, 2), (r + 1, r - 1)):
+        nb = -(-(pad_l + w_raw) // r)
+        mfull = torch.from_numpy(rng.random((s, w_raw + 3)) > 0.25).to(
+            cuda_device)
+        mask = mfull[:, 1:1 + w_raw]           # rows at odd alignments
+        wt = torch.from_numpy((rng.random(w_raw) > 0.3).astype(
+            np.float32)).to(cuda_device)
+        geo = dict(r=r, nb=nb, s0=s0, w_raw=w_raw, pad_l=pad_l)
+        cases += [dict(geo), dict(geo, weight=wt),
+                  dict(geo, mask=mask, mask_s0=0, skip_nan=True),
+                  dict(geo, mask=mask, mask_s0=0, weight=wt, skip_nan=True),
+                  dict(geo, skip_nan=True)]
+    for kw in cases:
+        for op in ("sum", "count", "min", "max"):
+            got = gk.bucket_reduce(x, op, **kw)
+            want = gk.bucket_reduce_plain(x, op, **kw)
+            close(got.cpu().numpy(), want.cpu().numpy(), exact=op != "sum")
+            _same(gk.bucket_reduce(x, op, **kw), got)
+    assert gk.bucket_reduce.launches == 2 * 4 * len(cases)
+    gk.reset_launch_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 10])
+@pytest.mark.parametrize("nb", [1, 20, 24, 33, 64])
+def test_cuda_group_merge_edges(cuda_device, p, nb):
+    """group_merge (a thread an output, its series loop unrolled by 4) on
+    the card: groups of 0, 1, 2, 31, 33 and 1,000 series and overflow ids,
+    sums with and without a factor, min/max with a zero factor and NaN,
+    int64 counts; each equal bit for bit to a sequential ascending-order
+    fold (the CPU plain version is one), and the unmasked sums and counts
+    to group_merge_stacked with B = 1."""
+    rng = np.random.default_rng(7 * nb + p)
+    sizes = [0, 1, 2, 31, 33, 1000, 0, 5]
+    ngt = len(sizes)
+    ids = np.concatenate([np.full(k, g) for g, k in enumerate(sizes)]
+                         + [np.full(9, ngt)]).astype(np.int32)
+    rng.shuffle(ids)
+    s = len(ids)
+    xn = (rng.random((p, s, nb)) * 1000).astype(np.float32)
+    xn[0, np.flatnonzero(ids == 5)[7], 0] = np.nan  # in the group of 1,000
+    fac = (rng.random(s) > 0.3).astype(np.float32)
+    lay_c = gk.group_layout(torch.from_numpy(ids), ngt)
+    lay = gk.group_layout(torch.from_numpy(ids).to(cuda_device), ngt)
+    x = torch.from_numpy(xn).to(cuda_device)
+    f = torch.from_numpy(fac).to(cuda_device)
+    order, offs = lay_c.order.numpy(), lay_c.offsets.numpy()
+    for op, use_f in (("sum", False), ("sum", True), ("min", True),
+                      ("max", False), ("max", True)):
+        got = gk.group_merge(x, lay, op, factor=f if use_f else None)
+        want = gk.group_merge_plain(torch.from_numpy(xn), lay_c, op,
+                                    torch.from_numpy(fac) if use_f else None)
+        _same(got, want)
+        _same(gk.group_merge(x, lay, op, factor=f if use_f else None), got)
+        if op == "sum":
+            _same(got, torch.from_numpy(_seq_fold(
+                xn, order, offs, fac if use_f else None)))
+    cn = rng.integers(0, 361, (p, s, nb))
+    got = gk.group_merge(torch.from_numpy(cn).to(cuda_device), lay, "sum")
+    _same(got, torch.from_numpy(_seq_fold(cn, order, offs, count=True)))
+    # group_merge_stacked, B = 1, no mask: planes 0..p-1, counts from the
+    # last plane's f32 partials
+    cnts = torch.from_numpy(rng.integers(0, 361, (s, nb)).astype(
+        np.float32)).to(cuda_device)
+    b_lo = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    planes = torch.arange(p, dtype=torch.int32, device=cuda_device)
+    st_cnt, st_sum = gk.group_merge_stacked(x, cnts, b_lo, lay, planes, nb)
+    _same(st_sum[0], gk.group_merge(x, lay, "sum"))
+    _same(st_cnt[0], gk.group_merge(cnts.to(torch.int64), lay, "sum"))
+    gk.reset_launch_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_factor", [False, True])
+def test_cuda_group_merge_pair_is_two_merges(cuda_device, with_factor):
+    """group_merge_pair (one launch) against the two group_merge launches
+    and elementwise kernels it replaces, bit for bit, on window views of
+    the resident partials' shape, and against its plain version."""
+    rng = np.random.default_rng(5)
+    s, nb, ngt, p = 4096, 24, 4096, 10
+    ids = rng.integers(0, ngt, s).astype(np.int32)
+    ids[rng.random(s) < 0.05] = ngt
+    lay = gk.group_layout(torch.from_numpy(ids).to(cuda_device), ngt)
+    cfull = torch.from_numpy(rng.integers(0, 361, (s, 30)).astype(
+        np.float32)).to(cuda_device)
+    sfull = torch.from_numpy((rng.random((p, s, 30)) * 1000).astype(
+        np.float32)).to(cuda_device)
+    c, sums = cfull[:, 5:5 + nb], sfull[:, :, 5:5 + nb]
+    fac = (torch.from_numpy((rng.random(s) > 0.3).astype(np.float32)).to(
+        cuda_device) if with_factor else None)
+    cnt, sg = gk.group_merge_pair(c, sums, lay, factor=fac)
+    cw = c if fac is None else c * fac[:, None]
+    _same(cnt, gk.group_merge(cw.to(torch.int64), lay, "sum"))
+    _same(sg, gk.group_merge(sums, lay, "sum", factor=fac))
+    cnt0, none = gk.group_merge_pair(c, None, lay, factor=fac)
+    assert none is None
+    _same(cnt0, cnt)
+    lay_c = gk.group_layout(torch.from_numpy(ids), ngt)
+    want_c, want_s = gk.group_merge_pair_plain(
+        c.cpu(), sums.cpu(), lay_c, None if fac is None else fac.cpu())
+    _same(cnt, want_c)
+    _same(sg, want_s)
+    assert gk.group_merge_pair.launches == 2
     gk.reset_launch_counts()
