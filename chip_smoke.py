@@ -45,6 +45,10 @@ Phases, each printing its own lines:
    (pod) (max_over_time) unfused at 20 steps (S*T*L over 2^27: refused
    before any build) and the one-pod changes / irate / deriv TQL queries
    (the count geometry, equal to GREPTIME_PROMQL_CACHE=off's rows).
+   quantile_over_time(0.9, m[5m]) over every series (cold once, warm 5
+   times) is checked on 4,096 seeded series against numpy; every
+   window_matrix / window_matrix_dense launch of the path must take the
+   register route (every window holds at most 32 keys).
    Before each main path the kernel launch counts are zeroed; they are
    read just after it.
 5. The PromQL kernels against their plain versions, timed as in phase 2,
@@ -55,6 +59,9 @@ Phases, each printing its own lines:
    bounds, and counter_window at T = 1 in both geometries.  sort_layout's
    general route prints its 8-bit digit passes and the device time a pass
    (torch.profiler); prefix_scan must repeat bit for bit over two calls.
+   window_matrix (quantile, mad) and window_matrix_dense are timed on
+   their register route and on the forced warp route (CUDA events and
+   CUDA-graph device time), the two equal bit for bit.
 6. SQL row path, on phase 3's table before its db closes (run between
    phases 3 and 4): (d) query (a) with GREPTIME_GRID=off, once under
    GREPTIME_SORTED_SEGMENTS=auto (the sorted path, sorted_segment_reduce)
@@ -343,6 +350,9 @@ def graph_ms(fn, reps: int = 20) -> float:
 
 # launches by shape over every main path, for the kernels that count them
 SHAPES: dict = {}
+# launches by route over the PromQL main path (window_matrix and
+# window_matrix_dense: register / warp)
+ROUTES: dict = {}
 
 
 def take_shapes(name: str, wrapper) -> None:
@@ -1718,6 +1728,33 @@ def _promql_surface(db, held: np.ndarray, start: int, steps: int,
 
         report[fn] = prom_timed(expr, tql(expr), check_pod, card)
 
+    # quantile_over_time over every series (window_matrix at lmax 32):
+    # a seeded sample of 4,096 series against numpy, labels included
+    pick = np.sort(np.random.default_rng(14).choice(PROM_SERIES, 4096,
+                                                    replace=False))
+    q_all = np.stack([np_quantile(np_window(held[:, pick], int(t))[0], 0.9)
+                      for t in step_ts])
+
+    def check_q_all(res):
+        if res.num_series != PROM_SERIES:
+            raise AssertionError(f"quantile_over_time: {res.num_series} "
+                                 f"series")
+        for i in pick[:64]:
+            lab = res.labels[int(i)]
+            if (lab["pod"], lab["container"]) != (
+                    f"pod-{i // CONTAINERS}", f"c{i % CONTAINERS}"):
+                raise AssertionError(f"quantile_over_time: series {i} is "
+                                     f"{lab}")
+        got = res.values[torch.as_tensor(pick, device=res.values.device)]
+        err = check_pod_values("quantile_over_time", got.cpu().numpy().T,
+                               q_all)
+        return f"{len(pick):,} sampled of {PROM_SERIES:,} series x " \
+               f"{steps} steps correct (max |diff| {err:.3g})"
+
+    expr = f"quantile_over_time(0.9, {metric}[5m])"
+    report["quantile_over_time"] = prom_timed(expr, evaluator(expr),
+                                              check_q_all, card)
+
     # topk over every series (ng == 1): the kept cells are the top 5 rates
     def check_topk(res):
         v = res.values.cpu().numpy()  # [S, T]
@@ -2168,6 +2205,18 @@ def _promql_path(gk, pk, sk, db, scrapes, seed, has_arrow, card) -> dict:
     if routes["general"] or routes["presorted"] != launches["sort_layout"]:
         raise AssertionError(f"sort_layout left the presorted route on the "
                              f"PromQL path: {routes}")
+    # every window of the path holds at most 21 samples (5 m at 15 s; lmax
+    # 32) and every subquery matrix 6 (K), so every quantile / mad sort of
+    # the path must take the register route (matrix_route(width <= 32))
+    for kname, wrapper in (("window_matrix", pk.window_matrix),
+                           ("window_matrix_dense", pk.window_matrix_dense)):
+        ROUTES[kname] = {"register": wrapper.register, "warp": wrapper.warp}
+    log(f"promql path: window_matrix routes {ROUTES}")
+    for kname, r in ROUTES.items():
+        if r["warp"] or r["register"] != launches[kname]:
+            raise AssertionError(f"{kname} left the register route on the "
+                                 f"PromQL path: {r}, {launches[kname]} "
+                                 f"launches")
     return launches
 
 
@@ -2252,6 +2301,24 @@ def count_geometry_timing(pk, got, want, gd, gd_want, sel, t_end: int,
         t1[f"t1_{kind}_count_ms"] = ms_c
     out["t1"] = t1
     return out
+
+
+def sort_routes(name: str, kind: str, out: torch.Tensor, card: str,
+                warp) -> dict:
+    """The forced warp route of ``name`` (``warp()``, the pre-register
+    design) held bit for bit to the default route's ``out`` and timed by
+    CUDA events and as device time; prints one line and returns its
+    ``warp_`` keys (``mad_warp_`` for mad)."""
+    got = warp()
+    if not torch.equal(got.view(torch.int32), out.view(torch.int32)):
+        raise AssertionError(f"{name} {kind}: the warp route differs from "
+                             f"the register route")
+    ms = time_ms(warp)
+    gms = graph_ms(warp)
+    log(f"kernel {name}[{kind}, warp route]: {ms:.4f} ms, device time "
+        f"{gms:.4f} ms, equal bit for bit — {card}")
+    pre = "warp" if kind == "quantile" else f"{kind}_warp"
+    return {f"{pre}_ms": ms, f"{pre}_graph_ms": gms}
 
 
 def select_route_checks(sk, device) -> int:
@@ -2560,14 +2627,21 @@ def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
               "holt": (ones * 0.5, ones * 0.3)}
     sort_ops = cells * (lmax // 2) * (lmax.bit_length() - 1) * \
         lmax.bit_length() // 2
+    route = pk.matrix_route(lmax)
     for kind, (a1, a2) in params.items():
         kw = dict(lmax=lmax, kind=kind, a1=a1, a2=a2, **geo)
+        before = pk.window_matrix.register
         out = pk.window_matrix(got, sel, start, **kw)
+        if kind != "holt" and pk.window_matrix.register != before + (
+                route == "register"):
+            raise AssertionError(f"window_matrix {kind}: lmax {lmax} did "
+                                 f"not take the {route} route")
         ref = pk.window_matrix_plain(want, sel, start, **kw)
         err = max_err(out, ref, exact=False)
         del ref
         torch.cuda.empty_cache()
         ms = time_ms(lambda: pk.window_matrix(got, sel, start, **kw))
+        gms = graph_ms(lambda: pk.window_matrix(got, sel, start, **kw))
         plain = time_ms(lambda: pk.window_matrix_plain(want, sel, start,
                                                        **kw), reps=3)
         torch.cuda.empty_cache()
@@ -2575,16 +2649,27 @@ def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
             sort_ops * (2 if kind == "mad" else 1) if kind != "holt"
             else samples * 6)
         bnd, by = bound_ms(nbytes(sel, a1, a2, out) + union * 4, ops)
-        report("window_matrix", f"{kind} S={s_pad:,} T=20 lmax={lmax} "
+        report("window_matrix", f"{kind} S={s_pad:,} T=20 lmax={lmax}, "
+               f"{route if kind != 'holt' else 'a thread a window'} "
                f"(library: torch.sort of the gathered [S*T, lmax] "
                f"matrix)", ms, plain, bnd, by, lib, err)
+        log(f"kernel window_matrix[{kind}]: device time {gms:.4f} ms — "
+            f"{card}")
         if kind == "quantile":
             results["window_matrix"] = dict(
-                ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                library_ms=lib, max_abs_err=err)
+                ms=ms, graph_ms=gms, plain_ms=plain, bound_ms=bnd,
+                bound_by=by, library_ms=lib, max_abs_err=err)
         else:
             results["window_matrix"]["max_abs_err"] = max(
                 results["window_matrix"]["max_abs_err"], err)
+            results["window_matrix"].update({
+                f"{kind}_ms": ms, f"{kind}_graph_ms": gms,
+                f"{kind}_plain_ms": plain, f"{kind}_bound_ms": bnd})
+        if kind != "holt":
+            results["window_matrix"].update(sort_routes(
+                "window_matrix", kind, out, card,
+                lambda: pk.window_matrix(got, sel, start,
+                                         allow_register=False, **kw)))
         del out
 
     # -- window_matrix_dense + subquery_counter on the subquery path's
@@ -2601,25 +2686,40 @@ def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
     sort_ops = S_sub * T_sub * (width // 2) * (width.bit_length() - 1) * \
         width.bit_length() // 2
     lib = time_ms(lambda: torch.sort(wq, dim=-1), reps=5)
+    route = pk.matrix_route(width)
     for kind in ("quantile", "mad"):
+        before = pk.window_matrix_dense.register
         out = pk.window_matrix_dense(wq, kind, q)
+        if pk.window_matrix_dense.register != before + (route == "register"):
+            raise AssertionError(f"window_matrix_dense {kind}: width {width} "
+                                 f"did not take the {route} route")
         err = max_err(out, pk.window_matrix_dense_plain(wq, kind, q),
                       exact=False)
         ms = time_ms(lambda: pk.window_matrix_dense(wq, kind, q))
+        gms = graph_ms(lambda: pk.window_matrix_dense(wq, kind, q))
         plain = time_ms(lambda: pk.window_matrix_dense_plain(wq, kind, q),
                         reps=5)
         bnd, by = bound_ms(nbytes(wq, q, out),
                            sort_ops * (2 if kind == "mad" else 1))
         report("window_matrix_dense", f"{kind} [S, T, K] = [{S_sub:,}, "
-               f"{T_sub}, {K_sub}] of rate(m[1m])[5m:1m] (library: "
+               f"{T_sub}, {K_sub}] of rate(m[1m])[5m:1m], {route} (library: "
                f"torch.sort along K)", ms, plain, bnd, by, lib, err)
+        log(f"kernel window_matrix_dense[{kind}]: device time {gms:.4f} ms "
+            f"— {card}")
         if kind == "quantile":
             results["window_matrix_dense"] = dict(
-                ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                library_ms=lib, max_abs_err=err)
+                ms=ms, graph_ms=gms, plain_ms=plain, bound_ms=bnd,
+                bound_by=by, library_ms=lib, max_abs_err=err)
         else:
             results["window_matrix_dense"]["max_abs_err"] = max(
                 results["window_matrix_dense"]["max_abs_err"], err)
+            results["window_matrix_dense"].update({
+                f"{kind}_ms": ms, f"{kind}_graph_ms": gms,
+                f"{kind}_plain_ms": plain, f"{kind}_bound_ms": bnd})
+        results["window_matrix_dense"].update(sort_routes(
+            "window_matrix_dense", kind, out, card,
+            lambda: pk.window_matrix_dense(wq, kind, q,
+                                           allow_register=False)))
         del out
     del wq
     win, m, ts_tk, steps_np, _lab = ev._subquery_matrix(parse_promql(
@@ -4776,7 +4876,8 @@ def main() -> int:
                       if key.startswith(("merge_", "j_", "l_", "dot_",
                                          "cos_", "t1_", "quantile_",
                                          "hostname_", "u8_", "masked_",
-                                         "two_merges_", "prom_"))
+                                         "two_merges_", "prom_", "mad_",
+                                         "warp_", "holt_"))
                       or key in ("solo_pairs_ms", "host_parse_ms",
                                  "graph_ms", "library_graph_ms",
                                  "general_ms", "general_passes",
@@ -4784,6 +4885,8 @@ def main() -> int:
                                  "host_us")})
         if name in SHAPES:
             entry["launches_by_shape"] = SHAPES[name]
+        if name in ROUTES:
+            entry["routes"] = ROUTES[name]
         line["kernels"].append(entry)
     log(f"total: {time.perf_counter() - t_start:.3f} s")
     log(json.dumps(line))

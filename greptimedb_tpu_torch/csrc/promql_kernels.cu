@@ -133,31 +133,63 @@
 //   Replace K14: `_count_max_kernel` (engine.py:541; the largest window
 //   count, an atomicMax per warp) and `_matrix_kernel` (:555), which
 //   gathers [S*T, lmax] windows (2.7 GB at 1 M series x 20 steps x 32) and
-//   sorts each row.  Here a warp finds the bounds of 32 windows at once
-//   (one a lane), then takes them in turn and keeps each in its own buffer
-//   only: the samples as scan.cuh's order-preserving 32-bit sort keys (NaN
-//   canonical and last; -0.0 below +0.0), padded to a power of two with an
-//   all-ones key above +inf, then scan.cuh's warp bitonic sort.  The buffer
-//   lies in shared memory up to 16,384 keys a window; wider windows sort
-//   in a global scratch the wrapper allocates, one slot per launched warp,
-//   the warps striding over the windows.  quantile reads the two
-//   straddling order statistics and interpolates with the reference's f32
-//   formula `vlo + (vhi - vlo) * (rank - lo)`; mad sorts |x - median| a
-//   second time in the same buffer; holt runs its f32 scan in time order,
-//   one lane per window.
+//   sorts each row.  No window is gathered here: each is sorted where it
+//   is read, as scan.cuh's order-preserving 32-bit sort keys (NaN
+//   canonical and last; -0.0 below +0.0), padded to lmax with an all-ones
+//   key above +inf.  quantile reads the two straddling order statistics
+//   and interpolates with the reference's f32 formula `vlo + (vhi - vlo)
+//   * (rank - lo)` (ranks clipped to lmax - 1); mad sorts |x - median| a
+//   second time; holt runs its f32 scan in time order, a thread a window.
+//   Two routes for quantile and mad (ops/promql_kernels.py matrix_route):
+//   - register, lmax <= 32 (windows of up to 32 samples: 5 m at 15 s
+//     scrapes holds 20 or 21): one thread a window w = s * T + t finds its
+//     own bounds, loads its lmax keys into a register array (the load of
+//     slot j predicated on j < cnt; consecutive threads are consecutive
+//     steps of a series, whose windows start a sample or so apart, so
+//     each load of a warp falls on a few contiguous sectors), sorts them
+//     with scan.cuh's reg_bitonic_sort<lmax> and reads ranks by reg_pick.
+//     Bound: operations.  At lmax 32 a window is 240 compare-exchanges (480
+//     integer min/max) plus 2 x 31 compare-and-selects a rank read, about
+//     1e10 integer operations at [2^20, 20] against the card's ~1.7e13
+//     int32 operations/s (132 SMs x 64 lanes x ~2 GHz): ~0.6 ms; the two
+//     binary searches of the bounds (2 x 26 dependent loads a thread)
+//     cost as much again: window_count_max, which does only them, takes
+//     ~1.2 ms.  Measured (time_scans.py matrix, H100 80GB HBM3, 700 W):
+//     quantile 2.37 ms, mad 3.52 ms of device time, where the warp route
+//     takes 19.68 and 36.32.  Staging the warp's span of sorted rows
+//     through shared memory first (coalesced copy, then per-thread reads;
+//     probe_window_matrix.py) did not pay: 2.68 / 3.82 ms.
+//   - warp, lmax > 32: a warp finds the bounds of 32 windows at once (one
+//     a lane), then sorts them one after another in its own buffer with
+//     scan.cuh's warp bitonic sort, lmax / 2 lanes a compare-exchange and
+//     a __syncwarp after each of log2(lmax) (log2(lmax) + 1) / 2 stages.
+//     The buffer lies in shared memory up to 16,384 keys a window; wider
+//     windows sort in a global scratch the wrapper allocates, one slot per
+//     launched warp, the warps striding over the windows.  Bound: the
+//     dependent shared-memory stages, a window at a time per warp.
+//   Both routes sort the same keys (a total order), then run the same
+//   arithmetic on the same sorted keys: their results are equal bit for
+//   bit, which the tests hold at every width.
 //   -fmad=false keeps every other step rounded as the reference rounds it;
 //   the fused multiply-adds that XLA's CPU backend contracts the reference
 //   into (gauge's var = q - mean * mean, Holt's two updates) are explicit
 //   fma/fmaf calls here and fma64/fma32 in the plain versions.
-//   Bound: bytes (the window's rows once, the S x T output); the sort is
-//   log2(L) (log2(L) + 1) / 2 compare-exchange stages per window.
 //
 // window_matrix_dense
 //   The same sorts over a subquery's [S, T, K] window matrix (NaN = not a
-//   sample) instead of the sort layout: the quantile and mad reducers of
-//   `_eval_subquery_window` (engine.py:1415-1437), one warp per window.
-//   Bound: bytes (the matrix once, the S x T output) or the sort's
-//   compare-exchanges, whichever is larger.
+//   sample, as kPadKey) instead of the sort layout: the quantile and mad
+//   reducers of `_eval_subquery_window` (engine.py:1415-1437), ranks
+//   clipped to K - 1.  Register route up to L = 32 (L the power of two >=
+//   K): one thread a row of K contiguous floats, cnt counted from the same
+//   loads; warp route above, as window_matrix's.  Bound: bytes (the
+//   matrix once, the S x T output: 0.167 ms at [2^20, 20, 6]) against 24
+//   compare-exchanges a row at L = 8.  Measured (time_scans.py matrix,
+//   H100 80GB HBM3, 700 W): quantile 0.247 ms, mad 0.415 ms of device
+//   time, where the warp route, 24 of whose 32 lanes hold no key at L = 8,
+//   takes 13.20 and 21.89.  The strided per-thread loads (24 B apart at
+//   K = 6) were kept: copying a block's rows into shared memory first
+//   with coalesced loads, then reading them at stride K (2-way bank
+//   conflicts at K = 6; probe_window_matrix.py) took 0.342 / 0.495 ms.
 //
 // subquery_counter
 //   Replaces `_eval_subquery_counter` (engine.py:1309-1363): the first /
@@ -991,17 +1023,39 @@ __global__ void window_count_max_kernel(Geometry g, int* out) {
 // The reference's q_of: rank = q * max(cnt - 1, 0) in f32, the two
 // straddling order statistics (indices clipped to [0, top]), linear
 // interpolation.  A NaN rank reads index 0; its result is NaN anyway.
-__device__ float q_of(const uint32_t* sorted, float q, int cnt, int top) {
-  const float rank = q * (float)(cnt - 1 > 0 ? cnt - 1 : 0);
-  int lo_r = 0, hi_r = 0;
-  if (!isnan(rank)) {
-    const float fl = floorf(rank), ce = ceilf(rank);
-    lo_r = fl <= 0.0f ? 0 : (fl >= (float)top ? top : (int)fl);
-    hi_r = ce <= 0.0f ? 0 : (ce >= (float)top ? top : (int)ce);
+struct QRank {
+  float rank;
+  int lo, hi;
+};
+
+__device__ __forceinline__ QRank q_rank(float q, int cnt, int top) {
+  QRank r{q * (float)(cnt - 1 > 0 ? cnt - 1 : 0), 0, 0};
+  if (!isnan(r.rank)) {
+    const float fl = floorf(r.rank), ce = ceilf(r.rank);
+    r.lo = fl <= 0.0f ? 0 : (fl >= (float)top ? top : (int)fl);
+    r.hi = ce <= 0.0f ? 0 : (ce >= (float)top ? top : (int)ce);
   }
-  const float vlo = f32_of_key(sorted[lo_r]);
-  const float vhi = f32_of_key(sorted[hi_r]);
-  return vlo + (vhi - vlo) * (rank - (float)lo_r);
+  return r;
+}
+
+__device__ __forceinline__ float q_lerp(uint32_t klo, uint32_t khi,
+                                        const QRank& r) {
+  const float vlo = f32_of_key(klo);
+  const float vhi = f32_of_key(khi);
+  return vlo + (vhi - vlo) * (r.rank - (float)r.lo);
+}
+
+__device__ float q_of(const uint32_t* sorted, float q, int cnt, int top) {
+  const QRank r = q_rank(q, cnt, top);
+  return q_lerp(sorted[r.lo], sorted[r.hi], r);
+}
+
+// q_of over keys sorted in registers (top < P): both reads by reg_pick.
+template <int P>
+__device__ __forceinline__ float reg_q_of(const uint32_t (&k)[P], float q,
+                                          int cnt, int top) {
+  const QRank r = q_rank(q, cnt, top);
+  return q_lerp(reg_pick<P>(k, r.lo), reg_pick<P>(k, r.hi), r);
 }
 
 enum MatrixMode { MODE_QUANTILE = 0, MODE_MAD = 1, MODE_HOLT = 2 };
@@ -1022,12 +1076,33 @@ __device__ float sorted_reducer(uint32_t* buf, int L, int lane, int cnt,
   // them), sorted again
   const float med = q_of(buf, 0.5f, cnt, top);
   __syncwarp();
-  for (int j = lane; j < cnt; j += 32) {
+  for (int j = lane; j < cnt && j < L; j += 32) {
     buf[j] = f32_sort_key(fabsf(f32_of_key(buf[j]) - med));
   }
   __syncwarp();
   warp_bitonic_sort(buf, L, lane);
   return q_of(buf, 0.5f, cnt, top);
+}
+
+// sorted_reducer for one thread: k[0, P) holds the window's keys (padding
+// kPadKey) in any order; sorted in registers, then the same arithmetic on
+// the same sorted keys, so the result equals the warp route's bit for bit.
+template <int P>
+__device__ __forceinline__ float reg_sorted_reducer(uint32_t (&k)[P],
+                                                    int cnt, int mode,
+                                                    float q, int top) {
+  reg_bitonic_sort<P>(k);
+  if (mode == MODE_QUANTILE) {
+    const float r = reg_q_of<P>(k, q, cnt, top);
+    return q < 0.0f ? -INFINITY : (q > 1.0f ? INFINITY : r);
+  }
+  const float med = reg_q_of<P>(k, 0.5f, cnt, top);
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    if (j < cnt) k[j] = f32_sort_key(fabsf(f32_of_key(k[j]) - med));
+  }
+  reg_bitonic_sort<P>(k);
+  return reg_q_of<P>(k, 0.5f, cnt, top);
 }
 
 // Each warp's sort buffer of L keys: in shared memory (scratch null), or
@@ -1096,6 +1171,53 @@ __global__ void window_matrix_kernel(Geometry g, const float* val_s, int lmax,
   }
 }
 
+// The register route of window_matrix (quantile, mad; lmax = P <= 32):
+// one thread a window w = s * T + t, consecutive threads on consecutive
+// steps of a series, so load j of a warp falls on a span of a few hundred
+// bytes (neighbouring windows start about step / scrape samples apart).
+template <int P>
+__global__ void __launch_bounds__(kThreads)
+    window_matrix_reg_kernel(Geometry g, const float* val_s, int mode,
+                             const float* a1, float* out) {
+  const long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= g.S * g.T) return;
+  const Bounds b = window_bounds(g, w);
+  if (!b.has) {
+    out[w] = NAN;
+    return;
+  }
+  uint32_t k[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    k[j] = j < b.cnt ? f32_sort_key(val_s[b.lo + j]) : kPadKey;
+  }
+  out[w] = reg_sorted_reducer<P>(k, b.cnt, mode, a1[w % g.T], P - 1);
+}
+
+// The register route of window_matrix_dense (L = P <= 32): one thread a
+// row of the [S*T, K] matrix; NaN entries and the slots past K are
+// kPadKey, and cnt counts the rest from the same loads.
+template <int P>
+__global__ void __launch_bounds__(kThreads)
+    window_matrix_dense_reg_kernel(const float* win, long long W, int K,
+                                   long long T, int mode, const float* a1,
+                                   float* out) {
+  const long long w = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (w >= W) return;
+  const float* x = win + w * K;
+  uint32_t k[P];
+  int cnt = 0;
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const float v = j < K ? x[j] : NAN;
+    const bool absent = isnan(v);
+    cnt += absent ? 0 : 1;
+    k[j] = absent ? kPadKey : f32_sort_key(v);
+  }
+  const float res = reg_sorted_reducer<P>(k, cnt, mode, a1[w % T], K - 1);
+  out[w] = cnt > 0 ? res : NAN;
+}
+
 // Warps stride over the windows of a subquery's [S*T, K] window matrix (NaN
 // = not a sample), one window at a time; buffer width L (a power of two
 // >= K).
@@ -1153,6 +1275,45 @@ int opt_in_smem(Kernel k, size_t bytes) {
   return (int)cudaFuncSetAttribute(
       k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
+
+// Routes of the two sorting kernels (ops/promql_kernels.py matrix_route):
+// a warp a window in shared memory or global scratch, or a thread a window
+// in registers (width P a power of two, 2 <= P <= 32: REGISTER_WIDTH).
+enum MatrixRoute { ROUTE_WARP = 0, ROUTE_REGISTER = 1 };
+
+// Launch<P>::run(args...) for P = width, or cudaErrorInvalidValue for a
+// width the register route does not take.
+template <template <int> class Launch, typename... Args>
+int with_reg_width(int width, Args... args) {
+  switch (width) {
+    case 2: return Launch<2>::run(args...);
+    case 4: return Launch<4>::run(args...);
+    case 8: return Launch<8>::run(args...);
+    case 16: return Launch<16>::run(args...);
+    case 32: return Launch<32>::run(args...);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <int P>
+struct MatrixReg {
+  static int run(Geometry g, const float* val_s, int mode, const float* a1,
+                 float* out, cudaStream_t st) {
+    window_matrix_reg_kernel<P><<<blocks_for(g.S * g.T), kThreads, 0, st>>>(
+        g, val_s, mode, a1, out);
+    return last_error();
+  }
+};
+
+template <int P>
+struct MatrixDenseReg {
+  static int run(const float* win, long long W, int K, long long T,
+                 int mode, const float* a1, float* out, cudaStream_t st) {
+    window_matrix_dense_reg_kernel<P><<<blocks_for(W), kThreads, 0, st>>>(
+        win, W, K, T, mode, a1, out);
+    return last_error();
+  }
+};
 
 // ---------------------------------------------------------------------------
 // subquery_counter
@@ -1406,16 +1567,21 @@ int gt_window_count_max(const long long* key_s, long long n,
   return last_error();
 }
 
+// route: MatrixRoute of the sort modes (holt ignores it).
 int gt_window_matrix(const long long* key_s, const float* val_s, long long n,
                      const long long* ts_min, const long long* kp,
                      const int32_t* sel, long long S, long long T,
                      long long start_ms, long long step_ms,
-                     long long range_ms, int lmax, int mode, const float* a1,
-                     const float* a2, uint32_t* scratch, int scratch_warps,
-                     float* out, void* stream) {
+                     long long range_ms, int lmax, int mode, int route,
+                     const float* a1, const float* a2, uint32_t* scratch,
+                     int scratch_warps, float* out, void* stream) {
   const long long total = S * T;
   if (total <= 0 || n <= 0) return (int)cudaGetLastError();
   Geometry g{key_s, n, ts_min, kp, sel, S, T, start_ms, step_ms, range_ms};
+  if (mode != MODE_HOLT && route == ROUTE_REGISTER) {
+    return with_reg_width<MatrixReg>(lmax, g, val_s, mode, a1, out,
+                                     (cudaStream_t)stream);
+  }
   // holt keeps no buffer; the sorts take 32 windows per warp
   const long long groups = (total + 31) / 32;
   MatrixLaunch l = mode == MODE_HOLT ? MatrixLaunch{
@@ -1429,11 +1595,17 @@ int gt_window_matrix(const long long* key_s, const float* val_s, long long n,
   return last_error();
 }
 
+// L: the width (a power of two >= K); route: MatrixRoute.
 int gt_window_matrix_dense(const float* win, long long W, long long K,
-                           long long T, int L, int mode, const float* a1,
-                           uint32_t* scratch, int scratch_warps, float* out,
-                           void* stream) {
+                           long long T, int L, int mode, int route,
+                           const float* a1, uint32_t* scratch,
+                           int scratch_warps, float* out, void* stream) {
   if (W <= 0) return (int)cudaGetLastError();
+  if (route == ROUTE_REGISTER) {
+    if (K > L) return (int)cudaErrorInvalidValue;
+    return with_reg_width<MatrixDenseReg>(L, win, W, (int)K, T, mode, a1,
+                                          out, (cudaStream_t)stream);
+  }
   const MatrixLaunch l = matrix_launch(W, L, scratch_warps);
   if (int e = opt_in_smem(window_matrix_dense_kernel, l.smem)) return e;
   window_matrix_dense_kernel<<<l.blocks, l.threads, l.smem,

@@ -60,6 +60,15 @@
 // keys of floats and the warp-wide bitonic sort that window_matrix (promql)
 // and segment_select (segment) sort windows and groups with, and that the
 // f32 min/max reductions of segment_reduce compare by.
+//
+// reg_bitonic_sort / reg_pick: the same sort for up to 32 keys a thread,
+// held in a register array: an ascending bitonic network unrolled at
+// compile time (P/2 * log2 P * (log2 P + 1) / 2 compare-exchanges, each a
+// min and a max, 240 at P = 32), and the read of one order statistic by
+// compare-and-select over every slot, since a runtime index into a
+// register array sends the array to local memory.  The register routes of
+// window_matrix / window_matrix_dense (promql) and segment_select's tiny
+// groups (segment) sort with them.
 
 #pragma once
 
@@ -688,6 +697,39 @@ __device__ void warp_bitonic_sort(uint32_t* buf, int L, int lane) {
       __syncwarp();
     }
   }
+}
+
+// Ascending bitonic sort of k[0, P) in registers (P a power of two), one
+// thread: the network is unrolled at compile time, so every index is a
+// constant and the array never leaves registers.
+template <int P>
+__device__ __forceinline__ void reg_bitonic_sort(uint32_t (&k)[P]) {
+#pragma unroll
+  for (int kk = 2; kk <= P; kk <<= 1) {
+#pragma unroll
+    for (int j = kk >> 1; j > 0; j >>= 1) {
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
+        const int p = i ^ j;
+        if (p > i) {
+          const uint32_t x = k[i], y = k[p];
+          const uint32_t lo = x < y ? x : y, hi = x < y ? y : x;
+          k[i] = (i & kk) == 0 ? lo : hi;
+          k[p] = (i & kk) == 0 ? hi : lo;
+        }
+      }
+    }
+  }
+}
+
+// k[r] for a runtime r in [0, P) (k[0] for any other r) by compare-and-
+// select over every slot, keeping k in registers.
+template <int P>
+__device__ __forceinline__ uint32_t reg_pick(const uint32_t (&k)[P], int r) {
+  uint32_t v = k[0];
+#pragma unroll
+  for (int j = 1; j < P; ++j) v = j == r ? k[j] : v;
+  return v;
 }
 
 }  // namespace

@@ -108,9 +108,9 @@
 //   the group sizes (no host sync, no host-built group lists):
 //   - groups of up to kSelTiny (32) rows (`quantile by (pod)`: 10): one
 //     thread a (group, step), lanes along the steps so a warp reads a
-//     series' T consecutive floats; the keys sit in registers, a bitonic
-//     network unrolled for 4, 8, 16 or 32 keys sorts them and each rank
-//     set's rank is picked by compare-and-select.  The same launch files
+//     series' T consecutive floats; the keys sit in registers, scan.cuh's
+//     reg_bitonic_sort (unrolled for 4, 8, 16 or 32 keys) sorts them and
+//     each rank set's rank is read by reg_pick.  The same launch files
 //     the larger groups (step-0 thread): mid groups into a list by
 //     warp-aggregated appends, large groups into slots;
 //   - groups of 33 to kSelSmall (1,024) rows: persistent warps, one a
@@ -937,9 +937,8 @@ inline long long select_layout(SelArgs& a, unsigned char* base) {
 }
 
 // The value at each rank set's rank of a group of up to P keys: the keys
-// in registers (padded with kPadKey, above every sort key), an ascending
-// bitonic network unrolled at compile time, then the rank picked by
-// compare-and-select (no dynamic register index).
+// in registers (padded with kPadKey, above every sort key), scan.cuh's
+// reg_bitonic_sort, then each rank read by reg_pick.
 template <int P>
 __device__ __forceinline__ void tiny_select(const SelArgs& a, long long g,
                                             long long t, long long off,
@@ -951,30 +950,12 @@ __device__ __forceinline__ void tiny_select(const SelArgs& a, long long g,
                           a.values[(long long)a.row_order[off + j] * a.T + t])
                     : kPadKey;
   }
-#pragma unroll
-  for (int kk = 2; kk <= P; kk <<= 1) {
-#pragma unroll
-    for (int j = kk >> 1; j > 0; j >>= 1) {
-#pragma unroll
-      for (int i = 0; i < P; ++i) {
-        const int p = i ^ j;
-        if (p > i) {
-          const uint32_t x = k[i], y = k[p];
-          const uint32_t lo = x < y ? x : y, hi = x < y ? y : x;
-          k[i] = (i & kk) == 0 ? lo : hi;
-          k[p] = (i & kk) == 0 ? hi : lo;
-        }
-      }
-    }
-  }
+  reg_bitonic_sort<P>(k);
   for (int r = 0; r < a.R; ++r) {
     const long long o = ((long long)r * a.ng + g) * a.T + t;
     int rr = a.ranks[o];
     rr = rr < 0 ? 0 : (rr >= size ? size - 1 : rr);
-    uint32_t v = k[0];
-#pragma unroll
-    for (int j = 1; j < P; ++j) v = j == rr ? k[j] : v;
-    a.out[o] = size > 0 ? f32_of_key(v) : NAN;
+    a.out[o] = size > 0 ? f32_of_key(reg_pick<P>(k, rr)) : NAN;
   }
 }
 

@@ -37,7 +37,10 @@ incremented only where it launches its kernel.
   (``:555``: per-window sorts for quantile/mad, the Holt scan).
 - ``window_matrix_dense`` runs the same sorts over a subquery's ``[S, T,
   K]`` window matrix: the quantile/mad reducers of
-  ``_eval_subquery_window`` (``:1415-1437``).
+  ``_eval_subquery_window`` (``:1415-1437``).  Both sort by
+  ``matrix_route(width)``: a thread a window in registers up to
+  ``REGISTER_WIDTH`` keys (``.register``), else a warp a window
+  (``.warp``); ``allow_register=False`` forces the warp sort.
 - ``subquery_counter`` replaces ``_eval_subquery_counter`` (``:1309-1363``:
   the first/last gathers, the counter-drop loop and ``_extrapolated``).
 
@@ -87,10 +90,13 @@ _STATS_KINDS = {"gauge_window": 0, "counter_rc": 1, "regression": 2,
 _MATRIX_MODES = {"quantile": 0, "mad": 1, "holt": 2}
 # subquery_counter modes (csrc SubqueryMode)
 _SUBQ_MODES = {"rate": 0, "pair": 1}
-# widest window (keys, a power of two) a warp sorts in shared memory; wider
-# windows sort in a global scratch of at most _SCRATCH_BYTES
+# widest window (keys, a power of two) a thread sorts in registers
+# (csrc MatrixRoute ROUTE_REGISTER); up to SMEM_WIDTH a warp sorts it in
+# shared memory, wider windows in a global scratch of at most _SCRATCH_BYTES
+REGISTER_WIDTH = 32
 SMEM_WIDTH = 1 << 14
 _SCRATCH_BYTES = 1 << 28
+_ROUTE_CODES = {"warp": 0, "register": 1}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -132,9 +138,9 @@ def _load():
             "gt_window_count_max": [vp, ll, vp, vp, vp, ll, ll, ll, ll, ll,
                                     vp, vp],
             "gt_window_matrix": [vp, vp, ll, vp, vp, vp, ll, ll, ll, ll, ll,
-                                 i, i, vp, vp, vp, i, vp, vp],
-            "gt_window_matrix_dense": [vp, ll, ll, ll, i, i, vp, vp, i, vp,
-                                       vp],
+                                 i, i, i, vp, vp, vp, i, vp, vp],
+            "gt_window_matrix_dense": [vp, ll, ll, ll, i, i, i, vp, vp, i,
+                                       vp, vp],
             "gt_subquery_counter": [vp, ll, ll, ll, vp, vp, i, i, i, d]
             + [vp] * 7,
         }
@@ -1005,6 +1011,27 @@ def _params(what, a, T, dev):
         what, a, torch.float32, T)
 
 
+def matrix_route(width: int) -> str:
+    """Where ``window_matrix`` / ``window_matrix_dense`` sort windows of
+    ``width`` keys (a power of two): ``"register"`` up to
+    ``REGISTER_WIDTH`` (a thread a window, a sorting network in
+    registers), ``"warp"`` up to ``SMEM_WIDTH`` (a warp a window, bitonic
+    in shared memory), else ``"scratch"`` (the warp sort on a global
+    scratch)."""
+    if width <= REGISTER_WIDTH:
+        return "register"
+    return "warp" if width <= SMEM_WIDTH else "scratch"
+
+
+def _sort_route(width: int, allow_register: bool) -> str:
+    """The kernel route of one launch, counted in ``<wrapper>.register``
+    or ``.warp``: ``"warp"`` covers both warp sorts (shared memory, or the
+    scratch ``_scratch`` allocates past ``SMEM_WIDTH``) and every width
+    when ``allow_register`` is False."""
+    route = matrix_route(width)
+    return "register" if route == "register" and allow_register else "warp"
+
+
 def _scratch(width: int, tasks: int, dev) -> tuple:
     """The global sort buffers of windows wider than ``SMEM_WIDTH`` keys:
     one slot of ``width`` keys per launched warp, as many warps as
@@ -1018,13 +1045,18 @@ def _scratch(width: int, tasks: int, dev) -> tuple:
 
 def window_matrix(layout, sel, start_ms: int, *, step_ms: int,
                   num_steps: int, range_ms: int, lmax: int, kind: str,
-                  a1=None, a2=None) -> torch.Tensor:
+                  a1=None, a2=None, allow_register: bool = True
+                  ) -> torch.Tensor:
     """``[S, T]`` f32 of a function that needs each window's samples as a
     whole: ``quantile`` (φ per step in ``a1``), ``mad`` (median absolute
     deviation) or ``holt`` (double exponential smoothing with factors
     ``a1``, ``a2`` per step).  ``lmax`` (a power of two >= 2, at least
     ``window_count_max``) is the reference's padded window width: the
-    rank clip and the Holt scan length follow it."""
+    rank clip and the Holt scan length follow it.  On the card quantile
+    and mad sort by ``matrix_route(lmax)``; ``allow_register=False``
+    forces the warp sort (the tests and ``chip_smoke.py`` hold the two
+    routes equal bit for bit).  Holt runs a thread a window on any
+    route and counts in neither."""
     if kind not in ("quantile", "mad", "holt"):
         raise ValueError(f"window_matrix: unknown kind {kind!r}")
     if lmax < 2 or lmax & (lmax - 1):
@@ -1041,20 +1073,28 @@ def window_matrix(layout, sel, start_ms: int, *, step_ms: int,
                                    lmax=lmax, kind=kind, a1=a1, a2=a2)
     S = sel.shape[0]
     out = torch.empty((S, T), dtype=torch.float32, device=dev)
+    route = None if kind == "holt" else _sort_route(lmax, allow_register)
     scratch, warps = (None, 0) if kind == "holt" else _scratch(
         lmax, -(-S * T // 32), dev)
     rc = _load().gt_window_matrix(
         key_s.data_ptr(), val_s.data_ptr(), key_s.shape[0],
         ts_min.data_ptr(), kp.data_ptr(), sel.data_ptr(), S, T,
         int(start_ms), int(step_ms), int(range_ms), int(lmax),
-        _MATRIX_MODES[kind], a1.data_ptr(), a2.data_ptr(), _ptr(scratch),
-        warps, out.data_ptr(), _stream_ptr(key_s))
+        _MATRIX_MODES[kind], _ROUTE_CODES.get(route, 0), a1.data_ptr(),
+        a2.data_ptr(), _ptr(scratch), warps, out.data_ptr(),
+        _stream_ptr(key_s))
     window_matrix.launches += 1
+    if route == "register":
+        window_matrix.register += 1
+    elif route == "warp":
+        window_matrix.warp += 1
     _check(rc, "window_matrix")
     return out
 
 
 window_matrix.launches = 0
+window_matrix.register = 0
+window_matrix.warp = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1090,11 +1130,13 @@ def _window_matrix_3d(what: str, win: torch.Tensor) -> torch.Tensor:
     return win.contiguous()
 
 
-def window_matrix_dense(win: torch.Tensor, kind: str,
-                        a1=None) -> torch.Tensor:
+def window_matrix_dense(win: torch.Tensor, kind: str, a1=None,
+                        allow_register: bool = True) -> torch.Tensor:
     """``quantile`` (φ per step in ``a1``) or ``mad`` over a subquery's
     window matrix ``win`` ``[S, T, K]`` f32 (NaN where an entry is not a
-    sample of its window).  Returns ``[S, T]`` f32."""
+    sample of its window).  Returns ``[S, T]`` f32.  On the card the rows
+    sort by ``matrix_route`` of K's next power of two;
+    ``allow_register=False`` forces the warp sort."""
     if kind not in ("quantile", "mad"):
         raise ValueError(f"window_matrix_dense: unknown kind {kind!r}")
     win = _window_matrix_3d("window_matrix_dense", win)
@@ -1106,17 +1148,24 @@ def window_matrix_dense(win: torch.Tensor, kind: str,
     if S * T == 0:
         return out
     width = 1 << max(K - 1, 1).bit_length()
+    route = _sort_route(width, allow_register)
     scratch, warps = _scratch(width, S * T, win.device)
     rc = _load().gt_window_matrix_dense(
         win.data_ptr(), S * T, K, T, width, _MATRIX_MODES[kind],
-        a1.data_ptr(), _ptr(scratch), warps, out.data_ptr(),
-        _stream_ptr(win))
+        _ROUTE_CODES[route], a1.data_ptr(), _ptr(scratch), warps,
+        out.data_ptr(), _stream_ptr(win))
     window_matrix_dense.launches += 1
+    if route == "register":
+        window_matrix_dense.register += 1
+    else:
+        window_matrix_dense.warp += 1
     _check(rc, "window_matrix_dense")
     return out
 
 
 window_matrix_dense.launches = 0
+window_matrix_dense.register = 0
+window_matrix_dense.warp = 0
 
 
 def subquery_counter_plain(win, ts_tk, steps, *, kind, func=None,
@@ -1222,5 +1271,9 @@ def reset_launch_counts() -> None:
     minmax_window.launches = 0
     window_count_max.launches = 0
     window_matrix.launches = 0
+    window_matrix.register = 0
+    window_matrix.warp = 0
     window_matrix_dense.launches = 0
+    window_matrix_dense.register = 0
+    window_matrix_dense.warp = 0
     subquery_counter.launches = 0

@@ -30,7 +30,9 @@ the plain versions repeat both, so where the terms cancel the two still
 agree.  The ``cuda`` tests run each kernel against its plain version and
 need the card: there the kernels sum each window directly instead of
 differencing table-wide prefix sums, which the tests hold to the same
-bound on tables of a few thousand rows.
+bound on tables of a few thousand rows.  K14's sorts run at every width
+of ``matrix_route``'s register route and on the warp route, each held
+bit for bit against the forced warp route (``allow_register=False``).
 """
 
 import jax
@@ -569,6 +571,16 @@ def test_wrappers_validate_inputs():
                           torch.zeros((1, 1, 2), dtype=torch.int32))
 
 
+@pytest.mark.parametrize("width,route", [
+    (2, "register"), (32, "register"), (33, "warp"), (64, "warp"),
+    (pk.SMEM_WIDTH, "warp"), (pk.SMEM_WIDTH + 1, "scratch")])
+def test_matrix_route(width, route):
+    """A thread a window in registers up to REGISTER_WIDTH keys, a warp in
+    shared memory up to SMEM_WIDTH, a warp on global scratch above."""
+    assert pk.REGISTER_WIDTH == 32
+    assert pk.matrix_route(width) == route
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernels (need the card)
 # ---------------------------------------------------------------------------
@@ -648,33 +660,90 @@ def test_cuda_window_stats_and_minmax_match_plain(cuda_device):
     assert pk.minmax_window.launches == calls // 4
 
 
+def _with_specials(t, seed):
+    """-0.0 beside +0.0 and ±inf among a table's live samples."""
+    rng = np.random.default_rng(seed)
+    live = np.flatnonzero(t["mask"] & ~np.isnan(t["val"]))
+    for v in (0.0, -0.0, np.inf, -np.inf):
+        if live.size:
+            t["val"][rng.choice(live, max(1, live.size // 40),
+                                replace=False)] = v
+    return t
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit (-0.0 apart from +0.0, NaN payloads included)."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+# windows of about 1, 3, 7, 15 and 31 samples (15 s scrapes), so that each
+# register width (lmax 2 to 32) meets windows that fill it
+REGISTER_GEOMETRY = [(600_000, 15_000, 6, 15_000 * r)
+                     for r in (1, 3, 7, 15, 31)]
+MATRIX_WIDTHS = (2, 4, 8, 16, 32, 64)
+
+
 @pytest.mark.cuda
 def test_cuda_window_matrix_matches_plain(cuda_device):
+    """Every register width (lmax 2-32) and the warp route (lmax 64)
+    against the plain version, and each sort bit for bit against the
+    forced warp route; NaN keys (written into the sorted values, which no
+    layout holds) against the warp route alone."""
     pk.reset_launch_counts()
+    widths, register, warp = set(), 0, 0
+    q_steps = np.array([-0.5, 0.0, 0.3, 0.5, 0.9, 1.0, 1.5, np.nan] * 8,
+                       np.float32)
     for t in _cuda_tables():
+        t = _with_specials(t, 14)
         args = [torch.from_numpy(t[k]) for k in ("ts", "val", "tsid",
                                                   "mask")]
         want_l = pk.sort_layout_plain(*args)
         got_l = pk.sort_layout(*(a.to(cuda_device) for a in args))
+        nan_l = list(got_l)
+        nan_l[2] = torch.where(torch.arange(got_l[2].shape[0],
+                                            device=cuda_device) % 7 == 3,
+                               float("nan"), got_l[2])
         sel = selection(0, np.arange(0, t["series"], 3), 128)
         sel_c = torch.from_numpy(sel).to(cuda_device)
         for off, step, steps, rng in GEOMETRY + FEW + [
-                (600_000, 15_000, 4, 600_000)]:
+                (600_000, 15_000, 4, 600_000)] + REGISTER_GEOMETRY:
             kw = dict(step_ms=step, num_steps=steps, range_ms=rng)
             cm = pk.window_count_max_plain(want_l, torch.from_numpy(sel),
                                            T0 + off, **kw)
             assert pk.window_count_max(got_l, sel_c, T0 + off, **kw) == cm
-            for lmax in {max(2, 1 << (max(cm, 1) - 1).bit_length()), 64}:
+            for lmax in MATRIX_WIDTHS:
+                if lmax < cm:
+                    continue
                 for kind in ("quantile", "mad", "holt"):
                     a1, a2 = (torch.from_numpy(a) for a in
                               _matrix_params(kind, steps))
+                    if kind == "quantile":
+                        a1 = torch.from_numpy(q_steps[:steps])
                     w = pk.window_matrix_plain(
                         want_l, torch.from_numpy(sel), T0 + off, lmax=lmax,
                         kind=kind, a1=a1, a2=a2, **kw)
-                    g = pk.window_matrix(
-                        got_l, sel_c, T0 + off, lmax=lmax, kind=kind,
-                        a1=a1.to(cuda_device), a2=a2.to(cuda_device), **kw)
+                    mkw = dict(lmax=lmax, kind=kind, a1=a1.to(cuda_device),
+                               a2=a2.to(cuda_device), **kw)
+                    g = pk.window_matrix(got_l, sel_c, T0 + off, **mkw)
                     close(g.cpu().numpy(), w.numpy())
+                    if kind == "holt":
+                        continue
+                    reg = pk.matrix_route(lmax) == "register"
+                    if reg:
+                        widths.add(lmax)
+                    gw = pk.window_matrix(got_l, sel_c, T0 + off,
+                                          allow_register=False, **mkw)
+                    assert same_bits(g, gw), (lmax, kind, off)
+                    gn = pk.window_matrix(nan_l, sel_c, T0 + off, **mkw)
+                    gnw = pk.window_matrix(nan_l, sel_c, T0 + off,
+                                           allow_register=False, **mkw)
+                    assert same_bits(gn, gnw), (lmax, kind, off, "nan")
+                    # g and gn by matrix_route, gw and gnw forced warp
+                    register += 2 * reg
+                    warp += 4 - 2 * reg
+    assert widths == {2, 4, 8, 16, 32}
+    assert pk.window_matrix.register == register
+    assert pk.window_matrix.warp == warp
     rng = np.random.default_rng(3)
     for K in (1, 5, 21, 40, 300):
         win = np.cumsum(rng.uniform(0, 50, (33, 7, K)), -1).astype(
@@ -691,6 +760,73 @@ def test_cuda_window_matrix_matches_plain(cuda_device):
     torch.cuda.synchronize()
     assert pk.window_matrix.launches > 0 and pk.window_count_max.launches > 0
     assert pk.window_matrix_dense.launches == 10
+
+
+@pytest.mark.cuda
+def test_cuda_window_matrix_pad_windows_wider_than_lmax(cuda_device):
+    """A pad selection (-1) reads tsid 0's windows, which lmax (sized
+    from the selected series) need not hold: three times as dense here.
+    Both routes stay inside their buffers and leave those windows NaN."""
+    pk.reset_launch_counts()
+    t = make_table(21, series=8, scrapes=30, pad=0, nan_frac=0.0,
+                   shuffle=False)
+    zero = t["tsid"] == 0
+    extra = {k: np.concatenate([t[k][zero]] * 2) for k in
+             ("ts", "val", "tsid", "mask")}
+    extra["ts"] = extra["ts"] + np.repeat([5_000, 10_000], zero.sum())
+    cols = [torch.from_numpy(np.concatenate([t[k], extra[k]]))
+            for k in ("ts", "val", "tsid", "mask")]
+    want_l = pk.sort_layout_plain(*cols)
+    got_l = pk.sort_layout(*(c.to(cuda_device) for c in cols))
+    sel = torch.from_numpy(selection(8, [3, 5], 64))
+    kw = dict(step_ms=15_000, num_steps=8, range_ms=300_000)
+    cm = pk.window_count_max_plain(want_l, sel, T0 + 300_000, **kw)
+    lmax = 1 << (cm - 1).bit_length()
+    assert lmax == 32
+    for kind in ("quantile", "mad"):
+        q = torch.full((8,), 0.5)
+        w = pk.window_matrix_plain(want_l, sel, T0 + 300_000, lmax=lmax,
+                                   kind=kind, a1=q, **kw)
+        assert torch.isnan(w[2:]).all()
+        for allow in (True, False):
+            g = pk.window_matrix(got_l, sel.to(cuda_device), T0 + 300_000,
+                                 lmax=lmax, kind=kind,
+                                 a1=q.to(cuda_device), allow_register=allow,
+                                 **kw)
+            close(g.cpu().numpy(), w.numpy(), exact=True)
+    torch.cuda.synchronize()
+    assert pk.window_matrix.register == 2 and pk.window_matrix.warp == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 2, 5, 6, 8, 9, 16, 17, 32, 33])
+def test_cuda_window_matrix_dense_routes_match_plain(cuda_device, K):
+    """Every register width of the dense matrix (K 1-32) and the warp
+    route (K 33): NaN entries, rows without a sample, -0.0 beside +0.0,
+    ±inf, φ below 0, above 1 and NaN; against the plain version and bit
+    for bit against the forced warp route."""
+    pk.reset_launch_counts()
+    rng = np.random.default_rng(K)
+    win = np.cumsum(rng.uniform(-50, 50, (33, 8, K)), -1).astype(np.float32)
+    for frac, v in ((0.1, 1.0), (0.05, 0.0), (0.05, -0.0), (0.03, np.inf),
+                    (0.03, -np.inf), (0.3, np.nan)):
+        win[rng.random(win.shape) < frac] = v
+    win[3] = np.nan
+    q = torch.from_numpy(np.array([0.5, -1, 0, 1, 1.5, 0.9, np.nan, 0.25],
+                                  np.float32))
+    win_c = torch.from_numpy(win).to(cuda_device)
+    for kind in ("quantile", "mad"):
+        w = pk.window_matrix_dense_plain(torch.from_numpy(win), kind, q)
+        g = pk.window_matrix_dense(win_c, kind, q.to(cuda_device))
+        close(g.cpu().numpy(), w.numpy())
+        gw = pk.window_matrix_dense(win_c, kind, q.to(cuda_device),
+                                    allow_register=False)
+        assert same_bits(g, gw), kind
+    torch.cuda.synchronize()
+    reg = pk.matrix_route(1 << max(K - 1, 1).bit_length()) == "register"
+    assert reg == (K <= 32)
+    assert pk.window_matrix_dense.register == 2 * reg
+    assert pk.window_matrix_dense.warp == 2 + 2 * (not reg)
 
 
 @pytest.mark.cuda

@@ -1,6 +1,6 @@
-"""Times the users of csrc/scan.cuh's single-pass scan and the two
-dense-grid kernels on the card, each checked against its plain version
-first.
+"""Times the users of csrc/scan.cuh's single-pass scan, the two dense-grid
+kernels and K14's two window sorts on the card, each checked against its
+plain version first.
 
 - ``scan``: compact (12 columns, N = 35,651,584, ~8 % kept), topk_select
   (one int64 key DESC under a ~10 % mask, k = 10, as chip_smoke.py's
@@ -15,12 +15,23 @@ first.
   calls captured in one CUDA graph).  Only functions the port has had
   since its first grid slice are called, so one copy of this script
   times any checkout.
+- ``matrix``: K14's two sorting kernels at PromQL's main-path shapes: a
+  sort layout (``sort_layout``) of 2^20 series x 40 scrapes at 15 s,
+  ``window_matrix`` quantile (φ 0.9) and mad over its ``[2^20, 20]``
+  windows of 5 m (lmax 32), and ``window_matrix_dense`` quantile and mad
+  over a seeded ``[2^20, 20, 6]`` matrix (~5 % NaN), each held equal to
+  its plain version bit for bit, then by events and as device time.
+  Every call takes the wrapper's default route, so the parent's
+  checkout times the warp sort and a later one the register route.  Then
+  ``segment_select``, the register network's other user, at
+  ``chip_smoke.py`` phase 5's shapes: 2 ranks of 100,000 groups of 10 x
+  20 steps (its register route) and the 5th largest of 1,000,000.
 
 Prints one line, ``PROBE {json}``.
 
 Run from the root of a checkout, which it imports the port from:
-``python3 time_scans.py TAG [scan|grid|all]`` (default all).  To compare
-two commits on one card, run it from each checkout's root in one
+``python3 time_scans.py TAG [scan|grid|matrix|all]`` (default all).  To
+compare two commits on one card, run it from each checkout's root in one
 session: parent, change, change, parent."""
 import json
 import sys
@@ -35,8 +46,7 @@ from greptimedb_tpu_torch.ops import segment_kernels as sk  # noqa: E402
 from greptimedb_tpu_torch.ops import topk_kernels as tk  # noqa: E402
 
 dev = torch.device("cuda")
-tag = sys.argv[1]
-what = sys.argv[2] if len(sys.argv) > 2 else "all"
+res = {}
 
 
 def time_ms(fn, reps=20):
@@ -205,11 +215,85 @@ def host_costs():
     res["host_us"] = out
 
 
-res = {"tree": tag}
-if what in ("grid", "all"):
-    grid()
-    torch.cuda.empty_cache()
-if what in ("scan", "all"):
+def same_bits(a, b):
+    """Equal bit for bit, any NaN equal to any NaN."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        a.view(torch.int32)[~nan], b.view(torch.int32)[~nan])
+
+
+def matrix_inputs():
+    """PromQL's main-path inputs of K14's two sorting kernels: (the sort
+    layout of 2^20 series x 40 scrapes, the selection, the grid start,
+    the window geometry, lmax, the seeded [2^20, 20, 6] subquery matrix,
+    φ 0.9 a step)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(14)
+    series, scrapes, t0 = 1 << 20, 40, 1_700_000_000_000
+    i = torch.arange(series * scrapes, device=dev)
+    ts = t0 + (i % scrapes) * 15_000 + torch.randint(
+        -500, 500, i.shape, generator=g, device=dev)
+    val = torch.rand(i.shape, generator=g, device=dev) * 1000
+    tsid = (i // scrapes).to(torch.int32)
+    layout = pk.sort_layout(ts, val, tsid, torch.ones_like(tsid,
+                                                           dtype=torch.bool))
+    del i, ts, val, tsid
+    sel = torch.arange(series, dtype=torch.int32, device=dev)
+    geo = dict(step_ms=15_000, num_steps=20, range_ms=300_000)
+    start = t0 + 300_000
+    cm = pk.window_count_max(layout, sel, start, **geo)
+    lmax = max(2, 1 << (cm - 1).bit_length())
+    win = torch.rand((series, 20, 6), generator=g, device=dev) * 100
+    win[torch.rand(win.shape, generator=g, device=dev) < 0.05] = float("nan")
+    q = torch.full((20,), 0.9, device=dev)
+    return layout, sel, start, geo, lmax, win, q
+
+
+def matrix():
+    layout, sel, start, geo, lmax, win, q = matrix_inputs()
+    res["matrix_lmax"] = lmax
+    for kind in ("quantile", "mad"):
+        kw = dict(lmax=lmax, kind=kind, a1=q, **geo)
+        got = pk.window_matrix(layout, sel, start, **kw)
+        want = pk.window_matrix_plain(layout, sel, start, **kw)
+        assert same_bits(got, want)
+        del got, want
+        both(f"wm_{kind}",
+             lambda kw=kw: pk.window_matrix(layout, sel, start, **kw))
+    del layout
+    for kind in ("quantile", "mad"):
+        got = pk.window_matrix_dense(win, kind, q)
+        want = pk.window_matrix_dense_plain(win, kind, q)
+        assert same_bits(got, want)
+        del got, want
+        both(f"wmd_{kind}",
+             lambda kind=kind: pk.window_matrix_dense(win, kind, q))
+    del win
+    # segment_select, the register network's other user, at phase 5's
+    # shapes: quantile by pod (100,000 groups of 10: the tiny route) and
+    # the 5th largest of 1,000,000 (ng = 1)
+    g = torch.Generator(device=dev)
+    g.manual_seed(15)
+    pods, series = 100_000, 1_000_000
+    rate = torch.rand((series, 20), generator=g, device=dev) * 50
+    rate[torch.rand(rate.shape, generator=g, device=dev) < 0.01] = float(
+        "nan")
+    order = torch.arange(series, dtype=torch.int32, device=dev)
+    offs = torch.arange(0, series + 1, 10, dtype=torch.int64, device=dev)
+    cnt = (~torch.isnan(rate)).reshape(pods, 10, 20).sum(1)
+    r = 0.99 * torch.clamp(cnt.float() - 1, min=0)
+    ranks = torch.stack([torch.floor(r), torch.ceil(r)]).to(torch.int32)
+    work = torch.where(torch.isnan(rate), float("-inf"), rate)
+    one = torch.tensor([0, series], dtype=torch.int64, device=dev)
+    top = torch.full((1, 1, 20), series - 5, dtype=torch.int32, device=dev)
+    for key, args in (("sel_quantile", (rate, order, offs, ranks)),
+                      ("sel_topk", (work, order, one, top))):
+        assert torch.equal(sk.segment_select(*args),
+                           sk.segment_select_plain(*args))
+        both(key, lambda args=args: sk.segment_select(*args))
+
+
+def scan():
     g = torch.Generator(device=dev)
     g.manual_seed(3)
     N = 35_651_584
@@ -254,4 +338,22 @@ if what in ("scan", "all"):
     assert torch.equal(a, b)
     res["prefix_scan_rel"] = float(((a - w).abs() / w.abs().clamp(min=1)).max())
     res["prefix_scan_ms"] = time_ms(lambda: pk.prefix_scan(val, tsid, valid))
-print("PROBE " + json.dumps(res))
+
+
+def main():
+    tag = sys.argv[1]
+    what = sys.argv[2] if len(sys.argv) > 2 else "all"
+    res["tree"] = tag
+    if what in ("matrix", "all"):
+        matrix()
+        torch.cuda.empty_cache()
+    if what in ("grid", "all"):
+        grid()
+        torch.cuda.empty_cache()
+    if what in ("scan", "all"):
+        scan()
+    print("PROBE " + json.dumps(res))
+
+
+if __name__ == "__main__":
+    main()
