@@ -39,7 +39,7 @@ Phases, each printing its own lines:
    geometry route by route: the instant query with
    GREPTIME_PLAN_FUSION=off (S*T*L = 2^26; equal to the fused rows and
    numpy) at the default 1 GiB PromQL budget, where the 512 MiB state
-   does not fit beside the sort layout and is rejected (the searchsorted
+   does not fit beside the sort layout and is rejected (the range
    geometry), then at 4 GiB (the count geometry), then at 1 GiB again,
    each warm-timed with the cache's events and stats printed; max by
    (pod) (max_over_time) unfused at 20 steps (S*T*L over 2^27: refused
@@ -48,17 +48,26 @@ Phases, each printing its own lines:
    quantile_over_time(0.9, m[5m]) over every series (cold once, warm 5
    times) is checked on 4,096 seeded series against numpy; every
    window_matrix / window_matrix_dense launch of the path must take the
-   register route (every window holds at most 32 keys).
+   register route (every window holds at most 32 keys); every launch of
+   the five window kernels the range geometry (the sort layout's series
+   offset table) or the count geometry, none the whole-layout search, and
+   no query may launch prefix_scan; the warm instant query must take its
+   selection, sort layout and group layout from the PromQL cache.
    Before each main path the kernel launch counts are zeroed; they are
    read just after it.
 5. The PromQL kernels against their plain versions, timed as in phase 2,
    on phase 4's resident table (41.9 M padded rows; 2^20 selected series,
    1 and 20 steps) and on the engine's [S, T, K] subquery matrices of
-   that table: their real shapes and data; series_ranges and
-   gather_ts_mat at S = 2^20 against torch.searchsorted of the same
-   bounds, and counter_window at T = 1 in both geometries.  sort_layout's
-   general route prints its 8-bit digit passes and the device time a pass
-   (torch.profiler); prefix_scan must repeat bit for bit over two calls.
+   that table: their real shapes and data; series_offsets against
+   torch.searchsorted (exact); counter_window, window_stats,
+   minmax_window, window_count_max and window_matrix quantile in the range
+   geometry and the forced whole-layout search, equal bit for bit, each
+   timed by events and (but window_count_max) as CUDA-graph device time;
+   series_ranges and gather_ts_mat at S = 2^20 against torch.searchsorted
+   of the same bounds, and counter_window at T = 1 in the range, count
+   and search geometries.  sort_layout's general route prints its 8-bit
+   digit passes and the device time a pass (torch.profiler); prefix_scan
+   (off the query path) must repeat bit for bit over two calls.
    window_matrix (quantile, mad) and window_matrix_dense are timed on
    their register route and on the forced warp route (CUDA events and
    CUDA-graph device time), the two equal bit for bit.
@@ -254,6 +263,7 @@ SOURCES = {
     "series_ranges": "greptimedb_tpu_torch/csrc/promql_kernels.cu",
     "gather_ts_mat": "greptimedb_tpu_torch/csrc/promql_kernels.cu",
     "mesh_merge": "greptimedb_tpu_torch/csrc/mesh_kernels.cu",
+    "series_offsets": "greptimedb_tpu_torch/csrc/promql_kernels.cu",
 }
 REPLACES = {
     "bucket_reduce": "greptimedb_tpu/query/physical.py:1129",
@@ -288,6 +298,7 @@ REPLACES = {
     "series_ranges": "greptimedb_tpu/promql/engine.py:348",
     "gather_ts_mat": "greptimedb_tpu/promql/engine.py:360",
     "mesh_merge": "greptimedb_tpu/parallel/dist.py:297",
+    "series_offsets": "greptimedb_tpu/promql/engine.py:288",
 }
 PROM_T0 = 1700000000000   # bench_promql.py's epoch
 SCRAPE_MS = 15_000
@@ -353,6 +364,9 @@ SHAPES: dict = {}
 # launches by route over the PromQL main path (window_matrix and
 # window_matrix_dense: register / warp)
 ROUTES: dict = {}
+# launches by window geometry over the PromQL main path (the five window
+# kernels: range / search / count)
+GEOMETRIES: dict = {}
 
 
 def take_shapes(name: str, wrapper) -> None:
@@ -1849,25 +1863,27 @@ def _promql_surface(db, held: np.ndarray, start: int, steps: int,
 def geometry_route(events) -> str:
     """The window geometry one evaluation took, from its bounds events: a
     state served (``bounds_hit``) or built (``bounds_miss`` with neither
-    ``bounds_refused`` nor ``bounds_reject``) is the count geometry."""
+    ``bounds_refused`` nor ``bounds_reject``) is the count geometry, any
+    other the range geometry (the layout's series offset table)."""
     served = events.get("bounds_hit", 0) + events.get("bounds_miss", 0)
     refused = events.get("bounds_refused", 0) + events.get("bounds_reject", 0)
-    return "count" if served > refused else "searchsorted"
+    return "count" if served > refused else "range"
 
 
 def _count_geometry_checks(db, held: np.ndarray, t_end: int, start: int,
                            steps: int, card: str) -> None:
     """K9's count geometry on the full-width table, route by route, each
-    answer equal to numpy and to the fused or searchsorted answer exactly:
+    answer equal to numpy and to the fused or range-geometry answer
+    exactly:
 
     - the instant sum by (pod) (rate) with GREPTIME_PLAN_FUSION=off
       (S·T·L = 2^20 · 1 · 64 = 2^26): at the default 1 GiB PromQL budget
-      its 512 MiB state does not fit beside the 1.05 GB sort layout and is
-      rejected (the searchsorted geometry); with the budget raised to
-      4 GiB it is built and served (the count geometry).  Warm times of
-      searchsorted, count, searchsorted;
+      its 512 MiB state does not fit beside the 1.06 GB sort layout (with
+      its series offset table) and is rejected (the range geometry); with
+      the budget raised to 4 GiB it is built and served (the count
+      geometry).  Warm times of range, count, range;
     - max by (pod) (max_over_time) unfused at 20 steps (S·T·L = 1.3e9 >
-      2^27): refused before any build, the searchsorted geometry;
+      2^27): refused before any build, the range geometry;
     - the one-pod changes/irate/deriv TQL queries: the count geometry at
       the default budget, equal to GREPTIME_PROMQL_CACHE=off's rows.
 
@@ -1904,9 +1920,9 @@ def _count_geometry_checks(db, held: np.ndarray, t_end: int, start: int,
     try:
         timings = {}
         for label, route, capacity in (
-                ("searchsorted", "searchsorted", cap0),
+                ("range", "range", cap0),
                 ("count", "count", 4 << 30),
-                ("searchsorted again", "searchsorted", cap0)):
+                ("range again", "range", cap0)):
             # each budget starts from an empty PromQL state of the table,
             # so its first run builds what that budget admits
             cache.invalidate_region(rid)
@@ -1951,7 +1967,7 @@ def _count_geometry_checks(db, held: np.ndarray, t_end: int, start: int,
         cache.invalidate_region(rid)
         os.environ.pop("GREPTIME_PLAN_FUSION", None)
     # max by (pod) (max_over_time) unfused at 20 steps: refused by the
-    # S·T·L cap before any build, the searchsorted geometry
+    # S·T·L cap before any build, the range geometry
     mexpr = "max by (pod) (max_over_time(http_requests_total[5m]))"
     end = start + (steps - 1) * SCRAPE_MS
 
@@ -1970,7 +1986,7 @@ def _count_geometry_checks(db, held: np.ndarray, t_end: int, start: int,
         for run in ("first run", "second run"):
             built = pk.gather_ts_mat.launches
             ev, res = range_eval()
-            routed(ev, "searchsorted")
+            routed(ev, "range")
             if ev.cache_events["bounds_refused"] != 1 or (
                     pk.gather_ts_mat.launches != built):
                 raise AssertionError(f"max_over_time: state built past the "
@@ -1985,7 +2001,7 @@ def _count_geometry_checks(db, held: np.ndarray, t_end: int, start: int,
     if not same(res.values, fres.values):
         raise AssertionError("max_over_time: unfused rows differ from "
                              "the fused route's")
-    # one pod through TQL: the count geometry, equal to the searchsorted
+    # one pod through TQL: the count geometry, equal to the range
     # geometry's rows (GREPTIME_PROMQL_CACHE=off keeps no state)
     pod = 7
     for fn in ("changes", "irate", "deriv"):
@@ -2006,9 +2022,9 @@ def _count_geometry_checks(db, held: np.ndarray, t_end: int, start: int,
             os.environ.pop("GREPTIME_PROMQL_CACHE")
         if res.rows != plain.rows or not res.rows:
             raise AssertionError(f"{fn}: count geometry rows differ from "
-                                 f"the searchsorted geometry's")
+                                 f"the range geometry's")
         log(f"promql count geometry, {fn} of pod-{pod} ({len(res.rows)} "
-            f"rows): equal to the searchsorted geometry's rows; events "
+            f"rows): equal to the range geometry's rows; events "
             f"{events}")
 
 
@@ -2083,6 +2099,15 @@ def _promql_path(gk, pk, sk, db, scrapes, seed, has_arrow, card) -> dict:
     db.stage_sink = {}
     ev, _res, _vals = instant()
     db.stage_sink = None
+    # a warm instant query takes its selection, sort layout (with its
+    # series offset table) and group layout from the PromQL cache: an entry
+    # that outgrows the budget rebuilds them on every query instead
+    ce = ev.cache_events
+    cold = [k for k in ("selection", "sort", "group")
+            if ce[f"{k}_hit"] < 1 or ce[f"{k}_miss"] or ce[f"{k}_reject"]]
+    if cold:
+        raise AssertionError(f"warm instant query: {cold} not served from "
+                             f"the PromQL cache; events {dict(ce)}")
     busy, wall, top = device_busy(instant, top_n=8)
     span = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
         enable_timing=True)
@@ -2178,7 +2203,10 @@ def _promql_path(gk, pk, sk, db, scrapes, seed, has_arrow, card) -> dict:
         f"ops {top_r} — {card}")
     _promql_surface(db, held, start, steps, card)
     _count_geometry_checks(db, held, t_end, start, steps, card)
-    launches = {"prefix_scan": pk.prefix_scan.launches,
+    if pk.prefix_scan.launches:
+        raise AssertionError(f"prefix_scan launched {pk.prefix_scan.launches}"
+                             f" times on the PromQL path")
+    launches = {"series_offsets": pk.series_offsets.launches,
                 "series_ranges": pk.series_ranges.launches,
                 "gather_ts_mat": pk.gather_ts_mat.launches,
                 "sort_layout": pk.sort_layout.launches,
@@ -2217,6 +2245,22 @@ def _promql_path(gk, pk, sk, db, scrapes, seed, has_arrow, card) -> dict:
             raise AssertionError(f"{kname} left the register route on the "
                                  f"PromQL path: {r}, {launches[kname]} "
                                  f"launches")
+    # every window kernel of the path takes the range geometry (the sort
+    # layout's series offset table) or, where its state is served, the
+    # count geometry; none the whole-layout search, and no query runs the
+    # whole-table prefix_scan
+    for wrapper in pk.WINDOW_KERNELS:
+        GEOMETRIES[wrapper.__name__] = {
+            g: getattr(wrapper, g) for g in ("range", "search", "count")
+            if hasattr(wrapper, g)}
+    log(f"promql path: window geometries {GEOMETRIES}; prefix_scan "
+        f"launches {pk.prefix_scan.launches}")
+    for kname, g in GEOMETRIES.items():
+        if g["search"] or sum(g.values()) != launches[kname]:
+            raise AssertionError(f"{kname} left the range and count "
+                                 f"geometries on the PromQL path: {g}, "
+                                 f"{launches[kname]} launches")
+    launches["prefix_scan"] = pk.prefix_scan.launches
     return launches
 
 
@@ -2224,14 +2268,15 @@ def _promql_path(gk, pk, sk, db, scrapes, seed, has_arrow, card) -> dict:
 # phase 5: PromQL kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def count_geometry_timing(pk, got, want, gd, gd_want, sel, t_end: int,
-                          report) -> dict:
-    """K9's count geometry at the instant query's shapes (S = 2^20, T = 1):
-    series_ranges and gather_ts_mat against their plain versions and
-    torch.searchsorted of the same series bounds, then counter_window at
-    T = 1 in both geometries (rate and instant modes), the outputs of the
-    two geometries equal bit for bit."""
-    key_s, ts_s, kp = got[0], got[1], got[6]
+def count_geometry_timing(pk, lay, want, sel, t_end: int, report) -> dict:
+    """K9's geometries at the instant query's shapes (S = 2^20, T = 1):
+    series_ranges and gather_ts_mat (the count geometry's state) against
+    their plain versions and torch.searchsorted of the same series bounds,
+    then counter_window at T = 1 in the range geometry (``lay`` carries
+    the series offset table), the count geometry and the forced
+    whole-layout search (rate and instant modes), the three outputs equal
+    bit for bit."""
+    key_s, ts_s, kp = lay[0], lay[1], lay[6]
     n = key_s.shape[0]
     S = sel.shape[0]
     out = {}
@@ -2275,32 +2320,80 @@ def count_geometry_timing(pk, got, want, gd, gd_want, sel, t_end: int,
         kw = dict(step_ms=SCRAPE_MS, num_steps=1, range_ms=RANGE_MS,
                   kind=kind, func=func,
                   range_s=RANGE_MS / 1000 if func else None)
-        g = gd if kind != "instant" else None
-        a = pk.counter_window(got, g, sel, t_end, **kw)
-        b = pk.counter_window(got, g, sel, t_end, bounds=bounds, **kw)
-        c = pk.counter_window_plain(want, gd_want, sel, t_end,
-                                    bounds=w_bounds, **kw)
+        runs = {
+            "range": lambda kw=kw: pk.counter_window(lay, sel, t_end, **kw),
+            "count": lambda kw=kw: pk.counter_window(lay, sel, t_end,
+                                                     bounds=bounds, **kw),
+            "searchsorted": lambda kw=kw: pk.counter_window(
+                lay, sel, t_end, geometry="search", **kw)}
+        a = runs["range"]()
+        c = pk.counter_window_plain(want, sel, t_end, bounds=w_bounds, **kw)
         if kind == "rate":
-            a, b, c = {"rate": a}, {"rate": b}, {"rate": c}
+            a, c = {"rate": a}, {"rate": c}
+        for name in ("count", "searchsorted"):
+            b = runs[name]()
+            b = {"rate": b} if kind == "rate" else b
+            if not same_output(a, b):
+                raise AssertionError(f"counter_window {kind}: the {name} "
+                                     f"geometry differs from the range "
+                                     f"geometry")
         for k in a:
-            if not torch.equal(a[k].nan_to_num(-7.0), b[k].nan_to_num(-7.0)):
-                raise AssertionError(f"counter_window {kind}: the count "
-                                     f"geometry's {k} differs from the "
-                                     f"searchsorted geometry's")
-            max_err(b[k], c[k], exact=k != "rate")
-        ms_s = time_ms(lambda: pk.counter_window(got, g, sel, t_end, **kw))
-        ms_c = time_ms(lambda: pk.counter_window(got, g, sel, t_end,
-                                                 bounds=bounds, **kw))
-        log(f"kernel counter_window[{kind} S={S:,} T=1 in both geometries]: "
-            f"searchsorted {ms_s:.4f} ms, count geometry {ms_c:.4f} ms "
-            f"({ms_s / ms_c:.2f}x; the state: series_ranges "
-            f"{out['series_ranges']['ms']:.4f} + gather_ts_mat "
-            f"{out['gather_ts_mat']['ms']:.4f} ms once per resident "
-            f"selection), outputs equal bit for bit")
+            max_err(a[k], c[k], exact=k not in ("rate", "delta_adj"))
+        times = {}
+        for name in ("range", "count", "searchsorted", "range"):
+            times.setdefault(name, []).append(time_ms(runs[name]))
+        ms_r = float(np.median(times["range"]))
+        ms_c = times["count"][0]
+        ms_s = times["searchsorted"][0]
+        log(f"kernel counter_window[{kind} S={S:,} T=1 in three "
+            f"geometries]: range {ms_r:.4f} ms, count geometry {ms_c:.4f} "
+            f"ms, whole-layout search {ms_s:.4f} ms (the count state: "
+            f"series_ranges {out['series_ranges']['ms']:.4f} + "
+            f"gather_ts_mat {out['gather_ts_mat']['ms']:.4f} ms once per "
+            f"resident selection), outputs equal bit for bit")
+        t1[f"t1_{kind}_range_ms"] = ms_r
         t1[f"t1_{kind}_searchsorted_ms"] = ms_s
         t1[f"t1_{kind}_count_ms"] = ms_c
     out["t1"] = t1
     return out
+
+
+def same_output(a, b) -> bool:
+    """Equal bit for bit: tensors (f32 compared as int32), dicts of them,
+    or plain values."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_output(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, torch.Tensor):
+        if a.dtype == torch.float32:
+            return torch.equal(a.view(torch.int32), b.view(torch.int32))
+        return torch.equal(a, b)
+    return a == b
+
+
+def geometry_pair(name: str, variant: str, run, out, card: str,
+                  graph: bool = True) -> dict:
+    """``run(geometry)`` in the range geometry (the default, whose output
+    is ``out``) and the forced whole-layout search, held equal bit for
+    bit, each timed by CUDA events and, with ``graph``, as device time (a
+    kernel whose result the host reads cannot be captured).  Prints one
+    line; returns ``ms``, ``search_ms`` and, with ``graph``, ``graph_ms``,
+    ``search_graph_ms``."""
+    if not same_output(out, run("search")):
+        raise AssertionError(f"{name} {variant}: the range geometry differs "
+                             f"from the whole-layout search")
+    t = {"ms": time_ms(lambda: run("range")),
+         "search_ms": time_ms(lambda: run("search"))}
+    if graph:
+        t["graph_ms"] = graph_ms(lambda: run("range"))
+        t["search_graph_ms"] = graph_ms(lambda: run("search"))
+    dev = (f"; device time {t['graph_ms']:.4f} / {t['search_graph_ms']:.4f}"
+           f" ms" if graph else "")
+    log(f"kernel {name}[{variant}]: range geometry {t['ms']:.4f} ms, "
+        f"whole-layout search {t['search_ms']:.4f} ms "
+        f"({t['search_ms'] / t['ms']:.2f}x){dev}, equal bit for bit — "
+        f"{card}")
+    return t
 
 
 def sort_routes(name: str, kind: str, out: torch.Tensor, card: str,
@@ -2424,8 +2517,9 @@ def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
     results["sort_layout"]["general_passes"] = passes
     results["sort_layout"]["general_pass_ms"] = per
     del pcols
-    # -- prefix_scan (K10's f64 cumsum, with the drop prologue): two calls
-    #    equal bit for bit --
+    # -- prefix_scan (the reference's f64 cumsum of counter drops, with the
+    #    drop prologue; off the query path since counter_window sums its
+    #    windows' drops): two calls equal bit for bit --
     key_s, ts_s, val_s, tsid_s, valid_s, ts_min, kp = got
     gd = pk.prefix_scan(val_s, tsid_s, valid_s)
     if not torch.equal(gd.view(torch.int64),
@@ -2443,20 +2537,49 @@ def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
     lib = time_ms(lambda: torch.cumsum(drops, 0))
     bnd, by = bound_ms(nbytes(val_s, tsid_s, valid_s, gd), n, F64_FLOPS)
     report("prefix_scan", f"f64 counter drops N={n:,}, one single-pass "
-           f"launch, two calls equal bit for bit; library: torch.cumsum of "
-           f"the f64 drops", ms, plain, bnd, by, lib, err)
+           f"launch, two calls equal bit for bit, off the query path; "
+           f"library: torch.cumsum of the f64 drops", ms, plain, bnd, by,
+           lib, err)
     results["prefix_scan"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd,
                                   bound_by=by, library_ms=lib,
-                                  max_abs_err=err)
-    del drops
+                                  max_abs_err=err, on_path=False)
+    del drops, gd, gd_want
 
-    # -- counter_window (K9 geometry + K10 + the K11 epilogue) --
+    # -- series_offsets (K9's range geometry: each tsid's first sorted row,
+    #    built once a layout) --
+    n_series = table.num_series
+    off = pk.series_offsets(key_s, kp, n_series)
+    err = max_err(off, pk.series_offsets_plain(want[0], want[6], n_series),
+                  exact=True)
+    ms = time_ms(lambda: pk.series_offsets(key_s, kp, n_series))
+    gms = graph_ms(lambda: pk.series_offsets(key_s, kp, n_series))
+    plain = time_ms(lambda: pk.series_offsets_plain(want[0], want[6],
+                                                    n_series))
+    first_keys = torch.arange(n_series + 1, device=ts.device) * kp
+    lib = time_ms(lambda: torch.searchsorted(key_s, first_keys))
+    del first_keys
+    # the table written once; a search of log2(n) int64 compares an entry
+    bnd, by = bound_ms(nbytes(off), (n_series + 1) * n.bit_length())
+    report("series_offsets", f"{n_series + 2:,} entries over N={n:,} keys, "
+           f"once a layout, equal to torch.searchsorted (library: "
+           f"torch.searchsorted of the tsids' first keys)", ms, plain, bnd,
+           by, lib, err)
+    log(f"kernel series_offsets: device time {gms:.4f} ms — {card}")
+    results["series_offsets"] = dict(ms=ms, graph_ms=gms, plain_ms=plain,
+                                     bound_ms=bnd, bound_by=by,
+                                     library_ms=lib, max_abs_err=err)
+    lay = (*got, off)
+
+    # -- counter_window (K10 + the K11 epilogue) in the range geometry,
+    #    beside the forced whole-layout search --
     s_pad = 1 << (PROM_SERIES - 1).bit_length()
     sel = torch.full((s_pad,), -1, dtype=torch.int32, device=ts.device)
     sel[:PROM_SERIES] = torch.arange(PROM_SERIES, dtype=torch.int32,
                                      device=ts.device)
     t_end = int(ts_s[valid_s].max())
     start = t_end - 19 * SCRAPE_MS
+    # the selected series' two offset-table entries, and the selection
+    sel_b = nbytes(sel) + PROM_SERIES * 8
     for variant, steps, kind, func in (("rate", 20, "rate", "rate"),
                                        ("counter stats", 20, "counter", None),
                                        ("instant", 1, "instant", None)):
@@ -2464,17 +2587,21 @@ def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
         kw = dict(step_ms=SCRAPE_MS, num_steps=steps, range_ms=RANGE_MS,
                   kind=kind, func=func,
                   range_s=RANGE_MS / 1000 if func else None)
-        g = gd if kind != "instant" else None
-        out = pk.counter_window(got, g, sel, t0_ms, **kw)
-        ref = pk.counter_window_plain(want, gd_want, sel, t0_ms, **kw)
+
+        def run(geometry, t0_ms=t0_ms, kw=kw):
+            return pk.counter_window(lay, sel, t0_ms, geometry=geometry, **kw)
+
+        out = run("range")
+        ref = pk.counter_window_plain(want, sel, t0_ms, **kw)
         if kind == "rate":
             err = max_err(out, ref, exact=False)
         else:
             err = max(max_err(out[k], ref[k], exact=k != "delta_adj")
                       for k in pk.KIND_KEYS[kind])
-        ms = time_ms(lambda: pk.counter_window(got, g, sel, t0_ms, **kw))
-        plain = time_ms(lambda: pk.counter_window_plain(want, gd_want, sel,
-                                                        t0_ms, **kw))
+        del ref
+        geo_t = geometry_pair("counter_window", variant, run, out, card)
+        plain = time_ms(lambda: pk.counter_window_plain(want, sel, t0_ms,
+                                                        **kw), reps=5)
         steps_t = t0_ms + SCRAPE_MS * torch.arange(steps, device=ts.device)
         skey = sel.clamp(min=0).long()[:, None] * kp
         lo_keys = (skey + (steps_t - RANGE_MS + 1 - ts_min).clamp(
@@ -2483,30 +2610,67 @@ def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
         lib = time_ms(lambda: (torch.searchsorted(key_s, lo_keys),
                                torch.searchsorted(key_s, hi_keys,
                                                   right=True)))
+        del skey, lo_keys, hi_keys
         cells = s_pad * steps
+        # what the function needs, whatever computes it: the covered rows'
+        # values once (rate and counter read every row for the drops,
+        # instant only the last), the timestamps of the distinct first and
+        # last rows, the selection and its offsets, the outputs once, and
+        # the f64 work (~30 operations of the epilogue a window, 2 a
+        # sample for the drops)
+        lo, hi, wcnt, has, sel_ok = pk.window_bounds_plain(
+            key_s, ts_min, kp, sel, t0_ms, SCRAPE_MS, steps, RANGE_MS)
+        samples = int(wcnt[has].sum())
+        union = int(torch.where(sel_ok, hi[:, -1] - lo[:, 0], 0).clamp(
+            min=0).sum())
+        last_rows = (hi - 1)[has]
+        ends = last_rows if kind == "instant" else torch.cat([lo[has],
+                                                              last_rows])
+        ts_rows = int(torch.unique(ends).numel())
+        val_rows = ts_rows if kind == "instant" else union
+        del lo, hi, has, last_rows, ends
+        out_b = {"rate": 4, "counter": 4 * 5 + 8 * 2, "instant": 4 + 4 + 8}
+        ops = {"rate": cells * 30 + samples * 2, "counter": samples * 2,
+               "instant": 0}[kind]
+        bnd, by = bound_ms(sel_b + val_rows * 4 + ts_rows * 8
+                           + cells * out_b[kind], ops, F64_FLOPS)
+        # the search route's bound (PR 10-14): two binary searches of
+        # log2(n) int64 compares a window counted as operations
         per_cell = {"rate": 8 * 2 + 4 * 2 + 8 * 2 + 4,
                     "counter": 8 * 2 + 4 * 2 + 8 * 2 + 4 * 5 + 8 * 2,
                     "instant": 8 + 4 + 4 + 4 + 8}[kind]
-        # two binary searches of log2(n) int64 compares per cell, plus the
-        # f64 epilogue (~30 operations) in rate mode
-        ops = cells * (2 * n.bit_length() + (30 if kind == "rate" else 0))
-        bnd, by = bound_ms(nbytes(sel) + cells * per_cell, ops, F64_FLOPS)
-        report("counter_window", f"{variant} S={s_pad:,} T={steps} "
-               f"(library: searchsorted geometry only)", ms, plain, bnd, by,
-               lib, err)
+        old_bnd, _old_by = bound_ms(
+            nbytes(sel) + cells * per_cell,
+            cells * (2 * n.bit_length() + (30 if kind == "rate" else 0)),
+            F64_FLOPS)
+        report("counter_window", f"{variant} S={s_pad:,} T={steps}, range "
+               f"geometry, {samples:,} window samples (search "
+               f"{geo_t['search_ms']:.4f} ms, device {geo_t['graph_ms']:.4f}"
+               f" / {geo_t['search_graph_ms']:.4f}; search route's bound "
+               f"{old_bnd:.4f} ms; library: searchsorted geometry only)",
+               geo_t["ms"], plain, bnd, by, lib, err)
         if kind == "rate":
             results["counter_window"] = dict(
-                ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                library_ms=lib, max_abs_err=err)
+                ms=geo_t["ms"], graph_ms=geo_t["graph_ms"], plain_ms=plain,
+                bound_ms=bnd, bound_by=by, library_ms=lib, max_abs_err=err,
+                search_ms=geo_t["search_ms"],
+                search_graph_ms=geo_t["search_graph_ms"],
+                search_bound_ms=old_bnd)
         else:
             results["counter_window"]["max_abs_err"] = max(
                 results["counter_window"]["max_abs_err"], err)
+            results["counter_window"].update({
+                f"{kind}_{k}": v for k, v in geo_t.items()})
+            results["counter_window"].update({
+                f"{kind}_plain_ms": plain, f"{kind}_bound_ms": bnd,
+                f"{kind}_search_bound_ms": old_bnd})
+        del out
 
-    results.update(count_geometry_timing(pk, got, want, gd, gd_want, sel,
-                                         t_end, report))
+    results.update(count_geometry_timing(pk, lay, want, sel, t_end, report))
     results["counter_window"].update(results.pop("t1"))
 
-    # -- window_stats (K10's gauge_window, counter_rc, regression, irate) --
+    # -- window_stats (K10's gauge_window, counter_rc, regression, irate)
+    #    in the range geometry, beside the forced whole-layout search --
     geo = dict(step_ms=SCRAPE_MS, num_steps=20, range_ms=RANGE_MS)
     cells = s_pad * 20
     lo, hi, wcnt, _has, sel_ok = pk.window_bounds_plain(
@@ -2522,12 +2686,17 @@ def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
              "irate": 12}
     out_b = {"gauge_window": 4 * 6 + 8 * 2, "counter_rc": 12,
              "regression": 12 + 8, "irate": 8 * 2 + 4 * 2}
-    # f64 operations per window sample, on top of two binary searches
+    # f64 operations per window sample
     per_sample = {"gauge_window": 3, "counter_rc": 2, "regression": 8,
                   "irate": 0}
     lib = time_ms(lambda: torch.cumsum(val_s.double(), 0))
     for kind in ("gauge_window", "counter_rc", "regression", "irate"):
-        out = pk.window_stats(got, sel, start, kind=kind, **geo)
+
+        def run(geometry, kind=kind):
+            return pk.window_stats(lay, sel, start, kind=kind,
+                                   geometry=geometry, **geo)
+
+        out = run("range")
         ref = pk.window_stats_plain(kind, want, sel, start, **geo)
         slack = pk.var_slack(val_s, valid_s, wcnt, ref["sum"]) \
             if kind == "gauge_window" else 0.0
@@ -2537,30 +2706,48 @@ def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
         err = max(max_err(out[k], ref[k], exact=k in exact_keys,
                           abs_tol=slack if k == "var" else 0.0)
                   for k in pk.KIND_KEYS[kind])
-        ms = time_ms(lambda: pk.window_stats(got, sel, start, kind=kind,
-                                             **geo))
+        del ref, slack
+        geo_t = geometry_pair("window_stats", kind, run, out, card)
         plain = time_ms(lambda: pk.window_stats_plain(kind, want, sel, start,
                                                       **geo), reps=5)
-        ops = cells * 2 * n.bit_length() + samples * per_sample[kind]
-        bnd, by = bound_ms(nbytes(sel) + union * row_b[kind]
-                           + cells * out_b[kind], ops, F64_FLOPS)
-        report("window_stats", f"{kind} S={s_pad:,} T=20, {samples:,} "
-               f"window samples (library: one f64 torch.cumsum of val_s)",
-               ms, plain, bnd, by, lib, err)
+        bnd, by = bound_ms(sel_b + union * row_b[kind] + cells * out_b[kind],
+                           samples * per_sample[kind], F64_FLOPS)
+        old_bnd, _old_by = bound_ms(
+            nbytes(sel) + union * row_b[kind] + cells * out_b[kind],
+            cells * 2 * n.bit_length() + samples * per_sample[kind],
+            F64_FLOPS)
+        report("window_stats", f"{kind} S={s_pad:,} T=20, range geometry, "
+               f"{samples:,} window samples (search "
+               f"{geo_t['search_ms']:.4f} ms, device {geo_t['graph_ms']:.4f}"
+               f" / {geo_t['search_graph_ms']:.4f}; search route's bound "
+               f"{old_bnd:.4f} ms; library: one f64 torch.cumsum of val_s)",
+               geo_t["ms"], plain, bnd, by, lib, err)
         if kind == "gauge_window":
             results["window_stats"] = dict(
-                ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                library_ms=lib, max_abs_err=err)
+                ms=geo_t["ms"], graph_ms=geo_t["graph_ms"], plain_ms=plain,
+                bound_ms=bnd, bound_by=by, library_ms=lib, max_abs_err=err,
+                search_ms=geo_t["search_ms"],
+                search_graph_ms=geo_t["search_graph_ms"],
+                search_bound_ms=old_bnd)
         else:
             results["window_stats"]["max_abs_err"] = max(
                 results["window_stats"]["max_abs_err"], err)
-        del out, ref
+            results["window_stats"].update({
+                f"{kind}_{k}": v for k, v in geo_t.items()})
+            results["window_stats"].update({
+                f"{kind}_plain_ms": plain, f"{kind}_bound_ms": bnd,
+                f"{kind}_search_bound_ms": old_bnd})
+        del out
 
-    # -- minmax_window (K13) --
-    out = pk.minmax_window(got, sel, start, **geo)
+    # -- minmax_window (K13), both geometries --
+    def run_minmax(geometry):
+        return pk.minmax_window(lay, sel, start, geometry=geometry, **geo)
+
+    out = run_minmax("range")
     ref = pk.minmax_window_plain(want, sel, start, **geo)
     err = max(max_err(out[k], ref[k], exact=True) for k in ("min", "max"))
-    ms = time_ms(lambda: pk.minmax_window(got, sel, start, **geo))
+    del ref
+    geo_t = geometry_pair("minmax_window", "min+max", run_minmax, out, card)
     plain = time_ms(lambda: pk.minmax_window_plain(want, sel, start, **geo),
                     reps=5)
     # library: one scatter_reduce of every window sample into its window
@@ -2582,20 +2769,28 @@ def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
     lib = time_ms(lib_minmax)
     del win_id, win_val, lib_buf
     bnd, by = bound_ms(nbytes(sel) + union * 4 + cells * 8, samples * 2)
-    report("minmax_window", f"min+max S={s_pad:,} T=20 (library: "
-           f"scatter_reduce amin of the gathered window samples)", ms, plain,
-           bnd, by, lib, err)
-    results["minmax_window"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd,
-                                    bound_by=by, library_ms=lib,
-                                    max_abs_err=err)
-    del out, ref
+    report("minmax_window", f"min+max S={s_pad:,} T=20, range geometry "
+           f"(search {geo_t['search_ms']:.4f} ms; library: scatter_reduce "
+           f"amin of the gathered window samples)", geo_t["ms"], plain, bnd,
+           by, lib, err)
+    results["minmax_window"] = dict(
+        ms=geo_t["ms"], graph_ms=geo_t["graph_ms"], plain_ms=plain,
+        bound_ms=bnd, bound_by=by, library_ms=lib, max_abs_err=err,
+        search_ms=geo_t["search_ms"],
+        search_graph_ms=geo_t["search_graph_ms"])
+    del out
 
-    # -- window_count_max + window_matrix (K14) --
-    cm = pk.window_count_max(got, sel, start, **geo)
+    # -- window_count_max + window_matrix (K14), both geometries --
+    def run_cm(geometry):
+        return pk.window_count_max(lay, sel, start, geometry=geometry, **geo)
+
+    cm = run_cm("range")
     cm_plain = pk.window_count_max_plain(want, sel, start, **geo)
     if cm != cm_plain:
         raise AssertionError(f"window_count_max: {cm} vs {cm_plain}")
-    ms = time_ms(lambda: pk.window_count_max(got, sel, start, **geo))
+    # its result is read on the host: events only
+    geo_t = geometry_pair("window_count_max", f"-> {cm}", run_cm, cm, card,
+                          graph=False)
     plain = time_ms(lambda: pk.window_count_max_plain(want, sel, start,
                                                       **geo), reps=5)
     skey = sel.clamp(min=0).long()[:, None] * kp
@@ -2605,13 +2800,15 @@ def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
     hi_keys = (skey + (steps_t - ts_min)).reshape(-1)
     lib = time_ms(lambda: (torch.searchsorted(key_s, lo_keys),
                            torch.searchsorted(key_s, hi_keys, right=True)))
+    del skey, lo_keys, hi_keys
     bnd, by = bound_ms(nbytes(sel) + 4, cells * 2 * n.bit_length(),
                        F64_FLOPS)
-    report("window_count_max", f"S={s_pad:,} T=20 -> {cm} (library: "
-           f"searchsorted geometry)", ms, plain, bnd, by, lib, 0.0)
-    results["window_count_max"] = dict(ms=ms, plain_ms=plain, bound_ms=bnd,
-                                       bound_by=by, library_ms=lib,
-                                       max_abs_err=0.0)
+    report("window_count_max", f"S={s_pad:,} T=20 -> {cm}, range geometry "
+           f"(search {geo_t['search_ms']:.4f} ms; library: searchsorted "
+           f"geometry)", geo_t["ms"], plain, bnd, by, lib, 0.0)
+    results["window_count_max"] = dict(
+        ms=geo_t["ms"], plain_ms=plain, bound_ms=bnd, bound_by=by,
+        library_ms=lib, max_abs_err=0.0, search_ms=geo_t["search_ms"])
     lmax = max(2, 1 << (max(cm, 1) - 1).bit_length())
     lo, _hi, wcnt, _has, _ok = pk.window_bounds_plain(
         key_s, ts_min, kp, sel, start, SCRAPE_MS, 20, RANGE_MS)
@@ -2631,7 +2828,7 @@ def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
     for kind, (a1, a2) in params.items():
         kw = dict(lmax=lmax, kind=kind, a1=a1, a2=a2, **geo)
         before = pk.window_matrix.register
-        out = pk.window_matrix(got, sel, start, **kw)
+        out = pk.window_matrix(lay, sel, start, **kw)
         if kind != "holt" and pk.window_matrix.register != before + (
                 route == "register"):
             raise AssertionError(f"window_matrix {kind}: lmax {lmax} did "
@@ -2640,8 +2837,8 @@ def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
         err = max_err(out, ref, exact=False)
         del ref
         torch.cuda.empty_cache()
-        ms = time_ms(lambda: pk.window_matrix(got, sel, start, **kw))
-        gms = graph_ms(lambda: pk.window_matrix(got, sel, start, **kw))
+        ms = time_ms(lambda: pk.window_matrix(lay, sel, start, **kw))
+        gms = graph_ms(lambda: pk.window_matrix(lay, sel, start, **kw))
         plain = time_ms(lambda: pk.window_matrix_plain(want, sel, start,
                                                        **kw), reps=3)
         torch.cuda.empty_cache()
@@ -2650,8 +2847,8 @@ def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
             else samples * 6)
         bnd, by = bound_ms(nbytes(sel, a1, a2, out) + union * 4, ops)
         report("window_matrix", f"{kind} S={s_pad:,} T=20 lmax={lmax}, "
-               f"{route if kind != 'holt' else 'a thread a window'} "
-               f"(library: torch.sort of the gathered [S*T, lmax] "
+               f"{route if kind != 'holt' else 'a thread a window'}, range "
+               f"geometry (library: torch.sort of the gathered [S*T, lmax] "
                f"matrix)", ms, plain, bnd, by, lib, err)
         log(f"kernel window_matrix[{kind}]: device time {gms:.4f} ms — "
             f"{card}")
@@ -2659,6 +2856,13 @@ def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
             results["window_matrix"] = dict(
                 ms=ms, graph_ms=gms, plain_ms=plain, bound_ms=bnd,
                 bound_by=by, library_ms=lib, max_abs_err=err)
+            geo_t = geometry_pair(
+                "window_matrix", kind,
+                lambda geometry, kw=kw: pk.window_matrix(
+                    lay, sel, start, geometry=geometry, **kw), out, card)
+            results["window_matrix"].update(
+                search_ms=geo_t["search_ms"],
+                search_graph_ms=geo_t["search_graph_ms"])
         else:
             results["window_matrix"]["max_abs_err"] = max(
                 results["window_matrix"]["max_abs_err"], err)
@@ -2668,7 +2872,7 @@ def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
         if kind != "holt":
             results["window_matrix"].update(sort_routes(
                 "window_matrix", kind, out, card,
-                lambda: pk.window_matrix(got, sel, start,
+                lambda: pk.window_matrix(lay, sel, start,
                                          allow_register=False, **kw)))
         del out
 
@@ -2753,7 +2957,7 @@ def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
     del wr, out
 
     # -- segment_select (K12's sorts) on the 20-step rates --
-    rate = pk.counter_window(got, gd, sel, start, step_ms=SCRAPE_MS,
+    rate = pk.counter_window(lay, sel, start, step_ms=SCRAPE_MS,
                              num_steps=20, range_ms=RANGE_MS, kind="rate",
                              func="rate", range_s=RANGE_MS / 1000)
     rate = rate[:PROM_SERIES].contiguous()
@@ -2803,7 +3007,7 @@ def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
     # -- group_merge at the PromQL shape: the 20-step rates of 2^20
     #    selected series (padding routed to the overflow id) into 100,000
     #    pod groups; tsids follow write order, so pod = tsid // 10 --
-    v = pk.counter_window(got, gd, sel, start, step_ms=SCRAPE_MS,
+    v = pk.counter_window(lay, sel, start, step_ms=SCRAPE_MS,
                           num_steps=20, range_ms=RANGE_MS, kind="rate",
                           func="rate", range_s=RANGE_MS / 1000)
     x = torch.where(torch.isnan(v), 0.0, v)
@@ -3664,7 +3868,8 @@ def phase_logs(lk, pk, lines: int, card: str):
                     "logs_layout": lk.logs_layout.launches,
                     "line_vals": lk.line_vals.launches,
                     "row_match": lk.row_match.launches,
-                    "window_stats": pk.window_stats.launches}
+                    "window_stats": pk.window_stats.launches,
+                    "series_offsets": pk.series_offsets.launches}
         counters = log_counters()
         peak = torch.cuda.max_memory_allocated()
         log(f"logs: fulltext counters {counters}; fulltext cache "
@@ -4858,7 +5063,8 @@ def main() -> int:
                  "hll_fold", "udd_fold", "fp_candidates", "logs_layout",
                  "line_vals", "row_match", "group_merge_stacked",
                  "series_mask", "topk_select", "vec_distance",
-                 "series_ranges", "gather_ts_mat", "mesh_merge"):
+                 "series_ranges", "gather_ts_mat", "mesh_merge",
+                 "series_offsets"):
         k = kernels[name]
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -4877,8 +5083,10 @@ def main() -> int:
                                          "cos_", "t1_", "quantile_",
                                          "hostname_", "u8_", "masked_",
                                          "two_merges_", "prom_", "mad_",
-                                         "warp_", "holt_"))
-                      or key in ("solo_pairs_ms", "host_parse_ms",
+                                         "warp_", "holt_", "search_",
+                                         "counter_", "instant_",
+                                         "regression_", "irate_"))
+                      or key in ("solo_pairs_ms", "host_parse_ms", "on_path",
                                  "graph_ms", "library_graph_ms",
                                  "general_ms", "general_passes",
                                  "general_pass_ms", "passes", "pass_ms",
@@ -4887,6 +5095,8 @@ def main() -> int:
             entry["launches_by_shape"] = SHAPES[name]
         if name in ROUTES:
             entry["routes"] = ROUTES[name]
+        if name in GEOMETRIES:
+            entry["geometries"] = GEOMETRIES[name]
         line["kernels"].append(entry)
     log(f"total: {time.perf_counter() - t_start:.3f} s")
     log(json.dumps(line))

@@ -2,10 +2,10 @@
 
 Counterpart of the reference's ``compile/fused.py`` (K11, one jitted XLA
 program per shape class).  Here the chain is the window statistics of the
-function's kind over the padded selection — for rate/increase/delta the
-counter-drop ``prefix_scan`` and one ``counter_window`` launch in rate
-mode (window geometry, first/last gathers, the counter-reset adjusted
-delta and the ``_extrapolated`` epilogue in one kernel), for the other
+function's kind over the padded selection — for rate/increase/delta one
+``counter_window`` launch in rate mode (window geometry, first/last
+gathers, the window's counter-reset drops and the ``_extrapolated``
+epilogue in one kernel), for the other
 kinds ``window_stats`` or ``minmax_window`` and the evaluator's own
 epilogue (``engine.window_function``) — then the group reduce
 (``group_merge``), with the padding rows routed to the dead overflow

@@ -71,8 +71,8 @@
 //   loads (offsets, then order, then x).  Design: one thread an output,
 //   in (plane, group, bucket) order, as before, with the series loop
 //   unrolled by 4 (four order entries, then four values, in flight) and
-//   64-bit index arithmetic.  probe_group_merge.py (with its
-//   probe_group_merge.cu) rebuilds the layouts that were tried and times
+//   64-bit index arithmetic.  probes/group_merge.py (with its
+//   probes/group_merge.cu) rebuilds the layouts that were tried and times
 //   them on the card: the loop with 32-bit indices (no gain at either
 //   main-path shape), 8 series loaded at once, and a warp a group (its
 //   ids loaded once and shuffled, lanes over (plane, bucket)), which loses

@@ -65,21 +65,93 @@
 //   16-24 B/row a digit (u64 key and row index read and written), and
 //   layout_gather's reads are scattered.
 //
+// series_offsets + the range geometry (window_bounds)
+//   Replace K9's searchsorted geometry (`_sorted_window_bounds`,
+//   engine.py:288-346), whose two searches a window ran over the whole
+//   layout (N = 41.9 M keys: 2 x 26 dependent int64 loads, only the top
+//   levels in L2).  series_offsets builds, once per sort layout, the
+//   query-independent table off[t] = search_left(key_s, t * kp) for
+//   t <= n_series and off[n_series + 1] = n: off[t] is the first sorted
+//   row of tsid t (one thread a tsid, a search of the whole layout;
+//   t * kp saturates at I64_MAX, where the search gives the same row).
+//   Entries are int32 (a layout holds < 2^31 rows): at 1 M series the
+//   table's 4 MB still leave the layout, its selection and its group
+//   layout inside the default 1 GiB PromQL cache, where 8 MB int64
+//   entries pushed them out of it and every query rebuilt them.
+//   Bound: bytes, the table written once (4 MB at 1 M series); the
+//   searches are 26 dependent loads a thread.
+//   window_bounds then takes, for window w of selected series s, t =
+//   sel[s] (a pad, -1, reads tsid 0 as the whole-layout search does)
+//   clamped to [0, n_off - 2], and runs the same two searches for the
+//   same keys x (skey + rel_lo left, skey + rel_hi right, skey = t * kp,
+//   rel_lo in [0, kp - 1], rel_hi in [-1, kp - 1]) over key_s[off[t],
+//   off[t + 1]) only, adding off[t].  The bounds are the whole-layout
+//   search's integers:
+//   - key_s is non-decreasing, so a whole-layout search lands at
+//     a + (the keys of [a, e) below x, or at most x) whenever every key
+//     before a lies below x (at most x) and every key from e on above it;
+//   - with t the unclamped tsid: every key before off[t] is < t * kp <=
+//     x, or <= t * kp - 1 <= x for rel_hi = -1; every key from off[t + 1]
+//     on is >= (t + 1) * kp > t * kp + kp - 1 >= x (t < n_series), and
+//     for t = n_series, e = n (no key from e on);
+//   - a tsid past the table (t > n_series, clamped to n_series) searches
+//     [off[n_series], n): the keys before it are < n_series * kp <= x and
+//     none lies after it, so the bounds hold for any n_series, and hence
+//     for tsids with no valid row (their off[t] = off[t + 1]: an empty
+//     range at the row the whole search finds), tsids past the data
+//     (their x lies below the invalid rows' I64_MAX keys: the search
+//     stops at the first invalid row) and windows before or after a
+//     series' data (rel clipped to -1 / kp - 1 keep x inside [t * kp - 1,
+//     t * kp + kp - 1]);
+//   - a layout with no valid row has every key I64_MAX and kp = 2:
+//     every off[t] = 0 but the last, and both searches give 0.
+//   So every window kernel's bounds, and every output built from them,
+//   are those of the whole-layout search; `geometry="search"` (the
+//   wrappers' forced route, n_off = 0 here) keeps it for the card's
+//   bit-for-bit checks.  Thread layout: one thread a window, consecutive
+//   threads on consecutive steps of one series, so off[t], off[t + 1]
+//   are a broadcast load and the series' ~40 keys (320 B) come into L1
+//   once for the warp; a search over them is ~6 levels after two
+//   dependent loads (sel, off).  Measured as the bounds alone and a 4 B
+//   store a window (probes/window_bounds.py, H100 80GB HBM3, device ms at
+//   [2^20, 20] / T = 1): this layout 0.392 / 0.165, the whole-layout
+//   search 1.131 / 0.232.  Tried and not kept: a warp staging its
+//   windows' series keys in shared memory (12 KB a warp, searches there)
+//   1.106 / 0.121, faster at T = 1 only (25 % occupancy at [2^20, 20]);
+//   one span a block of 256 windows (<= 1,024 keys) 0.516 / 0.144; the
+//   same searches in 32-bit index arithmetic 0.358 / 0.168.
+//
 // counter_window
-//   Replaces K9's searchsorted geometry (`_sorted_window_bounds`,
-//   engine.py:288-346), K10's `counter` and `instant` kinds (engine.py:
-//   427-454) and, in rate mode, K11's epilogue `_extrapolated`
-//   (engine.py:1839; Prometheus extrapolatedRate).  One thread per
-//   (selected series, step): two binary searches over key_s (left for the
-//   window start rel_lo, right for the end rel_hi, with the clips of
-//   engine.py:335-336), first/last gathers, delta_adj = (val + gdrop)[last]
-//   - (val + gdrop)[first] in f64, then f32.  Stats mode writes the
+//   Replaces K10's `counter` and `instant` kinds (engine.py:427-454,
+//   the f64 gdrop cumsum at :410 included) and, in rate mode, K11's
+//   epilogue `_extrapolated` (engine.py:1839; Prometheus
+//   extrapolatedRate).  One thread per (selected series, step): the
+//   window bounds (left search for the window start rel_lo, right for the
+//   end rel_hi, with the clips of engine.py:335-336; the range geometry
+//   above, or the count geometry), first/last gathers, and in counter and
+//   rate modes the counter-adjusted delta
+//     d_adj = (float)(((double)val[li] - (double)val[fi]) + dsum),
+//   dsum the f64 sum, in row order, of the drops val[j-1] > val[j] ?
+//   val[j-1] : 0 for j = fi+1 .. li.  A window's rows are one series and
+//   all valid, so this is the reference's adj[li] - adj[fi] (adj = val +
+//   gdrop, gdrop a whole-table f64 cumsum) with another f64 rounding:
+//   the window reads its rows itself and no query scans the whole table
+//   (prefix_scan has left the query path).  Stats mode writes the
 //   reference's _KIND_KEYS outputs; rate mode writes v[S, T] f32 for
-//   rate/increase/delta computed in f64 as _extrapolated computes it.
-//   Bound: the searches are 2 x log2(N) dependent loads per thread; the
-//   compulsory bytes are the S x T outputs plus the gathered rows, so the
-//   kernel is latency-bound far above its byte bound.  The top levels of
-//   the search stay in L2; a per-series range search is later work.
+//   rate/increase/delta computed in f64 as _extrapolated computes it
+//   (delta reads no drops).
+//   Bound: bytes (the covered rows' val once, the first/last ts and the
+//   selection's offsets, the outputs once) or the f64 epilogue's
+//   operations, whichever is larger; the two searches' dependent loads
+//   (now ~2 x 6 in L1) are latency, not compulsory work.
+//   Without its drop loop the rate body takes 0.648 ms of device time at
+//   [2^20, 20], with it 0.926 (47 registers, 5 blocks an SM;
+//   probes/window_bodies.py, H100 80GB HBM3).  Tried there and
+//   not kept: a warp's f64 prefix of the drops over its windows' rows in
+//   shared memory, a window's sum two prefixes apart (1.176 ms), the two
+//   searches in one interleaved loop (0.957), a compare-only pass that
+//   sums only windows with a drop (0.923 on counters with 2 % resets).
+//   What paid is the launch shape (kDenseSteps below): 0.779.
 //
 // series_ranges + gather_ts_mat (the count geometry)
 //   Replace the rest of K9: `_series_ranges` (engine.py:348) and
@@ -92,7 +164,7 @@
 //   of the [S, L] int64 timestamp matrix, I64_MAX past cnt.  With that
 //   state window_bounds counts, per window, the series' timestamps <= t -
 //   range and <= t in its L-wide row: O(L) sequential compares instead of
-//   two O(log N) dependent searches, the same integer bounds.
+//   two dependent searches, the same integer bounds.
 //   counter_window, window_stats and minmax_window take either geometry
 //   with no change to their bodies.
 //   Bound: series_ranges, 2 log2(N) dependent loads a series (latency);
@@ -105,7 +177,7 @@
 //   gauge_window (sum, avg, var, first/last), counter_rc (resets and
 //   changes), regression (least-squares slope and intercept, time in
 //   seconds from the grid's start) and irate (the last two samples).  One
-//   thread per (selected series, step): the same two binary searches as
+//   thread per (selected series, step): the window bounds of
 //   counter_window, then a loop over the window's rows [lo, hi) that sums
 //   in f64 directly, where the reference differences five full-table f64
 //   prefix sums (cs_v, cs_v2, cs_t, cs_tv, cs_t2; 1.7 GB at 41.9 M rows).
@@ -118,7 +190,8 @@
 //   Bound: bytes.  Each window reads its rows once (ts i64 + val f32) and
 //   writes its outputs; windows overlap (range/step = 20 at 5 m / 15 s),
 //   so the rows come from L2 after their first read.  Compulsory: the
-//   selected rows once plus the S x T outputs.
+//   covered rows once, the selection and its offsets, the S x T outputs
+//   (or the f64 sums' operations where larger).
 //
 // minmax_window
 //   Replaces K13, the `minmax` kind's fori_loop of range/step + 1 scatter-
@@ -151,14 +224,18 @@
 //     Bound: operations.  At lmax 32 a window is 240 compare-exchanges (480
 //     integer min/max) plus 2 x 31 compare-and-selects a rank read, about
 //     1e10 integer operations at [2^20, 20] against the card's ~1.7e13
-//     int32 operations/s (132 SMs x 64 lanes x ~2 GHz): ~0.6 ms; the two
-//     binary searches of the bounds (2 x 26 dependent loads a thread)
-//     cost as much again: window_count_max, which does only them, takes
-//     ~1.2 ms.  Measured (time_scans.py matrix, H100 80GB HBM3, 700 W):
+//     int32 operations/s (132 SMs x 64 lanes x ~2 GHz): ~0.6 ms; the
+//     window bounds add ~0.4 ms in the range geometry (1.1 ms in the
+//     whole-layout search it replaced; window_count_max's ~0.65 ms is
+//     mostly its one atomicMax a warp on a single word).  Measured
+//     before the range geometry (time_scans.py matrix, H100 80GB HBM3,
+//     700 W):
 //     quantile 2.37 ms, mad 3.52 ms of device time, where the warp route
-//     takes 19.68 and 36.32.  Staging the warp's span of sorted rows
-//     through shared memory first (coalesced copy, then per-thread reads;
-//     probe_window_matrix.py) did not pay: 2.68 / 3.82 ms.
+//     takes 19.68 and 36.32; in the range geometry 1.57 / 2.76 ms
+//     (chip_smoke.py phase 5, probes/window_matrix.py).  Staging the
+//     warp's span of sorted rows through shared memory first (coalesced
+//     copy, then per-thread reads; probes/window_matrix.py) did not pay:
+//     2.68 / 3.82 ms before the range geometry, 1.96 / 3.16 in it.
 //   - warp, lmax > 32: a warp finds the bounds of 32 windows at once (one
 //     a lane), then sorts them one after another in its own buffer with
 //     scan.cuh's warp bitonic sort, lmax / 2 lanes a compare-exchange and
@@ -189,7 +266,7 @@
 //   takes 13.20 and 21.89.  The strided per-thread loads (24 B apart at
 //   K = 6) were kept: copying a block's rows into shared memory first
 //   with coalesced loads, then reading them at stride K (2-way bank
-//   conflicts at K = 6; probe_window_matrix.py) took 0.342 / 0.495 ms.
+//   conflicts at K = 6; probes/window_matrix.py) took 0.342 / 0.495 ms.
 //
 // subquery_counter
 //   Replaces `_eval_subquery_counter` (engine.py:1309-1363): the first /
@@ -691,25 +768,33 @@ struct Geometry {  // the window grid over one sort layout
   const long long* kp_p;
   const int32_t* sel;
   long long S, T, start_ms, step_ms, range_ms;
-  // the count geometry's state (null: the searchsorted geometry): each
-  // selected series' first sorted row and its [S, L] timestamp matrix
+  // the count geometry's state (null: a search geometry): each selected
+  // series' first sorted row and its [S, L] timestamp matrix
   const long long* series_start = nullptr;
   const long long* ts_mat = nullptr;
   long long L = 0;
+  // the range geometry's series offset table of n_off entries (null: the
+  // searches run over the whole layout)
+  const int32_t* series_off = nullptr;
+  long long n_off = 0;
 };
 
 struct Bounds {
   long long lo, hi;
   int cnt;
   bool sel_ok, has;
+  long long step;  // the window's end, ms
 };
 
 // Window w = s * T + t of the grid: the sorted-row range [lo, hi) of
-// (step - range, step].  Two geometries with the same integer bounds on
-// every selected series: the count geometry (engine.py:313-328) when the
-// state is given, each bound the series' first row plus a count of its
-// timestamps <= the threshold (padding holds I64_MAX and never counts),
-// else two binary searches over the whole layout (engine.py:330-345).
+// (step - range, step].  Three geometries with the same integer bounds
+// on every selected series: the count geometry (engine.py:313-328) when
+// its state is given, each bound the series' first row plus a count of
+// its timestamps <= the threshold (padding holds I64_MAX and never
+// counts); else two binary searches (engine.py:330-345) over the
+// series' rows [off[t], off[t + 1]) of the offset table (the range
+// geometry; see the header for why the bounds are unchanged), or over
+// the whole layout when no table is given.
 __device__ __forceinline__ Bounds window_bounds(const Geometry& g,
                                                 long long w) {
   const long long s = w / g.T;
@@ -717,6 +802,7 @@ __device__ __forceinline__ Bounds window_bounds(const Geometry& g,
   const int sel_t = g.sel[s];
   Bounds b;
   b.sel_ok = sel_t >= 0;
+  b.step = step;
   if (g.ts_mat != nullptr) {
     const long long* row = g.ts_mat + s * g.L;
     const long long lo_t = step - g.range_ms;
@@ -738,8 +824,15 @@ __device__ __forceinline__ Bounds window_bounds(const Geometry& g,
   const long long skey = (b.sel_ok ? (long long)sel_t : 0LL) * kp;
   const long long rel_lo = clampll(step - g.range_ms + 1 - ts_min, 0, kp - 1);
   const long long rel_hi = clampll(step - ts_min, -1, kp - 1);
-  b.lo = search_left(g.key_s, g.n, skey + rel_lo);
-  b.hi = search_right(g.key_s, g.n, skey + rel_hi);
+  long long base = 0, len = g.n;
+  if (g.series_off != nullptr) {
+    const long long t = b.sel_ok ? (long long)sel_t : 0LL;
+    const long long r = t < g.n_off - 2 ? t : g.n_off - 2;
+    base = g.series_off[r];
+    len = g.series_off[r + 1] - base;
+  }
+  b.lo = base + search_left(g.key_s + base, len, skey + rel_lo);
+  b.hi = base + search_right(g.key_s + base, len, skey + rel_hi);
   b.cnt = (int)(b.hi - b.lo > 0 ? b.hi - b.lo : 0);
   b.has = b.cnt > 0 && b.sel_ok;
   return b;
@@ -794,22 +887,44 @@ __device__ float extrapolated_rate(long long ft_i, long long lt_i,
   return fcount >= 2.0f ? (float)result : NAN;
 }
 
-__global__ void counter_window_kernel(Geometry g, const long long* ts_s,
-                                      const float* val_s, const double* gdrop,
-                                      int mode, int counter, int is_rate,
-                                      double range_s, WindowOut o) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= g.S * g.T) return;
+// The window kernels' launch shapes (counter_window, window_stats): one
+// instantiation a mode or kind and a shape, each compiled to the registers
+// its own body needs, every one computing the same function.  From
+// kDenseSteps steps on, a warp's 32 windows lie on one to nine series and
+// share their keys and rows in L1: more resident threads hide the
+// dependent loads there, so those launches ask for kCounterDenseMinb /
+// kStatsDenseMinb[kind] blocks
+// of kThreads an SM (__launch_bounds__: at most 32 or 40 registers a
+// thread).  With fewer steps a warp's windows spread over up to 32
+// series, and 8 blocks an SM evict each other's lines: no minimum, where
+// each body compiles to 55-64 registers (4 blocks an SM).  The kernels
+// are grid-stride loops over a grid that covers every window (one pass a
+// thread); in that form the bodies without a minimum keep their 55-64
+// registers.  probes/window_bodies.py, H100 80GB HBM3, device ms at
+// minimum 1 / 6 / 8: rate T = 20 1.056 / 0.820 / 0.779, T = 4 0.270 /
+// 0.238 / 0.319, T = 1 0.241 / 0.316 / 0.460; gauge T = 20 1.252 / 0.944 /
+// 0.821, T = 1 0.259 / 0.321 / 0.409; regression T = 20 1.576 / 1.212 /
+// 2.194 (48 B a thread spilled at 8); instant T = 20 0.882 / 0.649 /
+// 0.532, T = 1 0.193 / 0.230 / 0.275.
+constexpr long long kDenseSteps = 4;
+constexpr int kCounterDenseMinb = 8;
+constexpr int kStatsDenseMinb[4] = {8, 8, 6, 8};  // by StatsKind
+
+// Window i of counter_window in mode MODE.
+template <int MODE>
+__device__ __forceinline__ void counter_window_at(
+    const Geometry& g, const long long* ts_s, const float* val_s,
+    int counter, int is_rate, double range_s, const WindowOut& o,
+    long long i) {
   const Bounds b = window_bounds(g, i);
   const long long n = g.n;
-  const long long step = g.start_ms + g.step_ms * (i % g.T);
   const int cnt = b.cnt;
   const bool has = b.has;
   const bool has2 = cnt >= 2 && b.sel_ok;
   const long long fi = clampll(b.lo, 0, n - 1);
   const long long li = clampll(b.hi - 1, 0, n - 1);
   const float fcount = has ? (float)cnt : 0.0f;
-  if (mode == MODE_INSTANT) {
+  if (MODE == MODE_INSTANT) {
     o.count[i] = fcount;
     o.last[i] = has ? val_s[li] : NAN;
     o.last_ts[i] = has ? ts_s[li] : 0;
@@ -819,12 +934,21 @@ __global__ void counter_window_kernel(Geometry g, const long long* ts_s,
   const long long lt_i = has ? ts_s[li] : 0;
   const float fv = has ? val_s[fi] : NAN;
   const float lv = has ? val_s[li] : NAN;
-  const float d_adj =
-      has2 ? (float)(((double)val_s[li] + gdrop[li]) -
-                     ((double)val_s[fi] + gdrop[fi]))
-           : NAN;
+  // the window's counter-reset drops, in row order (delta reads none);
+  // only a drop is widened and added (adding 0.0 leaves the sum as it is)
+  float d_adj = NAN;
+  if (has2 && (MODE == MODE_COUNTER || counter)) {
+    double dsum = 0.0;
+    float prev = val_s[fi];
+    for (long long j = fi + 1; j <= li; ++j) {
+      const float v = val_s[j];
+      if (prev > v) dsum += (double)prev;
+      prev = v;
+    }
+    d_adj = (float)(((double)val_s[li] - (double)val_s[fi]) + dsum);
+  }
   const float d_raw = has2 ? val_s[li] - val_s[fi] : NAN;
-  if (mode == MODE_COUNTER) {
+  if (MODE == MODE_COUNTER) {
     o.count[i] = fcount;
     o.first_ts[i] = ft_i;
     o.last_ts[i] = lt_i;
@@ -834,8 +958,43 @@ __global__ void counter_window_kernel(Geometry g, const long long* ts_s,
     o.delta_raw[i] = d_raw;
     return;
   }
-  o.rate[i] = extrapolated_rate(ft_i, lt_i, (double)step, fcount, fv, d_adj,
-                                d_raw, counter, is_rate, range_s);
+  o.rate[i] = extrapolated_rate(ft_i, lt_i, (double)b.step, fcount, fv,
+                                d_adj, d_raw, counter, is_rate, range_s);
+}
+
+// One thread a window (a grid-stride loop: see the launch shapes above).
+template <int MODE, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+    counter_window_kernel(Geometry g, const long long* ts_s,
+                          const float* val_s, int counter, int is_rate,
+                          double range_s, WindowOut o) {
+  const long long total = g.S * g.T;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < total; i += (long long)gridDim.x * blockDim.x) {
+    counter_window_at<MODE>(g, ts_s, val_s, counter, is_rate, range_s, o,
+                            i);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// series_offsets: the range geometry's table
+// ---------------------------------------------------------------------------
+
+// off[t] = search_left(key_s, t * kp) for t <= n_series (t * kp
+// saturated at I64_MAX, which finds the same row: the first invalid one),
+// off[n_series + 1] = n.  One thread an entry.
+__global__ void series_offsets_kernel(const long long* key_s, long long n,
+                                      const long long* kp_p,
+                                      long long n_series, int32_t* off) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t > n_series + 1) return;
+  if (t > n_series) {
+    off[t] = (int32_t)n;
+    return;
+  }
+  const long long kp = *kp_p;
+  off[t] = (int32_t)search_left(key_s, n,
+                                t > kI64Max / kp ? kI64Max : t * kp);
 }
 
 // ---------------------------------------------------------------------------
@@ -912,18 +1071,20 @@ struct StatsOut {
   float* prev_val;
 };
 
-__global__ void window_stats_kernel(Geometry g, const long long* ts_s,
-                                    const float* val_s, int kind,
-                                    StatsOut o) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= g.S * g.T) return;
+// Window i of window_stats for KIND.
+template <int KIND>
+__device__ __forceinline__ void window_stats_at(const Geometry& g,
+                                                const long long* ts_s,
+                                                const float* val_s,
+                                                const StatsOut& o,
+                                                long long i) {
   const Bounds b = window_bounds(g, i);
   const long long n = g.n;
   const long long fi = clampll(b.lo, 0, n - 1);
   const long long li = clampll(b.hi - 1, 0, n - 1);
   const bool has = b.has;
   const bool has2 = b.cnt >= 2 && b.sel_ok;
-  if (kind == KIND_IRATE) {
+  if (KIND == KIND_IRATE) {
     const long long pi = clampll(b.hi - 2, 0, n - 1);
     o.last_ts[i] = has2 ? ts_s[li] : 0;
     o.prev_ts[i] = has2 ? ts_s[pi] : 0;
@@ -933,7 +1094,7 @@ __global__ void window_stats_kernel(Geometry g, const long long* ts_s,
   }
   const float fcnt = (float)b.cnt;
   o.count[i] = has ? fcnt : 0.0f;
-  if (kind == KIND_COUNTER_RC) {
+  if (KIND == KIND_COUNTER_RC) {
     int resets = 0, changes = 0;
     if (has) {
       float prev = val_s[b.lo];
@@ -954,7 +1115,7 @@ __global__ void window_stats_kernel(Geometry g, const long long* ts_s,
     for (long long j = b.lo; j < b.hi; ++j) {
       const double v = (double)val_s[j];
       sw += v;
-      if (kind == KIND_GAUGE) {
+      if (KIND == KIND_GAUGE) {
         s2 += v * v;
       } else {
         const double tsec = (double)(ts_s[j] - start_ms) / 1000.0;
@@ -964,7 +1125,7 @@ __global__ void window_stats_kernel(Geometry g, const long long* ts_s,
       }
     }
   }
-  if (kind == KIND_GAUGE) {
+  if (KIND == KIND_GAUGE) {
     const float s = (float)sw;
     const double c = (double)(b.cnt > 1 ? b.cnt : 1);
     const double mean = (double)s / c;
@@ -987,6 +1148,50 @@ __global__ void window_stats_kernel(Geometry g, const long long* ts_s,
   o.slope[i] = has2 ? (float)slope : NAN;
   o.intercept[i] = has2 ? (float)intercept : NAN;
   o.last_ts[i] = has ? ts_s[li] : 0;
+}
+
+// As counter_window_kernel.
+template <int KIND, int MINB>
+__global__ void __launch_bounds__(kThreads, MINB)
+    window_stats_kernel(Geometry g, const long long* ts_s,
+                        const float* val_s, StatsOut o) {
+  const long long total = g.S * g.T;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < total; i += (long long)gridDim.x * blockDim.x) {
+    window_stats_at<KIND>(g, ts_s, val_s, o, i);
+  }
+}
+
+// One launch of counter_window_kernel<MODE> (window_stats_kernel<KIND>)
+// in its shape's instantiation.
+template <int MODE>
+void launch_counter_window(const Geometry& g, const long long* ts_s,
+                           const float* val_s, int counter, int is_rate,
+                           double range_s, const WindowOut& o,
+                           cudaStream_t st) {
+  const unsigned blocks = blocks_for(g.S * g.T);
+  if (g.T >= kDenseSteps) {
+    counter_window_kernel<MODE, kCounterDenseMinb>
+        <<<blocks, kThreads, 0, st>>>(g, ts_s, val_s, counter, is_rate,
+                                      range_s, o);
+  } else {
+    counter_window_kernel<MODE, 1><<<blocks, kThreads, 0, st>>>(
+        g, ts_s, val_s, counter, is_rate, range_s, o);
+  }
+}
+
+template <int KIND>
+void launch_window_stats(const Geometry& g, const long long* ts_s,
+                         const float* val_s, const StatsOut& o,
+                         cudaStream_t st) {
+  const unsigned blocks = blocks_for(g.S * g.T);
+  if (g.T >= kDenseSteps) {
+    window_stats_kernel<KIND, kStatsDenseMinb[KIND]>
+        <<<blocks, kThreads, 0, st>>>(g, ts_s, val_s, o);
+  } else {
+    window_stats_kernel<KIND, 1><<<blocks, kThreads, 0, st>>>(g, ts_s,
+                                                              val_s, o);
+  }
 }
 
 __global__ void minmax_window_kernel(Geometry g, const float* val_s,
@@ -1467,6 +1672,17 @@ int gt_layout_gather(const int32_t* idx, const long long* ts,
   return last_error();
 }
 
+// off: [n_series + 2] int32 (the range geometry's table; n < 2^31).
+int gt_series_offsets(const long long* key_s, long long n,
+                      const long long* kp, long long n_series,
+                      int32_t* off, void* stream) {
+  if (n_series < 0 || n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  series_offsets_kernel<<<blocks_for(n_series + 2), kThreads, 0,
+                          (cudaStream_t)stream>>>(key_s, n, kp, n_series,
+                                                  off);
+  return last_error();
+}
+
 int gt_series_ranges(const long long* key_s, long long n,
                      const long long* kp, const int32_t* sel, long long S,
                      long long* start, int32_t* cnt, int* cnt_max,
@@ -1490,12 +1706,13 @@ int gt_gather_ts_mat(const long long* ts_s, const long long* start,
 }
 
 int gt_counter_window(const long long* key_s, const long long* ts_s,
-                      const float* val_s, const double* gdrop, long long n,
+                      const float* val_s, long long n,
                       const long long* ts_min, const long long* kp,
                       const int32_t* sel, long long S, long long T,
                       long long start_ms, long long step_ms,
                       long long range_ms, const long long* series_start,
-                      const long long* ts_mat, long long L, int mode,
+                      const long long* ts_mat, long long L,
+                      const int32_t* series_off, long long n_off, int mode,
                       int counter, int is_rate, double range_s, float* count,
                       long long* first_ts, long long* last_ts,
                       float* first_val, float* last_val, float* delta_adj,
@@ -1506,12 +1723,19 @@ int gt_counter_window(const long long* key_s, const long long* ts_s,
   WindowOut o{count, first_ts, last_ts, first_val, last_val,
               delta_adj, delta_raw, last, rate};
   Geometry g{key_s, n, ts_min, kp, sel, S, T, start_ms, step_ms, range_ms,
-             series_start, ts_mat, L};
-  counter_window_kernel<<<blocks_for(total), kThreads, 0,
-                          (cudaStream_t)stream>>>(
-      g, ts_s, val_s, gdrop, mode, counter, is_rate, range_s, o);
-  if (int e = last_error()) return e;
-  return 0;
+             series_start, ts_mat, L, series_off, n_off};
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (mode == MODE_INSTANT) {
+    launch_counter_window<MODE_INSTANT>(g, ts_s, val_s, counter, is_rate,
+                                        range_s, o, st);
+  } else if (mode == MODE_COUNTER) {
+    launch_counter_window<MODE_COUNTER>(g, ts_s, val_s, counter, is_rate,
+                                        range_s, o, st);
+  } else {
+    launch_counter_window<MODE_RATE>(g, ts_s, val_s, counter, is_rate,
+                                     range_s, o, st);
+  }
+  return last_error();
 }
 
 int gt_window_stats(const long long* key_s, const long long* ts_s,
@@ -1519,7 +1743,8 @@ int gt_window_stats(const long long* key_s, const long long* ts_s,
                     const long long* kp, const int32_t* sel, long long S,
                     long long T, long long start_ms, long long step_ms,
                     long long range_ms, const long long* series_start,
-                    const long long* ts_mat, long long L, int kind,
+                    const long long* ts_mat, long long L,
+                    const int32_t* series_off, long long n_off, int kind,
                     float* count, float* sum,
                     float* avg, float* var, float* last, float* first,
                     long long* first_ts, long long* last_ts, float* resets,
@@ -1529,11 +1754,19 @@ int gt_window_stats(const long long* key_s, const long long* ts_s,
   const long long total = S * T;
   if (total <= 0 || n <= 0) return (int)cudaGetLastError();
   Geometry g{key_s, n, ts_min, kp, sel, S, T, start_ms, step_ms, range_ms,
-             series_start, ts_mat, L};
+             series_start, ts_mat, L, series_off, n_off};
   StatsOut o{count, sum, avg, var, last, first, first_ts, last_ts, resets,
              changes, slope, intercept, prev_ts, last_val, prev_val};
-  window_stats_kernel<<<blocks_for(total), kThreads, 0,
-                        (cudaStream_t)stream>>>(g, ts_s, val_s, kind, o);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (kind == KIND_GAUGE) {
+    launch_window_stats<KIND_GAUGE>(g, ts_s, val_s, o, st);
+  } else if (kind == KIND_COUNTER_RC) {
+    launch_window_stats<KIND_COUNTER_RC>(g, ts_s, val_s, o, st);
+  } else if (kind == KIND_REGRESSION) {
+    launch_window_stats<KIND_REGRESSION>(g, ts_s, val_s, o, st);
+  } else {
+    launch_window_stats<KIND_IRATE>(g, ts_s, val_s, o, st);
+  }
   return last_error();
 }
 
@@ -1542,12 +1775,13 @@ int gt_minmax_window(const long long* key_s, const float* val_s, long long n,
                      const int32_t* sel, long long S, long long T,
                      long long start_ms, long long step_ms,
                      long long range_ms, const long long* series_start,
-                     const long long* ts_mat, long long L, float* out_min,
-                     float* out_max, void* stream) {
+                     const long long* ts_mat, long long L,
+                     const int32_t* series_off, long long n_off,
+                     float* out_min, float* out_max, void* stream) {
   const long long total = S * T;
   if (total <= 0 || n <= 0) return (int)cudaGetLastError();
   Geometry g{key_s, n, ts_min, kp, sel, S, T, start_ms, step_ms, range_ms,
-             series_start, ts_mat, L};
+             series_start, ts_mat, L, series_off, n_off};
   minmax_window_kernel<<<blocks_for(total), kThreads, 0,
                          (cudaStream_t)stream>>>(g, val_s, out_min, out_max);
   return last_error();
@@ -1557,12 +1791,14 @@ int gt_window_count_max(const long long* key_s, long long n,
                         const long long* ts_min, const long long* kp,
                         const int32_t* sel, long long S, long long T,
                         long long start_ms, long long step_ms,
-                        long long range_ms, int* out, void* stream) {
+                        long long range_ms, const int32_t* series_off,
+                        long long n_off, int* out, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (int e = (int)cudaMemsetAsync(out, 0, sizeof(int), st)) return e;
   const long long total = S * T;
   if (total <= 0 || n <= 0) return (int)cudaGetLastError();
-  Geometry g{key_s, n, ts_min, kp, sel, S, T, start_ms, step_ms, range_ms};
+  Geometry g{key_s, n, ts_min, kp, sel, S, T, start_ms, step_ms, range_ms,
+             nullptr, nullptr, 0, series_off, n_off};
   window_count_max_kernel<<<blocks_for(total), kThreads, 0, st>>>(g, out);
   return last_error();
 }
@@ -1572,12 +1808,14 @@ int gt_window_matrix(const long long* key_s, const float* val_s, long long n,
                      const long long* ts_min, const long long* kp,
                      const int32_t* sel, long long S, long long T,
                      long long start_ms, long long step_ms,
-                     long long range_ms, int lmax, int mode, int route,
+                     long long range_ms, const int32_t* series_off,
+                     long long n_off, int lmax, int mode, int route,
                      const float* a1, const float* a2, uint32_t* scratch,
                      int scratch_warps, float* out, void* stream) {
   const long long total = S * T;
   if (total <= 0 || n <= 0) return (int)cudaGetLastError();
-  Geometry g{key_s, n, ts_min, kp, sel, S, T, start_ms, step_ms, range_ms};
+  Geometry g{key_s, n, ts_min, kp, sel, S, T, start_ms, step_ms, range_ms,
+             nullptr, nullptr, 0, series_off, n_off};
   if (mode != MODE_HOLT && route == ROUTE_REGISTER) {
     return with_reg_width<MatrixReg>(lmax, g, val_s, mode, a1, out,
                                      (cudaStream_t)stream);

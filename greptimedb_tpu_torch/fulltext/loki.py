@@ -12,9 +12,10 @@ strategy is the scan pipeline's code-not-object discipline end to end:
 - metric range aggregations (``count_over_time``/``rate``/``bytes_*``)
   lower onto the PromQL ``window_stats`` kernel, kind ``gauge_window``:
   ``logs_layout`` builds the composite key in the resident table's own
-  (tsid, ts) order (the identity permutation, so no per-eval sort) and
-  ``line_vals`` the indicator (or byte-length) value vector, whose window
-  sum IS the count;
+  (tsid, ts) order (the identity permutation, so no per-eval sort),
+  ``series_offsets`` each stream's first row (the window kernels' range
+  geometry) and ``line_vals`` the indicator (or byte-length) value
+  vector, whose window sum IS the count;
 - log (stream) queries select rows with the fused ``row_match`` kernel;
   only ``| json`` / ``| logfmt`` / label filters drop to per-row host
   work, and only over rows that already passed the device mask.
@@ -209,14 +210,15 @@ class LokiEvaluator:
 
         with TRACER.stage("logql_window", fn=agg.fn):
             key, ts_min, kp = fk.logs_layout(ts, tsid, mask)
+            off = pk.series_offsets(key, kp, self.table.num_series)
             blen = (self._byte_lengths(npad)
                     if agg.fn in ("bytes_over_time", "bytes_rate") else None)
             vals, ind = fk.line_vals(codes, verified, mask, blen)
 
             def window_sums(v):
                 out = pk.window_stats(
-                    (key, ts, v, tsid, mask, ts_min, kp), sel_dev, start_u,
-                    step_ms=step_u, num_steps=T, range_ms=range_u,
+                    (key, ts, v, tsid, mask, ts_min, kp, off), sel_dev,
+                    start_u, step_ms=step_u, num_steps=T, range_ms=range_u,
                     kind="gauge_window")
                 # THE one [S, T] result readback per metric eval
                 return out["sum"][: len(sel_tsids)].cpu().numpy()

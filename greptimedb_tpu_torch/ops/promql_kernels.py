@@ -9,23 +9,37 @@ fallback).  Each wrapper counts its launches in ``<wrapper>.launches``,
 incremented only where it launches its kernel.
 
 - ``prefix_scan`` (the f64 scan with the counter-reset drop fused in)
-  replaces the cumulative sums of the JAX reference's window body
+  is the reference window body's cumulative sum of counter drops
   (``greptimedb_tpu/promql/engine.py:405-425``): one single-pass
-  look-back scan launch, bit-for-bit repeatable.
+  look-back scan launch, bit-for-bit repeatable.  ``counter_window``
+  sums its windows' drops itself, so the query path no longer runs it;
+  ``counter_window_plain`` states the reference's formula through its
+  plain version.
 - ``sort_layout`` replaces K8, ``_build_sort_layout`` (``engine.py:257``).
   Two routes: a table whose valid keys are already non-decreasing in row
   order (every resident DeviceTable) takes one stable-partition pass
   (``sort_layout.presorted``); any other input an LSD radix sort on
   8-bit digits, one pass a digit (``sort_layout.general``; its passes
   count there, not under ``radix_argsort``).
-- ``counter_window`` replaces K9's searchsorted geometry
-  (``engine.py:288``), K10's ``counter``/``instant`` kinds (``:383``) and,
-  in rate mode, the ``_extrapolated`` epilogue (``:1839``) of K11.
+- ``series_offsets`` and the range geometry replace K9's searchsorted
+  geometry (``engine.py:288``): once per sort layout, the first sorted
+  row of every tsid (``with_series_offsets`` appends the table to the
+  layout tuple), so that each window kernel searches only its series'
+  rows.  The five window kernels (``counter_window``, ``window_stats``,
+  ``minmax_window``, ``window_count_max``, ``window_matrix``) take it by
+  default and count it in ``<wrapper>.range``; ``geometry="search"``
+  forces the whole-layout searches (``.search``), which give the same
+  integer bounds (the card's tests and ``chip_smoke.py`` hold the two
+  bit for bit).
+- ``counter_window`` replaces K10's ``counter``/``instant`` kinds
+  (``:383``, with the f64 ``gdrop`` cumsum) and, in rate mode, the
+  ``_extrapolated`` epilogue (``:1839``) of K11: it sums each window's
+  counter drops itself, so no query runs ``prefix_scan``.
 - ``series_ranges`` and ``gather_ts_mat`` replace the rest of K9,
   ``_series_ranges`` (``:348``) and ``_gather_ts_mat`` (``:360``): the
   state of the count geometry (``:313-328``), which ``counter_window``,
   ``window_stats`` and ``minmax_window`` take through ``bounds`` in place
-  of their binary searches, with the same integer bounds.
+  of their binary searches, with the same integer bounds (``.count``).
 - ``window_stats`` replaces K10's other kinds (``gauge_window``,
   ``counter_rc``, ``regression``, ``irate``; ``engine.py:455-499``): it
   sums each window directly in f64 where the reference differences
@@ -97,6 +111,9 @@ REGISTER_WIDTH = 32
 SMEM_WIDTH = 1 << 14
 _SCRATCH_BYTES = 1 << 28
 _ROUTE_CODES = {"warp": 0, "register": 1}
+# the window kernels' geometries (window_bounds): "range" searches each
+# series' rows of the layout's offset table, "search" the whole layout
+GEOMETRIES = ("range", "search")
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -126,19 +143,20 @@ def _load():
             "gt_radix_pass": [vp, vp, ll, i, i, vp, vp, vp, vp, vp],
             "gt_layout_gather": [vp, vp, vp, vp, vp, ll, vp, vp, vp, vp, vp,
                                  vp, vp],
+            "gt_series_offsets": [vp, ll, vp, ll, vp, vp],
             "gt_series_ranges": [vp, ll, vp, vp, ll, vp, vp, vp, vp],
             "gt_gather_ts_mat": [vp, vp, vp, ll, ll, vp, vp],
-            "gt_counter_window": [vp, vp, vp, vp, ll, vp, vp, vp, ll, ll, ll,
-                                  ll, ll, vp, vp, ll, i, i, i, d]
+            "gt_counter_window": [vp, vp, vp, ll, vp, vp, vp, ll, ll, ll, ll,
+                                  ll, vp, vp, ll, vp, ll, i, i, i, d]
             + [vp] * 10,
             "gt_window_stats": [vp, vp, vp, ll, vp, vp, vp, ll, ll, ll, ll,
-                                ll, vp, vp, ll, i] + [vp] * 16,
+                                ll, vp, vp, ll, vp, ll, i] + [vp] * 16,
             "gt_minmax_window": [vp, vp, ll, vp, vp, vp, ll, ll, ll, ll, ll,
-                                 vp, vp, ll, vp, vp, vp],
+                                 vp, vp, ll, vp, ll, vp, vp, vp],
             "gt_window_count_max": [vp, ll, vp, vp, vp, ll, ll, ll, ll, ll,
-                                    vp, vp],
+                                    vp, ll, vp, vp],
             "gt_window_matrix": [vp, vp, ll, vp, vp, vp, ll, ll, ll, ll, ll,
-                                 i, i, i, vp, vp, vp, i, vp, vp],
+                                 vp, ll, i, i, i, vp, vp, vp, i, vp, vp],
             "gt_window_matrix_dense": [vp, ll, ll, ll, i, i, i, vp, vp, i,
                                        vp, vp],
             "gt_subquery_counter": [vp, ll, ll, ll, vp, vp, i, i, i, d]
@@ -345,6 +363,93 @@ sort_layout.general = 0
 
 
 # ---------------------------------------------------------------------------
+# series_offsets: the range geometry's table (K9)
+# ---------------------------------------------------------------------------
+
+def series_offsets_plain(key_s, kp, n_series: int) -> torch.Tensor:
+    """``torch.searchsorted(key_s, t * kp)`` for t in 0..``n_series``
+    (``t * kp`` saturated at I64_MAX, which finds the same row), then the
+    layout's length: ``[n_series + 2]`` int32."""
+    t = torch.arange(n_series + 1, dtype=torch.int64, device=key_s.device)
+    x = torch.where(t > I64_MAX // kp, I64_MAX, t * kp)
+    off = torch.searchsorted(key_s, x, side="left")
+    return torch.cat([off, off.new_full((1,), key_s.shape[0])]).to(
+        torch.int32)
+
+
+def series_offsets(key_s, kp, n_series: int) -> torch.Tensor:
+    """The range geometry's series offset table of a sort layout's
+    ``key_s`` and ``kp``: entry t (t <= ``n_series``) is the first sorted
+    row of tsid t, the last entry is ``len(key_s)``; int32, as a layout
+    holds fewer than 2^31 rows (4 B a series keeps the table beside the
+    layout in the default PromQL cache budget).  The window kernels'
+    bounds come out the same for any ``n_series`` (a tsid past it
+    searches the layout's tail); the resident table's series count makes
+    every selected series' range its own rows."""
+    key_s = _flat("series_offsets", key_s, torch.int64)
+    if n_series < 0:
+        raise ValueError(f"series_offsets: n_series {n_series} < 0")
+    if key_s.shape[0] >= 1 << 31:
+        raise ValueError(f"series_offsets: {key_s.shape[0]} rows exceed "
+                         f"int32 offsets")
+    if _on_cpu("series_offsets", key_s, kp):
+        return series_offsets_plain(key_s, kp, n_series)
+    if kp.dtype != torch.int64:
+        raise ValueError("series_offsets: kp must be int64")
+    off = torch.empty(n_series + 2, dtype=torch.int32, device=key_s.device)
+    rc = _load().gt_series_offsets(key_s.data_ptr(), key_s.shape[0],
+                                   kp.data_ptr(), n_series, off.data_ptr(),
+                                   _stream_ptr(key_s))
+    series_offsets.launches += 1
+    _check(rc, "series_offsets")
+    return off
+
+
+series_offsets.launches = 0
+
+
+def with_series_offsets(layout, n_series: int) -> tuple:
+    """``sort_layout``'s 7-tuple with its series offset table appended:
+    the layout the window kernels' range geometry takes."""
+    return (*layout[:7], series_offsets(layout[0], layout[6], n_series))
+
+
+def _geometry(what: str, layout, geometry: str, bounds=None) -> tuple:
+    """A window kernel's geometry: ``(name, offset table, its pointer,
+    entries)``.  ``name`` is ``"count"`` with ``bounds``, else
+    ``geometry``: ``"range"`` (the layout's offset table, which the card
+    needs) or ``"search"`` (the whole-layout searches).  The plain
+    versions take the layout as it is: their searchsorted bounds are the
+    integers of every geometry."""
+    if geometry not in GEOMETRIES:
+        raise ValueError(f"{what}: unknown geometry {geometry!r}")
+    if bounds is not None:
+        if geometry != "range":
+            raise ValueError(f"{what}: the count geometry's bounds with "
+                             f"geometry={geometry!r}")
+        return "count", None, None, 0
+    if geometry == "search":
+        return "search", None, None, 0
+    off = layout[7] if len(layout) > 7 else None
+    if off is None:
+        if layout[0].device.type == "cuda":
+            raise ValueError(f"{what}: the range geometry needs the "
+                             f"layout's series offset table "
+                             f"(with_series_offsets), or geometry='search'")
+        return "range", None, None, 0
+    off = _flat(what, off, torch.int32)
+    if off.shape[0] < 2:
+        raise ValueError(f"{what}: series offset table of {off.shape[0]} "
+                         f"entries")
+    return "range", off, off.data_ptr(), off.shape[0]
+
+
+def _count(wrapper, name: str) -> None:
+    """One launch more in ``wrapper.<name>`` (its geometry or route)."""
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
+
+
+# ---------------------------------------------------------------------------
 # series_ranges + gather_ts_mat: the count geometry's state (K9)
 # ---------------------------------------------------------------------------
 
@@ -449,9 +554,10 @@ def window_bounds_plain(key_s, ts_min, kp, sel, start_ms: int, step_ms: int,
     """Per (series, step) the half-open sorted-row range ``[lo, hi)`` of
     the left-exclusive window ``(t - range, t]``: the reference's
     searchsorted geometry (engine.py:330-345), or with ``bounds`` =
-    ``(series_start, cnt, ts_mat)`` its count geometry (:313-328), which
-    gives the same bounds on every selected series (pad rows differ; both
-    leave them empty).  Returns ``(lo, hi, cnt, has, sel_ok)``."""
+    ``(series_start, cnt, ts_mat)`` its count geometry (:313-328).  Both
+    give the same bounds on every selected series (the count geometry's
+    pad rows differ; both leave them empty), and so do the kernels' range
+    and search geometries.  Returns ``(lo, hi, cnt, has, sel_ok)``."""
     S = sel.shape[0]
     steps = start_ms + step_ms * torch.arange(num_steps, dtype=torch.int64,
                                               device=key_s.device)
@@ -482,15 +588,25 @@ def window_bounds_plain(key_s, ts_min, kp, sel, start_ms: int, step_ms: int,
     return lo, hi, cnt, has, sel_ok
 
 
-def counter_stats_plain(kind, key_s, ts_s, val_s, gdrop, ts_min, kp, sel,
-                       start_ms, step_ms, num_steps, range_ms,
-                       bounds=None) -> dict:
+def _layout_bounds(layout, sel, start_ms, step_ms, num_steps, range_ms,
+                   bounds=None):
+    """``window_bounds_plain`` of a layout tuple (with or without its
+    offset table: the same bounds)."""
+    return window_bounds_plain(layout[0], layout[5], layout[6], sel,
+                               start_ms, step_ms, num_steps, range_ms,
+                               bounds)
+
+
+def counter_stats_plain(kind, layout, sel, start_ms, step_ms, num_steps,
+                        range_ms, bounds=None) -> dict:
     """The reference's window body (engine.py:401-454) for the
-    ``instant`` and ``counter`` kinds: ``[S, T]`` outputs of KIND_KEYS."""
+    ``instant`` and ``counter`` kinds: ``[S, T]`` outputs of KIND_KEYS,
+    ``delta_adj`` from the layout's f64 counter-drop prefix sums
+    (``prefix_scan_plain``), as the reference computes it."""
+    key_s, ts_s, val_s, tsid_s, valid_s = layout[:5]
     n = key_s.shape[0]
-    lo, hi, cnt, has, sel_ok = window_bounds_plain(
-        key_s, ts_min, kp, sel, start_ms, step_ms, num_steps, range_ms,
-        bounds)
+    lo, hi, cnt, has, sel_ok = _layout_bounds(
+        layout, sel, start_ms, step_ms, num_steps, range_ms, bounds)
     has2 = (cnt >= 2) & sel_ok[:, None]
     first_i = torch.clamp(lo, 0, n - 1)
     last_i = torch.clamp(hi - 1, 0, n - 1)
@@ -500,6 +616,7 @@ def counter_stats_plain(kind, key_s, ts_s, val_s, gdrop, ts_min, kp, sel,
         out["last"] = torch.where(has, val_s[last_i], nan)
         out["last_ts"] = torch.where(has, ts_s[last_i], 0)
         return out
+    gdrop = prefix_scan_plain(val_s, tsid_s, valid_s)
     lv, fv = val_s[last_i], val_s[first_i]
     d_adj = ((lv.to(torch.float64) + gdrop[last_i])
              - (fv.to(torch.float64) + gdrop[first_i])).to(torch.float32)
@@ -549,14 +666,13 @@ def extrapolated(out: dict, range_s: float, range_end_ms,
     return torch.where(cnt >= 2, result.to(torch.float32), float("nan"))
 
 
-def counter_window_plain(layout, gdrop, sel, start_ms, *, step_ms,
-                         num_steps, range_ms, kind, func=None, range_s=None,
+def counter_window_plain(layout, sel, start_ms, *, step_ms, num_steps,
+                         range_ms, kind, func=None, range_s=None,
                          bounds=None):
-    key_s, ts_s, val_s, _tsid_s, _valid_s, ts_min, kp = layout
+    key_s = layout[0]
     stats_kind = "counter" if kind == "rate" else kind
-    out = counter_stats_plain(stats_kind, key_s, ts_s, val_s, gdrop, ts_min,
-                              kp, sel, start_ms, step_ms, num_steps, range_ms,
-                              bounds)
+    out = counter_stats_plain(stats_kind, layout, sel, start_ms, step_ms,
+                              num_steps, range_ms, bounds)
     if kind != "rate":
         return out
     range_end = start_ms + step_ms * torch.arange(
@@ -565,18 +681,21 @@ def counter_window_plain(layout, gdrop, sel, start_ms, *, step_ms,
                         is_rate=func == "rate")
 
 
-def counter_window(layout, gdrop, sel, start_ms: int, *, step_ms: int,
+def counter_window(layout, sel, start_ms: int, *, step_ms: int,
                    num_steps: int, range_ms: int, kind: str, func=None,
-                   range_s: float | None = None, bounds=None):
+                   range_s: float | None = None, bounds=None,
+                   geometry: str = "range"):
     """Window statistics of the selected series over a sort layout.
 
-    ``layout`` is ``sort_layout``'s tuple, ``sel`` ``[S]`` int32 selected
-    tsids (padding -1), ``gdrop`` the layout's ``prefix_scan`` (the
-    ``counter`` and ``rate`` kinds; None for ``instant``).  Windows are
-    ``(t - range_ms, t]`` at ``t = start_ms + step_ms * j``, their bounds
-    from the searchsorted geometry or, with ``bounds`` = ``(series_start,
-    cnt, ts_mat)`` (``series_ranges`` + ``gather_ts_mat``), the count
-    geometry.
+    ``layout`` is ``sort_layout``'s tuple, on the card with its series
+    offset table appended (``with_series_offsets``), ``sel`` ``[S]``
+    int32 selected tsids (padding -1).  Windows are ``(t - range_ms, t]``
+    at ``t = start_ms + step_ms * j``, their bounds from the range
+    geometry, or with ``bounds`` = ``(series_start, cnt, ts_mat)``
+    (``series_ranges`` + ``gather_ts_mat``) the count geometry;
+    ``geometry="search"`` forces the whole-layout searches.  The kernel
+    sums each window's counter drops itself (its ``delta_adj`` is the
+    reference's up to the f64 rounding of that sum).
     ``kind`` ``instant``/``counter`` returns the dict of ``KIND_KEYS`` ``[S,
     T]`` tensors; ``rate`` returns ``[S, T]`` f32 of ``func``
     (rate/increase/delta) over ``range_s`` seconds."""
@@ -586,27 +705,19 @@ def counter_window(layout, gdrop, sel, start_ms: int, *, step_ms: int,
                            or range_s is None):
         raise ValueError("counter_window: rate mode takes func "
                          "rate/increase/delta and range_s")
-    key_s, ts_s, val_s, _tsid_s, _valid_s, ts_min, kp = layout
-    n = key_s.shape[0]
-    key_s = _flat("counter_window", key_s, torch.int64)
-    ts_s = _flat("counter_window", ts_s, torch.int64, n)
-    val_s = _flat("counter_window", val_s, torch.float32, n)
-    sel = _flat("counter_window", sel, torch.int32)
+    key_s, ts_s, val_s, sel, ts_min, kp = _layout_inputs(
+        "counter_window", layout, sel)
     btensors, bstart, bmat, L = _bounds_args("counter_window", bounds,
                                              sel.shape[0])
-    tensors = [key_s, ts_s, val_s, sel, ts_min, kp, *btensors]
-    if kind != "instant":
-        gdrop = _flat("counter_window", gdrop, torch.float64, n)
-        tensors.append(gdrop)
-    if _on_cpu("counter_window", *tensors):
+    geo, off, off_ptr, n_off = _geometry(
+        "counter_window", layout, geometry, bounds)
+    if _on_cpu("counter_window", key_s, ts_s, val_s, sel, ts_min, kp, off,
+               *btensors):
         return counter_window_plain(
-            (key_s, ts_s, val_s, None, None, ts_min, kp), gdrop, sel,
-            start_ms, step_ms=step_ms, num_steps=num_steps,
-            range_ms=range_ms, kind=kind, func=func, range_s=range_s,
-            bounds=btensors or None)
-    S, T, dev = sel.shape[0], int(num_steps), key_s.device
-    if ts_min.dtype != torch.int64 or kp.dtype != torch.int64:
-        raise ValueError("counter_window: ts_min/kp must be int64")
+            layout, sel, start_ms, step_ms=step_ms,
+            num_steps=num_steps, range_ms=range_ms, kind=kind, func=func,
+            range_s=range_s, bounds=btensors or None)
+    S, T, n, dev = sel.shape[0], int(num_steps), key_s.shape[0], key_s.device
 
     def buf(dtype):
         return torch.empty((S, T), dtype=dtype, device=dev)
@@ -620,18 +731,23 @@ def counter_window(layout, gdrop, sel, start_ms: int, *, step_ms: int,
     order = ("count", "first_ts", "last_ts", "first_val", "last_val",
              "delta_adj", "delta_raw", "last", "rate")
     rc = _load().gt_counter_window(
-        key_s.data_ptr(), ts_s.data_ptr(), val_s.data_ptr(), _ptr(gdrop), n,
+        key_s.data_ptr(), ts_s.data_ptr(), val_s.data_ptr(), n,
         ts_min.data_ptr(), kp.data_ptr(), sel.data_ptr(), S, T,
         int(start_ms), int(step_ms), int(range_ms), bstart, bmat, L,
-        _MODES[kind], int(func != "delta"), int(func == "rate"),
+        off_ptr, n_off, _MODES[kind], int(func != "delta"),
+        int(func == "rate"),
         float(range_s) if range_s is not None else 0.0,
         *(_ptr(outs.get(k)) for k in order), _stream_ptr(key_s))
     counter_window.launches += 1
+    _count(counter_window, geo)
     _check(rc, "counter_window")
     return outs["rate"] if kind == "rate" else outs
 
 
 counter_window.launches = 0
+counter_window.range = 0
+counter_window.search = 0
+counter_window.count = 0
 
 
 # ---------------------------------------------------------------------------
@@ -641,7 +757,7 @@ counter_window.launches = 0
 def _layout_inputs(what, layout, sel):
     """Validated ``(key_s, ts_s, val_s, sel, ts_min, kp)`` of a sort
     layout and a padded selection."""
-    key_s, ts_s, val_s, _tsid_s, _valid_s, ts_min, kp = layout
+    key_s, ts_s, val_s, _tsid_s, _valid_s, ts_min, kp = layout[:7]
     n = key_s.shape[0]
     key_s = _flat(what, key_s, torch.int64)
     ts_s = _flat(what, ts_s, torch.int64, n)
@@ -706,11 +822,10 @@ def window_stats_plain(kind, layout, sel, start_ms, *, step_ms, num_steps,
     """The reference's window body (engine.py:401-499) for the
     ``gauge_window``, ``counter_rc``, ``regression`` and ``irate`` kinds,
     by its full-table f64 prefix-sum differences."""
-    key_s, ts_s, val_s, tsid_s, valid_s, ts_min, kp = layout
+    key_s, ts_s, val_s, tsid_s, valid_s = layout[:5]
     n = key_s.shape[0]
-    lo, hi, cnt, has, sel_ok = window_bounds_plain(
-        key_s, ts_min, kp, sel, start_ms, step_ms, num_steps, range_ms,
-        bounds)
+    lo, hi, cnt, has, sel_ok = _layout_bounds(
+        layout, sel, start_ms, step_ms, num_steps, range_ms, bounds)
     has2 = (cnt >= 2) & sel_ok[:, None]
     first_i = torch.clamp(lo, 0, n - 1)
     last_i = torch.clamp(hi - 1, 0, n - 1)
@@ -800,21 +915,23 @@ def var_slack(val_s, valid_s, cnt, sums) -> torch.Tensor:
 
 def window_stats(layout, sel, start_ms: int, *, step_ms: int,
                  num_steps: int, range_ms: int, kind: str,
-                 bounds=None) -> dict:
+                 bounds=None, geometry: str = "range") -> dict:
     """Window statistics of ``kind`` (``gauge_window``, ``counter_rc``,
     ``regression``, ``irate``) of the selected series over a sort layout:
     the dict of ``KIND_KEYS[kind]`` ``[S, T]`` tensors (``*_ts`` int64,
     the rest f32), for windows ``(t - range_ms, t]`` at
     ``t = start_ms + step_ms * j``.  ``regression`` measures time in
-    seconds from ``start_ms``.  ``bounds``: the count geometry's state, as
-    for ``counter_window``."""
+    seconds from ``start_ms``.  ``bounds`` and ``geometry``: as for
+    ``counter_window``."""
     if kind not in _STATS_KINDS:
         raise ValueError(f"window_stats: unknown kind {kind!r}")
     key_s, ts_s, val_s, sel, ts_min, kp = _layout_inputs(
         "window_stats", layout, sel)
     btensors, bstart, bmat, L = _bounds_args("window_stats", bounds,
                                              sel.shape[0])
-    if _on_cpu("window_stats", key_s, ts_s, val_s, sel, ts_min, kp,
+    geo, off, off_ptr, n_off = _geometry(
+        "window_stats", layout, geometry, bounds)
+    if _on_cpu("window_stats", key_s, ts_s, val_s, sel, ts_min, kp, off,
                *btensors):
         return window_stats_plain(kind, layout, sel, start_ms,
                                   step_ms=step_ms, num_steps=num_steps,
@@ -830,14 +947,18 @@ def window_stats(layout, sel, start_ms: int, *, step_ms: int,
         key_s.data_ptr(), ts_s.data_ptr(), val_s.data_ptr(), n,
         ts_min.data_ptr(), kp.data_ptr(), sel.data_ptr(), S, T,
         int(start_ms), int(step_ms), int(range_ms), bstart, bmat, L,
-        _STATS_KINDS[kind],
+        off_ptr, n_off, _STATS_KINDS[kind],
         *(_ptr(outs.get(k)) for k in order), _stream_ptr(key_s))
     window_stats.launches += 1
+    _count(window_stats, geo)
     _check(rc, "window_stats")
     return outs
 
 
 window_stats.launches = 0
+window_stats.range = 0
+window_stats.search = 0
+window_stats.count = 0
 
 
 # ---------------------------------------------------------------------------
@@ -850,11 +971,10 @@ def minmax_window_plain(layout, sel, start_ms, *, step_ms, num_steps,
     (the reference scatters each sample into every window it falls in;
     the same sets, so the same extremes).  A window without samples, or
     whose extreme is infinite, is NaN, as ``jnp.isfinite`` makes it."""
-    key_s, _ts_s, val_s, _tsid_s, _valid_s, ts_min, kp = layout
+    key_s, val_s = layout[0], layout[2]
     n = key_s.shape[0]
-    lo, _hi, cnt, has, _sel_ok = window_bounds_plain(
-        key_s, ts_min, kp, sel, start_ms, step_ms, num_steps, range_ms,
-        bounds)
+    lo, _hi, cnt, has, _sel_ok = _layout_bounds(
+        layout, sel, start_ms, step_ms, num_steps, range_ms, bounds)
     width = max(int(cnt.max()) if cnt.numel() else 0, 1)
     j = torch.arange(width, device=key_s.device)
     ok = (j < cnt[..., None]) & has[..., None]
@@ -868,19 +988,23 @@ def minmax_window_plain(layout, sel, start_ms, *, step_ms, num_steps,
 
 
 def minmax_window(layout, sel, start_ms: int, *, step_ms: int,
-                  num_steps: int, range_ms: int, bounds=None) -> dict:
+                  num_steps: int, range_ms: int, bounds=None,
+                  geometry: str = "range") -> dict:
     """``{"min", "max"}`` ``[S, T]`` f32 of each window ``(t - range_ms,
     t]`` of the selected series over a sort layout (NaN where a window is
-    empty or its extreme is infinite).  Exact.  ``bounds``: the count
-    geometry's state, as for ``counter_window``."""
+    empty or its extreme is infinite).  Exact.  ``bounds`` and
+    ``geometry``: as for ``counter_window``."""
     key_s, ts_s, val_s, sel, ts_min, kp = _layout_inputs(
         "minmax_window", layout, sel)
     btensors, bstart, bmat, L = _bounds_args("minmax_window", bounds,
                                              sel.shape[0])
-    if _on_cpu("minmax_window", key_s, val_s, sel, ts_min, kp, *btensors):
-        return minmax_window_plain(layout, sel, start_ms, step_ms=step_ms,
-                                   num_steps=num_steps, range_ms=range_ms,
-                                   bounds=btensors or None)
+    geo, off, off_ptr, n_off = _geometry(
+        "minmax_window", layout, geometry, bounds)
+    if _on_cpu("minmax_window", key_s, val_s, sel, ts_min, kp, off,
+               *btensors):
+        return minmax_window_plain(
+            layout, sel, start_ms, step_ms=step_ms,
+            num_steps=num_steps, range_ms=range_ms, bounds=btensors or None)
     S, T, dev = sel.shape[0], int(num_steps), key_s.device
     mn = torch.empty((S, T), dtype=torch.float32, device=dev)
     mx = torch.empty_like(mn)
@@ -888,13 +1012,17 @@ def minmax_window(layout, sel, start_ms: int, *, step_ms: int,
         key_s.data_ptr(), val_s.data_ptr(), key_s.shape[0],
         ts_min.data_ptr(), kp.data_ptr(), sel.data_ptr(), S, T,
         int(start_ms), int(step_ms), int(range_ms), bstart, bmat, L,
-        mn.data_ptr(), mx.data_ptr(), _stream_ptr(key_s))
+        off_ptr, n_off, mn.data_ptr(), mx.data_ptr(), _stream_ptr(key_s))
     minmax_window.launches += 1
+    _count(minmax_window, geo)
     _check(rc, "minmax_window")
     return {"min": mn, "max": mx}
 
 
 minmax_window.launches = 0
+minmax_window.range = 0
+minmax_window.search = 0
+minmax_window.count = 0
 
 
 # ---------------------------------------------------------------------------
@@ -903,20 +1031,23 @@ minmax_window.launches = 0
 
 def window_count_max_plain(layout, sel, start_ms, *, step_ms, num_steps,
                            range_ms) -> int:
-    key_s, _ts_s, _val_s, _tsid_s, _valid_s, ts_min, kp = layout
-    _lo, _hi, cnt, _has, sel_ok = window_bounds_plain(
-        key_s, ts_min, kp, sel, start_ms, step_ms, num_steps, range_ms)
+    _lo, _hi, cnt, _has, sel_ok = _layout_bounds(
+        layout, sel, start_ms, step_ms, num_steps, range_ms)
     c = torch.where(sel_ok[:, None], cnt, 0)
     return int(c.max()) if c.numel() else 0
 
 
 def window_count_max(layout, sel, start_ms: int, *, step_ms: int,
-                     num_steps: int, range_ms: int) -> int:
+                     num_steps: int, range_ms: int,
+                     geometry: str = "range") -> int:
     """The most samples in any window of a selected series (the reference's
-    ``_count_max_kernel``, which sizes the window matrix)."""
+    ``_count_max_kernel``, which sizes the window matrix).  ``geometry``:
+    as for ``counter_window``."""
     key_s, _ts_s, _val_s, sel, ts_min, kp = _layout_inputs(
         "window_count_max", layout, sel)
-    if _on_cpu("window_count_max", key_s, sel, ts_min, kp):
+    geo, off, off_ptr, n_off = _geometry(
+        "window_count_max", layout, geometry)
+    if _on_cpu("window_count_max", key_s, sel, ts_min, kp, off):
         return window_count_max_plain(layout, sel, start_ms,
                                       step_ms=step_ms, num_steps=num_steps,
                                       range_ms=range_ms)
@@ -924,13 +1055,17 @@ def window_count_max(layout, sel, start_ms: int, *, step_ms: int,
     rc = _load().gt_window_count_max(
         key_s.data_ptr(), key_s.shape[0], ts_min.data_ptr(), kp.data_ptr(),
         sel.data_ptr(), sel.shape[0], int(num_steps), int(start_ms),
-        int(step_ms), int(range_ms), out.data_ptr(), _stream_ptr(key_s))
+        int(step_ms), int(range_ms), off_ptr, n_off, out.data_ptr(),
+        _stream_ptr(key_s))
     window_count_max.launches += 1
+    _count(window_count_max, geo)
     _check(rc, "window_count_max")
     return int(out.item())
 
 
 window_count_max.launches = 0
+window_count_max.range = 0
+window_count_max.search = 0
 
 
 def _floor_index(rank: torch.Tensor, top: int) -> tuple:
@@ -960,11 +1095,11 @@ def window_matrix_plain(layout, sel, start_ms, *, step_ms, num_steps,
     """The reference's ``_matrix_kernel`` (engine.py:555-631): each
     window's samples gathered into ``[S*T, lmax]``, then per-row sorts
     (``quantile``, ``mad``) or the Holt scan (``holt``)."""
-    key_s, _ts_s, val_s, _tsid_s, _valid_s, ts_min, kp = layout
+    key_s, val_s = layout[0], layout[2]
     n = key_s.shape[0]
     S, T = sel.shape[0], int(num_steps)
-    lo, _hi, cnt, has, _sel_ok = window_bounds_plain(
-        key_s, ts_min, kp, sel, start_ms, step_ms, num_steps, range_ms)
+    lo, _hi, cnt, has, _sel_ok = _layout_bounds(
+        layout, sel, start_ms, step_ms, num_steps, range_ms)
     cntf = cnt.reshape(-1)
     j = torch.arange(lmax, device=key_s.device)
     rows = val_s[torch.clamp(lo.reshape(-1)[:, None] + j, 0, n - 1)]
@@ -1045,8 +1180,8 @@ def _scratch(width: int, tasks: int, dev) -> tuple:
 
 def window_matrix(layout, sel, start_ms: int, *, step_ms: int,
                   num_steps: int, range_ms: int, lmax: int, kind: str,
-                  a1=None, a2=None, allow_register: bool = True
-                  ) -> torch.Tensor:
+                  a1=None, a2=None, allow_register: bool = True,
+                  geometry: str = "range") -> torch.Tensor:
     """``[S, T]`` f32 of a function that needs each window's samples as a
     whole: ``quantile`` (φ per step in ``a1``), ``mad`` (median absolute
     deviation) or ``holt`` (double exponential smoothing with factors
@@ -1056,7 +1191,8 @@ def window_matrix(layout, sel, start_ms: int, *, step_ms: int,
     and mad sort by ``matrix_route(lmax)``; ``allow_register=False``
     forces the warp sort (the tests and ``chip_smoke.py`` hold the two
     routes equal bit for bit).  Holt runs a thread a window on any
-    route and counts in neither."""
+    route and counts in neither.  ``geometry``: as for
+    ``counter_window``."""
     if kind not in ("quantile", "mad", "holt"):
         raise ValueError(f"window_matrix: unknown kind {kind!r}")
     if lmax < 2 or lmax & (lmax - 1):
@@ -1067,10 +1203,13 @@ def window_matrix(layout, sel, start_ms: int, *, step_ms: int,
     T, dev = int(num_steps), key_s.device
     a1 = _params("window_matrix", a1, T, dev)
     a2 = _params("window_matrix", a2, T, dev)
-    if _on_cpu("window_matrix", key_s, val_s, sel, ts_min, kp, a1, a2):
-        return window_matrix_plain(layout, sel, start_ms, step_ms=step_ms,
-                                   num_steps=num_steps, range_ms=range_ms,
-                                   lmax=lmax, kind=kind, a1=a1, a2=a2)
+    geo, off, off_ptr, n_off = _geometry(
+        "window_matrix", layout, geometry)
+    if _on_cpu("window_matrix", key_s, val_s, sel, ts_min, kp, a1, a2, off):
+        return window_matrix_plain(
+            layout, sel, start_ms, step_ms=step_ms,
+            num_steps=num_steps, range_ms=range_ms, lmax=lmax, kind=kind,
+            a1=a1, a2=a2)
     S = sel.shape[0]
     out = torch.empty((S, T), dtype=torch.float32, device=dev)
     route = None if kind == "holt" else _sort_route(lmax, allow_register)
@@ -1079,11 +1218,12 @@ def window_matrix(layout, sel, start_ms: int, *, step_ms: int,
     rc = _load().gt_window_matrix(
         key_s.data_ptr(), val_s.data_ptr(), key_s.shape[0],
         ts_min.data_ptr(), kp.data_ptr(), sel.data_ptr(), S, T,
-        int(start_ms), int(step_ms), int(range_ms), int(lmax),
-        _MATRIX_MODES[kind], _ROUTE_CODES.get(route, 0), a1.data_ptr(),
-        a2.data_ptr(), _ptr(scratch), warps, out.data_ptr(),
+        int(start_ms), int(step_ms), int(range_ms), off_ptr, n_off,
+        int(lmax), _MATRIX_MODES[kind], _ROUTE_CODES.get(route, 0),
+        a1.data_ptr(), a2.data_ptr(), _ptr(scratch), warps, out.data_ptr(),
         _stream_ptr(key_s))
     window_matrix.launches += 1
+    _count(window_matrix, geo)
     if route == "register":
         window_matrix.register += 1
     elif route == "warp":
@@ -1095,6 +1235,8 @@ def window_matrix(layout, sel, start_ms: int, *, step_ms: int,
 window_matrix.launches = 0
 window_matrix.register = 0
 window_matrix.warp = 0
+window_matrix.range = 0
+window_matrix.search = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1259,8 +1401,17 @@ def subquery_counter(win: torch.Tensor, ts_tk: torch.Tensor,
 subquery_counter.launches = 0
 
 
+WINDOW_KERNELS = (counter_window, window_stats, minmax_window,
+                  window_count_max, window_matrix)
+
+
 def reset_launch_counts() -> None:
     prefix_scan.launches = 0
+    series_offsets.launches = 0
+    for wrapper in WINDOW_KERNELS:
+        wrapper.range = wrapper.search = 0
+        if hasattr(wrapper, "count"):
+            wrapper.count = 0
     series_ranges.launches = 0
     gather_ts_mat.launches = 0
     sort_layout.launches = 0

@@ -6,11 +6,13 @@ Pipeline per selector:
 1. host: match series against label matchers over the region's inverted
    index (dictionary codes, no string work per series);
 2. device: the resident table's composite (tsid, ts)-key sort
-   (``ops/promql_kernels.sort_layout``, cached per region generation and
-   field column), then per-(series, step) window statistics by binary
-   search over the sorted keys and a counter-reset-adjusted f64 prefix
-   scan (``prefix_scan``/``counter_window``; Prometheus extrapolation,
-   reference src/promql/src/functions/extrapolate_rate.rs:56);
+   (``ops/promql_kernels.sort_layout``) and its series offset table (the
+   first sorted row of every tsid, ``series_offsets``), cached together
+   per region generation and field column; then per-(series, step)
+   window statistics by binary search over each series' sorted keys,
+   with the counter-reset drops summed over each window's rows
+   (``counter_window``; Prometheus extrapolation, reference
+   src/promql/src/functions/extrapolate_rate.rs:56);
    The other window kinds go through ``window_stats`` (gauge_window,
    counter_rc, regression, irate), ``minmax_window`` and, for the
    functions that need a window's samples as a whole (quantile, mad,
@@ -409,8 +411,11 @@ class SelectorData:
 
     def sort_layout(self, fieldcol: str) -> tuple:
         """The resident composite-key sort of this table for ``fieldcol``
-        (``ops/promql_kernels.sort_layout``), served from PromLayoutCache
-        per (DeviceTable dicts_version, field column)."""
+        (``ops/promql_kernels.sort_layout``) with its series offset table
+        appended (``with_series_offsets``: the window kernels' range
+        geometry), served from PromLayoutCache per (DeviceTable
+        dicts_version, field column).  The table lives in the layout's
+        entry: built once with it, evicted with it."""
         cache = self.promql_cache()
         rid = self.region.region_id
         version = self.table.dicts_version
@@ -421,9 +426,14 @@ class SelectorData:
                 return payload
             self.events["sort_miss"] += 1
         cols = self.table.columns
-        arrays = pk.sort_layout(cols[self.ts_name], cols[fieldcol],
-                                cols[TSID], self.table.row_mask)
+        arrays = pk.with_series_offsets(
+            pk.sort_layout(cols[self.ts_name], cols[fieldcol], cols[TSID],
+                           self.table.row_mask), self.table.num_series)
         if cache is not None:
+            # 25 B a row plus 4 B a series: at 1 M series x 40 scrapes
+            # (41.9 M padded rows) 1.048 GB + 4 MB, inside the default
+            # 1 GiB (1.074 GB) GREPTIME_PROMQL_CACHE_BYTES with the
+            # query's selection and group layout beside it
             nbytes = sum(a.numel() * a.element_size() for a in arrays)
             if cache.admit(nbytes):
                 cache.store("sort", rid, (fieldcol,), version, arrays,
@@ -583,19 +593,15 @@ class PromEvaluator:
                 func=None, range_s=None, bounds=None):
         """The window statistics of ``p.kind`` over the padded selection:
         ``counter_window`` for counter/instant (rate mode when ``func`` is
-        given, after K10's counter-drop prefix scan), ``window_stats`` for
-        the gauge_window/counter_rc/regression/irate kinds,
-        ``minmax_window`` for minmax; each in the count geometry when
-        ``bounds`` is given."""
+        given; it sums each window's counter drops itself),
+        ``window_stats`` for the gauge_window/counter_rc/regression/irate
+        kinds, ``minmax_window`` for minmax; each in the count geometry
+        when ``bounds`` is given, else the range geometry."""
         geo = dict(step_ms=p.step_ms, num_steps=p.num_steps,
                    range_ms=p.range_ms, bounds=bounds)
         if p.kind in ("counter", "instant"):
-            gdrop = None
-            if p.kind == "counter":
-                _key, _ts, val_s, tsid_s, valid_s, _tmin, _kp = layout
-                gdrop = pk.prefix_scan(val_s, tsid_s, valid_s)
             return pk.counter_window(
-                layout, gdrop, sel_dev, start,
+                layout, sel_dev, start,
                 kind="rate" if func is not None else p.kind, func=func,
                 range_s=range_s, **geo)
         if p.kind == "minmax":

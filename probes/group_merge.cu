@@ -1,6 +1,6 @@
 // Layouts of the series->group merge (csrc/grid_kernels.cu's
 // group_merge_kernel, f32 sums), built and timed against each other by
-// probe_group_merge.py.  Every variant adds a group's series in ascending
+// probes/group_merge.py.  Every variant adds a group's series in ascending
 // series order into one f32 accumulator an output, so each equals the
 // port's group_merge bit for bit; only the launch shape and the loop
 // differ.

@@ -1,5 +1,5 @@
 """Times layouts of the series->group merge on the card: the variants of
-``probe_group_merge.cu`` (the parent's thread an output, the port's loop
+``probes/group_merge.cu`` (the parent's thread an output, the port's loop
 unrolled by 4 with 64-bit and with 32-bit indices and with a launch
 bound of 8 blocks a multiprocessor, 8 series loaded at once, a warp a
 group) and the port's own ``group_merge``, at the SQL grid
@@ -12,8 +12,8 @@ given, then again in reverse, and both times are kept.
 
 Prints one line, ``PROBE_MERGE {json}`` (ms a call).
 
-Run from the root of a checkout: ``python3 probe_group_merge.py``.  It
-builds ``probe_group_merge.cu`` with nvcc into ``build/probe/``."""
+Run from the root of a checkout: ``python3 probes/group_merge.py``.  It
+builds ``probes/group_merge.cu`` with nvcc into ``probes/build/``."""
 import ctypes
 import json
 import sys
@@ -57,8 +57,8 @@ def graph_ms(fn, reps=20):
 def main():
     dev = torch.device("cuda")
     lib_path = cuda_build.build_many([(
-        HERE / "probe_group_merge.cu",
-        HERE / "build" / "probe" / "libprobe_group_merge.so",
+        HERE / "group_merge.cu",
+        HERE / "build" / "libprobe_group_merge.so",
         cuda_build.BASE_FLAGS)])[0]
     lib = ctypes.CDLL(str(lib_path))
     vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int

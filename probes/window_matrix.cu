@@ -1,8 +1,9 @@
-// Staged variants of K14's register routes, for probe_window_matrix.py:
+// Staged variants of K14's register routes, for probes/window_matrix.py:
 // the port's own csrc/promql_kernels.cu is compiled into this file, so the
 // variants share its window geometry, sorting network and reducer, and
 // differ from window_matrix_reg_kernel / window_matrix_dense_reg_kernel
-// only in where a thread reads its window's keys from.
+// only in where a thread reads its window's keys from (both find their
+// bounds in the range geometry, from the layout's series offset table).
 //
 // matrix_staged: each warp copies the span of sorted rows its 32 windows
 //   cover (lowest first row to highest last row it reads) into shared
@@ -14,12 +15,12 @@
 //   contiguous floats) into shared memory with coalesced loads, then each
 //   thread reads its row at stride K (2-way bank conflicts at K = 6).
 //
-// Built by probe_window_matrix.py:
+// Built by probes/window_matrix.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
-//        -shared -Xcompiler -fPIC -o build/probe/libprobe_window_matrix.so
-//        probe_window_matrix.cu
+//        -shared -Xcompiler -fPIC -o probes/build/libprobe_window_matrix.so
+//        probes/window_matrix.cu
 
-#include "greptimedb_tpu_torch/csrc/promql_kernels.cu"
+#include "../greptimedb_tpu_torch/csrc/promql_kernels.cu"
 
 namespace {
 
@@ -123,10 +124,12 @@ int probe_matrix_staged(const long long* key_s, const float* val_s,
                         long long n, const long long* ts_min,
                         const long long* kp, const int32_t* sel, long long S,
                         long long T, long long start_ms, long long step_ms,
-                        long long range_ms, int lmax, int mode,
+                        long long range_ms, const int32_t* series_off,
+                        long long n_off, int lmax, int mode,
                         const float* a1, float* out, void* stream) {
   if (S * T <= 0 || n <= 0) return (int)cudaGetLastError();
-  Geometry g{key_s, n, ts_min, kp, sel, S, T, start_ms, step_ms, range_ms};
+  Geometry g{key_s, n, ts_min, kp, sel, S, T, start_ms, step_ms, range_ms,
+             nullptr, nullptr, 0, series_off, n_off};
   return with_reg_width<MatrixStaged>(lmax, g, val_s, mode, a1, out,
                                       (cudaStream_t)stream);
 }

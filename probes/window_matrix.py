@@ -1,5 +1,5 @@
 """Times K14's register routes against their staged variants on the card
-(``probe_window_matrix.cu``: the warp's span of the sort layout, or the
+(``probes/window_matrix.cu``: the warp's span of the sort layout, or the
 block's rows of the dense matrix, copied into shared memory first) at
 PromQL's main-path shapes, as ``time_scans.py matrix`` makes them:
 ``window_matrix`` quantile and mad over the ``[2^20, 20]`` 5 m windows of
@@ -11,10 +11,10 @@ staged, staged, port.
 
 Prints one line, ``PROBE_MATRIX {json}`` (ms a call).
 
-Run from the root of a checkout: ``python3 probe_window_matrix.py``.  It
-builds ``probe_window_matrix.cu`` (which compiles in
+Run from the root of a checkout: ``python3 probes/window_matrix.py``.  It
+builds ``probes/window_matrix.cu`` (which compiles in
 ``greptimedb_tpu_torch/csrc/promql_kernels.cu``) with nvcc into
-``build/probe/``."""
+``probes/build/``."""
 import ctypes
 import json
 import sys
@@ -32,17 +32,17 @@ HERE = Path(__file__).resolve().parent
 
 def main():
     lib_path = cuda_build.build_many([(
-        HERE / "probe_window_matrix.cu",
-        HERE / "build" / "probe" / "libprobe_window_matrix.so",
+        HERE / "window_matrix.cu",
+        HERE / "build" / "libprobe_window_matrix.so",
         pk.NVCC_FLAGS)], force=True)[0]
     lib = ctypes.CDLL(str(lib_path))
     vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.probe_matrix_staged.argtypes = [vp, vp, ll, vp, vp, vp, ll, ll, ll,
-                                        ll, ll, i32, i32, vp, vp, vp]
+                                        ll, ll, vp, ll, i32, i32, vp, vp, vp]
     lib.probe_dense_staged.argtypes = [vp, ll, ll, ll, i32, i32, vp, vp, vp]
     lib.probe_matrix_staged.restype = lib.probe_dense_staged.restype = i32
     layout, sel, start, geo, lmax, win, q = matrix_inputs()
-    key_s, _ts_s, val_s, _tsid, _valid, ts_min, kp = layout
+    key_s, _ts_s, val_s, _tsid, _valid, ts_min, kp, off = layout
     S, T = sel.shape[0], geo["num_steps"]
     res = {"lmax": lmax}
     for kind in ("quantile", "mad"):
@@ -55,7 +55,8 @@ def main():
             cuda_build.check(lib.probe_matrix_staged(
                 key_s.data_ptr(), val_s.data_ptr(), key_s.shape[0],
                 ts_min.data_ptr(), kp.data_ptr(), sel.data_ptr(), S, T,
-                start, geo["step_ms"], geo["range_ms"], lmax, mode,
+                start, geo["step_ms"], geo["range_ms"], off.data_ptr(),
+                off.shape[0], lmax, mode,
                 q.data_ptr(), out.data_ptr(), cuda_build.stream_ptr(q)),
                 "matrix_staged")
             return out

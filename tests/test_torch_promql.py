@@ -467,7 +467,11 @@ def test_cuda_path_matches_cpu(cuda_device, monkeypatch):
             rows_match(gpu.sql(q), cpu.sql(q))
         assert pk.sort_layout.launches == 1
         assert pk.sort_layout.presorted == 1  # the resident table's order
-        assert pk.counter_window.launches > 0 and pk.prefix_scan.launches > 0
+        # the window kernels search each series' rows (the layout's offset
+        # table) and sum their windows' counter drops: no prefix_scan
+        assert pk.counter_window.launches > 0 and pk.prefix_scan.launches == 0
+        assert pk.counter_window.search == 0
+        assert pk.series_offsets.launches == pk.sort_layout.launches
         monkeypatch.setenv("GREPTIME_PLAN_FUSION", "off")
         bare = [tql(f"{f}({M}[2m])", 0, 700_000, 30)
                 for f in ("rate", "increase", "delta")]

@@ -161,17 +161,16 @@ def test_window_kernels_plain_equal_in_both_geometries(kind):
     start, cnt, lmax = pk.series_ranges(port[0], port[6], sel)
     L = 1 << (max(lmax, 1) - 1).bit_length()
     bounds = (start, cnt, pk.gather_ts_mat(port[1], start, cnt, L))
-    gdrop = pk.prefix_scan(port[2], port[3], port[4])
     for off, step, steps, rng in GEOMETRY:
         geo = dict(step_ms=step, num_steps=steps, range_ms=rng)
 
         def run(b):
             if kind in ("instant", "counter"):
-                return pk.counter_window(port, gdrop, sel, T0 + off,
+                return pk.counter_window(port, sel, T0 + off,
                                          kind=kind, bounds=b, **geo)
             if kind == "rate":
                 return {"rate": pk.counter_window(
-                    port, gdrop, sel, T0 + off, kind="rate", func="rate",
+                    port, sel, T0 + off, kind="rate", func="rate",
                     range_s=rng / 1000, bounds=b, **geo)}
             if kind == "minmax":
                 return pk.minmax_window(port, sel, T0 + off, bounds=b,
@@ -404,7 +403,8 @@ def test_cuda_count_geometry_matches_plain(cuda_device):
         args = [torch.from_numpy(t[k]) for k in ("ts", "val", "tsid",
                                                   "mask")]
         want_l = pk.sort_layout_plain(*args)
-        got_l = pk.sort_layout(*(a.to(cuda_device) for a in args))
+        got_l = pk.with_series_offsets(
+            pk.sort_layout(*(a.to(cuda_device) for a in args)), t["series"])
         n_sel = t["series"] + 3
         sel = selection(0, np.arange(-1, n_sel - 1)[::-1], 512)
         sel_c = torch.from_numpy(sel).to(cuda_device)
@@ -420,25 +420,21 @@ def test_cuda_count_geometry_matches_plain(cuda_device):
             assert torch.equal(gm.cpu(), wm)
         wb = (ws, wc, pk.gather_ts_mat_plain(want_l[1], ws, wc, L))
         gb = (gs, gc, pk.gather_ts_mat(got_l[1], gs, gc, L))
-        gd_w = pk.prefix_scan_plain(*want_l[2:5])
-        gd_g = pk.prefix_scan(*got_l[2:5])
         for off, step, steps, rng in GEOMETRY:
             geo = dict(step_ms=step, num_steps=steps, range_ms=rng)
             for kind in ("instant", "counter"):
-                w = pk.counter_window_plain(want_l, gd_w,
-                                            torch.from_numpy(sel), T0 + off,
-                                            kind=kind, bounds=wb, **geo)
-                g = pk.counter_window(got_l, gd_g if kind == "counter"
-                                      else None, sel_c, T0 + off, kind=kind,
+                w = pk.counter_window_plain(want_l, torch.from_numpy(sel),
+                                            T0 + off, kind=kind, bounds=wb,
+                                            **geo)
+                g = pk.counter_window(got_l, sel_c, T0 + off, kind=kind,
                                       bounds=gb, **geo)
                 for k in pk.KIND_KEYS[kind]:
                     close(g[k].cpu().numpy(), w[k].numpy(),
                           exact=k != "delta_adj")
             kw = dict(kind="rate", func="rate", range_s=rng / 1000, **geo)
-            w = pk.counter_window_plain(want_l, gd_w, torch.from_numpy(sel),
+            w = pk.counter_window_plain(want_l, torch.from_numpy(sel),
                                         T0 + off, bounds=wb, **kw)
-            g = pk.counter_window(got_l, gd_g, sel_c, T0 + off, bounds=gb,
-                                  **kw)
+            g = pk.counter_window(got_l, sel_c, T0 + off, bounds=gb, **kw)
             close(g.cpu().numpy(), w.numpy())
             for kind in ("gauge_window", "counter_rc", "regression",
                          "irate"):

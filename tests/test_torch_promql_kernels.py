@@ -211,9 +211,7 @@ def test_window_stats_match_reference(kind, geo):
     ref, port = both_layouts(t)
     sel = selection(t["series"], [0, 1, 2, 30, 12, 7], 8)
     _p, want = _ref_window(kind, ref, sel, T0 + off, step, steps, rng)
-    gdrop = pk.prefix_scan(port[2], port[3], port[4]) \
-        if kind == "counter" else None
-    got = pk.counter_window(port, gdrop, torch.from_numpy(sel), T0 + off,
+    got = pk.counter_window(port, torch.from_numpy(sel), T0 + off,
                             step_ms=step, num_steps=steps, range_ms=rng,
                             kind=kind)
     assert set(got) == set(pk.KIND_KEYS[kind]) == set(
@@ -312,12 +310,11 @@ def test_fused_chain_matches_reference(func, op):
         torch.from_numpy(offsets.astype(np.int64)), ng)
     sel_t = torch.from_numpy(sel)
     if func is None:
-        v = pk.counter_window(port, None, sel_t, T0 + off, step_ms=step,
+        v = pk.counter_window(port, sel_t, T0 + off, step_ms=step,
                               num_steps=steps, range_ms=rng_ms,
                               kind="instant")["last"]
     else:
-        gdrop = pk.prefix_scan(port[2], port[3], port[4])
-        v = pk.counter_window(port, gdrop, sel_t, T0 + off, step_ms=step,
+        v = pk.counter_window(port, sel_t, T0 + off, step_ms=step,
                               num_steps=steps, range_ms=rng_ms, kind="rate",
                               func=func, range_s=range_s)
     got = group_reduce(v, layout, op)
@@ -337,11 +334,11 @@ def test_wrappers_validate_inputs():
     with pytest.raises(ValueError, match="prefix_scan"):
         pk.prefix_scan(val_s, tsid_s[1:], valid_s)
     with pytest.raises(ValueError, match="kind"):
-        pk.counter_window(layout, None, torch.zeros(2, dtype=torch.int32),
+        pk.counter_window(layout, torch.zeros(2, dtype=torch.int32),
                           T0, step_ms=1, num_steps=1, range_ms=1,
                           kind="irate")
     with pytest.raises(ValueError, match="rate mode"):
-        pk.counter_window(layout, None, torch.zeros(2, dtype=torch.int32),
+        pk.counter_window(layout, torch.zeros(2, dtype=torch.int32),
                           T0, step_ms=1, num_steps=1, range_ms=1,
                           kind="rate", func="irate", range_s=1.0)
 
@@ -376,13 +373,14 @@ def test_cuda_kernels_match_plain(cuda_device):
         close(gd.cpu().numpy(), gd_want.numpy(), rel=1e-9)
         sel = selection(0, np.arange(0, t["series"], 2), 256)
         sel_c = torch.from_numpy(sel).to(cuda_device)
+        got = pk.with_series_offsets(got, t["series"])
         for off, step, steps, rng in GEOMETRY:
             for kind in ("instant", "counter"):
                 w = pk.counter_window_plain(
-                    want, gd_want, torch.from_numpy(sel), T0 + off,
+                    want, torch.from_numpy(sel), T0 + off,
                     step_ms=step, num_steps=steps, range_ms=rng, kind=kind)
                 g = pk.counter_window(
-                    got, gd if kind == "counter" else None, sel_c, T0 + off,
+                    got, sel_c, T0 + off,
                     step_ms=step, num_steps=steps, range_ms=rng, kind=kind)
                 for k in pk.KIND_KEYS[kind]:
                     close(g[k].cpu().numpy(), w[k].numpy(),
@@ -390,10 +388,9 @@ def test_cuda_kernels_match_plain(cuda_device):
             for func in ("rate", "increase", "delta"):
                 kw = dict(step_ms=step, num_steps=steps, range_ms=rng,
                           kind="rate", func=func, range_s=rng / 1000)
-                w = pk.counter_window_plain(want, gd_want,
-                                            torch.from_numpy(sel), T0 + off,
-                                            **kw)
-                g = pk.counter_window(got, gd, sel_c, T0 + off, **kw)
+                w = pk.counter_window_plain(want, torch.from_numpy(sel),
+                                            T0 + off, **kw)
+                g = pk.counter_window(got, sel_c, T0 + off, **kw)
                 close(g.cpu().numpy(), w.numpy())
     torch.cuda.synchronize()
     # four prefix_scan calls (the general route's radix passes count under
@@ -402,6 +399,8 @@ def test_cuda_kernels_match_plain(cuda_device):
     assert pk.prefix_scan.launches == 4 and pk.sort_layout.launches == 4
     assert pk.sort_layout.general == 3 and pk.sort_layout.presorted == 1
     assert pk.counter_window.launches == 4 * len(GEOMETRY) * 5
+    assert pk.counter_window.range == pk.counter_window.launches
+    assert pk.series_offsets.launches == 4
 
 
 def _drop_layout(n, seed):

@@ -605,7 +605,8 @@ def test_cuda_window_stats_and_minmax_match_plain(cuda_device):
         args = [torch.from_numpy(t[k]) for k in ("ts", "val", "tsid",
                                                   "mask")]
         want_l = pk.sort_layout_plain(*args)
-        got_l = pk.sort_layout(*(a.to(cuda_device) for a in args))
+        got_l = pk.with_series_offsets(
+            pk.sort_layout(*(a.to(cuda_device) for a in args)), t["series"])
         sel = selection(0, np.arange(0, t["series"], 2), 256)
         sel_c = torch.from_numpy(sel).to(cuda_device)
         for off, step, steps, rng in GEOMETRY + FEW:
@@ -698,7 +699,8 @@ def test_cuda_window_matrix_matches_plain(cuda_device):
         args = [torch.from_numpy(t[k]) for k in ("ts", "val", "tsid",
                                                   "mask")]
         want_l = pk.sort_layout_plain(*args)
-        got_l = pk.sort_layout(*(a.to(cuda_device) for a in args))
+        got_l = pk.with_series_offsets(
+            pk.sort_layout(*(a.to(cuda_device) for a in args)), t["series"])
         nan_l = list(got_l)
         nan_l[2] = torch.where(torch.arange(got_l[2].shape[0],
                                             device=cuda_device) % 7 == 3,
@@ -777,7 +779,8 @@ def test_cuda_window_matrix_pad_windows_wider_than_lmax(cuda_device):
     cols = [torch.from_numpy(np.concatenate([t[k], extra[k]]))
             for k in ("ts", "val", "tsid", "mask")]
     want_l = pk.sort_layout_plain(*cols)
-    got_l = pk.sort_layout(*(c.to(cuda_device) for c in cols))
+    got_l = pk.with_series_offsets(
+        pk.sort_layout(*(c.to(cuda_device) for c in cols)), 8)
     sel = torch.from_numpy(selection(8, [3, 5], 64))
     kw = dict(step_ms=15_000, num_steps=8, range_ms=300_000)
     cm = pk.window_count_max_plain(want_l, sel, T0 + 300_000, **kw)
@@ -836,7 +839,8 @@ def test_cuda_wide_windows_match_plain(cuda_device):
     t = make_table(77, series=3, scrapes=WIDE, pad=8, nan_frac=0.01)
     args = [torch.from_numpy(t[k]) for k in ("ts", "val", "tsid", "mask")]
     want_l = pk.sort_layout_plain(*args)
-    got_l = pk.sort_layout(*(a.to(cuda_device) for a in args))
+    got_l = pk.with_series_offsets(
+        pk.sort_layout(*(a.to(cuda_device) for a in args)), 3)
     sel = torch.from_numpy(selection(3, [2, 0, 1], 4))
     kw = dict(step_ms=300_000, num_steps=3, range_ms=WIDE * 15_000)
     start = T0 + WIDE * 15_000 - 300_000

@@ -26,15 +26,35 @@ plain version first.
   ``segment_select``, the register network's other user, at
   ``chip_smoke.py`` phase 5's shapes: 2 ranks of 100,000 groups of 10 x
   20 steps (its register route) and the 5th largest of 1,000,000.
+- ``windows``: the PromQL window kernels on chip_smoke.py's PromQL table
+  (1,000,000 series x 40 scrapes at 15 s, seed 11, ingested through
+  ``prom_ingest`` with no flush): the warm instant ``sum by (pod)
+  (rate(m[5m]))``, the fused 20-step ``sum by (pod) (avg_over_time(m[5m]))``
+  and ``quantile_over_time(0.9, m[5m])`` through ``PromEvaluator``
+  (median of 10 warm runs, host clock after a synchronize), then on the
+  engine's own sort layout and a selection of every series padded to
+  2^20: ``counter_window`` (rate at [2^20, 20], rate and instant at
+  T = 1), ``window_stats`` (gauge_window, counter_rc, regression, irate),
+  ``minmax_window``, ``window_count_max`` and ``window_matrix`` quantile at
+  [2^20, 20], each by events and, but ``window_count_max`` (its result
+  is read on the host), as device time.  Where ``counter_window`` takes
+  a ``gdrop`` argument (a checkout before the range geometry) the layout's
+  ``prefix_scan`` is timed too and passed in; where the wrappers take
+  ``geometry`` the forced whole-layout search is timed beside the
+  default, held equal bit for bit, and so is ``series_offsets``.
 
 Prints one line, ``PROBE {json}``.
 
 Run from the root of a checkout, which it imports the port from:
-``python3 time_scans.py TAG [scan|grid|matrix|all]`` (default all).  To
-compare two commits on one card, run it from each checkout's root in one
-session: parent, change, change, parent."""
+``python3 time_scans.py TAG [scan|grid|matrix|windows|all]`` (default
+all; ``windows`` runs only when named).  To compare two commits on one
+card, run it from each checkout's root one after another: parent, change,
+change, parent."""
+import inspect
 import json
+import shutil
 import sys
+import tempfile
 import time
 
 import torch
@@ -224,9 +244,10 @@ def same_bits(a, b):
 
 def matrix_inputs():
     """PromQL's main-path inputs of K14's two sorting kernels: (the sort
-    layout of 2^20 series x 40 scrapes, the selection, the grid start,
-    the window geometry, lmax, the seeded [2^20, 20, 6] subquery matrix,
-    φ 0.9 a step)."""
+    layout of 2^20 series x 40 scrapes, with its series offset table
+    where the checkout has one, the selection, the grid start, the window
+    geometry, lmax, the seeded [2^20, 20, 6] subquery matrix, φ 0.9 a
+    step)."""
     g = torch.Generator(device=dev)
     g.manual_seed(14)
     series, scrapes, t0 = 1 << 20, 40, 1_700_000_000_000
@@ -237,6 +258,8 @@ def matrix_inputs():
     tsid = (i // scrapes).to(torch.int32)
     layout = pk.sort_layout(ts, val, tsid, torch.ones_like(tsid,
                                                            dtype=torch.bool))
+    if hasattr(pk, "with_series_offsets"):
+        layout = pk.with_series_offsets(layout, series)
     del i, ts, val, tsid
     sel = torch.arange(series, dtype=torch.int32, device=dev)
     geo = dict(step_ms=15_000, num_steps=20, range_ms=300_000)
@@ -293,6 +316,113 @@ def matrix():
         both(key, lambda args=args: sk.segment_select(*args))
 
 
+def windows():
+    import chip_smoke as cs
+    from greptimedb_tpu_torch.promql.engine import PromEvaluator
+    from greptimedb_tpu_torch.promql.engine import SelectorData
+    from greptimedb_tpu_torch.promql.parser import parse_promql
+    from greptimedb_tpu_torch.standalone import GreptimeDB
+    from greptimedb_tpu_torch.storage.region import RegionOptions
+
+    home = tempfile.mkdtemp(prefix="time_scans_windows_")
+    db = GreptimeDB(home, region_options=RegionOptions(
+        wal_enabled=False, flush_threshold_bytes=1 << 40))
+    db.sql("CREATE TABLE http_requests_total (pod STRING, container STRING, "
+           "ts TIMESTAMP(3) TIME INDEX, val DOUBLE, "
+           "PRIMARY KEY (pod, container))")
+    cs.prom_ingest(db, 40, 11, False)
+    t_end = cs.PROM_T0 + 39 * cs.SCRAPE_MS
+    start = t_end - 19 * cs.SCRAPE_MS
+    m = "http_requests_total"
+    queries = {
+        "q_instant_rate": (f"sum by (pod) (rate({m}[5m]))", t_end, t_end),
+        "q_fused_avg": (f"sum by (pod) (avg_over_time({m}[5m]))", start,
+                        t_end),
+        "q_quantile": (f"quantile_over_time(0.9, {m}[5m])", start, t_end),
+    }
+    for key, (expr, a, b) in queries.items():
+        e = parse_promql(expr)
+
+        def run(e=e, a=a, b=b):
+            res = PromEvaluator(db, a / 1000, b / 1000, 15.0).eval(e)
+            torch.cuda.synchronize()
+            return res
+
+        run()
+        walls = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            run()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        walls.sort()
+        res[key + "_ms"] = walls[len(walls) // 2]
+    layout = SelectorData(db, m).sort_layout("val")
+    s_pad = 1 << 20
+    sel = torch.full((s_pad,), -1, dtype=torch.int32, device=dev)
+    sel[:cs.PROM_SERIES] = torch.arange(cs.PROM_SERIES, dtype=torch.int32,
+                                        device=dev)
+    takes_gdrop = "gdrop" in inspect.signature(pk.counter_window).parameters
+    geometry = "geometry" in inspect.signature(pk.counter_window).parameters
+    res["layout_entries"] = len(layout)
+    if takes_gdrop:
+        gd = pk.prefix_scan(*layout[2:5])
+        both("prefix_scan", lambda: pk.prefix_scan(*layout[2:5]))
+    if hasattr(pk, "series_offsets"):
+        n_series = int(layout[7].shape[0]) - 2
+        assert torch.equal(pk.series_offsets(layout[0], layout[6], n_series),
+                           layout[7])
+        both("series_offsets",
+             lambda: pk.series_offsets(layout[0], layout[6], n_series))
+    geo20 = dict(step_ms=cs.SCRAPE_MS, num_steps=20, range_ms=cs.RANGE_MS)
+    geo1 = dict(step_ms=cs.SCRAPE_MS, num_steps=1, range_ms=cs.RANGE_MS)
+    rate = dict(kind="rate", func="rate", range_s=cs.RANGE_MS / 1000)
+
+    def cw(t0, kw, **extra):
+        if takes_gdrop:
+            g = gd if kw["kind"] != "instant" else None
+            return pk.counter_window(layout, g, sel, t0, **kw, **extra)
+        return pk.counter_window(layout, sel, t0, **kw, **extra)
+
+    def on_layout(wrapper):
+        return lambda t0, kw, **extra: wrapper(layout, sel, t0, **kw,
+                                               **extra)
+
+    kernels = {
+        "cw_rate20": (cw, start, dict(**rate, **geo20)),
+        "cw_rate1": (cw, t_end, dict(**rate, **geo1)),
+        "cw_instant1": (cw, t_end, dict(kind="instant", **geo1)),
+        "minmax": (on_layout(pk.minmax_window), start, geo20),
+    }
+    for kind in ("gauge_window", "counter_rc", "regression", "irate"):
+        kernels[f"ws_{kind}"] = (on_layout(pk.window_stats), start,
+                                 dict(kind=kind, **geo20))
+    cm = pk.window_count_max(layout, sel, start, **geo20)
+    lmax = max(2, 1 << (cm - 1).bit_length())
+    q = torch.full((20,), 0.9, device=dev)
+    kernels["wm_quantile"] = (on_layout(pk.window_matrix), start,
+                              dict(lmax=lmax, kind="quantile", a1=q,
+                                   **geo20))
+    for key, (fn, t0, kw) in kernels.items():
+        both(key, lambda fn=fn, t0=t0, kw=kw: fn(t0, kw))
+        if geometry:
+            a, b = fn(t0, kw), fn(t0, kw, geometry="search")
+            a = a if isinstance(a, dict) else {"v": a}
+            b = b if isinstance(b, dict) else {"v": b}
+            assert all(same_bits(a[k], b[k]) if a[k].dtype == torch.float32
+                       else torch.equal(a[k], b[k]) for k in a), key
+            both(key + "_search",
+                 lambda fn=fn, t0=t0, kw=kw: fn(t0, kw, geometry="search"))
+    res["wcm_ms"] = time_ms(lambda: pk.window_count_max(layout, sel, start,
+                                                        **geo20))
+    if geometry:
+        assert cm == pk.window_count_max(layout, sel, start,
+                                         geometry="search", **geo20)
+        res["wcm_search_ms"] = time_ms(lambda: pk.window_count_max(
+            layout, sel, start, geometry="search", **geo20))
+    db.close()
+    shutil.rmtree(home, ignore_errors=True)
+
+
 def scan():
     g = torch.Generator(device=dev)
     g.manual_seed(3)
@@ -344,6 +474,9 @@ def main():
     tag = sys.argv[1]
     what = sys.argv[2] if len(sys.argv) > 2 else "all"
     res["tree"] = tag
+    if what == "windows":
+        windows()
+        torch.cuda.empty_cache()
     if what in ("matrix", "all"):
         matrix()
         torch.cuda.empty_cache()
