@@ -61,8 +61,9 @@ Phases, each printing its own lines:
    that table: their real shapes and data; series_offsets against
    torch.searchsorted (exact); counter_window, window_stats,
    minmax_window, window_count_max and window_matrix quantile in the range
-   geometry and the forced whole-layout search, equal bit for bit, each
-   timed by events and (but window_count_max) as CUDA-graph device time;
+   geometry, each timed by events and (but window_count_max) as
+   CUDA-graph device time (the forced whole-layout search is timed beside
+   them by time_scans.py windows);
    series_ranges and gather_ts_mat at S = 2^20 against torch.searchsorted
    of the same bounds, and counter_window at T = 1 in the range, count
    and search geometries.  sort_layout's general route prints its 8-bit
@@ -163,7 +164,8 @@ Phases, each printing its own lines:
    valued vectors (SIFT's shape, components 0..127, from --seed), one
    row each; k-NN LIMIT 10 by vec_l2sq_distance, vec_cos_distance and
    vec_dot_product DESC, and a range count(*) WHERE vec_l2sq_distance <
-   r (about 1 % of rows), each cold once and warm once: L2^2 and dot
+   r (about 1 % of rows), each cold once (the first also warm once: every
+   run re-parses the vectors' text on the host): L2^2 and dot
    distances and the count exact against numpy, cosine within 1e-6 with
    the same ids where the 10th and 11th differ by more; vec_distance
    must have launched; then it is timed on the table's own [D, 128]
@@ -185,7 +187,29 @@ Phases, each printing its own lines:
    bytes, the collectives span, device busy, the row path's times on the
    same queries, and mesh_merge timed at (m)'s partials; the sharded
    table is dropped at the end, and phase 3's db closes after it.
-14. One JSON line with every kernel's numbers, then the last line
+14. Write then query, on the dbs that hold the data, once their other
+   phases are done (K23 extend_merge, K24 grid_scatter).  (i) Phase 3's
+   db, after phase 13: hour 24 of the walk (1.44 M rows) through
+   servers.ingest.ingest_columns, whose hot tail extends the resident
+   grid; query (a)'s shape over the last 12 h on the grid and with
+   GREPTIME_GRID=off over the DeviceTable (which extends, keeping its
+   sorted_tags), both against numpy; hour 25 likewise with the extend
+   thresholds at 0 and the grid entry evicted (both rebuild), the
+   first-query times printed side by side; a flush, after which get_grid
+   must catch up and keep the resident table; then both kernels on the
+   extend's own inputs against their plain versions (bit for bit), K23
+   beside the whole-table route (radix_argsort of the padded key + a
+   gather) and torch.sort.  (ii) Phase 4's db, after phase 5: one more
+   scrape; the instant query at the new end against numpy; the
+   DeviceTable must extend, every sort_layout launch stay presorted, the
+   old version's sort layout leave the PromQL cache under the default
+   budget and the new one be admitted, the warm query take its entries
+   from the cache.  (iii) Phase 9's db, after its kernel timings: one
+   more push of 20,000 lines; a LogQL filter and the SQL matches_term
+   count against numpy and GREPTIME_FULLTEXT=off; the DeviceTable must
+   extend within its fingerprint lineage and the fingerprints grow by the
+   vocabulary tail only.
+15. One JSON line with every kernel's numbers, then the last line
    {"ok": true, "device": {...}}.
 
 Each phase from 2 on starts by dropping what earlier phases left
@@ -195,7 +219,8 @@ still allocated.
 Cuts, printed when taken: --hours 12 (SQL path), --scrapes 20 (PromQL),
 --flow-series below 2^20 (flows), --log-lines below 1,000,000 (logs);
 always: 3 warm runs of phase 4's TQL range query instead of 10, and
-131,072 vectors instead of SIFT1M's 1,000,000 (phase 12).
+131,072 vectors instead of SIFT1M's 1,000,000 with one warm run of the
+first vector query only (phase 12).
 
 Exits non-zero, printing no result, when CUDA is absent, a kernel does
 not build, launch or agree with its plain version, or a query is wrong.
@@ -264,6 +289,8 @@ SOURCES = {
     "gather_ts_mat": "greptimedb_tpu_torch/csrc/promql_kernels.cu",
     "mesh_merge": "greptimedb_tpu_torch/csrc/mesh_kernels.cu",
     "series_offsets": "greptimedb_tpu_torch/csrc/promql_kernels.cu",
+    "extend_merge": "greptimedb_tpu_torch/csrc/storage_kernels.cu",
+    "grid_scatter": "greptimedb_tpu_torch/csrc/storage_kernels.cu",
 }
 REPLACES = {
     "bucket_reduce": "greptimedb_tpu/query/physical.py:1129",
@@ -299,6 +326,8 @@ REPLACES = {
     "gather_ts_mat": "greptimedb_tpu/promql/engine.py:360",
     "mesh_merge": "greptimedb_tpu/parallel/dist.py:297",
     "series_offsets": "greptimedb_tpu/promql/engine.py:288",
+    "extend_merge": "greptimedb_tpu/storage/cache.py:349",
+    "grid_scatter": "greptimedb_tpu/storage/grid.py:491",
 }
 PROM_T0 = 1700000000000   # bench_promql.py's epoch
 SCRAPE_MS = 15_000
@@ -794,7 +823,11 @@ def ingest(db, hours: int, has_arrow: bool):
     user_steps = []  # usage_user as stored (f32), for the sketch checks
     system_steps = []  # usage_system as stored, for the top-k checks
     t_write = 0.0
-    for hour in range(hours):
+
+    def next_hour(hour):
+        """One hour of the walk: (columns, the f64 values [steps, hosts,
+        metrics]); the walk's state moves on."""
+        nonlocal state
         ts = T0 + (hour * STEPS_PER_HOUR + np.repeat(
             np.arange(STEPS_PER_HOUR), SCALE)) * STEP_S * 1000
         if tags_as_objects:
@@ -808,6 +841,10 @@ def ingest(db, hours: int, has_arrow: bool):
         state = series[-1]
         for j, m in enumerate(METRICS):
             data[m] = series[:, :, j].reshape(-1)
+        return data, series
+
+    for hour in range(hours):
+        data, series = next_hour(hour)
         v32 = series.astype(np.float32)
         stats["sum"][hour] = v32.astype(np.float64).sum(0)
         stats["min_a"][hour] = v32[:k].min(0)
@@ -849,6 +886,7 @@ def ingest(db, hours: int, has_arrow: bool):
         f"({rows / t_write:,.0f} rows/s)")
     stats["user"] = np.concatenate(user_steps)  # [steps, SCALE] f32
     stats["system"] = np.concatenate(system_steps)
+    stats["next_hour"] = next_hour  # the same walk, hour by hour
     return stats
 
 
@@ -1398,7 +1436,8 @@ def prom_ingest(db, scrapes: int, seed: int, has_arrow: bool):
     """bench_promql.py's write path: one region.write per scrape over all
     series.  Returns the float32 values the device holds, [scrapes, S]
     (NaN = absent), in write-row order (row i = pod i // 10, container
-    i % 10)."""
+    i % 10), and ``next_scrape(k)``, which writes scrape k of the same
+    generator (unflushed) and returns its values [S]."""
     from greptimedb_tpu_torch.datatypes.batch import DictColumn
 
     try:
@@ -1419,20 +1458,26 @@ def prom_ingest(db, scrapes: int, seed: int, has_arrow: bool):
     rng = np.random.default_rng(seed)
     counters = rng.uniform(0, 1000, PROM_SERIES)
     held = np.empty((scrapes, PROM_SERIES), dtype=np.float32)
-    t_write = 0.0
-    for k in range(scrapes):
+
+    def next_scrape(k):
+        nonlocal counters
         counters = counters + rng.uniform(100, 200, PROM_SERIES)
         reset = rng.random(PROM_SERIES) < 0.01
         counters[reset] = rng.uniform(0, 10, int(reset.sum()))
         v = counters.copy()
         v[rng.random(PROM_SERIES) < 0.001] = np.nan
-        held[k] = v
         t0 = time.perf_counter()
         region.write({"pod": pod_col, "container": cont_col,
                       "ts": np.full(PROM_SERIES, PROM_T0 + k * SCRAPE_MS,
                                     dtype=np.int64),
                       "val": v})
-        t_write += time.perf_counter() - t0
+        next_scrape.write_s = time.perf_counter() - t0
+        return v.astype(np.float32)
+
+    t_write = 0.0
+    for k in range(scrapes):
+        held[k] = next_scrape(k)
+        t_write += next_scrape.write_s
     t0 = time.perf_counter()
     if has_arrow:
         region.flush()
@@ -1442,7 +1487,7 @@ def prom_ingest(db, scrapes: int, seed: int, has_arrow: bool):
         f"scrapes @ 15 s, seed {seed}) in {t_write:.3f} s of write "
         f"({rows / t_write:,.0f} rows/s), flush {t_flush:.3f} s; tags as "
         f"{'object arrays' if tags_as_objects else 'DictColumn (no pandas)'}")
-    return held
+    return held, next_scrape
 
 
 def np_series_rates(held: np.ndarray, t_end: int,
@@ -2030,9 +2075,9 @@ def _count_geometry_checks(db, held: np.ndarray, t_end: int, start: int,
 
 def phase_promql(gk, pk, sk, scrapes: int, seed: int, has_arrow: bool,
                  card: str):
-    """Returns (launches, db, home): the db stays open for phase 5, which
-    holds the kernels against their plain versions on its resident
-    table."""
+    """Returns (launches, db, home, the data's context): the db stays open
+    for phase 5, which holds the kernels against their plain versions on
+    its resident table, and for the write-then-query step after it."""
     from greptimedb_tpu_torch.standalone import GreptimeDB
     from greptimedb_tpu_torch.storage.region import RegionOptions
 
@@ -2042,9 +2087,9 @@ def phase_promql(gk, pk, sk, scrapes: int, seed: int, has_arrow: bool,
     db = GreptimeDB(home, region_options=RegionOptions(
         wal_enabled=False, flush_threshold_bytes=1 << 40))
     try:
-        return _promql_path(gk, pk, sk, db, scrapes, seed, has_arrow,
-                            card), \
-            db, home
+        launches, pctx = _promql_path(gk, pk, sk, db, scrapes, seed,
+                                      has_arrow, card)
+        return launches, db, home, pctx
     except BaseException:
         db.close()
         shutil.rmtree(home, ignore_errors=True)
@@ -2058,7 +2103,7 @@ def _promql_path(gk, pk, sk, db, scrapes, seed, has_arrow, card) -> dict:
     db.sql("CREATE TABLE http_requests_total (pod STRING, container STRING, "
            "ts TIMESTAMP(3) TIME INDEX, val DOUBLE, "
            "PRIMARY KEY (pod, container))")
-    held = prom_ingest(db, scrapes, seed, has_arrow)
+    held, next_scrape = prom_ingest(db, scrapes, seed, has_arrow)
     gk.reset_launch_counts()
     pk.reset_launch_counts()
     sk.reset_launch_counts()
@@ -2261,7 +2306,8 @@ def _promql_path(gk, pk, sk, db, scrapes, seed, has_arrow, card) -> dict:
                                  f"geometries on the PromQL path: {g}, "
                                  f"{launches[kname]} launches")
     launches["prefix_scan"] = pk.prefix_scan.launches
-    return launches
+    return launches, dict(held=held, next_scrape=next_scrape,
+                          scrapes=scrapes)
 
 
 # ---------------------------------------------------------------------------
@@ -2371,27 +2417,19 @@ def same_output(a, b) -> bool:
     return a == b
 
 
-def geometry_pair(name: str, variant: str, run, out, card: str,
-                  graph: bool = True) -> dict:
-    """``run(geometry)`` in the range geometry (the default, whose output
-    is ``out``) and the forced whole-layout search, held equal bit for
-    bit, each timed by CUDA events and, with ``graph``, as device time (a
-    kernel whose result the host reads cannot be captured).  Prints one
-    line; returns ``ms``, ``search_ms`` and, with ``graph``, ``graph_ms``,
-    ``search_graph_ms``."""
-    if not same_output(out, run("search")):
-        raise AssertionError(f"{name} {variant}: the range geometry differs "
-                             f"from the whole-layout search")
-    t = {"ms": time_ms(lambda: run("range")),
-         "search_ms": time_ms(lambda: run("search"))}
+def range_timing(name: str, variant: str, run, card: str,
+                 graph: bool = True) -> dict:
+    """``run(geometry)`` in the range geometry (the main path's), timed by
+    CUDA events and, with ``graph``, as device time (a kernel whose result
+    the host reads cannot be captured).  The forced whole-layout search is
+    timed beside it by ``time_scans.py windows`` and held equal to it bit
+    for bit by ``tests/test_torch_promql_ranges_cuda.py``.  Prints one
+    line; returns ``ms`` and, with ``graph``, ``graph_ms``."""
+    t = {"ms": time_ms(lambda: run("range"))}
     if graph:
         t["graph_ms"] = graph_ms(lambda: run("range"))
-        t["search_graph_ms"] = graph_ms(lambda: run("search"))
-    dev = (f"; device time {t['graph_ms']:.4f} / {t['search_graph_ms']:.4f}"
-           f" ms" if graph else "")
-    log(f"kernel {name}[{variant}]: range geometry {t['ms']:.4f} ms, "
-        f"whole-layout search {t['search_ms']:.4f} ms "
-        f"({t['search_ms'] / t['ms']:.2f}x){dev}, equal bit for bit — "
+    dev = f"; device time {t['graph_ms']:.4f} ms" if graph else ""
+    log(f"kernel {name}[{variant}]: range geometry {t['ms']:.4f} ms{dev} — "
         f"{card}")
     return t
 
@@ -2599,7 +2637,7 @@ def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
             err = max(max_err(out[k], ref[k], exact=k != "delta_adj")
                       for k in pk.KIND_KEYS[kind])
         del ref
-        geo_t = geometry_pair("counter_window", variant, run, out, card)
+        geo_t = range_timing("counter_window", variant, run, card)
         plain = time_ms(lambda: pk.counter_window_plain(want, sel, t0_ms,
                                                         **kw), reps=5)
         steps_t = t0_ms + SCRAPE_MS * torch.arange(steps, device=ts.device)
@@ -2644,17 +2682,14 @@ def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
             cells * (2 * n.bit_length() + (30 if kind == "rate" else 0)),
             F64_FLOPS)
         report("counter_window", f"{variant} S={s_pad:,} T={steps}, range "
-               f"geometry, {samples:,} window samples (search "
-               f"{geo_t['search_ms']:.4f} ms, device {geo_t['graph_ms']:.4f}"
-               f" / {geo_t['search_graph_ms']:.4f}; search route's bound "
+               f"geometry, {samples:,} window samples (device "
+               f"{geo_t['graph_ms']:.4f} ms; search route's bound "
                f"{old_bnd:.4f} ms; library: searchsorted geometry only)",
                geo_t["ms"], plain, bnd, by, lib, err)
         if kind == "rate":
             results["counter_window"] = dict(
                 ms=geo_t["ms"], graph_ms=geo_t["graph_ms"], plain_ms=plain,
                 bound_ms=bnd, bound_by=by, library_ms=lib, max_abs_err=err,
-                search_ms=geo_t["search_ms"],
-                search_graph_ms=geo_t["search_graph_ms"],
                 search_bound_ms=old_bnd)
         else:
             results["counter_window"]["max_abs_err"] = max(
@@ -2707,7 +2742,7 @@ def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
                           abs_tol=slack if k == "var" else 0.0)
                   for k in pk.KIND_KEYS[kind])
         del ref, slack
-        geo_t = geometry_pair("window_stats", kind, run, out, card)
+        geo_t = range_timing("window_stats", kind, run, card)
         plain = time_ms(lambda: pk.window_stats_plain(kind, want, sel, start,
                                                       **geo), reps=5)
         bnd, by = bound_ms(sel_b + union * row_b[kind] + cells * out_b[kind],
@@ -2717,17 +2752,14 @@ def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
             cells * 2 * n.bit_length() + samples * per_sample[kind],
             F64_FLOPS)
         report("window_stats", f"{kind} S={s_pad:,} T=20, range geometry, "
-               f"{samples:,} window samples (search "
-               f"{geo_t['search_ms']:.4f} ms, device {geo_t['graph_ms']:.4f}"
-               f" / {geo_t['search_graph_ms']:.4f}; search route's bound "
+               f"{samples:,} window samples (device "
+               f"{geo_t['graph_ms']:.4f} ms; search route's bound "
                f"{old_bnd:.4f} ms; library: one f64 torch.cumsum of val_s)",
                geo_t["ms"], plain, bnd, by, lib, err)
         if kind == "gauge_window":
             results["window_stats"] = dict(
                 ms=geo_t["ms"], graph_ms=geo_t["graph_ms"], plain_ms=plain,
                 bound_ms=bnd, bound_by=by, library_ms=lib, max_abs_err=err,
-                search_ms=geo_t["search_ms"],
-                search_graph_ms=geo_t["search_graph_ms"],
                 search_bound_ms=old_bnd)
         else:
             results["window_stats"]["max_abs_err"] = max(
@@ -2747,7 +2779,7 @@ def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
     ref = pk.minmax_window_plain(want, sel, start, **geo)
     err = max(max_err(out[k], ref[k], exact=True) for k in ("min", "max"))
     del ref
-    geo_t = geometry_pair("minmax_window", "min+max", run_minmax, out, card)
+    geo_t = range_timing("minmax_window", "min+max", run_minmax, card)
     plain = time_ms(lambda: pk.minmax_window_plain(want, sel, start, **geo),
                     reps=5)
     # library: one scatter_reduce of every window sample into its window
@@ -2770,14 +2802,12 @@ def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
     del win_id, win_val, lib_buf
     bnd, by = bound_ms(nbytes(sel) + union * 4 + cells * 8, samples * 2)
     report("minmax_window", f"min+max S={s_pad:,} T=20, range geometry "
-           f"(search {geo_t['search_ms']:.4f} ms; library: scatter_reduce "
-           f"amin of the gathered window samples)", geo_t["ms"], plain, bnd,
+           f"(library: scatter_reduce amin of the gathered window "
+           f"samples)", geo_t["ms"], plain, bnd,
            by, lib, err)
     results["minmax_window"] = dict(
         ms=geo_t["ms"], graph_ms=geo_t["graph_ms"], plain_ms=plain,
-        bound_ms=bnd, bound_by=by, library_ms=lib, max_abs_err=err,
-        search_ms=geo_t["search_ms"],
-        search_graph_ms=geo_t["search_graph_ms"])
+        bound_ms=bnd, bound_by=by, library_ms=lib, max_abs_err=err)
     del out
 
     # -- window_count_max + window_matrix (K14), both geometries --
@@ -2789,8 +2819,8 @@ def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
     if cm != cm_plain:
         raise AssertionError(f"window_count_max: {cm} vs {cm_plain}")
     # its result is read on the host: events only
-    geo_t = geometry_pair("window_count_max", f"-> {cm}", run_cm, cm, card,
-                          graph=False)
+    geo_t = range_timing("window_count_max", f"-> {cm}", run_cm, card,
+                         graph=False)
     plain = time_ms(lambda: pk.window_count_max_plain(want, sel, start,
                                                       **geo), reps=5)
     skey = sel.clamp(min=0).long()[:, None] * kp
@@ -2804,11 +2834,11 @@ def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
     bnd, by = bound_ms(nbytes(sel) + 4, cells * 2 * n.bit_length(),
                        F64_FLOPS)
     report("window_count_max", f"S={s_pad:,} T=20 -> {cm}, range geometry "
-           f"(search {geo_t['search_ms']:.4f} ms; library: searchsorted "
-           f"geometry)", geo_t["ms"], plain, bnd, by, lib, 0.0)
+           f"(library: searchsorted geometry)", geo_t["ms"], plain, bnd,
+           by, lib, 0.0)
     results["window_count_max"] = dict(
         ms=geo_t["ms"], plain_ms=plain, bound_ms=bnd, bound_by=by,
-        library_ms=lib, max_abs_err=0.0, search_ms=geo_t["search_ms"])
+        library_ms=lib, max_abs_err=0.0)
     lmax = max(2, 1 << (max(cm, 1) - 1).bit_length())
     lo, _hi, wcnt, _has, _ok = pk.window_bounds_plain(
         key_s, ts_min, kp, sel, start, SCRAPE_MS, 20, RANGE_MS)
@@ -2856,13 +2886,6 @@ def phase_promql_kernels(gk, pk, sk, db, card: str) -> dict:
             results["window_matrix"] = dict(
                 ms=ms, graph_ms=gms, plain_ms=plain, bound_ms=bnd,
                 bound_by=by, library_ms=lib, max_abs_err=err)
-            geo_t = geometry_pair(
-                "window_matrix", kind,
-                lambda geometry, kw=kw: pk.window_matrix(
-                    lay, sel, start, geometry=geometry, **kw), out, card)
-            results["window_matrix"].update(
-                search_ms=geo_t["search_ms"],
-                search_graph_ms=geo_t["search_graph_ms"])
         else:
             results["window_matrix"]["max_abs_err"] = max(
                 results["window_matrix"]["max_abs_err"], err)
@@ -3668,13 +3691,15 @@ LOG_SQL = {
 }
 
 
-def gen_log_lines(rng, n: int):
-    """bench_logs.py's gen_lines: (app, level, ts_ns, line)."""
+def gen_log_lines(rng, n: int, t0_ns: int = LOG_T0_NS,
+                  span_s: float = LOG_SPAN_S):
+    """bench_logs.py's gen_lines: (app, level, ts_ns, line), n lines
+    spread evenly over ``span_s`` seconds from ``t0_ns``."""
     out = []
     for i in range(n):
         app = rng.choice(LOG_APPS)
         level = rng.choice(LOG_LEVELS)
-        ts = LOG_T0_NS + int(i * (LOG_SPAN_S * 1e9) / n)
+        ts = t0_ns + int(i * (span_s * 1e9) / n)
         rid = rng.randrange(10**12)
         path = rng.choice(LOG_PATHS)
         if level == "error" and rng.random() < 0.6:
@@ -3793,8 +3818,9 @@ def log_counters() -> dict:
     }
 
 
-def phase_logs(lk, pk, lines: int, card: str):
-    """Returns (launches, the kernel numbers of the four log kernels)."""
+def phase_logs(lk, pk, stk, lines: int, card: str):
+    """Returns (launches, the kernel numbers of the four log kernels, the
+    launches of the write-then-query step (iii), run last)."""
     import random
 
     from greptimedb_tpu_torch.fulltext import loki
@@ -3914,7 +3940,9 @@ def phase_logs(lk, pk, lines: int, card: str):
             os.environ["GREPTIME_FULLTEXT"] = "on"
         log(f"logs: every answer equal under GREPTIME_FULLTEXT=off (host "
             f"twin ms {({k: round(v, 3) for k, v in off_ms.items()})})")
-        return launches, log_kernel_timing(lk, db, card)
+        timing = log_kernel_timing(lk, db, card)
+        return launches, timing, write_query_logs(stk, db, rows, params,
+                                                  card)
     finally:
         os.environ.pop("GREPTIME_FULLTEXT", None)
         db.close()
@@ -4861,27 +4889,34 @@ def phase_vectors(vk, vectors: int, seed: int, card: str):
                   f" '{q}') < {radius}", count_check),
         }
         vk.reset_launch_counts()
+        log("cut: one warm run of query m only (each run re-parses every "
+            "distinct vector's text on the host, 4-7 s; the time limit)")
         for name, (sql, check) in queries.items():
             before = vk.vec_distance.launches
+            runs = 2 if name == "m" else 1
+            db.stage_sink = {} if runs == 1 else None
             t0 = time.perf_counter()
             res = db.sql(sql)
             torch.cuda.synchronize()
             first_ms = (time.perf_counter() - t0) * 1e3
             detail = check(res)
-            db.stage_sink = {}
-            t0 = time.perf_counter()
-            db.sql(sql)
-            torch.cuda.synchronize()
-            warm_ms = (time.perf_counter() - t0) * 1e3
+            warm = ""
+            if runs == 2:
+                db.stage_sink = {}
+                t0 = time.perf_counter()
+                db.sql(sql)
+                torch.cuda.synchronize()
+                warm = (f", warm {(time.perf_counter() - t0) * 1e3:.3f} ms "
+                        f"(1 run)")
             stages = {k: v for k, v in db.stage_sink.items()
                       if k.endswith("_ms")}
             db.stage_sink = None
-            if vk.vec_distance.launches - before != 2:
+            if vk.vec_distance.launches - before != runs:
                 raise AssertionError(f"vector query {name}: "
                                      f"{vk.vec_distance.launches - before} "
-                                     f"vec_distance launches in 2 runs")
-            log(f"query {name} vectors: {detail}; first {first_ms:.3f} ms, "
-                f"warm {warm_ms:.3f} ms (1 run); stages {stages} — {card}")
+                                     f"vec_distance launches in {runs} runs")
+            log(f"query {name} vectors: {detail}; first {first_ms:.3f} ms"
+                f"{warm}; stages {stages} — {card}")
         launches = {"vec_distance": vk.vec_distance.launches}
         log(f"vector path: launches {launches}")
 
@@ -4937,6 +4972,477 @@ def phase_vectors(vk, vectors: int, seed: int, card: str):
         shutil.rmtree(home, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: write then query (K23 extend_merge, K24 grid_scatter), on the
+# dbs of phases 3, 4 and 9 once their other phases are done
+# ---------------------------------------------------------------------------
+
+def cache_event(kind: str, event: str) -> int:
+    """The region cache's event counter (``greptime_cache_events_total``)
+    for one kind of resident table."""
+    from greptimedb_tpu_torch.utils.telemetry import REGISTRY
+
+    return int(REGISTRY.value("greptime_cache_events_total",
+                              ("region_device", kind, event)))
+
+
+def log_memory(label: str) -> None:
+    torch.cuda.synchronize()
+    log(f"{label}: torch.cuda.memory_allocated() "
+        f"{torch.cuda.memory_allocated()} B")
+
+
+def timed_first(fn):
+    """(fn(), its ms on the host clock up to a synchronize)."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def tsbs_window_sql(first_hour: int) -> str:
+    """Query (a)'s shape over the 12 hours from ``first_hour``."""
+    avgs = ", ".join(f"avg({m})" for m in METRICS)
+    lo = T0 + first_hour * 3_600_000
+    return (f"SELECT hostname, date_trunc('hour', ts) AS hour, {avgs} FROM "
+            f"cpu WHERE ts >= {lo} AND ts < {lo + 12 * 3_600_000} GROUP BY "
+            f"hostname, hour")
+
+
+def write_query_tsbs(stk, db, ctx: dict, hours: int, has_arrow: bool,
+                     card: str):
+    """(i) on phase 3's db: hour ``hours`` of the walk (1.44 M rows)
+    through servers.ingest.ingest_columns, whose hot tail extends the
+    resident grid; query (a)'s shape over the last 12 h on the grid and
+    (d)'s (GREPTIME_GRID=off) over the DeviceTable, which extends; both
+    against numpy.  Then hour ``hours + 1`` with the extend thresholds at
+    0 (the DeviceTable rebuilds) and the grid entry evicted (it rebuilds:
+    the thresholds do not govern grid extends, as in the reference), the
+    first-query times side by side.  Then a flush, after which the grid
+    must catch up and stay the resident table.  Returns (launches, the
+    inputs of the extend's two kernels for timing)."""
+    from greptimedb_tpu_torch.servers.ingest import ingest_columns
+    from greptimedb_tpu_torch.utils.tracing import TRACER
+
+    region = db._region_of("cpu")
+    cache = db.cache
+    stats = ctx["stats"]
+    sums = stats["sum"]
+    table0, t_ms = timed_first(lambda: cache.get(region))
+    grid0 = cache.get_grid(region)
+    tags0 = table0.sorted_tags
+    log(f"write-then-query TSBS: resident DeviceTable {table0.padded_rows:,}"
+        f" padded rows (get {t_ms:.3f} ms), sorted_tags {tags0}; grid nt "
+        f"{grid0.nt:,}, tpad {grid0.tpad:,}")
+    stk.reset_launch_counts()
+    first = {}
+    captured = None
+    keep = cache.min_extend_rows, cache.rebuild_fraction
+    try:
+        for hour, route in ((hours, "extend"), (hours + 1, "rebuild")):
+            data, series = stats["next_hour"](hour)
+            sums = np.concatenate(
+                [sums, series.astype(np.float32).astype(np.float64).sum(
+                    0)[None]])
+            if route == "rebuild":
+                # the grid leaves before the write, so the write is a plain
+                # one (no hot tail into a grid that a rebuild then drops)
+                cache.min_extend_rows, cache.rebuild_fraction = 0, 0.0
+                cache._evict((region.region_id, "grid", region.base_version))
+            events0 = {k: cache_event(*k) for k in (
+                ("grid", "hot_tail"), ("grid", "extend"), ("grid", "miss"),
+                ("table", "extend"), ("table", "miss"))}
+            launches0 = (stk.extend_merge.launches,
+                         stk.grid_scatter.launches)
+            pos0 = region.append_pos
+            log_memory(f"write-then-query TSBS hour {hour} ({route}), "
+                       f"before the write")
+            TRACER.configure(enabled=True)
+            mark = TRACER.mark()
+            try:
+                _n, ingest_ms = timed_first(lambda: ingest_columns(
+                    db, "cpu", {**data, "__tags__": ["hostname"],
+                                "__fields__": list(METRICS)}))
+                tail_ms = sum((sp["end_ns"] - sp["start_ns"]) / 1e6
+                              for sp in TRACER.since(mark)
+                              if sp["name"] == "ingest_grid_tail")
+            finally:
+                TRACER.configure(enabled=False)
+            if route == "extend":
+                captured = (table0, grid0, region.append_chunks_since(pos0))
+            sql = tsbs_window_sql(hour - 11)
+
+            def want(host, h, sums=sums):
+                return [(sums[h, host, j] / STEPS_PER_HOUR, False)
+                        for j in range(len(METRICS))]
+
+            db.stage_sink = {}
+            res, grid_ms = timed_first(lambda: db.sql(sql))
+            grid_scan = db.stage_sink.get("scan_cache_ms")
+            worst = check_rows(f"(a) after hour {hour}", res.rows,
+                               SCALE * 12, want)
+            os.environ["GREPTIME_GRID"] = "off"
+            db.stage_sink = {}
+            try:
+                res_d, row_ms = timed_first(lambda: db.sql(sql))
+            finally:
+                os.environ.pop("GREPTIME_GRID", None)
+                row_scan = db.stage_sink.get("scan_cache_ms")
+                db.stage_sink = None
+            worst_d = check_rows(f"(d) after hour {hour}", res_d.rows,
+                                 SCALE * 12, want)
+            events = {k: cache_event(*k) - v for k, v in events0.items()}
+            launched = (stk.extend_merge.launches - launches0[0],
+                        stk.grid_scatter.launches - launches0[1])
+            table = cache.get(region)
+            first[route] = (ingest_ms, grid_ms, row_ms)
+            log(f"write-then-query TSBS hour {hour} ({route}): "
+                f"{len(data['ts']):,} rows through ingest_columns in "
+                f"{ingest_ms:.3f} ms (its ingest_grid_tail span {tail_ms:.3f}"
+                f" ms); first (a) on the grid {grid_ms:.3f} ms (scan_cache "
+                f"{grid_scan} ms), first (d) on the row path {row_ms:.3f} ms "
+                f"(scan_cache {row_scan} ms); rows equal to "
+                f"numpy (max |diff| {worst:.3g}, {worst_d:.3g}); cache events"
+                f" {events}; extend_merge / grid_scatter launches "
+                f"{launched}; DeviceTable {table.padded_rows:,} padded rows, "
+                f"sorted_tags {table.sorted_tags} — {card}")
+            if route == "extend":
+                # get_grid counts its extend before it tries one, and a
+                # failed extend falls back to a rebuild: so no grid miss
+                if events[("grid", "hot_tail")] + events[("grid",
+                                                          "extend")] < 1 \
+                        or events[("grid", "miss")]:
+                    raise AssertionError(f"the grid did not extend: {events}")
+                if events[("table", "extend")] != 1 or events[
+                        ("table", "miss")]:
+                    raise AssertionError(f"the DeviceTable did not extend: "
+                                         f"{events}")
+                if min(launched) < 1:
+                    raise AssertionError(f"extend_merge / grid_scatter did "
+                                         f"not launch: {launched}")
+                if table.sorted_tags != tags0:
+                    raise AssertionError(f"sorted_tags {table.sorted_tags} "
+                                         f"after the extend, {tags0} before")
+            elif events[("table", "miss")] != 1 or events[("grid",
+                                                           "miss")] != 1:
+                raise AssertionError(f"the forced rebuild did not rebuild: "
+                                     f"{events}")
+            log_memory(f"write-then-query TSBS hour {hour} ({route}), after "
+                       f"its queries")
+    finally:
+        cache.min_extend_rows, cache.rebuild_fraction = keep
+    (ing_e, grid_e, row_e), (ing_r, grid_r, row_r) = (first["extend"],
+                                                      first["rebuild"])
+    log(f"write-then-query TSBS, first query after a {len(data['ts']):,}-row"
+        f" write: grid "
+        f"{grid_e:.3f} ms extended (hot tail in the write: {ing_e:.3f} ms) "
+        f"vs {grid_r:.3f} ms rebuilt (write {ing_r:.3f} ms); row path "
+        f"{row_e:.3f} ms extended vs {row_r:.3f} ms rebuilt — {card}")
+    if has_arrow:
+        resident = cache.get_grid(region)
+        c0 = cache_event("grid", "catch_up")
+        _meta, flush_ms = timed_first(region.flush)
+        caught, get_ms = timed_first(lambda: cache.get_grid(region))
+        if cache_event("grid", "catch_up") != c0 + 1 or caught is not \
+                resident:
+            raise AssertionError("the grid did not catch up after the flush")
+        log(f"write-then-query TSBS: flush {flush_ms:.3f} ms, then get_grid "
+            f"caught up in {get_ms:.3f} ms and kept the resident table — "
+            f"{card}")
+    else:
+        log("write-then-query TSBS: no pyarrow, no flush: catch-up not run")
+    launches = {"extend_merge": stk.extend_merge.launches,
+                "grid_scatter": stk.grid_scatter.launches}
+    log(f"write-then-query TSBS: launches {launches}")
+    return launches, captured
+
+
+def extend_merge_timing(stk, sk, db, table0, chunks, card: str) -> dict:
+    """K23 on the extend's own inputs (the resident table before the
+    write, the write's chunks): equal to its plain version bit for bit;
+    timed beside the plain version, the whole-table route (radix_argsort
+    of the padded (pad flag, tsid, ts) key, then a gather of every
+    column) and one library sort (torch.sort of the same key + the
+    gathers), both of which must give the same table."""
+    from greptimedb_tpu_torch.datatypes.batch import pad_rows
+    from greptimedb_tpu_torch.storage import cache as pcache
+    from greptimedb_tpu_torch.storage.memtable import TSID
+
+    region = db._region_of("cpu")
+    ts_name = region.schema.time_index.name
+    _dicts, delta, pads, dn = pcache.device_delta(table0, region, chunks)
+    n_old = int(table0.row_mask.sum())
+    new_padded = max(pad_rows(n_old + dn), table0.padded_rows)
+    old = dict(table0.columns)
+    kw = dict(tsid=TSID, ts=ts_name)
+
+    def run():
+        return stk.extend_merge(old, n_old, delta, new_padded, pads,
+                                region.num_series, **kw)
+
+    got, got_mask = run()
+    want, want_mask = stk.extend_merge_plain(old, n_old, delta, new_padded,
+                                             pads, **kw)
+    if not same_output({**got, "mask": got_mask},
+                       {**want, "mask": want_mask}):
+        raise AssertionError("extend_merge differs from its plain version")
+    del want, want_mask
+    # the whole-table route and the library sort, on the grown table
+    grown, mask = stk.grown_table(old, n_old, delta, new_padded, pads)
+    ts = grown[ts_name]
+    lo = int(ts[:n_old + dn].min())
+    tb = (int(ts[:n_old + dn].max()) - lo).bit_length()
+    sb = max(region.num_series - 1, 0).bit_length()
+    key = (((~mask).to(torch.int64) << (tb + sb))
+           | (grown[TSID].to(torch.int64) << tb)
+           | torch.where(mask, ts - lo, 0))
+    del ts
+
+    def gather(order):
+        return ({k: torch.index_select(v, 0, order) for k, v in
+                 grown.items()}, torch.index_select(mask, 0, order))
+
+    def whole():
+        return gather(sk.radix_argsort(key).long())
+
+    def library():
+        return gather(torch.sort(key, stable=True).indices)
+
+    for name, fn in (("whole-table route", whole), ("library", library)):
+        cols, m = fn()
+        if not same_output({**got, "mask": got_mask}, {**cols, "mask": m}):
+            raise AssertionError(f"extend_merge: the {name} differs")
+        del cols, m
+    ms = time_ms(run, reps=10)
+    whole_ms = time_ms(whole, reps=5)
+    lib = time_ms(library, reps=5)
+    plain = time_ms(lambda: stk.extend_merge_plain(
+        old, n_old, delta, new_padded, pads, **kw), reps=3)
+    # the kernel reads the resident live rows of each column (not the pad
+    # rows, which it writes from constants, nor the old row mask)
+    moved = (n_old * sum(v.element_size() for v in old.values())
+             + nbytes(*delta.values()) + nbytes(*got.values(), got_mask))
+    bnd, by = bound_ms(moved, 0)
+    log(f"kernel extend_merge[{len(old)} columns, {n_old:,} resident rows of "
+        f"{table0.padded_rows:,} + a {dn:,}-row delta -> {new_padded:,} "
+        f"padded rows; whole-table route (radix_argsort of the padded key, "
+        f"{tb + sb + 1} bits, + index_select) {whole_ms:.4f} ms; library: "
+        f"torch.sort(stable) of the same key + index_select]: {ms:.4f} ms "
+        f"(plain {plain:.4f} ms, library {lib:.4f} ms, bound {bnd:.4f} ms "
+        f"by {by}), max_abs_err 0 — {card}")
+    return dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                library_ms=lib, max_abs_err=0.0, whole_ms=whole_ms)
+
+
+def grid_scatter_timing(stk, db, grid0, chunks, card: str) -> dict:
+    """K24 on the hot tail's own inputs (the resident grid before the
+    write, the write's cells), on copies of the grid: equal to its plain
+    version (index_put_) bit for bit, timed beside it and index_put_ on
+    each plane."""
+    from greptimedb_tpu_torch.storage import grid as pgrid
+
+    region = db._region_of("cpu")
+    tsid, tidx, cols, _nt = pgrid.append_cells(grid0, region, chunks)
+    dev = grid0.device
+    ti = torch.from_numpy(tsid).to(dev)
+    xi = torch.from_numpy(tidx).to(dev)
+    delta = torch.from_numpy(np.stack(cols)).to(dev)
+    flags = torch.ones(len(tsid), dtype=torch.bool, device=dev)
+    values, valid = grid0.values.clone(), grid0.valid.clone()
+    stk.grid_scatter(values, valid, ti, xi, delta, flags)
+    want_v, want_m = grid0.values.clone(), grid0.valid.clone()
+    stk.grid_scatter_plain(want_v, want_m, ti, xi, delta, flags)
+    if not (same_output(values, want_v) and torch.equal(valid, want_m)):
+        raise AssertionError("grid_scatter differs from its plain version")
+
+    def run():
+        stk.grid_scatter(values, valid, ti, xi, delta, flags)
+
+    def library():
+        for c in range(delta.shape[0]):
+            want_v[c].index_put_((ti, xi), delta[c])
+        want_m.index_put_((ti, xi), flags)
+
+    def library_single():
+        want_v[:, ti, xi] = delta
+        want_m[ti, xi] = flags
+
+    ms = time_ms(run)
+    gms = graph_ms(run)
+    plain = time_ms(lambda: stk.grid_scatter_plain(want_v, want_m, ti, xi,
+                                                   delta, flags))
+    lib = time_ms(library)
+    lib_single = time_ms(library_single)
+    c, n = delta.shape
+    bnd, by = bound_ms(nbytes(ti, xi, delta, flags) + n * (4 * c + 1), 0)
+    log(f"kernel grid_scatter[{n:,} cells x {c} planes into "
+        f"{list(grid0.values.shape)}; library: index_put_ on each plane]: "
+        f"{ms:.4f} ms, device {gms:.4f} ms (plain {plain:.4f} ms, library "
+        f"{lib:.4f} ms, one index_put_ over all planes + one on valid "
+        f"{lib_single:.4f} ms, bound {bnd:.4f} ms by {by}), max_abs_err 0 — "
+        f"{card}")
+    return dict(ms=ms, graph_ms=gms, plain_ms=plain, bound_ms=bnd,
+                bound_by=by, library_ms=lib, library_single_ms=lib_single,
+                max_abs_err=0.0)
+
+
+def write_query_promql(stk, pk, db, pctx: dict, card: str) -> dict:
+    """(ii) on phase 4's db: one more scrape (1,000,000 rows, the 41st at
+    the default 40) through region.write; the instant sum by (pod)
+    (rate(m[5m])) at the new end against numpy over every scrape.  Fails
+    unless the DeviceTable extended, every sort_layout launch took the
+    presorted route, the old table version's sort layout left the PromQL
+    cache and the new one was admitted under the default budget, and the
+    warm query takes its selection, sort and group layouts from the
+    cache."""
+    from greptimedb_tpu_torch.promql.engine import PromEvaluator
+    from greptimedb_tpu_torch.promql.parser import parse_promql
+
+    region = db._region_of("http_requests_total")
+    cache, pc = db.cache, db.promql_cache
+    held, next_scrape, k = (pctx["held"], pctx["next_scrape"],
+                            pctx["scrapes"])
+    table0 = cache.get(region)
+    sort0 = [key for key, e in pc._lru.items()
+             if key[1] == "sort" and e.version == table0.dicts_version]
+    log_memory("write-then-query PromQL, before the write")
+    stk.reset_launch_counts()
+    pk.reset_launch_counts()
+    ext0 = cache_event("table", "extend")
+    v = next_scrape(k)
+    held = np.vstack([held, v[None]])
+    t_end = PROM_T0 + k * SCRAPE_MS
+    expr = parse_promql(PROM_QUERY)
+
+    def instant():
+        ev = PromEvaluator(db, t_end / 1000, t_end / 1000, 1.0)
+        res = ev.eval(expr)
+        return ev, res, res.values.cpu().numpy()
+
+    (ev, res, vals), first_ms = timed_first(instant)
+    pods = np.array([int(res.labels[g]["pod"][4:])
+                     for g in range(res.num_series)])
+    got = np.full(PODS, np.nan)
+    got[pods] = vals[:, 0]
+    worst = check_pod_values("instant after the write", got,
+                             np_pod_rates(held, t_end))
+    cold_events = dict(ev.cache_events)
+    warm = []
+    for _ in range(5):
+        _out, ms = timed_first(instant)
+        warm.append(ms)
+    ev, _res, _vals = instant()
+    table = cache.get(region)
+    extended = cache_event("table", "extend") - ext0
+    routes = {"presorted": pk.sort_layout.presorted,
+              "general": pk.sort_layout.general}
+    sorts = {key: e.version for key, e in pc._lru.items()
+             if key[1] == "sort"}
+    log(f"write-then-query PromQL: scrape {k + 1} ({PROM_SERIES:,} rows) in "
+        f"{next_scrape.write_s * 1e3:.3f} ms of region.write; instant "
+        f"{PROM_QUERY} @ {t_end}: {PODS:,} groups correct (max |diff| "
+        f"{worst:.3g}); first {first_ms:.3f} ms (events {cold_events}), "
+        f"warm median {float(np.median(warm)):.3f} ms (5 runs); DeviceTable "
+        f"extends {extended}, {table.padded_rows:,} padded rows; "
+        f"sort_layout routes {routes}; PromQL cache {pc.stats()} at a "
+        f"budget of {pc.capacity:,} B — {card}")
+    if extended != 1 or table.dicts_root != table0.dicts_root:
+        raise AssertionError("the PromQL DeviceTable did not extend")
+    if routes["general"] or routes["presorted"] != pk.sort_layout.launches \
+            or pk.sort_layout.launches < 1:
+        raise AssertionError(f"sort_layout left the presorted route after "
+                             f"the extend: {routes}")
+    if table0.dicts_version in sorts.values() or table.dicts_version not \
+            in sorts.values():
+        raise AssertionError(f"the PromQL cache kept the old version's sort "
+                             f"layout or did not admit the new one: {sorts} "
+                             f"(before the write: {sort0})")
+    ce = ev.cache_events
+    cold = [kind for kind in ("selection", "sort", "group")
+            if ce[f"{kind}_hit"] < 1 or ce[f"{kind}_miss"]
+            or ce[f"{kind}_reject"]]
+    if cold:
+        raise AssertionError(f"warm instant query after the write: {cold} "
+                             f"not served from the PromQL cache; events "
+                             f"{dict(ce)}")
+    log_memory("write-then-query PromQL, after its queries")
+    launches = {"extend_merge": stk.extend_merge.launches}
+    if launches["extend_merge"] < 1:
+        raise AssertionError("extend_merge did not launch on the PromQL "
+                             "write")
+    return launches
+
+
+def write_query_logs(stk, db, rows, params: dict, card: str) -> dict:
+    """(iii) on phase 9's db: one more push of LOG_BATCH lines after the
+    corpus; the substr_common LogQL filter and the SQL matches_term count
+    again, against numpy over every line and GREPTIME_FULLTEXT=off.  Fails
+    unless the DeviceTable extended (its fingerprint lineage kept) and the
+    fingerprint matrix grew by the new vocabulary tail only."""
+    import random
+
+    from greptimedb_tpu_torch.fulltext import loki
+    from greptimedb_tpu_torch.servers.ingest import LOKI_TABLE, loki_push
+    from greptimedb_tpu_torch.utils.telemetry import REGISTRY
+
+    new = gen_log_lines(random.Random(13), LOG_BATCH,
+                        t0_ns=LOG_T0_NS + LOG_SPAN_S * 10**9,
+                        span_s=LOG_BATCH * LOG_SPAN_S / LOG_LINES)
+    view = db._table_view(LOKI_TABLE)
+    table0 = db.cache.peek_table(view)
+    vocab0 = len(table0.dicts["line"])
+    indexed0 = REGISTRY.value("greptime_fulltext_indexed_values_total")
+    ext0 = cache_event("table", "extend")
+    stk.reset_launch_counts()
+    log_memory("write-then-query logs, before the push")
+    (body,) = log_push_bodies(new)
+    n, push_ms = timed_first(lambda: loki_push(db, body, "application/json",
+                                               LOG_TENANT))
+    params = {**params, "end": str(int(params["end"]) + 100)}
+    runs = {"substr_common": lambda: loki.loki_query_range(
+                db, {"query": LOG_QUERIES["substr_common"][0], **params}),
+            "sql_matches_term": lambda: db.sql(
+                LOG_SQL["sql_matches_term"][0]).rows[0][0]}
+    corpus = np_log_corpus(rows + new)
+    times = {}
+    for name, run in runs.items():
+        got, times[name] = timed_first(run)
+        view_got = got if name in LOG_SQL else log_payload_view(name, got)
+        if view_got != np_log_expected(corpus, name):
+            raise AssertionError(f"logs {name} after the push differs from "
+                                 f"numpy")
+        os.environ["GREPTIME_FULLTEXT"] = "off"
+        try:
+            if run() != got:
+                raise AssertionError(f"logs {name} after the push: "
+                                     f"GREPTIME_FULLTEXT=off differs")
+        finally:
+            os.environ["GREPTIME_FULLTEXT"] = "on"
+    table = db.cache.peek_table(view)
+    tail = len(table.dicts["line"]) - vocab0
+    indexed = int(REGISTRY.value("greptime_fulltext_indexed_values_total")
+                  - indexed0)
+    extended = cache_event("table", "extend") - ext0
+    log(f"write-then-query logs: {n:,} lines pushed in {push_ms:.3f} ms "
+        f"(the prewarm extended the DeviceTable {extended} time(s) and "
+        f"fingerprinted {indexed:,} new dictionary entries of a tail of "
+        f"{tail:,}); first substr_common {times['substr_common']:.3f} ms, "
+        f"sql_matches_term {times['sql_matches_term']:.3f} ms, both equal to"
+        f" numpy and to GREPTIME_FULLTEXT=off — {card}")
+    if extended != 1 or table.dicts_root != table0.dicts_root:
+        raise AssertionError("the logs DeviceTable did not extend within its "
+                             "lineage")
+    if table.dicts["line"][:vocab0] != table0.dicts["line"] or \
+            indexed != tail or tail < 1:
+        raise AssertionError(f"the fingerprints did not grow by the tail: "
+                             f"{indexed} indexed, tail {tail}")
+    log_memory("write-then-query logs, after its queries")
+    launches = {"extend_merge": stk.extend_merge.launches}
+    if launches["extend_merge"] < 1:
+        raise AssertionError("extend_merge did not launch on the logs push")
+    return launches
+
+
 def phase_start(name: str) -> int:
     """Drop what earlier phases left (their dbs are closed and unbound),
     then print and return the device memory still allocated."""
@@ -4981,11 +5487,12 @@ def main() -> int:
     from greptimedb_tpu_torch.ops import promql_kernels as pk
     from greptimedb_tpu_torch.ops import segment_kernels as sk
     from greptimedb_tpu_torch.ops import sketch_kernels as shk
+    from greptimedb_tpu_torch.ops import storage_kernels as stk
     from greptimedb_tpu_torch.ops import topk_kernels as tk
     from greptimedb_tpu_torch.ops import vector_kernels as vk
 
     t_start = time.perf_counter()
-    card, has_arrow = phase_device(gk, pk, sk, shk, fk, lk, tk, vk, mk)
+    card, has_arrow = phase_device(gk, pk, sk, shk, fk, lk, tk, vk, mk, stk)
     phase_start("2")
     kernels = phase_kernels(gk, card)
     phase_start("3")
@@ -5014,16 +5521,29 @@ def main() -> int:
         mesh_launches, mesh_k = phase_mesh(mk, sk, shk, db, ctx, args.hours,
                                            card)
         kernels.update(mesh_k)
+        log(f"elapsed: {time.perf_counter() - t_start:.3f} s")
+        phase_start("14 (i)")
+        wtq_launches, (table0, grid0, chunks) = write_query_tsbs(
+            stk, db, ctx, args.hours, has_arrow, card)
+        kernels["extend_merge"] = extend_merge_timing(stk, sk, db, table0,
+                                                      chunks, card)
+        kernels["grid_scatter"] = grid_scatter_timing(stk, db, grid0, chunks,
+                                                      card)
+        del table0, grid0, chunks
     finally:
         db.close()
         shutil.rmtree(home, ignore_errors=True)
     del ctx, db
     log(f"elapsed: {time.perf_counter() - t_start:.3f} s")
     phase_start("4")
-    prom_launches, db, home = phase_promql(gk, pk, sk, args.scrapes,
-                                           args.seed, has_arrow, card)
+    prom_launches, db, home, pctx = phase_promql(gk, pk, sk, args.scrapes,
+                                                 args.seed, has_arrow, card)
     try:
         kernels.update(phase_promql_kernels(gk, pk, sk, db, card))
+        log(f"elapsed: {time.perf_counter() - t_start:.3f} s")
+        phase_start("14 (ii)")
+        wtq_prom = write_query_promql(stk, pk, db, pctx, card)
+        del pctx
     finally:
         db.close()
         shutil.rmtree(home, ignore_errors=True)
@@ -5034,8 +5554,12 @@ def main() -> int:
     kernels.update(flow_k)
     log(f"elapsed: {time.perf_counter() - t_start:.3f} s")
     phase_start("9")
-    log_launches, log_k = phase_logs(lk, pk, args.log_lines, card)
+    log_launches, log_k, wtq_logs = phase_logs(lk, pk, stk, args.log_lines,
+                                               card)
     kernels.update(log_k)
+    for path in (wtq_prom, wtq_logs):
+        for name, n in path.items():
+            wtq_launches[name] += n
     log(f"elapsed: {time.perf_counter() - t_start:.3f} s")
     phase_start("12")
     vec_launches, vec_k = phase_vectors(vk, args.vectors, args.seed, card)
@@ -5044,11 +5568,11 @@ def main() -> int:
         f"sketches {sketch_launches}, PromQL path {prom_launches}, flows "
         f"{flow_launches}, logs {log_launches}, serving {serve_launches}, "
         f"top-k {topk_launches}, vectors {vec_launches}, mesh "
-        f"{mesh_launches}")
+        f"{mesh_launches}, write then query {wtq_launches}")
     launches.update(row_launches)
     for path in (sketch_launches, prom_launches, flow_launches,
                  log_launches, serve_launches, topk_launches, vec_launches,
-                 mesh_launches):
+                 mesh_launches, wtq_launches):
         for name, n in path.items():
             launches[name] = launches.get(name, 0) + n
     kernels["group_merge"].update(kernels.pop("group_merge_prom", {}))
@@ -5064,7 +5588,7 @@ def main() -> int:
                  "line_vals", "row_match", "group_merge_stacked",
                  "series_mask", "topk_select", "vec_distance",
                  "series_ranges", "gather_ts_mat", "mesh_merge",
-                 "series_offsets"):
+                 "series_offsets", "extend_merge", "grid_scatter"):
         k = kernels[name]
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -5085,12 +5609,12 @@ def main() -> int:
                                          "two_merges_", "prom_", "mad_",
                                          "warp_", "holt_", "search_",
                                          "counter_", "instant_",
-                                         "regression_", "irate_"))
+                                         "regression_", "irate_", "whole_"))
                       or key in ("solo_pairs_ms", "host_parse_ms", "on_path",
                                  "graph_ms", "library_graph_ms",
-                                 "general_ms", "general_passes",
-                                 "general_pass_ms", "passes", "pass_ms",
-                                 "host_us")})
+                                 "library_single_ms", "general_ms",
+                                 "general_passes", "general_pass_ms",
+                                 "passes", "pass_ms", "host_us")})
         if name in SHAPES:
             entry["launches_by_shape"] = SHAPES[name]
         if name in ROUTES:

@@ -627,14 +627,14 @@ _PREWARM_LOCK = _threading.Lock()
 
 
 def prewarm_ingest(db, table: str = DEFAULT_TABLE) -> bool:
-    """Opportunistic ingest-side fingerprint refresh: when the table's
-    fingerprint matrix is already resident (someone queried), bring the
-    resident table current and fingerprint its dictionary NOW, so the next
-    query finds both current.  The port rebuilds its device tables in full
-    (a new lineage each time), so this refingerprints the whole
-    dictionary where the reference extends by the vocabulary tail.
-    Non-blocking (contending ingest workers skip — the query path stays
-    responsible) and inert until first query / with fulltext off."""
+    """Opportunistic ingest-side fingerprint extension: when the table's
+    fingerprint matrix is already resident (someone queried), extend the
+    resident DeviceTable by the pushed rows (``RegionCacheManager.get``:
+    an append keeps the table's ``dicts_root``) and fingerprint only the
+    new dictionary entries — the vocabulary tail — NOW, so the next query
+    finds both current.  Non-blocking (contending ingest workers skip —
+    the query path stays responsible) and inert until first query / with
+    fulltext off."""
     if not fpm.enabled():
         return False
     ex = getattr(getattr(db, "engine", None), "executor", None)

@@ -8,8 +8,9 @@ kinds live in one byte-bounded LRU:
   the db's device, one row per DISTINCT value of the column's resident
   dictionary.  Built vectorized from the dictionary and EXTENDED by
   vocabulary tail while the lineage key ``DeviceTable.dicts_root`` stays
-  the same (dictionaries only append within a lineage; the port rebuilds
-  its device tables in full, so every build starts a lineage);
+  the same (dictionaries only append within a lineage: an append extends
+  the resident DeviceTable and keeps its root, a rebuild starts a new
+  lineage);
 - ``verify`` — the verified-vocabulary memo of one compiled predicate:
   a bool per dictionary entry, exact (prefilter + host verification of
   candidates).  Warm repeats of the same LIKE/MATCHES/LogQL filter cost

@@ -116,6 +116,12 @@ def ingest_columns(db, table: str, cols: dict,
         raise Unsupported("partitioned tables not ported yet")
     with db._lock:
         regions[0].write(cols)
+        # hot-tail grid catch-up: freshly acked rows scatter into the
+        # resident grid now (when one is resident and the delta is worth
+        # a launch), so the next query sees them without a rebuild.  Under
+        # the statement lock, so no writer adds series while the grid's
+        # tag codes are read
+        db.cache.extend_hot_tail(regions[0])
         if db.flow_engine.flows:
             db.flow_engine.on_write(
                 name, cols["ts"], data=cols,

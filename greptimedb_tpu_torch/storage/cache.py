@@ -2,14 +2,19 @@
 reference's ``storage/cache.py``.
 
 A region's dense grid (storage/grid.py) and its canonical row table
-(``DeviceTable``, the PromQL path's input) are built once and reused
-across queries; the derived bucket-major layouts of the aligned-window
-path live in ``DerivedLayoutCache`` and the PromQL evaluation state
+(``DeviceTable``, the row path's and PromQL's input) are built once and
+reused across queries; the derived bucket-major layouts of the aligned-
+window path live in ``DerivedLayoutCache`` and the PromQL evaluation state
 (selections, sort layouts, group ids) in ``PromLayoutCache``.
-Invalidation is by region version: the port rebuilds a grid whenever the
-region's base version or append position moved and a device table
-whenever its generation moved (the reference extends both in place — not
-ported yet; same results, higher cost).
+
+Incremental protocol: regions key their resident tables by
+``base_version``, which moves only on structure changes (upsert, delete,
+flush, compaction, truncate); pure time-forward appends go to the
+region's append log, and the cache EXTENDS the resident tensors on the
+device from the log's new chunks instead of rebuilding them — the
+DeviceTable by ``extend_merge`` (K23), the grid by ``grid_scatter`` (K24),
+a flushed region's grid by catching up from the new SSTs, and ingest by
+scattering large deltas into the grid's hot tail right after the write.
 
 Capacity: simple LRU by bytes; eviction drops device references and lets
 the torch caching allocator reuse the memory.
@@ -27,7 +32,9 @@ import torch
 
 from greptimedb_tpu_torch.datatypes.batch import pad_rows
 from greptimedb_tpu_torch.datatypes.schema import Schema
-from greptimedb_tpu_torch.storage.memtable import SEQ, TAGCODE_PREFIX, TSID
+from greptimedb_tpu_torch.storage.memtable import (
+    SEQ, TAGCODE_PREFIX, TSID, tagcode_col,
+)
 from greptimedb_tpu_torch.utils.telemetry import REGISTRY
 
 # Registry mirrors of the per-instance cache counters (reference: the
@@ -120,10 +127,10 @@ class DeviceTable:
     # exactly where the series does: the sorted segment path's eligibility
     sorted_tags: tuple = ()
     # lineage root: the dicts_version of the FULL build this table
-    # descends from.  Dictionaries only append within a lineage, so
-    # incrementally extendable derived state (the fulltext fingerprint
-    # matrix) keys on it.  Every build here is a full build, so the root
-    # is the build's own dicts_version; 0 means "no lineage" (no fulltext
+    # descends from.  Extends bump dicts_version but keep the root
+    # (dictionaries only append within a lineage), so incrementally
+    # extendable derived state — the fulltext fingerprint matrix — keys on
+    # it and extends by vocabulary tail; 0 means "no lineage" (no fulltext
     # acceleration)
     dicts_root: int = 0
 
@@ -246,23 +253,133 @@ def detect_sorted_tags(schema: Schema, host_canon: dict, n: int) -> tuple:
     return tuple(out)
 
 
+def _canonical_delta(
+    region, chunks: list[dict], dicts: dict[str, list]
+) -> tuple[dict[str, np.ndarray], int]:
+    """Canonicalize append-log chunks by the full build's rules (the shared
+    ``_canonical_column``), unpadded.  String tags take the chunks'
+    write-time ``__tagcode_*`` companions; ``dicts`` holds the resident
+    table's dictionaries and is extended in place, so string-field codes
+    only append."""
+    schema = region.schema
+    host = {
+        k: np.concatenate([np.asarray(c[k]) for c in chunks])
+        for k in chunks[0]
+    }
+    dn = len(host[TSID])
+    out: dict[str, np.ndarray] = {}
+    for name, arr in host.items():
+        if name == SEQ or name.startswith(TAGCODE_PREFIX):
+            continue  # codes fold into their tag column below
+        tc = tagcode_col(name)
+        if (tc in host and schema.has_column(name)
+                and schema.column(name).is_tag):
+            out[name] = host[tc].astype(np.int32, copy=False)
+            dicts[name] = region.encoders[name].values()
+            continue
+        out[name] = _canonical_column(schema, region.encoders, name, arr,
+                                      dicts)
+    return out, dn
+
+
+def device_delta(table: DeviceTable, region, chunks: list[dict]):
+    """The chunks' rows as device columns of ``table``'s names and dtypes
+    (a column the chunks lack is zeros), with each column's pad value:
+    ``(dicts, columns, pads, rows)``, where ``dicts`` are the table's
+    dictionaries extended by the delta."""
+    from greptimedb_tpu_torch.storage.scan import stream_to_device
+
+    dicts = dict(table.dicts)
+    delta, dn = _canonical_delta(region, chunks, dicts)
+    device = table.row_mask.device
+    cols, pads = {}, {}
+    for name, col in table.columns.items():
+        np_dtype = torch.empty(0, dtype=col.dtype).numpy().dtype
+        dv = delta.get(name)
+        if dv is None:
+            dv = np.zeros(dn, dtype=np_dtype)
+        cols[name] = stream_to_device(
+            np.ascontiguousarray(dv, dtype=np_dtype), device)
+        pads[name] = _pad_value(region.schema, name, np_dtype)
+    return dicts, cols, pads, dn
+
+
+def extend_device_table(
+    table: DeviceTable, region, chunks: list[dict], live_rows: int
+) -> tuple[DeviceTable, int]:
+    """Append the chunks' rows to a resident DeviceTable without uploading
+    the base again: only the delta crosses host → device, and
+    ``extend_merge`` (K23) writes the new padded table in (tsid, ts) order
+    with the pad rows last (growth past the padding bucket included).
+
+    Precondition (the region's append log): the delta is PUT-only with
+    timestamps strictly after every resident row and no duplicate key, so
+    no dedup or tombstone can touch the base.  ``sorted_tags`` survive
+    only when no series was added; the new table gets a new
+    ``dicts_version`` and keeps the base's ``dicts_root``.  Returns the
+    table and its live rows."""
+    from greptimedb_tpu_torch.ops.storage_kernels import extend_merge
+
+    dicts, delta, pads, dn = device_delta(table, region, chunks)
+    n_new = live_rows + dn
+    cols, mask = extend_merge(
+        dict(table.columns), live_rows, delta,
+        max(pad_rows(n_new), table.padded_rows), pads, region.num_series,
+        tsid=TSID, ts=region.schema.time_index.name)
+    sorted_tags = (
+        table.sorted_tags if region.num_series == table.num_series else ()
+    )
+    return (
+        DeviceTable(cols, mask, region.num_series, dicts,
+                    next_dicts_version(), sorted_tags, table.dicts_root),
+        n_new,
+    )
+
+
 @dataclass
 class _Entry:
     # DeviceTable, GridTable, or None (negative grid-eligibility cache)
     table: object
     delta_pos: int | None = None  # consumed append-log position (absolute)
     live_rows: int = 0
+    # grid catch-up validity keys (see get_grid): the SST set the table
+    # was built from and the region's content-mutation epoch at build time
+    sst_ids: frozenset | None = None
+    mutation_epoch: int = -1
+
+
+def _table_version(region):
+    """(version, incremental): the base_version for regions with the
+    incremental protocol (base version + append log), else the
+    generation, which any write moves."""
+    base_ver = getattr(region, "base_version", None)
+    if (base_ver is not None
+            and getattr(region, "_append_log", None) is not None):
+        return base_ver, True
+    return getattr(region, "generation", None), False
 
 
 class RegionCacheManager:
-    """LRU of resident GridTables keyed by (region, base_version),
-    DeviceTables keyed by (region, generation) and, with a mesh,
-    series-sharded tables (``get_sharded``) keyed by (region,
-    generation)."""
+    """LRU of resident tables.
+
+    Regions with the incremental protocol (base_version + append log) key
+    their DeviceTables and GridTables by base_version; pure time-forward
+    appends EXTEND the resident tensors on the device instead of
+    rebuilding (the reference's write-through cache keeps mito's page
+    cache warm across flushes, src/mito2/src/cache/write_cache.rs), a
+    flushed region's grid catches up from the new SSTs, and ingest may
+    push large deltas into the grid's hot tail (``extend_hot_tail``).
+    Regions without the protocol key DeviceTables by generation (any
+    write rebuilds); with a mesh, series-sharded tables (``get_sharded``)
+    key by generation too.  Entries are swapped whole under
+    ``_struct_lock``, and the byte accounting moves only when a swap
+    applies."""
 
     def __init__(self, capacity_bytes: int = 8 << 30, *, device):
         # delta volume beyond max(min_extend_rows, fraction * resident
-        # rows) re-probes a region whose grid build was refused
+        # rows) → full rebuild (restores sorted-tag eligibility and
+        # compacts); smaller deltas extend, and a region whose grid build
+        # was refused is re-probed only past it
         self.rebuild_fraction = 0.25
         self.min_extend_rows = 4096
         self.capacity = capacity_bytes
@@ -283,37 +400,101 @@ class RegionCacheManager:
             collections.OrderedDict()
         )
         self._bytes = 0
-        # guards _lru/_bytes; device builds run OUTSIDE it
+        # guards _lru/_bytes: scheduler workers (get/get_grid) and ingest
+        # (extend_hot_tail) mutate them concurrently.  Reentrant: _evict
+        # and _shrink run nested under it.  Device builds and extends run
+        # OUTSIDE it — only dict/counter ops are held
         self._struct_lock = threading.RLock()
+        # serializes ingest-side hot-tail extenders; taken non-blocking —
+        # a contended extend is skipped and the query path stays
+        # responsible
+        self._hot_tail_lock = threading.Lock()
         self.hits = 0
         self.misses = 0
+        self.extends = 0
         _export_cache_gauges("region_device", self)
 
+    def _hit(self, kind: str, key) -> None:
+        M_CACHE_EVENTS.labels("region_device", kind, "hit").inc()
+        with self._struct_lock:
+            self.hits += 1
+            if key in self._lru:
+                self._lru.move_to_end(key)
+
+    def _swap(self, key, entry: _Entry, new: _Entry) -> None:
+        """Publish ``new`` in place of ``entry`` when ``entry`` is still the
+        resident one (not evicted or replaced meanwhile); the bytes move
+        only then."""
+        with self._struct_lock:
+            if self._lru.get(key) is entry:
+                self._bytes += new.table.nbytes() - entry.table.nbytes()
+                self._lru[key] = new
+                self._lru.move_to_end(key)
+        self._shrink()
+
+    def _within_extend(self, delta_rows, live_rows: int) -> bool:
+        return delta_rows is not None and delta_rows <= max(
+            self.min_extend_rows, live_rows * self.rebuild_fraction)
+
     def get(self, region) -> DeviceTable:
-        """The region's resident DeviceTable; any data mutation since the
-        build (the region's ``generation`` moved) rebuilds it in full."""
-        key = (region.region_id, "table", region.generation)
+        """The region's resident DeviceTable.  With the incremental
+        protocol, append-log chunks since the build extend it while the
+        delta stays within ``max(min_extend_rows, rebuild_fraction *
+        live_rows)``; a larger delta or any structure change (a new
+        base_version) rebuilds it.  Other regions rebuild on any write."""
+        version, incremental = _table_version(region)
+        key = (region.region_id, "table", version)
+        pos = _append_pos(region) if incremental else None
         entry = self._lru.get(key)
         if entry is not None:
-            M_CACHE_EVENTS.labels("region_device", "table", "hit").inc()
-            with self._struct_lock:
-                self.hits += 1
-                if key in self._lru:
-                    self._lru.move_to_end(key)
-            return entry.table
+            if not incremental or entry.delta_pos == pos:
+                self._hit("table", key)
+                return entry.table
+            # resident base is current; new append-log chunks extend it
+            chunks = _chunks_since(region, entry.delta_pos)
+            delta_rows = (sum(len(c[TSID]) for c in chunks)
+                          if chunks is not None else None)
+            if self._within_extend(delta_rows, entry.live_rows):
+                with self._struct_lock:
+                    self.extends += 1
+                M_CACHE_EVENTS.labels("region_device", "table",
+                                      "extend").inc()
+                new_table, new_rows = extend_device_table(
+                    entry.table, region, chunks, entry.live_rows)
+                # delta_pos derives from the chunks actually applied, not
+                # a position read earlier: a chunk landing between the
+                # read and the fetch would be in the table yet recorded
+                # unconsumed, and the next extend would append it twice
+                self._swap(key, entry, _Entry(
+                    new_table, delta_pos=entry.delta_pos + len(chunks),
+                    live_rows=new_rows, sst_ids=entry.sst_ids,
+                    mutation_epoch=entry.mutation_epoch))
+                return new_table
+            self._evict(key)  # too much drift (or trimmed past): rebuild
+
         with self._struct_lock:
             self.misses += 1
         M_CACHE_EVENTS.labels("region_device", "table", "miss").inc()
         gen = region.generation
         table = build_device_table(region, device=self.device)
-        if region.generation != gen:
-            return table  # raced a write mid-build: serve it uncached
+        if (_append_pos(region) != pos if incremental
+                else region.generation != gen):
+            # a chunk landed while building: the table may hold rows past
+            # ``pos`` (the build reads the live memtable), so caching it
+            # at pos would apply them twice on the next extend.  Serve the
+            # (self-consistent) table uncached; the next quiet query
+            # populates the entry
+            return table
+        live = int(table.row_mask.sum()) if incremental else 0
         with self._struct_lock:
             for k in [k for k in self._lru
                       if k[0] == key[0] and k[1:2] == ("table",)
                       and k != key]:
                 self._evict(k)
-            self._lru[key] = _Entry(table)
+            old = self._lru.get(key)
+            if old is not None and old.table is not None:
+                self._bytes -= old.table.nbytes()  # concurrent double-build
+            self._lru[key] = _Entry(table, delta_pos=pos, live_rows=live)
             self._bytes += table.nbytes()
             self._shrink()
         return table
@@ -331,11 +512,7 @@ class RegionCacheManager:
         key = (region.region_id, "sharded", region.generation)
         entry = self._lru.get(key)
         if entry is not None:
-            M_CACHE_EVENTS.labels("region_device", "sharded", "hit").inc()
-            with self._struct_lock:
-                self.hits += 1
-                if key in self._lru:
-                    self._lru.move_to_end(key)
+            self._hit("sharded", key)
             return entry.table
         with self._struct_lock:
             self.misses += 1
@@ -358,22 +535,29 @@ class RegionCacheManager:
 
     def peek_table(self, region):
         """The region's resident DeviceTable if one is ALREADY resident at
-        the current generation, else None — never builds.  Consumers that
-        only accelerate when warm (the log-query DSL's fingerprint route)
-        use this so a cold table stays on its host path instead of paying
-        a device build it didn't ask for."""
-        gen = getattr(region, "generation", None)
-        if gen is None:
+        the current base version (generation without the incremental
+        protocol), else None — never builds.  Consumers that only
+        accelerate when warm (the log-query DSL's fingerprint route) use
+        this so a cold table stays on its host path.  The entry may lag
+        the append log: callers treat its dictionaries as a (valid)
+        prefix, not the complete vocabulary."""
+        version, _ = _table_version(region)
+        if version is None:
             return None
-        entry = self._lru.get((region.region_id, "table", gen))
+        entry = self._lru.get((region.region_id, "table", version))
         return entry.table if entry is not None else None
 
     def get_grid(self, region):
         """Dense-grid resident table for a region (storage/grid.py), or
         None when the region is ineligible (cached negatively per
-        base_version so queries don't re-probe every time).  Any write or
-        structure change since the build rebuilds it."""
-        from greptimedb_tpu_torch.storage.grid import build_grid_table
+        base_version so queries don't re-probe every time).  Pure appends
+        extend the resident grid on the device; a flush (the same
+        mutation epoch, the old SSTs intact, memtable and append log
+        empty) catches it up from the new files; other structure changes
+        rebuild."""
+        from greptimedb_tpu_torch.storage.grid import (
+            build_grid_table, catch_up_grid_table, extend_grid_table,
+        )
 
         base_ver = getattr(region, "base_version", None)
         append_log = getattr(region, "_append_log", None)
@@ -384,22 +568,31 @@ class RegionCacheManager:
         entry = self._lru.get(key)
         if entry is not None:
             if entry.delta_pos == pos:
-                M_CACHE_EVENTS.labels("region_device", "grid", "hit").inc()
-                with self._struct_lock:
-                    self.hits += 1
-                    if key in self._lru:
-                        self._lru.move_to_end(key)
+                self._hit("grid", key)
                 return entry.table
             chunks = _chunks_since(region, entry.delta_pos)
-            if entry.table is None and chunks is not None:
+            if entry.table is None:
                 # negative entry: re-probe only after substantial growth —
                 # an ineligible (irregular/sparse) region must not pay a
                 # full eligibility scan per query
-                appended = sum(len(c[TSID]) for c in chunks)
-                if appended <= max(self.min_extend_rows,
-                                   entry.live_rows * self.rebuild_fraction):
-                    return None
-            self._evict(key)  # appended since the build: rebuild
+                if chunks is not None:
+                    appended = sum(len(c[TSID]) for c in chunks)
+                    if self._within_extend(appended, entry.live_rows):
+                        return None
+            elif chunks is not None:
+                with self._struct_lock:
+                    self.extends += 1
+                M_CACHE_EVENTS.labels("region_device", "grid",
+                                      "extend").inc()
+                extended = extend_grid_table(entry.table, region, chunks)
+                if extended is not None:
+                    # delta_pos from the chunks actually applied (see get)
+                    self._swap(key, entry, _Entry(
+                        extended, delta_pos=entry.delta_pos + len(chunks),
+                        live_rows=entry.live_rows, sst_ids=entry.sst_ids,
+                        mutation_epoch=entry.mutation_epoch))
+                    return extended
+            self._evict(key)  # delta does not fit (or trimmed past)
 
         with self._struct_lock:
             self.misses += 1
@@ -407,12 +600,60 @@ class RegionCacheManager:
         rows_now = region.memtable.num_rows + sum(
             m.num_rows for m in region.sst_files
         )
+        cur_ids = frozenset(m.file_id for m in region.sst_files)
+        epoch = getattr(region, "mutation_epoch", None)
+
+        # catch-up: a previous base_version's resident grid is still valid
+        # row for row when only content-PRESERVING structure changes
+        # happened (a flush: mutation_epoch unchanged, old SST set intact,
+        # memtable and append log empty) — extend it from the new files
+        # (reads pruned to the not-yet-resident ts range) instead of
+        # reading the whole region again
+        with self._struct_lock:
+            prev_key = next(
+                (k for k in self._lru
+                 if k[0] == region.region_id and k[1:2] == ("grid",)), None)
+            prev = self._lru.get(prev_key) if prev_key is not None else None
+        if (prev is not None and epoch is not None
+                and prev.table is not None and prev.sst_ids is not None
+                and prev.mutation_epoch == epoch
+                and region.memtable.is_empty and not append_log
+                and prev.sst_ids <= cur_ids):
+            new_metas = [m for m in region.sst_files
+                         if m.file_id not in prev.sst_ids]
+            caught = catch_up_grid_table(prev.table, region, new_metas)
+            if caught is not None:
+                M_CACHE_EVENTS.labels("region_device", "grid",
+                                      "catch_up").inc()
+                with self._struct_lock:
+                    self.extends += 1
+                    got = self._lru.pop(prev_key, None)
+                    if got is not None and got.table is not None:
+                        self._bytes -= got.table.nbytes()
+                    if (caught is not prev.table
+                            and self.derived_layouts is not None):
+                        # dicts_version moved on: the old grid's derived
+                        # layouts can never hit again
+                        self.derived_layouts.invalidate_region(key[0])
+                    old = self._lru.get(key)
+                    if old is not None and old.table is not None:
+                        self._bytes -= old.table.nbytes()
+                    self._lru[key] = _Entry(
+                        caught, delta_pos=pos, live_rows=rows_now,
+                        sst_ids=cur_ids, mutation_epoch=epoch)
+                    self._bytes += caught.nbytes()
+                    self._shrink()
+                return caught
+
         table = build_grid_table(region, device=self.device)
         if table is not None and _append_pos(region) != pos:
             # raced an ingest append mid-build: serve uncached rather than
-            # cache a table whose delta_pos cannot be trusted
+            # cache a table whose delta_pos cannot be trusted.  Negative
+            # entries cache anyway (staleness only delays a re-probe)
             return table
-        entry = _Entry(table, delta_pos=pos, live_rows=rows_now)
+        entry = _Entry(table, delta_pos=pos, live_rows=rows_now,
+                       sst_ids=cur_ids,
+                       mutation_epoch=epoch if epoch is not None else -1)
         with self._struct_lock:
             for k in [k for k in self._lru
                       if k[0] == key[0] and k[1:2] == ("grid",)
@@ -428,9 +669,9 @@ class RegionCacheManager:
         return table
 
     def install_grid(self, region, table) -> None:
-        """Adopt an externally built resident GridTable (e.g.
-        storage/grid.py grid_from_numpy) as the region's current grid
-        entry, exactly as if get_grid had built it."""
+        """Adopt an externally built resident GridTable (a snapshot restore,
+        storage/grid.py load_grid_snapshot, or grid_from_numpy) as the
+        region's current grid entry, exactly as if get_grid had built it."""
         key = (region.region_id, "grid", region.base_version)
         rows_now = region.memtable.num_rows + sum(
             m.num_rows for m in region.sst_files
@@ -443,9 +684,61 @@ class RegionCacheManager:
                 self._evict(k)
             self._lru[key] = _Entry(
                 table, delta_pos=_append_pos(region), live_rows=rows_now,
+                sst_ids=frozenset(m.file_id for m in region.sst_files),
+                mutation_epoch=getattr(region, "mutation_epoch", -1),
             )
             self._bytes += table.nbytes()
             self._shrink()
+
+    def extend_hot_tail(self, region) -> bool:
+        """Ingest-side hot-tail append for freshly acked rows: when the
+        region has a resident grid at the current base_version, scatter the
+        pending append-log delta into it now, so the next query finds the
+        grid current instead of paying the extend itself.  Opportunistic —
+        the extender lock is taken non-blocking, so contending ingest
+        workers skip; a False return leaves the query-time path (get_grid)
+        responsible.  Deltas under ``min_extend_rows`` are left to
+        accumulate (one scatter a tiny batch would throttle ingest).
+        Publication is a whole-entry swap: concurrent readers hold either
+        the old entry or the new one, each consistent with its
+        delta_pos."""
+        from greptimedb_tpu_torch.storage.grid import extend_grid_table
+        from greptimedb_tpu_torch.utils.tracing import TRACER
+
+        base_ver = getattr(region, "base_version", None)
+        if base_ver is None:
+            return False
+        key = (region.region_id, "grid", base_ver)
+        if not self._hot_tail_lock.acquire(blocking=False):
+            return False
+        try:
+            entry = self._lru.get(key)
+            if entry is None or entry.table is None:
+                return False
+            if entry.delta_pos == _append_pos(region):
+                return False
+            chunks = _chunks_since(region, entry.delta_pos)
+            if chunks is None:
+                return False  # trimmed past: the query path rebuilds
+            delta_rows = sum(len(c[TSID]) for c in chunks)
+            if delta_rows < self.min_extend_rows:
+                return False  # let small batches accumulate
+            with TRACER.stage("ingest_grid_tail", region=region.region_id,
+                              rows=delta_rows):
+                extended = extend_grid_table(entry.table, region, chunks)
+            if extended is None:
+                return False  # off-grid delta: get_grid evicts / rebuilds
+            M_CACHE_EVENTS.labels("region_device", "grid", "hot_tail").inc()
+            with self._struct_lock:
+                self.extends += 1
+            # delta_pos from the chunks actually scattered (see get)
+            self._swap(key, entry, _Entry(
+                extended, delta_pos=entry.delta_pos + len(chunks),
+                live_rows=entry.live_rows, sst_ids=entry.sst_ids,
+                mutation_epoch=entry.mutation_epoch))
+            return True
+        finally:
+            self._hot_tail_lock.release()
 
     def _shrink(self) -> None:
         with self._struct_lock:

@@ -11,14 +11,20 @@ Eligibility is decided per region build: timestamps must share a coarse
 enough GCD step (regular sampling), the dense grid must fit the byte
 budget, and occupancy must clear a floor.
 
-Not ported yet: the incremental protocol (``extend_grid_table``,
-``catch_up_grid_table``), snapshots and mesh shardings.  The port's cache
-(``storage/cache.py``) rebuilds the grid when the region moved instead —
-same results, higher cost.
+Incremental protocol, as the DeviceTable's (storage/cache.py): pure
+time-forward appends scatter into the resident tensors on the device
+(``extend_grid_table``; the time axis grows when they pass it), a flush
+catches the grid up from the new SSTs (``catch_up_grid_table``), and other
+structure changes rebuild; both scatters run on ``grid_scatter`` (K24).
+Snapshots (``save_grid_snapshot`` / ``load_grid_snapshot``) keep the
+reference's on-disk format, so either package loads the other's.  The
+reference's mesh shardings of the grid are not ported (the port's mesh
+serves the row path).
 """
 
 from __future__ import annotations
 
+import json
 import os
 from dataclasses import dataclass, field
 
@@ -27,6 +33,7 @@ import torch
 
 from greptimedb_tpu_torch.storage.durability import SstCorruption
 from greptimedb_tpu_torch.storage.memtable import OP, OP_DELETE, SEQ, TSID
+from greptimedb_tpu_torch.storage.object_store import _fsync_dir
 
 # padding granularity: each distinct (Spad, Tpad) is a shape class.
 # T gets coarse alignment (appends grow it constantly); S changes rarely.
@@ -304,3 +311,300 @@ def grid_from_numpy(values, valid, tag_codes, *, ts0, step, nt, num_series,
         dicts_version=next_dicts_version(),
         region_id=int(region_id),
     )
+
+
+def _region_fingerprint(region) -> dict:
+    """Cheap identity of a region's resident data: SST set + memtable
+    volume.  A snapshot taken at the same fingerprint maps to identical
+    grid tensors, so a reopened process can load the host tensors instead
+    of scanning every SST again."""
+    return {
+        "ssts": sorted(
+            (m.file_id, int(m.seq_max), int(m.num_rows))
+            for m in region.sst_files
+        ),
+        "memtable_rows": int(region.memtable.num_rows),
+        "num_series": int(region.num_series),
+        "fields": grid_float_fields(region.schema),
+    }
+
+
+def save_grid_snapshot(table: GridTable, region, path: str) -> None:
+    """Persist the dense tensors next to the region data (mito2's
+    write-through file cache idea, src/mito2/src/cache/write_cache.rs,
+    applied to the resident layout) in the reference's format:
+    ``values.npy``, ``valid.npy``, ``tags.npz`` and ``meta.json``, the
+    manifest renamed into place last and its directory fsynced."""
+    os.makedirs(path, exist_ok=True)
+    np.save(os.path.join(path, "values.npy"), table.values.cpu().numpy())
+    np.save(os.path.join(path, "valid.npy"), table.valid.cpu().numpy())
+    np.savez(os.path.join(path, "tags.npz"),
+             **{k: v.cpu().numpy() for k, v in table.tag_codes.items()})
+    meta = {
+        "ts0": table.ts0, "step": table.step, "nt": table.nt,
+        "num_series": table.num_series,
+        "field_names": list(table.field_names),
+        "dicts": {k: list(v) for k, v in table.dicts.items()},
+        "no_nan": list(table.no_nan),
+        "fingerprint": _region_fingerprint(region),
+    }
+    tmp = os.path.join(path, "meta.json.tmp")
+    with open(tmp, "w", encoding="utf-8") as f:
+        json.dump(meta, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, os.path.join(path, "meta.json"))
+    # rename durability: the directory entry must reach the disk too, or a
+    # power loss can resurrect the old meta.json beside new tensors
+    _fsync_dir(path)
+
+
+def load_grid_snapshot(path: str, region, *, device):
+    """A resident GridTable on ``device`` from a snapshot, or None when the
+    region's fingerprint or tag dictionaries no longer match it, or on any
+    corruption (the caller builds from the SSTs instead)."""
+    from greptimedb_tpu_torch.storage.cache import next_dicts_version
+
+    try:
+        with open(os.path.join(path, "meta.json")) as f:
+            meta = json.load(f)
+        fp = _region_fingerprint(region)
+        saved = meta["fingerprint"]
+        saved["ssts"] = [tuple(s) for s in saved["ssts"]]
+        if saved != {**fp, "ssts": list(fp["ssts"])}:
+            return None
+        # the restored tag codes decode against the region's CURRENT
+        # encoders at query time: another code assignment (WAL replay
+        # order, rebuilt dictionaries) must refuse the snapshot
+        if {k: list(v) for k, v in meta["dicts"].items()} != {
+            name: list(region.encoders[name].values())
+            for name in region.tag_names
+        }:
+            return None
+        values = np.load(os.path.join(path, "values.npy"), mmap_mode="r")
+        valid = np.load(os.path.join(path, "valid.npy"), mmap_mode="r")
+        with np.load(os.path.join(path, "tags.npz")) as tags:
+            tag_codes = {k: np.asarray(tags[k]) for k in tags.files}
+    except Exception:  # noqa: BLE001 — any corruption (a truncated .npz
+        # included) means "no snapshot", never a crash
+        return None
+    return GridTable(
+        values=_to_device_rows(values, device),
+        valid=_to_device_rows(valid, device),
+        tag_codes={k: _to_device_rows(v, device)
+                   for k, v in tag_codes.items()},
+        ts0=int(meta["ts0"]),
+        step=int(meta["step"]),
+        nt=int(meta["nt"]),
+        num_series=int(meta["num_series"]),
+        field_names=tuple(meta["field_names"]),
+        dicts={k: list(v) for k, v in meta["dicts"].items()},
+        no_nan=tuple(meta["no_nan"]),
+        dicts_version=next_dicts_version(),
+        region_id=int(getattr(region, "region_id", -1)),
+    )
+
+
+def _grow_time_axis(values, valid, tpad: int, new_nt: int, spad: int,
+                    c: int):
+    """The resident tensors with a longer padded time axis (new cells zero
+    and invalid), so sustained time-forward ingest extends the grid in
+    amortized O(1) a step instead of falling off a fixed ``tpad`` into a
+    rebuild.  Doubles by default; an exact fit near the budget.  Returns
+    ``(values, valid)``, or None when even the exact fit exceeds the grid
+    budget."""
+    tpad2 = _pad_to(max(new_nt, 2 * tpad), _T_ALIGN)
+    if spad * tpad2 * (4 * c + 1) > _BUDGET:
+        tpad2 = _pad_to(new_nt, _T_ALIGN)
+        if spad * tpad2 * (4 * c + 1) > _BUDGET:
+            return None
+    values2 = torch.zeros((c, spad, tpad2), dtype=values.dtype,
+                          device=values.device)
+    valid2 = torch.zeros((spad, tpad2), dtype=valid.dtype,
+                         device=valid.device)
+    values2[:, :, :tpad].copy_(values)
+    valid2[:, :tpad].copy_(valid)
+    return values2, valid2
+
+
+def _writable(table: GridTable, new_nt: int):
+    """Fresh (values, valid) for a scatter: the grown tensors when
+    ``new_nt`` passes the padded time axis, else copies — the resident
+    table stays as it is for readers holding it.  None when growth would
+    exceed the budget."""
+    if new_nt > table.tpad:
+        return _grow_time_axis(table.values, table.valid, table.tpad,
+                               new_nt, table.spad, len(table.field_names))
+    return table.values.clone(), table.valid.clone()
+
+
+def _scatter_part(values, valid, tsid, tidx, cols, flags) -> None:
+    """One part's cells into the grid through ``grid_scatter`` (K24)."""
+    from greptimedb_tpu_torch.ops.storage_kernels import grid_scatter
+
+    dev = values.device
+    grid_scatter(values, valid,
+                 _to_device_rows(np.ascontiguousarray(tsid), dev),
+                 _to_device_rows(np.ascontiguousarray(tidx), dev),
+                 _to_device_rows(np.stack(cols, axis=0), dev),
+                 _to_device_rows(np.ascontiguousarray(flags), dev))
+
+
+def _extended(table: GridTable, region, values, valid, new_nt: int,
+              no_nan) -> GridTable:
+    """The GridTable after a scatter: the region's series and
+    dictionaries now, a new dicts_version."""
+    from greptimedb_tpu_torch.storage.cache import next_dicts_version
+
+    tag_codes = table.tag_codes
+    if region.num_series > table.num_series:
+        tag_codes = {
+            k: _to_device_rows(v, table.device)
+            for k, v in _series_tag_matrix(region, table.spad).items()
+        }
+    return GridTable(
+        values=values,
+        valid=valid,
+        tag_codes=tag_codes,
+        ts0=table.ts0,
+        step=table.step,
+        nt=max(table.nt, new_nt),
+        num_series=region.num_series,
+        field_names=table.field_names,
+        dicts={name: region.encoders[name].values()
+               for name in region.tag_names},
+        no_nan=tuple(no_nan),
+        dicts_version=next_dicts_version(),
+        region_id=table.region_id,
+    )
+
+
+def append_cells(table: GridTable, region, chunks):
+    """The grid cells of pure-append chunks: ``(tsid, tidx, [C] f32
+    columns, new_nt)`` in the chunks' row order, or None when a timestamp
+    is off the grid's step (the sampling changed)."""
+    ts_name = region.ts_name
+    tsid = np.concatenate([c[TSID] for c in chunks]).astype(np.int64)
+    ts = np.concatenate(
+        [np.asarray(c[ts_name], dtype=np.int64) for c in chunks]
+    )
+    rel = ts - table.ts0
+    step = table.step
+    if step <= 0 or bool((rel % step != 0).any()):
+        return None
+    tidx = rel // step
+    cols = [np.concatenate([np.asarray(c[name], dtype=np.float32)
+                            for c in chunks])
+            for name in table.field_names]
+    return tsid, tidx, cols, int(tidx.max()) + 1 if len(tidx) else 0
+
+
+def extend_grid_table(table: GridTable, region, chunks):
+    """Scatter pure-append chunks into the resident grid on the device.
+
+    Returns the extended GridTable (the resident one is left as it was),
+    or None when the delta does not fit the resident shape or step (the
+    caller rebuilds).  Precondition (the region's append log): chunks are
+    PUT-only with strictly newer timestamps, so only new cells are set."""
+    if region.num_series > table.spad:
+        return None
+    if not sum(len(c[TSID]) for c in chunks):
+        return table
+    cells = append_cells(table, region, chunks)
+    if cells is None:
+        return None
+    tsid, tidx, cols, new_nt = cells
+    grown = _writable(table, new_nt)
+    if grown is None:
+        return None
+    values, valid = grown
+    no_nan = [ok and bool(np.isfinite(col).all())
+              for ok, col in zip(table.no_nan, cols)]
+    _scatter_part(values, valid, tsid, tidx, cols,
+                  np.ones(len(tsid), dtype=bool))
+    return _extended(table, region, values, valid, new_nt, no_nan)
+
+
+def catch_up_grid_table(table: GridTable, region, new_metas):
+    """Extend a resident grid with freshly FLUSHED SSTs instead of reading
+    the whole region again.
+
+    Only rows strictly after the resident coverage are read: the resident
+    end bounds a ``ts_range`` that read_sst turns into Parquet row-group
+    pruning, so a flushed file whose rows are already resident (they came
+    through the append log) costs a footer read.  The new cells scatter
+    part by part in sequence order (keep-max-seq), tombstones as zero
+    values and invalid cells.
+
+    Returns the extended GridTable, the SAME table when the new files hold
+    nothing past the resident coverage, or None when the delta does not
+    fit the resident shape or step, or a file is corrupt (the caller
+    rebuilds).  The preconditions — the same ``Region.mutation_epoch``,
+    the old SSTs intact, memtable and append log empty — are the cache's
+    (storage/cache.py get_grid)."""
+    from greptimedb_tpu_torch.storage.scan import (
+        estimate_staging_bytes, prefetch_store, read_parts,
+    )
+    from greptimedb_tpu_torch.storage.sst import read_sst
+
+    fields = table.field_names
+    if tuple(grid_float_fields(region.schema)) != tuple(fields):
+        return None
+    if region.num_series > table.spad:
+        return None
+    step = table.step
+    if step <= 0:
+        return None
+    ts_name = region.ts_name
+    lo = table.ts0 + (table.nt - 1) * step + 1  # strictly after resident
+    want = [ts_name, TSID, SEQ, OP] + list(fields)
+    metas = [
+        m for m in sorted(new_metas, key=lambda m: m.seq_max)
+        if m.ts_max >= lo
+    ]
+    prefetch_store(region.store, metas)
+    est = estimate_staging_bytes(metas, len(want), (lo, None))
+    try:
+        parts = read_parts(
+            [
+                (lambda m=m: read_sst(region.store, m, region.schema,
+                                      (lo, None), columns=want))
+                for m in metas
+            ],
+            memory=getattr(region, "memory", None), est_bytes=est,
+        )
+    except SstCorruption as e:
+        # quarantine/repair changes the SST set under this incremental
+        # pass: None hands over to a full (verified, retrying) rebuild
+        region._handle_sst_corruption(e)
+        return None
+    parts = [p for p in parts if len(p[TSID])]
+    if not parts:
+        return table  # fully resident already (a flush of consumed appends)
+    all_ts = np.concatenate([p[ts_name].astype(np.int64) for p in parts])
+    rel = all_ts - table.ts0
+    if bool((rel % step != 0).any()):
+        return None  # off-grid timestamps: the sampling changed
+    new_nt = int(rel.max()) // step + 1
+    grown = _writable(table, new_nt)
+    if grown is None:
+        return None
+    values, valid = grown
+    no_nan = list(table.no_nan)
+    for p in parts:
+        tsid = p[TSID].astype(np.int64)
+        tidx = (p[ts_name].astype(np.int64) - table.ts0) // step
+        dels = p[OP] == OP_DELETE
+        any_dels = bool(dels.any())
+        cols = []
+        for ci, name in enumerate(fields):
+            col = p[name]
+            if col.dtype != np.float32:
+                col = col.astype(np.float32)
+            if any_dels:
+                col = np.where(dels, np.float32(0.0), col)
+            if no_nan[ci] and not bool(np.isfinite(col).all()):
+                no_nan[ci] = False
+            cols.append(col)
+        _scatter_part(values, valid, tsid, tidx, cols, ~dels)
+    return _extended(table, region, values, valid, new_nt, no_nan)

@@ -157,9 +157,10 @@ def test_padding_classes(n, align):
     assert _pad_to(n, align) == ref_pad(n, align)
 
 
-def test_cache_rebuilds_after_write(tmp_path):
-    """The port has no in-place grid extension: a write moves the
-    region's append position and the next get_grid rebuilds."""
+def test_cache_extends_after_write(tmp_path):
+    """A time-forward write moves the region's append position only: the
+    next get_grid extends the resident grid in place of a rebuild, equal
+    to a fresh build of the region."""
     port_db = GreptimeDB(str(tmp_path / "port"), device="cpu")
     try:
         region = _write(port_db, [("write", _rows(12))])
@@ -168,8 +169,34 @@ def test_cache_rebuilds_after_write(tmp_path):
         assert cache.get_grid(region) is g1 and cache.hits == 1
         region.write(_rows(13, t_off=360))
         g2 = cache.get_grid(region)
-        assert g2 is not g1 and g2.nt == 720 and cache.misses == 2
+        assert g2 is not g1 and g2.nt == 720
+        assert cache.extends == 1 and cache.misses == 1
         assert g2.dicts_version > g1.dicts_version
+        fresh = build_grid_table(region, device="cpu")
+        np.testing.assert_array_equal(g2.values.numpy(), fresh.values.numpy())
+        np.testing.assert_array_equal(g2.valid.numpy(), fresh.valid.numpy())
+        assert (g2.nt, g2.tpad, g2.no_nan) == (fresh.nt, fresh.tpad,
+                                               fresh.no_nan)
+    finally:
+        port_db.close()
+
+
+def test_cache_rebuilds_after_write(tmp_path):
+    """A write that is not a pure append (here an upsert of a resident
+    key) is a structure change: the next get_grid rebuilds."""
+    port_db = GreptimeDB(str(tmp_path / "port"), device="cpu")
+    try:
+        region = _write(port_db, [("write", _rows(12))])
+        cache = RegionCacheManager(device="cpu")
+        g1 = cache.get_grid(region)
+        assert cache.get_grid(region) is g1 and cache.hits == 1
+        region.write(_rows(13, steps=2))
+        g2 = cache.get_grid(region)
+        assert g2 is not g1 and g2.nt == 360
+        assert cache.misses == 2 and cache.extends == 0
+        assert g2.dicts_version > g1.dicts_version
+        fresh = build_grid_table(region, device="cpu")
+        np.testing.assert_array_equal(g2.values.numpy(), fresh.values.numpy())
     finally:
         port_db.close()
 
