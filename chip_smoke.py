@@ -188,18 +188,25 @@ Phases, each printing its own lines:
    same queries, and mesh_merge timed at (m)'s partials; the sharded
    table is dropped at the end, and phase 3's db closes after it.
 14. Write then query, on the dbs that hold the data, once their other
-   phases are done (K23 extend_merge, K24 grid_scatter).  (i) Phase 3's
+   phases are done (K23 extend_merge, K24 grid_scatter_steps and
+   grid_scatter).  (i) Phase 3's
    db, after phase 13: hour 24 of the walk (1.44 M rows) through
    servers.ingest.ingest_columns, whose hot tail extends the resident
    grid; query (a)'s shape over the last 12 h on the grid and with
    GREPTIME_GRID=off over the DeviceTable (which extends, keeping its
    sorted_tags), both against numpy; hour 25 likewise with the extend
    thresholds at 0 and the grid entry evicted (both rebuild), the
-   first-query times printed side by side; a flush, after which get_grid
-   must catch up and keep the resident table; then both kernels on the
-   extend's own inputs against their plain versions (bit for bit), K23
-   beside the whole-table route (radix_argsort of the padded key + a
-   gather) and torch.sort.  (ii) Phase 4's db, after phase 5: one more
+   first-query times printed side by side, with the hot tail's span
+   split (grid_extend.* and grid_scatter.* spans); a flush, after which
+   get_grid must catch up and keep the resident table; 30 more steps
+   written and flushed with no hot tail, which get_grid must catch up
+   from the new file through grid_scatter, equal to the written values;
+   the hot tail's scatter must be grid_scatter_steps; then the kernels
+   on the extend's own inputs against their plain versions (bit for
+   bit), K23 beside the whole-table route (radix_argsort of the padded
+   key + a gather) and torch.sort, grid_scatter_steps and grid_scatter on
+   the same cells, grid_scatter on the catch-up shape ((tsid, ts)
+   order), index_put_ and the hot tail's grid copy.  (ii) Phase 4's db, after phase 5: one more
    scrape; the instant query at the new end against numpy; the
    DeviceTable must extend, every sort_layout launch stay presorted, the
    old version's sort layout leave the PromQL cache under the default
@@ -291,6 +298,7 @@ SOURCES = {
     "series_offsets": "greptimedb_tpu_torch/csrc/promql_kernels.cu",
     "extend_merge": "greptimedb_tpu_torch/csrc/storage_kernels.cu",
     "grid_scatter": "greptimedb_tpu_torch/csrc/storage_kernels.cu",
+    "grid_scatter_steps": "greptimedb_tpu_torch/csrc/storage_kernels.cu",
 }
 REPLACES = {
     "bucket_reduce": "greptimedb_tpu/query/physical.py:1129",
@@ -327,7 +335,8 @@ REPLACES = {
     "mesh_merge": "greptimedb_tpu/parallel/dist.py:297",
     "series_offsets": "greptimedb_tpu/promql/engine.py:288",
     "extend_merge": "greptimedb_tpu/storage/cache.py:349",
-    "grid_scatter": "greptimedb_tpu/storage/grid.py:491",
+    "grid_scatter": "greptimedb_tpu/storage/grid.py:612",
+    "grid_scatter_steps": "greptimedb_tpu/storage/grid.py:491",
 }
 PROM_T0 = 1700000000000   # bench_promql.py's epoch
 SCRAPE_MS = 15_000
@@ -336,6 +345,7 @@ PROM_SERIES = PODS * CONTAINERS
 RANGE_MS = 300_000
 PROM_QUERY = "sum by (pod) (rate(http_requests_total[5m]))"
 TQL_WARM = 3  # warm runs of the 20-step TQL range query (a cut from 10)
+CATCH_UP_STEPS = 30  # steps of step 14 (i)'s flushed catch-up (5 minutes)
 
 
 def log(msg: str) -> None:
@@ -1346,16 +1356,30 @@ def phase_row_kernels(sk, db, ctx: dict, card: str) -> dict:
         f"+-inf entries -> {ns:,} equal to their plain versions — {card}")
     del signed, got, want
 
-    # -- compact: (f)'s 12 columns under its mask --
+    # -- compact: (f)'s 12 columns under its mask; three launches (the
+    #    spans' counts, the order pass from the host's span offsets, one
+    #    gather of every column) and one host sync --
     hot = window & (cols["usage_user"] > 90.0)
     ccols = {k: cols[k] for k in ["hostname", "ts", *METRICS]}
+    k0 = (sk.compact.kernels, sk.compact.host_syncs)
     got, kept = sk.compact(ccols, hot)
+    per_call = (sk.compact.kernels - k0[0], sk.compact.host_syncs - k0[1])
+    if per_call != (3, 1):
+        raise AssertionError(f"compact: {per_call} kernels / host syncs a "
+                             f"call, want (3, 1)")
     want, wkept = sk.compact_plain(ccols, hot)
     if kept != wkept:
         raise AssertionError(f"compact keeps {kept} rows, plain {wkept}")
     err = max(max_err(got[k], want[k], exact=True) for k in ccols)
     ms = time_ms(lambda: sk.compact(ccols, hot))
     plain = time_ms(lambda: sk.compact_plain(ccols, hot), reps=5)
+    ops, _wall = profile_ops(lambda: sk.compact(ccols, hot))
+    device = sum(t for t, _n in ops.values()) or None
+    split = ", ".join(f"{k.split('<')[0].split('(')[0][-28:]} {t:.4f}"
+                      for k, (t, _n) in sorted(ops.items(),
+                                               key=lambda kv: -kv[1][0]))
+    tiny = {k: v[:4096] for k, v in ccols.items()}
+    host = host_us(lambda: sk.compact(tiny, hot[:4096]), n=200)
 
     def lib_compact():
         rows = torch.nonzero(hot).squeeze(1)
@@ -1365,10 +1389,14 @@ def phase_row_kernels(sk, db, ctx: dict, card: str) -> dict:
     # the mask, and the kept rows of each column read and written
     bnd, by = bound_ms(nbytes(hot) + 2 * kept * sum(
         c.element_size() for c in ccols.values()), 0)
-    report("compact", f"12 columns N={n:,}, {kept:,} kept", ms,
-           plain, bnd, by, lib, err)
+    report("compact", f"12 columns N={n:,}, {kept:,} kept; {per_call[0]} "
+           f"launches and {per_call[1]} host sync a call; device "
+           f"{device if device is None else round(device, 4)} ms "
+           f"({split or 'not measured'}); host {host:.1f} us a call at "
+           f"4,096 rows", ms, plain, bnd, by, lib, err)
     keep("compact", ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-         library_ms=lib, max_abs_err=err)
+         library_ms=lib, max_abs_err=err, device_ms=device, host_us=host,
+         per_call_kernels=per_call[0], per_call_host_syncs=per_call[1])
     del got, want
 
     # -- radix_argsort: (g)'s decile keys, and its distinct sweep --
@@ -2281,11 +2309,14 @@ def _promql_path(gk, pk, sk, db, scrapes, seed, has_arrow, card) -> dict:
     # every window of the path holds at most 21 samples (5 m at 15 s; lmax
     # 32) and every subquery matrix 6 (K), so every quantile / mad sort of
     # the path must take the register route (matrix_route(width <= 32))
-    for kname, wrapper in (("window_matrix", pk.window_matrix),
-                           ("window_matrix_dense", pk.window_matrix_dense)):
+    matrix = ("window_matrix", "window_matrix_dense")
+    for kname, wrapper in zip(matrix, (pk.window_matrix,
+                                       pk.window_matrix_dense)):
         ROUTES[kname] = {"register": wrapper.register, "warp": wrapper.warp}
-    log(f"promql path: window_matrix routes {ROUTES}")
-    for kname, r in ROUTES.items():
+    log(f"promql path: window_matrix routes "
+        f"{ {k: ROUTES[k] for k in matrix} }")
+    for kname in matrix:
+        r = ROUTES[kname]
         if r["warp"] or r["register"] != launches[kname]:
             raise AssertionError(f"{kname} left the register route on the "
                                  f"PromQL path: {r}, {launches[kname]} "
@@ -5019,8 +5050,11 @@ def write_query_tsbs(stk, db, ctx: dict, hours: int, has_arrow: bool,
     0 (the DeviceTable rebuilds) and the grid entry evicted (it rebuilds:
     the thresholds do not govern grid extends, as in the reference), the
     first-query times side by side.  Then a flush, after which the grid
-    must catch up and stay the resident table.  Returns (launches, the
-    inputs of the extend's two kernels for timing)."""
+    must catch up and stay the resident table; then ``CATCH_UP_STEPS``
+    steps of hour ``hours + 2`` through region.write (no hot tail) and a
+    flush, from which the grid must catch up through grid_scatter, the
+    new cells equal to the values written (``catch_up_tsbs``).  Returns
+    (launches, the inputs of the extend's kernels for timing)."""
     from greptimedb_tpu_torch.servers.ingest import ingest_columns
     from greptimedb_tpu_torch.utils.tracing import TRACER
 
@@ -5053,6 +5087,7 @@ def write_query_tsbs(stk, db, ctx: dict, hours: int, has_arrow: bool,
                 ("grid", "hot_tail"), ("grid", "extend"), ("grid", "miss"),
                 ("table", "extend"), ("table", "miss"))}
             launches0 = (stk.extend_merge.launches,
+                         stk.grid_scatter_steps.launches,
                          stk.grid_scatter.launches)
             pos0 = region.append_pos
             log_memory(f"write-then-query TSBS hour {hour} ({route}), "
@@ -5063,9 +5098,15 @@ def write_query_tsbs(stk, db, ctx: dict, hours: int, has_arrow: bool,
                 _n, ingest_ms = timed_first(lambda: ingest_columns(
                     db, "cpu", {**data, "__tags__": ["hostname"],
                                 "__fields__": list(METRICS)}))
-                tail_ms = sum((sp["end_ns"] - sp["start_ns"]) / 1e6
-                              for sp in TRACER.since(mark)
-                              if sp["name"] == "ingest_grid_tail")
+                tail_ms, split = 0.0, {}
+                for sp in TRACER.since(mark):
+                    ms_ = (sp["end_ns"] - sp["start_ns"]) / 1e6
+                    if sp["name"] == "ingest_grid_tail":
+                        tail_ms += ms_
+                    elif sp["name"].startswith(("grid_extend.",
+                                                "grid_scatter.")):
+                        split[sp["name"]] = round(
+                            split.get(sp["name"], 0.0) + ms_, 3)
             finally:
                 TRACER.configure(enabled=False)
             if route == "extend":
@@ -5093,18 +5134,22 @@ def write_query_tsbs(stk, db, ctx: dict, hours: int, has_arrow: bool,
                                  SCALE * 12, want)
             events = {k: cache_event(*k) - v for k, v in events0.items()}
             launched = (stk.extend_merge.launches - launches0[0],
-                        stk.grid_scatter.launches - launches0[1])
+                        stk.grid_scatter_steps.launches - launches0[1],
+                        stk.grid_scatter.launches - launches0[2])
             table = cache.get(region)
             first[route] = (ingest_ms, grid_ms, row_ms)
             log(f"write-then-query TSBS hour {hour} ({route}): "
                 f"{len(data['ts']):,} rows through ingest_columns in "
                 f"{ingest_ms:.3f} ms (its ingest_grid_tail span {tail_ms:.3f}"
-                f" ms); first (a) on the grid {grid_ms:.3f} ms (scan_cache "
+                f" ms; inside it, host ms {split}, the rest "
+                f"{tail_ms - sum(split.values()):.3f}); first (a) on the "
+                f"grid {grid_ms:.3f} ms (scan_cache "
                 f"{grid_scan} ms), first (d) on the row path {row_ms:.3f} ms "
                 f"(scan_cache {row_scan} ms); rows equal to "
                 f"numpy (max |diff| {worst:.3g}, {worst_d:.3g}); cache events"
-                f" {events}; extend_merge / grid_scatter launches "
-                f"{launched}; DeviceTable {table.padded_rows:,} padded rows, "
+                f" {events}; extend_merge / grid_scatter_steps / grid_scatter"
+                f" launches {launched}; DeviceTable "
+                f"{table.padded_rows:,} padded rows, "
                 f"sorted_tags {table.sorted_tags} — {card}")
             if route == "extend":
                 # get_grid counts its extend before it tries one, and a
@@ -5117,9 +5162,12 @@ def write_query_tsbs(stk, db, ctx: dict, hours: int, has_arrow: bool,
                         ("table", "miss")]:
                     raise AssertionError(f"the DeviceTable did not extend: "
                                          f"{events}")
-                if min(launched) < 1:
-                    raise AssertionError(f"extend_merge / grid_scatter did "
-                                         f"not launch: {launched}")
+                # the hour arrives time-major, every host each step: the
+                # hot tail's scatter is grid_scatter_steps
+                if launched[:2] != (1, 1) or launched[2]:
+                    raise AssertionError(
+                        f"extend_merge / grid_scatter_steps / grid_scatter "
+                        f"launched {launched}, want (1, 1, 0)")
                 if table.sorted_tags != tags0:
                     raise AssertionError(f"sorted_tags {table.sorted_tags} "
                                          f"after the extend, {tags0} before")
@@ -5149,12 +5197,56 @@ def write_query_tsbs(stk, db, ctx: dict, hours: int, has_arrow: bool,
         log(f"write-then-query TSBS: flush {flush_ms:.3f} ms, then get_grid "
             f"caught up in {get_ms:.3f} ms and kept the resident table — "
             f"{card}")
+        catch_up_tsbs(stk, db, stats, hours + 2, caught, card)
     else:
         log("write-then-query TSBS: no pyarrow, no flush: catch-up not run")
     launches = {"extend_merge": stk.extend_merge.launches,
+                "grid_scatter_steps": stk.grid_scatter_steps.launches,
                 "grid_scatter": stk.grid_scatter.launches}
     log(f"write-then-query TSBS: launches {launches}")
     return launches, captured
+
+
+def catch_up_tsbs(stk, db, stats, hour: int, resident, card: str) -> None:
+    """The first ``CATCH_UP_STEPS`` steps of ``hour`` through region.write
+    (which runs no hot tail) and a flush: get_grid must catch up from the
+    new file (its cells in (tsid, ts) order) through one grid_scatter, and
+    the grid must hold the written f32 values, valid, where they fall."""
+    cache = db.cache
+    region = db._region_of("cpu")
+    data, series = stats["next_hour"](hour)
+    n = CATCH_UP_STEPS * SCALE
+    region.write({k: v[:n] for k, v in data.items()})
+    c0 = cache_event("grid", "catch_up")
+    l0 = stk.grid_scatter_steps.launches, stk.grid_scatter.launches
+    _meta, flush_ms = timed_first(region.flush)
+    caught, get_ms = timed_first(lambda: cache.get_grid(region))
+    launched = (stk.grid_scatter_steps.launches - l0[0],
+                stk.grid_scatter.launches - l0[1])
+    t0 = (T0 + hour * STEPS_PER_HOUR * STEP_S * 1000 - caught.ts0) \
+        // caught.step
+    if (cache_event("grid", "catch_up") != c0 + 1 or caught is resident
+            or launched != (0, 1) or resident.nt != t0
+            or caught.nt != t0 + CATCH_UP_STEPS):
+        raise AssertionError(f"the grid did not catch up {CATCH_UP_STEPS} "
+                             f"steps through grid_scatter: launches "
+                             f"{launched}, nt {resident.nt} -> {caught.nt}, "
+                             f"want {t0} -> {t0 + CATCH_UP_STEPS}")
+    enc = region.encoders["hostname"]
+    tsids = torch.tensor([region._series[(enc.get(f"host_{i}"),)]
+                          for i in range(SCALE)], device=caught.device)
+    planes = [caught.field_names.index(m) for m in METRICS]
+    got = caught.values[:, tsids, t0:t0 + CATCH_UP_STEPS].cpu()[planes]
+    want = np.ascontiguousarray(np.transpose(
+        series[:CATCH_UP_STEPS].astype(np.float32), (2, 1, 0)))
+    if got.numpy().tobytes() != want.tobytes() or not bool(
+            caught.valid[tsids, t0:t0 + CATCH_UP_STEPS].all()):
+        raise AssertionError("the caught-up grid differs from the values "
+                             "written")
+    log(f"write-then-query TSBS: {n:,} rows ({CATCH_UP_STEPS} steps) "
+        f"written and flushed in {flush_ms:.3f} ms, then get_grid caught up"
+        f" in {get_ms:.3f} ms through grid_scatter (launches {launched}), "
+        f"the new cells equal to the values written — {card}")
 
 
 def extend_merge_timing(stk, sk, db, table0, chunks, card: str) -> dict:
@@ -5234,56 +5326,140 @@ def extend_merge_timing(stk, sk, db, table0, chunks, card: str) -> dict:
                 library_ms=lib, max_abs_err=0.0, whole_ms=whole_ms)
 
 
-def grid_scatter_timing(stk, db, grid0, chunks, card: str) -> dict:
+def grid_scatter_timing(stk, db, grid0, chunks, card: str):
     """K24 on the hot tail's own inputs (the resident grid before the
-    write, the write's cells), on copies of the grid: equal to its plain
-    version (index_put_) bit for bit, timed beside it and index_put_ on
-    each plane."""
+    write, the write's cells), on copies of the grid: grid_scatter_steps
+    (the cells as ``step_cells`` finds them; its host time is the
+    detection the write pays), grid_scatter on the same time-major cells
+    and on a catch-up-shaped input (the same cells in (tsid, ts) order,
+    as an SST part holds them), each equal to the plain version
+    (index_put_) bit for bit; timed beside the plain versions, index_put_
+    on each plane, one index_put_ over all planes + one on valid, and the
+    hot tail's grid copy (``_writable``: a clone of both tensors).
+    Returns the kernels-line numbers of (grid_scatter_steps,
+    grid_scatter); each bound counts the bytes its own inputs need: the
+    series sequence and the steps for the first, two int64 indices a cell
+    for the second."""
     from greptimedb_tpu_torch.storage import grid as pgrid
 
     region = db._region_of("cpu")
     tsid, tidx, cols, _nt = pgrid.append_cells(grid0, region, chunks)
+    detect = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        steps = stk.step_cells(tsid, tidx)
+        detect.append((time.perf_counter() - t0) * 1e3)
+    detect_ms = float(np.median(detect))
+    if steps is None:
+        raise AssertionError("the hour's cells are not whole steps")
     dev = grid0.device
     ti = torch.from_numpy(tsid).to(dev)
     xi = torch.from_numpy(tidx).to(dev)
+    seq_d = torch.from_numpy(steps[0]).to(dev)
+    steps_d = torch.from_numpy(steps[1]).to(dev)
     delta = torch.from_numpy(np.stack(cols)).to(dev)
     flags = torch.ones(len(tsid), dtype=torch.bool, device=dev)
-    values, valid = grid0.values.clone(), grid0.valid.clone()
-    stk.grid_scatter(values, valid, ti, xi, delta, flags)
+    # the catch-up shape: the same cells in (tsid, ts) order
+    order = torch.from_numpy(np.lexsort((tidx, tsid))).to(dev)
+    ti_s, xi_s = ti[order], xi[order]
+    delta_s, flags_s = delta[:, order].contiguous(), flags[order]
     want_v, want_m = grid0.values.clone(), grid0.valid.clone()
     stk.grid_scatter_plain(want_v, want_m, ti, xi, delta, flags)
-    if not (same_output(values, want_v) and torch.equal(valid, want_m)):
-        raise AssertionError("grid_scatter differs from its plain version")
+    values, valid = torch.empty_like(want_v), torch.empty_like(want_m)
 
-    def run():
+    def steps_kernel():
+        stk.grid_scatter_steps(values, valid, seq_d, steps_d, delta, flags)
+
+    def cells_kernel():
         stk.grid_scatter(values, valid, ti, xi, delta, flags)
 
-    def library():
-        for c in range(delta.shape[0]):
-            want_v[c].index_put_((ti, xi), delta[c])
-        want_m.index_put_((ti, xi), flags)
+    def catch_up():
+        stk.grid_scatter(values, valid, ti_s, xi_s, delta_s, flags_s)
+
+    for name, fn in (("grid_scatter_steps", steps_kernel),
+                     ("grid_scatter", cells_kernel),
+                     ("grid_scatter on the catch-up shape", catch_up)):
+        values.copy_(grid0.values)
+        valid.copy_(grid0.valid)
+        fn()
+        if not (same_output(values, want_v) and torch.equal(valid, want_m)):
+            raise AssertionError(f"{name} differs from its plain version")
+
+    # the library calls write the cells' own values again: want_v stays
+    def library(a, b, d, f):
+        for c in range(d.shape[0]):
+            want_v[c].index_put_((a, b), d[c])
+        want_m.index_put_((a, b), f)
 
     def library_single():
         want_v[:, ti, xi] = delta
         want_m[ti, xi] = flags
 
-    ms = time_ms(run)
-    gms = graph_ms(run)
-    plain = time_ms(lambda: stk.grid_scatter_plain(want_v, want_m, ti, xi,
-                                                   delta, flags))
-    lib = time_ms(library)
+    def copy_clone():
+        return grid0.values.clone(), grid0.valid.clone()
+
+    def copy_into():
+        values.copy_(grid0.values)
+        valid.copy_(grid0.valid)
+
+    ms, gms = time_ms(steps_kernel), graph_ms(steps_kernel)
+    tm_ms, tm_gms = time_ms(cells_kernel), graph_ms(cells_kernel)
+    catch_ms, catch_gms = time_ms(catch_up), graph_ms(catch_up)
+    plain_steps = time_ms(lambda: stk.grid_scatter_steps_plain(
+        want_v, want_m, seq_d, steps_d, delta, flags))
+    plain_cells = time_ms(lambda: stk.grid_scatter_plain(
+        want_v, want_m, ti_s, xi_s, delta_s, flags_s))
+    lib = time_ms(lambda: library(ti, xi, delta, flags))
+    lib_catch = time_ms(lambda: library(ti_s, xi_s, delta_s, flags_s))
     lib_single = time_ms(library_single)
+    copy_ms = time_ms(copy_clone, reps=5)
+    copy_gms = graph_ms(copy_into, reps=5)
+    # the wrappers' host cost a call, on 8 steps of 64 series
+    tv = torch.zeros((delta.shape[0], 64, 64), device=dev)
+    tm = torch.zeros((64, 64), dtype=torch.bool, device=dev)
+    tseq = torch.arange(64, device=dev)
+    tsteps = torch.arange(8, device=dev)
+    tdelta = torch.ones((delta.shape[0], 512), device=dev)
+    tflags = torch.ones(512, dtype=torch.bool, device=dev)
+    host_steps = host_us(lambda: stk.grid_scatter_steps(
+        tv, tm, tseq, tsteps, tdelta, tflags), n=500)
+    ttsid, ttidx = tseq.repeat(8), tsteps.repeat_interleave(64)
+    host_cells = host_us(lambda: stk.grid_scatter(tv, tm, ttsid, ttidx,
+                                                  tdelta, tflags), n=500)
     c, n = delta.shape
-    bnd, by = bound_ms(nbytes(ti, xi, delta, flags) + n * (4 * c + 1), 0)
-    log(f"kernel grid_scatter[{n:,} cells x {c} planes into "
-        f"{list(grid0.values.shape)}; library: index_put_ on each plane]: "
-        f"{ms:.4f} ms, device {gms:.4f} ms (plain {plain:.4f} ms, library "
-        f"{lib:.4f} ms, one index_put_ over all planes + one on valid "
-        f"{lib_single:.4f} ms, bound {bnd:.4f} ms by {by}), max_abs_err 0 — "
-        f"{card}")
-    return dict(ms=ms, graph_ms=gms, plain_ms=plain, bound_ms=bnd,
-                bound_by=by, library_ms=lib, library_single_ms=lib_single,
-                max_abs_err=0.0)
+    written = n * (4 * c + 1)
+    bnd, by = bound_ms(nbytes(seq_d, steps_d, delta, flags) + written, 0)
+    cbnd, cby = bound_ms(nbytes(ti_s, xi_s, delta_s, flags_s) + written, 0)
+    copy_bnd, _ = bound_ms(2 * nbytes(grid0.values, grid0.valid), 0)
+    log(f"kernel grid_scatter_steps[{n:,} cells x {c} planes into "
+        f"{list(grid0.values.shape)}: {len(steps[1])} whole steps of "
+        f"{len(steps[0]):,} series (step_cells on the host "
+        f"{detect_ms:.3f} ms); library: index_put_ on each plane]: "
+        f"{ms:.4f} ms, device {gms:.4f} ms (plain {plain_steps:.4f} ms, "
+        f"library {lib:.4f} ms, one index_put_ over all planes + one on "
+        f"valid {lib_single:.4f} ms, bound {bnd:.4f} ms by {by}: seq, "
+        f"steps, delta and flags read, the cells written); host "
+        f"{host_steps:.1f} us a call; max_abs_err 0 — {card}")
+    log(f"kernel grid_scatter[the same cells in (tsid, ts) order, the "
+        f"catch-up shape; library: index_put_ on each plane]: "
+        f"{catch_ms:.4f} ms, device {catch_gms:.4f} (plain "
+        f"{plain_cells:.4f} ms, library {lib_catch:.4f} ms, bound "
+        f"{cbnd:.4f} ms by {cby}: two int64 indices a cell, delta and flags"
+        f" read, the cells written); on the time-major cells "
+        f"{tm_ms:.4f} ms, device {tm_gms:.4f}; host {host_cells:.1f} us a "
+        f"call; max_abs_err 0 — {card}")
+    log(f"the hot tail's grid copy (_writable: clone of "
+        f"{nbytes(grid0.values, grid0.valid):,} B): {copy_ms:.4f} ms, "
+        f"device (copy_ into a held buffer) {copy_gms:.4f} ms (bound "
+        f"{copy_bnd:.4f} ms) — {card}")
+    return (dict(ms=ms, graph_ms=gms, plain_ms=plain_steps, bound_ms=bnd,
+                 bound_by=by, library_ms=lib, library_single_ms=lib_single,
+                 max_abs_err=0.0, detect_ms=detect_ms, host_us=host_steps,
+                 copy_ms=copy_ms, copy_graph_ms=copy_gms),
+            dict(ms=catch_ms, graph_ms=catch_gms, plain_ms=plain_cells,
+                 bound_ms=cbnd, bound_by=cby, library_ms=lib_catch,
+                 max_abs_err=0.0, time_major_ms=tm_ms,
+                 time_major_graph_ms=tm_gms, host_us=host_cells))
 
 
 def write_query_promql(stk, pk, db, pctx: dict, card: str) -> dict:
@@ -5527,8 +5703,9 @@ def main() -> int:
             stk, db, ctx, args.hours, has_arrow, card)
         kernels["extend_merge"] = extend_merge_timing(stk, sk, db, table0,
                                                       chunks, card)
-        kernels["grid_scatter"] = grid_scatter_timing(stk, db, grid0, chunks,
-                                                      card)
+        (kernels["grid_scatter_steps"],
+         kernels["grid_scatter"]) = grid_scatter_timing(stk, db, grid0,
+                                                        chunks, card)
         del table0, grid0, chunks
     finally:
         db.close()
@@ -5588,7 +5765,8 @@ def main() -> int:
                  "line_vals", "row_match", "group_merge_stacked",
                  "series_mask", "topk_select", "vec_distance",
                  "series_ranges", "gather_ts_mat", "mesh_merge",
-                 "series_offsets", "extend_merge", "grid_scatter"):
+                 "series_offsets", "extend_merge", "grid_scatter_steps",
+                 "grid_scatter"):
         k = kernels[name]
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -5609,12 +5787,15 @@ def main() -> int:
                                          "two_merges_", "prom_", "mad_",
                                          "warp_", "holt_", "search_",
                                          "counter_", "instant_",
-                                         "regression_", "irate_", "whole_"))
+                                         "regression_", "irate_", "whole_",
+                                         "per_call_", "time_major_",
+                                         "copy_", "detect_"))
                       or key in ("solo_pairs_ms", "host_parse_ms", "on_path",
                                  "graph_ms", "library_graph_ms",
                                  "library_single_ms", "general_ms",
                                  "general_passes", "general_pass_ms",
-                                 "passes", "pass_ms", "host_us")})
+                                 "passes", "pass_ms", "host_us",
+                                 "device_ms")})
         if name in SHAPES:
             entry["launches_by_shape"] = SHAPES[name]
         if name in ROUTES:

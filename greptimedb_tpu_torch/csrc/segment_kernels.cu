@@ -63,18 +63,36 @@
 //
 // compact
 //   Replaces ops/masks.py:37 `compact_rows` (the stable argsort of the mask
-//   in physical.py:1986) and the rank scatter of K6 `compact_groups`
-//   (ops/segment.py:353).  compact_order: an int32 inclusive scan of the
-//   mask (scan.cuh's single-pass look-back scan), then order[rows before i
-//   that are set] = i for every set row i: the kept rows in row order
-//   (incl[n - 1] of them; the clear rows are not listed).  gather: dst[i] =
-//   src[order[i]] over the kept rows, for 1-, 2-, 4- and 8-byte elements,
-//   one launch per column.  rank_scatter: the same scan of "sorted key
-//   differs from the previous one" gives each sorted row its dense rank;
-//   one pass writes dense[order[i]] (num_groups on invalid rows) and
-//   group_keys[rank] = key.  Bound: bytes (compact reads the mask and the
-//   kept rows of each column and writes them; rank_scatter reads key,
-//   order and valid and writes dense and group_keys).
+//   in physical.py:1986).  Three launches and one host sync a call, every
+//   column in one launch, no [N] intermediate.  The rows are cut into at
+//   most 792 spans (6 blocks a multiprocessor), a block a span, in both
+//   passes over the mask.  Launch 1 (compact_count) counts each span's
+//   kept rows, 16 mask bytes a thread a load; the host reads the 792
+//   counts (the one sync), turns them into each span's output offset (an
+//   exclusive sum) and sizes one output buffer and a [kept] int32 order.
+//   Launch 2 (compact_order) writes each span's kept rows to the order
+//   from its offset, 16,384 rows a step (a thread 64 rows, four 16-byte
+//   loads; a block scan; the step's kept rows listed in shared memory and
+//   written coalesced): a reduce-then-scan whose middle scan is the
+//   host's, so no block waits on another.  Launch 3 (compact_gather)
+//   copies every column (1-, 2-, 4- or 8-byte elements; a descriptor
+//   table uploaded with the offsets, so no column limit): a thread a kept
+//   row, 4 columns a round with their loads in flight.  Launch 1 and the
+//   host's read are one C call, the upload and launches 2 and 3 another:
+//   a ctypes call costs more host time than a launch.  Designs built and
+//   measured slower than this one, and not kept: a single-pass look-back
+//   scan (scan.cuh) writing the order, the copy fused into that scan's
+//   epilogue (each tile's copy waits on its look-back), and a gather a
+//   block a column.  Bound: bytes: the mask, and the kept rows of each
+//   column read once and written once.
+//
+// rank_scatter
+//   Replaces the rank scatter of K6 `compact_groups` (ops/segment.py:353).
+//   An int32 inclusive scan of "sorted key differs from the previous one"
+//   (scan.cuh's launch_scan) gives each sorted row its dense rank; one pass
+//   writes dense[order[i]] (num_groups on invalid rows) and
+//   group_keys[rank] = key.  Bound: bytes (key, order and valid read,
+//   dense and group_keys written).
 //
 // radix_argsort
 //   Replaces K6's sorts: the jnp.argsort of compact_groups
@@ -709,11 +727,6 @@ int dispatch_sorted(int op, const void* const* cols, long long ld, int C,
 // compact
 // ---------------------------------------------------------------------------
 
-struct MaskSrc {  // 1 where the row is kept
-  const uint8_t* mask;
-  __device__ int operator()(long long i) const { return mask[i] != 0; }
-};
-
 // 1 where the sorted key differs from the previous.  launch_scan calls it
 // by whole warps on consecutive rows: the previous key comes from lane
 // l - 1 by shuffle, and only lane 0 gathers it.
@@ -728,22 +741,160 @@ struct KeyChangeSrc {
   }
 };
 
-__global__ void compact_order_kernel(const uint8_t* __restrict__ mask,
-                                     const int32_t* __restrict__ incl,
-                                     long long n,
-                                     int32_t* __restrict__ order) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  if (mask[i] != 0) order[incl[i] - 1] = (int32_t)i;
+// compact: the kept-row flags of four mask bytes as the low four bits
+// (byte b -> bit b); a byte counts when it is nonzero.
+__device__ __forceinline__ unsigned nonzero_nibble(unsigned x) {
+  const unsigned nz = (((x & 0x7f7f7f7fu) + 0x7f7f7f7fu) | x) & 0x80808080u;
+  const unsigned m = nz >> 7;  // bits 0, 8, 16 and 24
+  return (m | (m >> 7) | (m >> 14) | (m >> 21)) & 0xfu;
 }
 
-template <typename E>
-__global__ void gather_kernel(const E* __restrict__ src,
-                              const int32_t* __restrict__ order, long long n,
-                              E* __restrict__ dst) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  dst[i] = src[order[i]];
+constexpr int kMaskChunk = 16;  // mask bytes of one 16-byte load
+// the order pass takes a block's span in steps of 256 threads x 64 rows
+// (four 16-byte loads a thread in flight), its kept rows listed in shared
+// memory (32 KB: 6 blocks an SM)
+constexpr int kCompactItems = 4 * kMaskChunk;
+constexpr int kCompactStep = kThreads * kCompactItems;  // 16,384
+constexpr int kCompactBlocksMax = 792;  // 6 blocks an SM of 132
+constexpr int kCompactDesc = 3;  // words a column: source, offset, width
+constexpr int kGatherCols = 4;   // columns a gather thread loads at once
+
+// The flags of mask[row0, row0 + 16) as bits 0-15 (clear past n): one
+// 16-byte load where the mask is 16-byte aligned and the rows are whole.
+template <bool kVec>
+__device__ __forceinline__ unsigned mask_bits(const uint8_t* mask,
+                                              long long row0, long long n) {
+  if (kVec && row0 + kMaskChunk <= n) {
+    const uint4 v = *reinterpret_cast<const uint4*>(mask + row0);
+    return nonzero_nibble(v.x) | (nonzero_nibble(v.y) << 4) |
+           (nonzero_nibble(v.z) << 8) | (nonzero_nibble(v.w) << 12);
+  }
+  unsigned bits = 0;
+  for (int j = 0; j < kMaskChunk; ++j) {
+    if (row0 + j < n && mask[row0 + j] != 0) bits |= 1u << j;
+  }
+  return bits;
+}
+
+// compact, launch 1: block b counts the kept rows of its span, rows
+// [b * span, (b + 1) * span) (span a multiple of 16), 16 mask bytes a
+// thread at a time, into partial[b]; the host reads the partials (the
+// call's one sync) and turns them into each span's output offset.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+    compact_count_kernel(const uint8_t* __restrict__ mask, long long n,
+                         long long span, long long* __restrict__ partial) {
+  __shared__ long long warp_sum[kThreads / 32];
+  const long long lo = (long long)blockIdx.x * span;
+  const long long hi = lo + span < n ? lo + span : n;
+  long long cnt = 0;
+  for (long long r = lo + (long long)threadIdx.x * kMaskChunk; r < hi;
+       r += kThreads * kMaskChunk) {
+    cnt += __popc(mask_bits<kVec>(mask, r, hi));
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    cnt += __shfl_down_sync(kAllLanes, cnt, off);
+  }
+  if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = cnt;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    long long sum = 0;
+    for (int w = 0; w < kThreads / 32; ++w) sum += warp_sum[w];
+    partial[blockIdx.x] = sum;
+  }
+}
+
+// compact, launch 2: block b writes the kept rows of its span to
+// order[offset[b], ...), in row order.  It walks the span 16,384 rows at
+// a time: each thread's 64 contiguous rows (four 16-byte loads), a block
+// scan of the threads' counts, the kept rows listed in shared memory,
+// then written out coalesced.  The offsets come from the host (the
+// partials' exclusive sum), so no block waits on another.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, 6)
+    compact_order_kernel(const uint8_t* __restrict__ mask, long long n,
+                         long long span,
+                         const long long* __restrict__ offset,
+                         int32_t* __restrict__ order) {
+  __shared__ uint16_t rows[kCompactStep];
+  __shared__ long long sm[33];
+  const int tid = threadIdx.x;
+  const long long lo = (long long)blockIdx.x * span;
+  const long long hi = lo + span < n ? lo + span : n;
+  long long out0 = offset[blockIdx.x];
+  for (long long base = lo; base < hi; base += kCompactStep) {
+    const long long row0 = base + (long long)tid * kCompactItems;
+    unsigned long long bits = 0;
+#pragma unroll
+    for (int j = 0; j < kCompactItems / kMaskChunk; ++j) {
+      bits |= (unsigned long long)mask_bits<kVec>(
+                  mask, row0 + j * kMaskChunk, hi)
+              << (j * kMaskChunk);
+    }
+    long long step_kept;
+    int p = (int)block_exclusive_scan((long long)__popcll(bits), sm,
+                                      step_kept);
+    while (bits != 0) {
+      rows[p++] = (uint16_t)(tid * kCompactItems + __ffsll(bits) - 1);
+      bits &= bits - 1;
+    }
+    __syncthreads();
+    for (int q = tid; q < (int)step_kept; q += kThreads) {
+      order[out0 + q] = (int32_t)(base + rows[q]);
+    }
+    out0 += step_kept;
+  }
+}
+
+__device__ __forceinline__ unsigned long long load_elem(const void* p,
+                                                        long long i, int w) {
+  switch (w) {
+    case 1: return static_cast<const uint8_t*>(p)[i];
+    case 2: return static_cast<const uint16_t*>(p)[i];
+    case 4: return static_cast<const uint32_t*>(p)[i];
+    default: return static_cast<const unsigned long long*>(p)[i];
+  }
+}
+
+__device__ __forceinline__ void store_elem(void* p, long long i, int w,
+                                           unsigned long long v) {
+  switch (w) {
+    case 1: static_cast<uint8_t*>(p)[i] = (uint8_t)v; break;
+    case 2: static_cast<uint16_t*>(p)[i] = (uint16_t)v; break;
+    case 4: static_cast<uint32_t*>(p)[i] = (uint32_t)v; break;
+    default: static_cast<unsigned long long*>(p)[i] = v; break;
+  }
+}
+
+// compact, launch 3: every column of the kept rows in one launch, a thread
+// a kept row q (its order entry read once): kCols columns a round, their
+// loads, then their stores.  Column c's output starts at out + kept *
+// desc[3c + 1] and holds desc[3c + 2]-byte elements read from desc[3c].
+template <int kCols>
+__global__ void __launch_bounds__(kThreads)
+    compact_gather_kernel(const long long* __restrict__ desc, int ncols,
+                          const int32_t* __restrict__ order, long long kept,
+                          uint8_t* __restrict__ out) {
+  const long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= kept) return;
+  const long long i = order[q];
+  for (int c0 = 0; c0 < ncols; c0 += kCols) {
+    unsigned long long v[kCols];
+#pragma unroll
+    for (int u = 0; u < kCols; ++u) {
+      if (c0 + u < ncols) {
+        const long long* d = desc + (long long)(c0 + u) * kCompactDesc;
+        v[u] = load_elem((const void*)d[0], i, (int)d[2]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kCols; ++u) {
+      if (c0 + u < ncols) {
+        const long long* d = desc + (long long)(c0 + u) * kCompactDesc;
+        store_elem(out + kept * d[1], q, (int)d[2], v[u]);
+      }
+    }
+  }
 }
 
 __global__ void fill_i64_kernel(long long* p, long long n, long long value) {
@@ -1446,48 +1597,70 @@ int gt_sorted_reduce_i64(const void* const* cols, long long ld,
                                     out, ldo, cnt, (cudaStream_t)stream);
 }
 
-// incl: [n] int32 (the inclusive scan of the mask; incl[n-1] is the number
-// of set rows), scratch: the scan's tile status (scan.cuh ScanTiles, int32);
-// order: [n] int32, of which the first incl[n-1] entries are written.
-int gt_compact_order(const uint8_t* mask, long long n, int32_t* incl,
-                     void* scratch, int32_t* order, void* stream) {
+// compact, launch 1 and the call's one host sync.  scratch: blocks + 3 *
+// ncols int64 on the card (the spans' counts, then the offsets and the
+// descriptor table that compact_copy uploads over them); host: as many on
+// the host, of which the first `blocks` receive each span's exclusive
+// offset.  Returns the kept rows in *kept.
+int gt_compact_count(const uint8_t* mask, long long n, long long span,
+                     int blocks, long long* scratch, long long* host,
+                     long long* kept, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (n <= 0) return last_error();
-  if (int e = launch_scan<int32_t, MaskSrc>(MaskSrc{mask}, n, scratch, incl,
-                                            st)) {
+  if (blocks <= 0 || blocks > kCompactBlocksMax || span <= 0 ||
+      span % kMaskChunk || (long long)blocks * span < n) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (((uintptr_t)mask & 15) == 0) {
+    compact_count_kernel<true><<<blocks, kThreads, 0, st>>>(mask, n, span,
+                                                            scratch);
+  } else {
+    compact_count_kernel<false><<<blocks, kThreads, 0, st>>>(mask, n, span,
+                                                             scratch);
+  }
+  if (int e = last_error()) return e;
+  if (int e = (int)cudaMemcpyAsync(host, scratch, sizeof(long long) * blocks,
+                                   cudaMemcpyDeviceToHost, st)) {
     return e;
   }
-  compact_order_kernel<<<blocks_for(n), kThreads, 0, st>>>(mask, incl, n,
-                                                           order);
-  return last_error();
+  if (int e = (int)cudaStreamSynchronize(st)) return e;
+  long long sum = 0;
+  for (int b = 0; b < blocks; ++b) {
+    const long long c = host[b];
+    host[b] = sum;
+    sum += c;
+  }
+  *kept = sum;
+  return 0;
 }
 
-int gt_gather(const void* src, const int32_t* order, long long n,
-              int elem_bytes, void* dst, void* stream) {
+// compact, launches 2 and 3 (after launch 1 on the same scratch and host
+// buffer, whose entries blocks .. blocks + 3 * ncols hold the descriptor
+// table: kCompactDesc words a column, source pointer, output offset in
+// bytes a kept row, element width 1, 2, 4 or 8): the offsets and the
+// table copied to the scratch, the order pass into order [kept] int32,
+// then the gather of every column into out (kept * sum(widths) bytes).
+int gt_compact_copy(const uint8_t* mask, long long n, long long span,
+                    int blocks, long long* scratch, const long long* host,
+                    int ncols, int32_t* order, long long kept, uint8_t* out,
+                    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (n <= 0) return last_error();
-  const unsigned grid = blocks_for(n);
-  switch (elem_bytes) {
-    case 1:
-      gather_kernel<uint8_t><<<grid, kThreads, 0, st>>>(
-          (const uint8_t*)src, order, n, (uint8_t*)dst);
-      break;
-    case 2:
-      gather_kernel<uint16_t><<<grid, kThreads, 0, st>>>(
-          (const uint16_t*)src, order, n, (uint16_t*)dst);
-      break;
-    case 4:
-      gather_kernel<uint32_t><<<grid, kThreads, 0, st>>>(
-          (const uint32_t*)src, order, n, (uint32_t*)dst);
-      break;
-    case 8:
-      gather_kernel<unsigned long long><<<grid, kThreads, 0, st>>>(
-          (const unsigned long long*)src, order, n,
-          (unsigned long long*)dst);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+  if (n <= 0 || kept <= 0 || ncols <= 0) return last_error();
+  const size_t words = (size_t)blocks + (size_t)kCompactDesc * ncols;
+  if (int e = (int)cudaMemcpyAsync(scratch, host, sizeof(long long) * words,
+                                   cudaMemcpyHostToDevice, st)) {
+    return e;
   }
+  if (((uintptr_t)mask & 15) == 0) {
+    compact_order_kernel<true><<<blocks, kThreads, 0, st>>>(mask, n, span,
+                                                            scratch, order);
+  } else {
+    compact_order_kernel<false><<<blocks, kThreads, 0, st>>>(
+        mask, n, span, scratch, order);
+  }
+  if (int e = last_error()) return e;
+  compact_gather_kernel<kGatherCols>
+      <<<(unsigned)((kept + kThreads - 1) / kThreads), kThreads, 0, st>>>(
+          scratch + blocks, ncols, order, kept, out);
   return last_error();
 }
 

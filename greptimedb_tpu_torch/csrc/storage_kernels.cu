@@ -61,13 +61,33 @@
 //   Replaces the delta scatter into the resident [C, S, T] grid of the JAX
 //   reference (greptimedb_tpu/storage/grid.py:491-494 `extend_grid_table`
 //   and :612-614 `catch_up_grid_table`): `values.at[:, tsid, tidx].set(
-//   delta)` and `valid.at[tsid, tidx].set(flags)`.  One thread a delta
-//   cell i: the offset tsid[i] * tpad + tidx[i] in 64 bits, then the C
-//   field planes (plane c at c * spad * tpad) and the validity plane.
-//   Cells of one scatter are distinct (the append log's precondition; an
-//   SST part holds one row a key), so no two threads write one cell.
-//   Bound: bytes, the delta read once (C f32 values, two int64 indices
-//   and a flag a cell) and n x (4C + 1) bytes written.
+//   delta)` and `valid.at[tsid, tidx].set(flags)`.  Cells of one scatter
+//   are distinct (the append log's precondition; an SST part holds one row
+//   a key), so no two threads write one cell and the write order cannot
+//   change the result.  Two kernels, one wrapper each, picked by the
+//   caller from the cells' shape:
+//   - cells (grid_scatter_kernel, the wrapper grid_scatter): one thread a
+//     delta cell, in the delta's order: the offset tsid[i] * tpad +
+//     tidx[i] in 64 bits, then the C field planes (plane c at c * spad *
+//     tpad) and the validity plane.  A delta in (tsid, ts) order (a
+//     catch-up part read from an SST) stores consecutive t of one series
+//     from consecutive threads.  Bound: bytes, the delta read once (C f32
+//     values, two int64 indices and a flag a cell) and n x (4C + 1) bytes
+//     written.
+//   - steps (grid_scatter_steps_kernel, the wrapper grid_scatter_steps):
+//     the cells of k whole steps, cell r * S + p = (seq[p], steps[r]), as
+//     an append of every series once a step arrives (time-major:
+//     neighbouring cells are neighbouring series, one row of T apart, so
+//     the cells kernel gives each 4-byte store its own 32-byte sector).  A
+//     block takes a tile of 32 steps x 32 series of one plane: it reads
+//     the tile coalesced along the series into shared memory and writes it
+//     back transposed, so a warp stores 32 consecutive t of one series
+//     (128 bytes, whole sectors: where the steps are consecutive the step
+//     tiles start at a multiple of 32 in t, and a grid row starts at a
+//     multiple of 256 bytes).  Planes are the grid's third dimension (the
+//     C field planes, then the validity plane).  Bound: bytes, the delta
+//     and the flags read once, seq and steps (S + k int64, no index a
+//     cell) and n x (4C + 1) bytes written.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -199,6 +219,69 @@ __global__ void grid_scatter_kernel(float* __restrict__ values,
   valid[off] = flags[i];
 }
 
+constexpr int kStepTile = 32;  // steps and series of a steps-route tile
+
+// Plane blockIdx.z (< C: field plane, C: the validity plane) of the tile of
+// series [32 bx, 32 bx + 32) and steps [32 by - shift, 32 by - shift + 32)
+// (clipped to [0, S) and [0, k)), blockIdx.x = by * series_tiles + bx.
+// shift = steps[0] mod 32 where the steps are consecutive (steps are
+// strictly increasing: consecutive when steps[k - 1] - steps[0] = k - 1),
+// else 0; the grid holds ceil((k + 31) / 32) step tiles, enough for any
+// shift.  Threads: 32 x 8.
+__global__ void __launch_bounds__(kStepTile * 8)
+    grid_scatter_steps_kernel(float* __restrict__ values,
+                              uint8_t* __restrict__ valid, long long plane,
+                              long long tpad, int C,
+                              const long long* __restrict__ seq, long long S,
+                              const long long* __restrict__ steps,
+                              long long k, long long series_tiles,
+                              const float* __restrict__ delta,
+                              const uint8_t* __restrict__ flags) {
+  __shared__ float tile[kStepTile][kStepTile + 1];  // [step][series]
+  __shared__ uint8_t ftile[kStepTile][kStepTile + 1];
+  __shared__ long long row[kStepTile];  // seq[p] * tpad
+  __shared__ long long col[kStepTile];  // steps[r]
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const long long s0 = steps[0];
+  const int shift = steps[k - 1] - s0 == k - 1 ? (int)(s0 % kStepTile) : 0;
+  const long long p0 = (long long)(blockIdx.x % series_tiles) * kStepTile;
+  const long long r0 =
+      (long long)(blockIdx.x / series_tiles) * kStepTile - shift;
+  const int c = blockIdx.z;
+  const long long n = k * S;
+  if (ty == 0) {
+    const long long p = p0 + tx, r = r0 + tx;
+    row[tx] = p < S ? seq[p] * tpad : 0;
+    col[tx] = r >= 0 && r < k ? steps[r] : 0;
+  }
+  // read: warp ty takes steps ty, ty + 8, ...; lane tx the series p0 + tx
+  const long long p = p0 + tx;
+  for (int rr = ty; rr < kStepTile; rr += 8) {
+    const long long r = r0 + rr;
+    if (r >= 0 && r < k && p < S) {
+      const long long i = r * S + p;
+      if (c < C) {
+        tile[rr][tx] = delta[(long long)c * n + i];
+      } else {
+        ftile[rr][tx] = flags[i];
+      }
+    }
+  }
+  __syncthreads();
+  // write: warp ty takes series ty, ty + 8, ...; lane tx the step r0 + tx
+  const long long r = r0 + tx;
+  if (r < 0 || r >= k) return;
+  for (int pp = ty; pp < kStepTile; pp += 8) {
+    if (p0 + pp >= S) break;
+    const long long off = row[pp] + col[tx];
+    if (c < C) {
+      values[(long long)c * plane + off] = tile[tx][pp];
+    } else {
+      valid[off] = ftile[tx][pp];
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -234,6 +317,26 @@ int gt_grid_scatter(float* values, uint8_t* valid, long long plane,
   if (n <= 0) return (int)cudaGetLastError();
   grid_scatter_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
       values, valid, plane, tpad, C, tsid, tidx, delta, flags, n);
+  return (int)cudaGetLastError();
+}
+
+// The steps route: n = k * S cells, cell r * S + p = (seq[p], steps[r]),
+// steps strictly increasing; delta [C, n], flags [n].
+int gt_grid_scatter_steps(float* values, uint8_t* valid, long long plane,
+                          long long tpad, int C, const long long* seq,
+                          long long S, const long long* steps, long long k,
+                          const float* delta, const uint8_t* flags,
+                          void* stream) {
+  if (S <= 0 || k <= 0) return (int)cudaGetLastError();
+  const long long series_tiles = (S + kStepTile - 1) / kStepTile;
+  const long long tiles =
+      series_tiles * ((k + 2 * kStepTile - 2) / kStepTile);
+  if (tiles >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)tiles, 1, (unsigned)(C + 1));
+  grid_scatter_steps_kernel<<<grid, dim3(kStepTile, 8), 0,
+                              (cudaStream_t)stream>>>(
+      values, valid, plane, tpad, C, seq, S, steps, k, series_tiles, delta,
+      flags);
   return (int)cudaGetLastError();
 }
 

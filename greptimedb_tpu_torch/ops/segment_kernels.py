@@ -61,6 +61,8 @@ _U64 = (1 << 64) - 1
 _OPS = {"sum": 0, "min": 1, "max": 2}
 _WIDE_C = 16  # columns of one wide segment_reduce launch (csrc kWideC)
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.int64: "i64"}
+COMPACT_BLOCKS = 792  # compact's spans at most (csrc kCompactBlocksMax)
+COMPACT_STEP = 16_384  # rows a step of compact's order pass (kCompactStep)
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -83,8 +85,8 @@ def _load():
         ull = ctypes.c_ulonglong
         sigs = {
             "gt_segment_bounds": [vp, ll, i, vp, vp, vp],
-            "gt_compact_order": [vp, ll, vp, vp, vp, vp],
-            "gt_gather": [vp, vp, ll, i, vp, vp],
+            "gt_compact_count": [vp, ll, ll, i, vp, vp, vp, vp],
+            "gt_compact_copy": [vp, ll, ll, i, vp, vp, i, vp, ll, vp, vp],
             "gt_rank_scatter": [vp, vp, vp, ll, ll, vp, vp, vp, vp, vp],
             "gt_argsort_minmax": [vp, vp, ll, vp, vp],
             "gt_argsort_keys": [vp, vp, ll, ll, ull, i, i, vp, vp, vp],
@@ -370,45 +372,100 @@ def compact_plain(columns: dict, mask):
     return {k: v[order] for k, v in columns.items()}, n
 
 
+def compact_spans(n: int) -> tuple[int, int]:
+    """(blocks, span) of compact's two passes over the mask: one block a
+    span of ``span`` rows (a multiple of 16, the mask's 16-byte loads), at
+    least one step of 16,384 rows a block where there are rows enough, at
+    most 792 blocks (6 a multiprocessor)."""
+    blocks = max(1, min(COMPACT_BLOCKS, -(-n // COMPACT_STEP)))
+    per_block = -(-n // blocks)
+    return blocks, max(16, (per_block + 15) // 16 * 16)
+
+
+def compact_scratch_bytes(blocks: int, ncols: int) -> int:
+    """Bytes of compact's scratch on the card: the spans' counts, then
+    their offsets and the descriptor table (3 int64 a column) over them."""
+    return 8 * (blocks + 3 * ncols)
+
+
+def compact_layout(widths: list) -> tuple[list, list]:
+    """Where each column's kept rows go in compact's one output buffer,
+    from the columns' element widths: (the columns in buffer order, each
+    column's byte offset a kept row).  The buffer holds them in order of
+    decreasing width, so every column's part starts at a multiple of its
+    width for any count of kept rows."""
+    order = sorted(range(len(widths)), key=lambda j: -widths[j])
+    at, offsets = 0, [0] * len(widths)
+    for j in order:
+        offsets[j] = at
+        at += widths[j]
+    return order, offsets
+
+
 def compact(columns: dict, mask):
     """Stable compaction: the rows of every ``[N]`` column where ``mask`` is
     set, in row order.  Returns ``(columns, n)``: each column ``[n]``, n the
-    number of set rows."""
+    number of set rows.  On the card: three launches and one host sync
+    (counted in ``compact.kernels`` and ``compact.host_syncs``); the
+    columns are views of one buffer."""
     if mask.dtype != torch.bool or mask.dim() != 1:
         raise ValueError("compact: mask must be bool [N]")
     n = mask.shape[0]
+    widths = []
     for k, v in columns.items():
         if v.dim() != 1 or v.shape[0] != n:
             raise ValueError(f"compact: column {k} is {tuple(v.shape)}, "
                              f"want [{n}]")
+        widths.append(v.element_size())
+        if widths[-1] not in (1, 2, 4, 8):
+            raise ValueError(f"compact: column {k} has {v.dtype}")
     if _on_cpu("compact", mask, *columns.values()):
         return compact_plain(columns, mask)
+    if n >= 1 << 31:
+        raise ValueError(f"compact: {n} rows exceed int32 row indices")
     dev = mask.device
     lib = _load()
     stream = _stream_ptr(mask)
     mask = mask.contiguous()
-    incl = torch.empty(n, dtype=torch.int32, device=dev)
-    sums = cuda_build.scan_scratch(n, torch.int32, dev)
-    order = torch.empty(n, dtype=torch.int32, device=dev)
-    _check(lib.gt_compact_order(mask.data_ptr(), n, incl.data_ptr(),
-                                sums.data_ptr(), order.data_ptr(), stream),
-           "compact (order)")
-    kept = int(incl[-1]) if n else 0
-    out = {}
-    for k, v in columns.items():
-        v = v.contiguous()
-        if v.element_size() not in (1, 2, 4, 8):
-            raise ValueError(f"compact: column {k} has {v.dtype}")
-        dst = torch.empty(kept, dtype=v.dtype, device=dev)
-        _check(lib.gt_gather(v.data_ptr(), order.data_ptr(), kept,
-                             v.element_size(), dst.data_ptr(), stream),
-               "compact (gather)")
-        out[k] = dst
+    cols = [v.contiguous() for v in columns.values()]
+    placed, offsets = compact_layout(widths)
+    blocks, span = compact_spans(n)
+    scratch = torch.empty(compact_scratch_bytes(blocks, len(cols)),
+                          dtype=torch.uint8, device=dev)
+    # the spans' offsets (written by the count), then the descriptor table
+    host = (ctypes.c_longlong * (blocks + 3 * len(cols)))()
+    host[blocks + 0::3] = [v.data_ptr() for v in cols]
+    host[blocks + 1::3] = offsets
+    host[blocks + 2::3] = widths
+    kept = ctypes.c_longlong()
+    _check(lib.gt_compact_count(mask.data_ptr(), n, span, blocks,
+                                scratch.data_ptr(), host, ctypes.byref(kept),
+                                stream), "compact (count)")
+    kept = kept.value
+    compact.kernels += 1
+    compact.host_syncs += 1
+    buf = torch.empty(kept * sum(widths), dtype=torch.uint8, device=dev)
+    if kept and cols:
+        order = torch.empty(kept, dtype=torch.int32, device=dev)
+        _check(lib.gt_compact_copy(mask.data_ptr(), n, span, blocks,
+                                   scratch.data_ptr(), host, len(cols),
+                                   order.data_ptr(), kept, buf.data_ptr(),
+                                   stream), "compact (order, gather)")
+        compact.kernels += 2
     compact.launches += 1
+    # one split of the buffer into the columns' parts: a slice each costs
+    # more host time
+    parts = buf.split([kept * widths[j] for j in placed]) if cols else ()
+    names = list(columns)
+    out = dict.fromkeys(names)
+    for j, part in zip(placed, parts):
+        out[names[j]] = part.view(cols[j].dtype)
     return out, kept
 
 
 compact.launches = 0
+compact.kernels = 0
+compact.host_syncs = 0
 
 
 def rank_scatter_plain(key, order, valid, num_groups: int):

@@ -20,7 +20,10 @@ where a wrapper launches its kernel.
 - ``grid_scatter`` replaces the delta scatter into the resident
   ``[C, S, T]`` grid (``greptimedb_tpu/storage/grid.py:491-494`` and
   ``:612-614``): the C field planes and the validity plane of n cells in
-  one launch, in place.
+  one launch, in place, a thread a cell (any distinct cells);
+- ``grid_scatter_steps`` is the same scatter for k whole steps of the
+  same S series, as ``step_cells`` finds them in an append (a
+  transposing tile, so a warp stores consecutive t of one series).
 
 Bounds, design notes and the proof that the merge equals the lexsort
 live in the CUDA source.
@@ -67,6 +70,8 @@ def _load():
             "gt_extend_merge": [vp, i, vp, ll, vp, vp, ll, vp, vp, ll, vp,
                                 vp],
             "gt_grid_scatter": [vp, vp, ll, ll, i, vp, vp, vp, vp, ll, vp],
+            "gt_grid_scatter_steps": [vp, vp, ll, ll, i, vp, ll, vp, ll,
+                                      vp, vp, vp],
         }
         for name, args in sigs.items():
             fn = getattr(lib, name)
@@ -226,6 +231,62 @@ extend_merge.launches = 0
 # grid_scatter (K24)
 # ---------------------------------------------------------------------------
 
+STEPS_MIN = 8  # steps of grid_scatter_steps: a series' run fills a sector
+
+
+def _first_change(a: np.ndarray) -> int:
+    """The first index i with ``a[i] != a[0]`` (``len(a)`` when none),
+    searched in windows that grow fourfold, so a short first run costs a
+    short read."""
+    lo, width = 1, 1 << 14
+    while lo < len(a):
+        hit = np.flatnonzero(a[lo:lo + width] != a[0])
+        if len(hit):
+            return lo + int(hit[0])
+        lo, width = lo + width, width * 4
+    return len(a)
+
+
+def step_cells(tsid: np.ndarray, tidx: np.ndarray):
+    """The cells ``(tsid[i], tidx[i])`` as k whole steps of one series
+    sequence, or None: ``(seq, steps)`` when the n cells are ``k =
+    len(steps) >= STEPS_MIN`` rows of ``S = len(seq)`` cells, cell
+    ``r * S + p`` being ``(seq[p], steps[r])``, with ``steps`` strictly
+    increasing — an append that brings every series once a step, in time
+    order.  Host numpy: O(1) reads of the rows' ends first (a delta in
+    (tsid, ts) order, a catch-up part, fails there), then one compare of
+    each array with itself shifted (a row's tidx against its neighbour's,
+    a row's tsid against the row before's); a ragged step, rows whose
+    series sequence differs, repeated or decreasing steps, or fewer than
+    ``STEPS_MIN`` steps give None (``grid_scatter``'s cells)."""
+    n = len(tidx)
+    if n == 0 or len(tsid) != n:
+        return None
+    s = _first_change(tidx)
+    if s == n or n % s or n // s < STEPS_MIN:
+        return None
+    # the last row starts and ends as the first and holds one step
+    if (tsid[n - s] != tsid[0] or tsid[n - 1] != tsid[s - 1]
+            or tidx[n - s] != tidx[n - 1]):
+        return None
+    steps = tidx[::s]
+    if not bool((steps[1:] > steps[:-1]).all()):
+        return None
+    inside = tidx[1:] != tidx[:-1]  # a change of step, allowed at a row end
+    inside[s - 1::s] = False
+    if inside.any() or not np.array_equal(tsid[s:], tsid[:-s]):
+        return None
+    return np.ascontiguousarray(tsid[:s]), np.ascontiguousarray(steps)
+
+
+def _check_grid(name, values, valid) -> None:
+    if (values.dim() != 3 or values.dtype != torch.float32
+            or valid.dtype != torch.bool
+            or tuple(valid.shape) != tuple(values.shape[1:])):
+        raise ValueError(f"{name}: values f32 [C, S, T] and valid bool "
+                         f"[S, T]")
+
+
 def grid_scatter_plain(values, valid, tsid, tidx, delta, flags) -> None:
     values[:, tsid, tidx] = delta
     valid[tsid, tidx] = flags
@@ -237,11 +298,7 @@ def grid_scatter(values, valid, tsid, tidx, delta, flags) -> None:
     (``values`` f32 ``[C, S, T]``, ``valid`` bool ``[S, T]``, ``tsid`` /
     ``tidx`` int64 ``[n]``, ``delta`` f32 ``[C, n]``, ``flags`` bool
     ``[n]``).  The cells must be distinct."""
-    if (values.dim() != 3 or values.dtype != torch.float32
-            or valid.dtype != torch.bool
-            or tuple(valid.shape) != tuple(values.shape[1:])):
-        raise ValueError("grid_scatter: values f32 [C, S, T] and valid bool "
-                         "[S, T]")
+    _check_grid("grid_scatter", values, valid)
     c, n = values.shape[0], tsid.shape[0]
     if (tidx.shape != tsid.shape or tuple(delta.shape) != (c, n)
             or flags.shape != tsid.shape or delta.dtype != torch.float32
@@ -267,6 +324,48 @@ def grid_scatter(values, valid, tsid, tidx, delta, flags) -> None:
 grid_scatter.launches = 0
 
 
+def grid_scatter_steps_plain(values, valid, seq, steps, delta,
+                             flags) -> None:
+    grid_scatter_plain(values, valid, seq.repeat(steps.shape[0]),
+                       steps.repeat_interleave(seq.shape[0]), delta, flags)
+
+
+def grid_scatter_steps(values, valid, seq, steps, delta, flags) -> None:
+    """``grid_scatter`` of k whole steps of one series sequence, as
+    ``step_cells`` finds them: ``seq`` int64 ``[S]``, ``steps`` int64
+    ``[k]`` strictly increasing, n = k * S and cell ``r * S + p`` is
+    ``(seq[p], steps[r])`` (``delta`` f32 ``[C, n]``, ``flags`` bool
+    ``[n]``).  The series must be distinct."""
+    _check_grid("grid_scatter_steps", values, valid)
+    c, n = values.shape[0], seq.shape[0] * steps.shape[0]
+    if (seq.dim() != 1 or steps.dim() != 1
+            or tuple(delta.shape) != (c, n) or tuple(flags.shape) != (n,)
+            or delta.dtype != torch.float32 or seq.dtype != torch.int64
+            or steps.dtype != torch.int64 or flags.dtype != torch.bool):
+        raise ValueError("grid_scatter_steps: seq int64 [S], steps int64 "
+                         "[k], delta f32 [C, k * S], flags bool [k * S]")
+    if _on_cpu("grid_scatter_steps", values, valid, seq, steps, delta,
+               flags):
+        return grid_scatter_steps_plain(values, valid, seq, steps, delta,
+                                        flags)
+    if not (values.is_contiguous() and valid.is_contiguous()):
+        raise ValueError("grid_scatter_steps: values and valid must be "
+                         "contiguous")
+    seq, steps = seq.contiguous(), steps.contiguous()
+    delta, flags = delta.contiguous(), flags.contiguous()
+    spad, tpad = valid.shape
+    rc = _load().gt_grid_scatter_steps(
+        values.data_ptr(), valid.data_ptr(), spad * tpad, tpad, c,
+        seq.data_ptr(), seq.shape[0], steps.data_ptr(), steps.shape[0],
+        delta.data_ptr(), flags.data_ptr(), _stream_ptr(values))
+    grid_scatter_steps.launches += 1
+    _check(rc, "grid_scatter_steps")
+
+
+grid_scatter_steps.launches = 0
+
+
 def reset_launch_counts() -> None:
     extend_merge.launches = 0
     grid_scatter.launches = 0
+    grid_scatter_steps.launches = 0

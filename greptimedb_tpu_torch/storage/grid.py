@@ -439,15 +439,29 @@ def _writable(table: GridTable, new_nt: int):
 
 
 def _scatter_part(values, valid, tsid, tidx, cols, flags) -> None:
-    """One part's cells into the grid through ``grid_scatter`` (K24)."""
-    from greptimedb_tpu_torch.ops.storage_kernels import grid_scatter
+    """One part's cells into the grid (K24): ``grid_scatter_steps`` when
+    the cells are whole steps of one series sequence (``step_cells``: an
+    append, time-major), which uploads that sequence and the steps
+    instead of a tsid and a tidx a cell; else ``grid_scatter``.  Spans
+    (host time): ``grid_scatter.detect``, ``.upload`` and ``.launch``."""
+    from greptimedb_tpu_torch.ops import storage_kernels as stk
+    from greptimedb_tpu_torch.utils.tracing import TRACER
 
     dev = values.device
-    grid_scatter(values, valid,
-                 _to_device_rows(np.ascontiguousarray(tsid), dev),
-                 _to_device_rows(np.ascontiguousarray(tidx), dev),
-                 _to_device_rows(np.stack(cols, axis=0), dev),
-                 _to_device_rows(np.ascontiguousarray(flags), dev))
+    with TRACER.stage("grid_scatter.detect", cells=len(tsid)):
+        steps = stk.step_cells(tsid, tidx)
+    with TRACER.stage("grid_scatter.upload"):
+        if steps is not None:
+            tsid, tidx = steps
+        args = (_to_device_rows(np.ascontiguousarray(tsid), dev),
+                _to_device_rows(np.ascontiguousarray(tidx), dev),
+                _to_device_rows(np.stack(cols, axis=0), dev),
+                _to_device_rows(np.ascontiguousarray(flags), dev))
+    with TRACER.stage("grid_scatter.launch", steps=steps is not None):
+        if steps is not None:
+            stk.grid_scatter_steps(values, valid, *args)
+        else:
+            stk.grid_scatter(values, valid, *args)
 
 
 def _extended(table: GridTable, region, values, valid, new_nt: int,
@@ -505,24 +519,32 @@ def extend_grid_table(table: GridTable, region, chunks):
     Returns the extended GridTable (the resident one is left as it was),
     or None when the delta does not fit the resident shape or step (the
     caller rebuilds).  Precondition (the region's append log): chunks are
-    PUT-only with strictly newer timestamps, so only new cells are set."""
+    PUT-only with strictly newer timestamps, so only new cells are set.
+    Spans (host time): ``grid_extend.cells``, ``.copy``, ``.no_nan`` and
+    ``.table``, and ``_scatter_part``'s."""
+    from greptimedb_tpu_torch.utils.tracing import TRACER
+
     if region.num_series > table.spad:
         return None
     if not sum(len(c[TSID]) for c in chunks):
         return table
-    cells = append_cells(table, region, chunks)
+    with TRACER.stage("grid_extend.cells"):
+        cells = append_cells(table, region, chunks)
     if cells is None:
         return None
     tsid, tidx, cols, new_nt = cells
-    grown = _writable(table, new_nt)
+    with TRACER.stage("grid_extend.copy"):
+        grown = _writable(table, new_nt)
     if grown is None:
         return None
     values, valid = grown
-    no_nan = [ok and bool(np.isfinite(col).all())
-              for ok, col in zip(table.no_nan, cols)]
+    with TRACER.stage("grid_extend.no_nan"):
+        no_nan = [ok and bool(np.isfinite(col).all())
+                  for ok, col in zip(table.no_nan, cols)]
     _scatter_part(values, valid, tsid, tidx, cols,
                   np.ones(len(tsid), dtype=bool))
-    return _extended(table, region, values, valid, new_nt, no_nan)
+    with TRACER.stage("grid_extend.table"):
+        return _extended(table, region, values, valid, new_nt, no_nan)
 
 
 def catch_up_grid_table(table: GridTable, region, new_metas):

@@ -855,6 +855,53 @@ def test_catch_up_grid_matches_reference(dbs, with_delete, grow):
             assert base[1].nt <= t < got[1].nt
 
 
+def test_grid_scatter_routes_of_append_and_catch_up(dbs, monkeypatch):
+    """An append of every series each step (time-major, as TSBS hours and
+    scrapes arrive) reaches grid_scatter_steps as whole steps; the
+    flushed parts of a catch-up, read from SSTs in (tsid, ts) order, and a
+    ragged last step reach grid_scatter as cells.  Every grid equals the
+    reference's."""
+    ref_db, port_db = dbs
+    regions = _regions(dbs)
+    routes = []  # True: grid_scatter_steps, False: grid_scatter
+
+    def spy(name, whole_steps):
+        real = getattr(stk, name)
+
+        def wrapper(*args):
+            routes.append(whole_steps)
+            return real(*args)
+        monkeypatch.setattr(stk, name, wrapper)
+
+    spy("grid_scatter_steps", True)
+    spy("grid_scatter", False)
+    for r in regions:
+        r.write(_grid_rows(1, steps=60))
+        r.flush()
+    for db, r in zip(dbs, regions):
+        db.cache.get_grid(r)
+    for r in regions:
+        r.write(_grid_rows(2, hosts=18, steps=30, t_off=60))
+    assert_grids_equal(*[db.cache.get_grid(r)
+                         for db, r in zip(dbs, regions)])
+    assert routes == [True]
+    ragged = _grid_rows(3, steps=12, t_off=90)
+    ragged = {k: v[:-5] for k, v in ragged.items()}
+    for r in regions:
+        r.write(ragged)
+    assert_grids_equal(*[db.cache.get_grid(r)
+                         for db, r in zip(dbs, regions)])
+    assert routes == [True, False]
+    for r in regions:
+        r.flush()
+        r.write(_grid_rows(4, steps=10, t_off=102))
+        r.flush()
+    caught = [db.cache.get_grid(r) for db, r in zip(dbs, regions)]
+    assert caught[1].nt == 112
+    assert_grids_equal(*caught)
+    assert routes == [True, False, False]
+
+
 def test_flush_catches_up_through_the_cache(dbs):
     ref_db, port_db = dbs
     regions = _regions(dbs)

@@ -251,6 +251,60 @@ def test_masks(seed):
         _same(got[k], np.asarray(want[k])[:n], exact=True)
 
 
+def _compact_columns(rng, n, ncols=7):
+    """Columns of every element width compact takes: 1 (uint8, bool), 2
+    (int16, float16), 4 (float32, int32) and 8 bytes (int64, float64),
+    cycled to ``ncols`` columns, NaN and -0.0 among the floats."""
+    kinds = [np.uint8, np.int16, np.float32, np.int64, bool, np.float16,
+             np.int32, np.float64]
+    cols = {}
+    for j in range(ncols):
+        kind = kinds[j % len(kinds)]
+        if kind is bool:
+            a = rng.random(n) < 0.5
+        elif np.issubdtype(kind, np.floating):
+            a = rng.normal(size=n).astype(kind)
+            a[rng.random(n) < 0.05] = np.nan
+            a[rng.random(n) < 0.05] = -0.0
+        else:
+            info = np.iinfo(kind)
+            a = rng.integers(info.min, info.max, n, dtype=kind,
+                             endpoint=True)
+        cols[f"c{j}"] = a
+    return cols
+
+
+def test_compact_layout_aligns_every_column():
+    rng = np.random.default_rng(0)
+    cols = [_t(a) for a in _compact_columns(rng, 5, 16).values()]
+    widths = [c.element_size() for c in cols]
+    placed, offsets = sk.compact_layout(widths)
+    assert sorted(placed) == list(range(len(widths)))
+    assert [widths[j] for j in placed] == sorted(widths, reverse=True)
+    at = 0
+    for j in placed:
+        assert offsets[j] == at
+        assert at % widths[j] == 0  # so kept * at is too, for any kept
+        at += widths[j]
+    assert sk.compact_layout([]) == ([], [])
+
+
+@pytest.mark.parametrize("n,blocks", [
+    (0, 1), (1, 1), (16_384, 1), (16_385, 2), (3_000_017, 184),
+    (35_651_584, sk.COMPACT_BLOCKS)])
+def test_compact_spans_cover_the_rows(n, blocks):
+    """Every row lies in exactly one span, spans start on 16-byte mask
+    loads, and no block has less than a step of rows where there are rows
+    enough."""
+    got, span = sk.compact_spans(n)
+    assert got == blocks
+    assert span % 16 == 0 and span >= 16
+    assert (blocks - 1) * span < max(n, 1) <= blocks * span
+    if n >= blocks * sk.COMPACT_STEP:
+        assert span >= sk.COMPACT_STEP
+    assert sk.compact_scratch_bytes(blocks, 12) == 8 * (blocks + 36)
+
+
 def test_radix_argsort_plain_orders_floats_and_invalid_rows():
     v = np.array([3.0, -0.0, np.nan, 0.0, -1.5, 3.0, -np.inf, 2.0],
                  dtype=np.float32)
@@ -454,6 +508,119 @@ def test_cuda_compact_and_argsort_match_plain(cuda_device, n):
         for g, w in zip(got, want):
             _close(g, w, exact=True)
     torch.cuda.synchronize()
+
+
+def _compact_mask(rng, n, kept):
+    if kept == "none":
+        return np.zeros(n, bool)
+    if kept == "one":
+        m = np.zeros(n, bool)
+        m[n // 2 + 1] = True
+        return m
+    if kept == "all":
+        return np.ones(n, bool)
+    if kept == "runs":  # clustered, as (f)'s high-cpu rows are
+        return np.repeat(rng.random(-(-n // 97)) < 0.1, 97)[:n]
+    return rng.random(n) < 0.08
+
+
+def _compact_on_card(dev, cols, mask, card_mask=None):
+    """compact on the card (under ``card_mask``, the numpy ``mask`` on the
+    card by default), bit for bit against compact_plain, with its
+    launches, kernels and host syncs counted; returns (columns, kept)."""
+    want = sk.compact_plain({k: _t(a) for k, a in cols.items()}, _t(mask))
+    card = {k: _t(a).to(dev) for k, a in cols.items()}
+    m = _t(mask).to(dev) if card_mask is None else card_mask
+    n0 = (sk.compact.launches, sk.compact.kernels, sk.compact.host_syncs)
+    got, kept = sk.compact(card, m)
+    torch.cuda.synchronize()
+    assert kept == want[1]
+    assert (sk.compact.launches - n0[0], sk.compact.kernels - n0[1],
+            sk.compact.host_syncs - n0[2]) == (
+        1, 3 if kept and cols else 1, 1)
+    assert list(got) == list(cols)
+    for k in cols:
+        g, w = got[k].cpu(), want[0][k]
+        assert g.dtype == w.dtype and g.shape == w.shape == (kept,)
+        assert g.numpy().tobytes() == w.numpy().tobytes(), k
+    return got, kept
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4095, 4096, 4097, 3_000_017])
+@pytest.mark.parametrize("kept", ["none", "one", "all", "some", "runs"])
+def test_cuda_compact_matches_plain(cuda_device, n, kept):
+    """Tile and block edges, 0, 1 and all rows kept, scattered and
+    clustered masks, every element width."""
+    rng = np.random.default_rng(n)
+    cols = _compact_columns(rng, n, 8)
+    mask = _compact_mask(rng, n, kept)
+    _compact_on_card(cuda_device, cols, mask)
+
+
+@pytest.mark.cuda
+def test_cuda_compact_many_columns_and_unaligned(cuda_device):
+    """70 columns in one call; a mask and columns that start off a 16-byte
+    boundary (views one element in: the byte-wise mask path); two calls
+    equal bit for bit."""
+    rng = np.random.default_rng(70)
+    n = 100_003
+    cols = _compact_columns(rng, n, 70)
+    mask = _compact_mask(rng, n, "some")
+    first, kept = _compact_on_card(cuda_device, cols, mask)
+    again, _ = _compact_on_card(cuda_device, cols, mask)
+    for k in cols:  # bit for bit, NaN payloads included
+        assert first[k].cpu().numpy().tobytes() == \
+            again[k].cpu().numpy().tobytes()
+    big = torch.from_numpy(np.concatenate([[True], mask])).to(cuda_device)
+    off = big[1:]
+    assert off.data_ptr() % 16 != 0
+    _compact_on_card(cuda_device, cols, mask, card_mask=off)
+    wide = {k: np.concatenate([a[:1], a]) for k, a in cols.items()}
+    card = {k: _t(a).to(cuda_device)[1:] for k, a in wide.items()}
+    want = sk.compact_plain({k: _t(a) for k, a in cols.items()}, _t(mask))
+    got, k2 = sk.compact(card, _t(mask).to(cuda_device))
+    assert k2 == kept
+    for k in cols:
+        assert got[k].cpu().numpy().tobytes() == want[0][k].numpy().tobytes()
+
+
+@pytest.mark.cuda
+def test_cuda_compact_one_host_sync_and_no_row_sized_scratch(cuda_device):
+    """One host sync a compact: the count's read, inside the count's C
+    call (``compact.host_syncs``), and no synchronizing torch op besides
+    (torch's sync debug mode sees none); three launches; the call's peak
+    memory is its output, its [kept] order and its scratch: no [N] int32
+    array (n * 4 bytes) on the way."""
+    import warnings
+
+    rng = np.random.default_rng(12)
+    n = 3_000_017
+    mask = torch.from_numpy(rng.random(n) < 0.01).to(cuda_device)
+    col = torch.from_numpy(rng.integers(0, 255, n, dtype=np.uint8)).to(
+        cuda_device)
+    sk.compact({"c": col}, mask)  # built and warm
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    n0 = sk.compact.kernels, sk.compact.host_syncs
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            out, kept = sk.compact({"c": col}, mask)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    syncs = [w for w in seen if "synchroniz" in str(w.message).lower()]
+    assert not syncs, [str(w.message) for w in syncs]
+    assert (sk.compact.kernels - n0[0], sk.compact.host_syncs - n0[1]) == (
+        3, 1)
+    assert kept == int(mask.sum())
+    assert peak < n * 4, peak
+    assert peak <= 5 * kept + 2 * (n // 4096 + 1) * 8 + 16 * 1024, peak
+    del out
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,17 @@
-"""Times the users of csrc/scan.cuh's single-pass scan, the two dense-grid
-kernels and K14's two window sorts on the card, each checked against its
-plain version first.
+"""Times the users of csrc/scan.cuh's single-pass scan, K24's grid
+scatter, the two dense-grid kernels and K14's two window sorts on the
+card, each checked against its plain version first.
 
-- ``scan``: compact (12 columns, N = 35,651,584, ~8 % kept), topk_select
+- ``scan``: compact (12 columns, N = 35,651,584, ~8 % kept scattered
+  and in runs of 97 rows, beside nonzero + index_select; its host
+  microseconds a call at 4,096 rows), topk_select
   (one int64 key DESC under a ~10 % mask, k = 10, as chip_smoke.py's
   query (j); two keys, k = 65,536), rank_scatter and prefix_scan
   (N = 41,943,040), with the kernels' device times of one call of compact
   and of (j) by torch.profiler.
+- ``scatter``: K24 at the hot tail's TSBS hour (see ``scatter``),
+  grid_scatter_steps and grid_scatter, beside index_put_ and the grid
+  copy.
 - ``grid``: bucket_reduce at the SQL grid path's shapes (the f32 partial
   sums [10, 4096, 10240] and the u8 valid plane at r = 360; the masked
   12 h + 5 min window, sum and min) and group_merge ([10, 4096, 24] into
@@ -46,8 +51,8 @@ plain version first.
 Prints one line, ``PROBE {json}``.
 
 Run from the root of a checkout, which it imports the port from:
-``python3 time_scans.py TAG [scan|grid|matrix|windows|all]`` (default
-all; ``windows`` runs only when named).  To compare two commits on one
+``python3 time_scans.py TAG [scan|scatter|grid|matrix|windows|all]``
+(default all; ``windows`` runs only when named).  To compare two commits on one
 card, run it from each checkout's root one after another: parent, change,
 change, parent."""
 import inspect
@@ -438,7 +443,24 @@ def scan():
     assert kept == wk and all(torch.equal(got[k], want[k]) for k in cols)
     res["compact_ms"] = time_ms(lambda: sk.compact(cols, hot))
     res["compact_split"] = split(lambda: sk.compact(cols, hot))
-    del got, want
+    # kept rows in runs of 97, as (f)'s hot hours of one host
+    runs = (torch.rand(-(-N // 97), device=dev, generator=g) < 0.084
+            ).repeat_interleave(97)[:N]
+    got, kept = sk.compact(cols, runs)
+    want, wk = sk.compact_plain(cols, runs)
+    assert kept == wk and all(torch.equal(got[k], want[k]) for k in cols)
+    res["compact_runs_ms"] = time_ms(lambda: sk.compact(cols, runs))
+    res["compact_runs_split"] = split(lambda: sk.compact(cols, runs))
+
+    def library():
+        rows = torch.nonzero(hot).squeeze(1)
+        return [col.index_select(0, rows) for col in cols.values()]
+
+    res["compact_library_ms"] = time_ms(library)
+    tiny = {k: v[:4096] for k, v in cols.items()}
+    res["compact_host_us"] = host_us(lambda: sk.compact(tiny, hot[:4096]),
+                                     n=200)
+    del got, want, runs
     keys = [(cols["ts"], False, None)]
     mask = usage > 90
     got, gn = tk.topk_select(keys, mask, 10)
@@ -470,6 +492,72 @@ def scan():
     res["prefix_scan_ms"] = time_ms(lambda: pk.prefix_scan(val, tsid, valid))
 
 
+def scatter():
+    """K24 at the hot tail's TSBS hour: 4,000 series x 360 whole steps
+    (time-major, as the write brings them) after 24 h into a seeded
+    [10, 4096, 10240] grid: grid_scatter_steps where the checkout has it
+    (with the host time of ``step_cells`` on the cells), grid_scatter on
+    the same cells and on them in (tsid, ts) order (the catch-up shape),
+    each equal to index_put_ first; then one
+    index_put_ over the planes + one on valid, and the hot tail's grid
+    copy (a clone of both tensors; device time: copy_ into held
+    buffers)."""
+    from greptimedb_tpu_torch.ops import storage_kernels as stk
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    c, spad, tpad, S, k, t0 = 10, 4096, 10240, 4000, 360, 8640
+    base_v = torch.rand((c, spad, tpad), generator=g, device=dev)
+    base_m = torch.rand((spad, tpad), generator=g, device=dev) > 0.5
+    seq = torch.arange(S, device=dev)
+    steps = torch.arange(t0, t0 + k, device=dev)
+    tsid, tidx = seq.repeat(k), steps.repeat_interleave(S)
+    delta = torch.rand((c, S * k), generator=g, device=dev)
+    flags = torch.ones(S * k, dtype=torch.bool, device=dev)
+    order = torch.argsort(tsid * tpad + tidx)
+    ts_s, tx_s = tsid[order], tidx[order]
+    delta_s, flags_s = delta[:, order].contiguous(), flags[order]
+    want_v, want_m = base_v.clone(), base_m.clone()
+    want_v[:, tsid, tidx] = delta
+    want_m[tsid, tidx] = flags
+    values, valid = torch.empty_like(base_v), torch.empty_like(base_m)
+    routes = {
+        "cells": lambda: stk.grid_scatter(values, valid, tsid, tidx, delta,
+                                          flags),
+        "catch_up": lambda: stk.grid_scatter(values, valid, ts_s, tx_s,
+                                             delta_s, flags_s),
+    }
+    if hasattr(stk, "grid_scatter_steps"):
+        routes["steps"] = lambda: stk.grid_scatter_steps(
+            values, valid, seq, steps, delta, flags)
+        ht, hx = tsid.cpu().numpy(), tidx.cpu().numpy()
+        got = stk.step_cells(ht, hx)
+        assert got is not None
+        t1 = time.perf_counter()
+        for _ in range(5):
+            stk.step_cells(ht, hx)
+        res["scatter_detect_ms"] = (time.perf_counter() - t1) / 5 * 1e3
+    for name, fn in routes.items():
+        values.copy_(base_v)
+        valid.copy_(base_m)
+        fn()
+        assert torch.equal(values, want_v) and torch.equal(valid, want_m)
+        both(f"scatter_{name}", fn)
+
+    def index_put():
+        want_v[:, tsid, tidx] = delta
+        want_m[tsid, tidx] = flags
+
+    def copy_into():
+        values.copy_(base_v)
+        valid.copy_(base_m)
+
+    both("scatter_index_put", index_put)
+    res["scatter_copy_ms"] = time_ms(lambda: (base_v.clone(),
+                                              base_m.clone()), reps=5)
+    res["scatter_copy_graph_ms"] = graph_ms(copy_into, reps=5)
+
+
 def main():
     tag = sys.argv[1]
     what = sys.argv[2] if len(sys.argv) > 2 else "all"
@@ -482,6 +570,9 @@ def main():
         torch.cuda.empty_cache()
     if what in ("grid", "all"):
         grid()
+        torch.cuda.empty_cache()
+    if what in ("scatter", "all"):
+        scatter()
         torch.cuda.empty_cache()
     if what in ("scan", "all"):
         scan()
