@@ -1300,7 +1300,16 @@ def phase_row_kernels(sk, db, ctx: dict, card: str) -> dict:
     report("segment_reduce", f"int64 max of ts -> {hcard:,} (lastpoint "
            "pass 1)",
            ms, plain, bnd, by, None, err)
-    keep("segment_reduce", max_abs_err=err)
+    regs = {f"{d} {op} x{c} {'priv' if p else 'global'}":
+            sk.reduce_registers(dt, op, c, p)
+            for d, dt in (("i64", torch.int64), ("f32", torch.float32))
+            for op in ("max", "sum")
+            for c in ((1,) if d == "i64" else (1, 4, 10, 16))
+            for p in (True, False)}
+    log(f"kernel segment_reduce: (registers, spill bytes) a thread by "
+        f"instance {regs} — {card}")
+    keep("segment_reduce", max_abs_err=err, i64max_ms=ms,
+         i64max_plain_ms=plain, i64max_bound_ms=bnd, registers=regs)
     del vz, idx, buf
 
     # -- sorted_segment_reduce: the wide pass of (d) under auto --
@@ -4415,6 +4424,43 @@ def composite_key(tk, keys, mask):
     return comp if shift + 1 <= 63 else None
 
 
+SECTOR = 32  # bytes: the least the card reads from device memory at once
+
+
+def sector_bytes(col: torch.Tensor, rows: torch.Tensor) -> int:
+    """Bytes of the 32-byte sectors of ``col`` that the rows where
+    ``rows`` (bool) is set fall in."""
+    idx = torch.nonzero(rows).squeeze(1)
+    if idx.numel() == 0:
+        return 0
+    sec = (col.data_ptr() % SECTOR + idx * col.element_size()) // SECTOR
+    return SECTOR * (1 + int((sec[1:] != sec[:-1]).sum()))
+
+
+def topk_bound_bytes(tk, keys, mask, want, kept: int) -> tuple[int, list]:
+    """The least bytes topk_select moves: every mask byte; the first key
+    of the rows with the mask set; each later key only of the set rows
+    whose earlier keys tie with or beat the k-th row's (the others cannot
+    be in the answer, nor order it); each at sector granularity; the k
+    int64 rows written.  Every row's keys count when fewer than k rows are
+    set.  Also the rows each key is read for."""
+    k = want.numel()
+    total = nbytes(mask) + 8 * k
+    need = mask if kept == k else torch.ones_like(mask)
+    lt, eq = torch.zeros_like(mask), torch.ones_like(mask)
+    counts = []
+    for v, asc, nf in keys:
+        total += sector_bytes(v, need)
+        counts.append(int(need.sum()))
+        if kept == k:
+            for w in tk.sort_words(v, asc, nf):
+                wk = w[want[-1]]
+                lt |= eq & (w < wk)
+                eq &= w == wk
+            need = mask & (lt | eq)
+    return total, counts
+
+
 def phase_topk(tk, db, ctx: dict, card: str):
     """Three ORDER BY ... LIMIT queries through db.sql on phase 3's table
     (cold once, warm TOPK_WARM times), each equal row for row to a numpy
@@ -4488,9 +4534,18 @@ def phase_topk(tk, db, ctx: dict, card: str):
                                  f"the host, want {k}")
     runs = physical.DISPATCH_STATS["topk"] - before
     launches = {"topk_select": tk.topk_select.launches}
-    log(f"top-k path: launches {launches}, {runs} raw scans took the top-k")
+    routes = {"candidates": tk.topk_select.candidates,
+              "rows": tk.topk_select.rows,
+              "full_passes": tk.full_passes()}
+    ROUTES["topk_select"] = routes
+    log(f"top-k path: launches {launches}, {runs} raw scans took the top-k; "
+        f"routes and passes over all N rows {routes}")
     if launches["topk_select"] <= 0 or runs <= 0:
         raise AssertionError("topk_select never launched on the top-k path")
+    if (routes["rows"] or routes["candidates"] != launches["topk_select"]
+            or routes["full_passes"] > 3 * launches["topk_select"]):
+        raise AssertionError(f"top-k: not every call took the candidate "
+                             f"route in 3 passes over N: {routes}")
 
     # the kernel at the three queries' shapes, on the resident table
     table = db.cache.get(db._region_of("cpu"))
@@ -4512,6 +4567,11 @@ def phase_topk(tk, db, ctx: dict, card: str):
                                  f"plain version")
         ms = time_ms(lambda: tk.topk_select(keys, mask, k))
         plain = time_ms(lambda: tk.topk_select_plain(keys, mask, k), reps=5)
+        # device time of one call (it syncs the host once: no CUDA graph)
+        ops, _wall = profile_ops(lambda: tk.topk_select(keys, mask, k))
+        dev_ms = sum(ms for ms, _n in ops.values()) if ops else None
+        ops = {key.replace("(anonymous namespace)::", "")[:40]:
+               (round(ms, 4), cnt) for key, (ms, cnt) in ops.items()}
         comp = composite_key(tk, keys, mask)
         lib, same = None, None
         if comp is not None:
@@ -4521,20 +4581,23 @@ def phase_topk(tk, db, ctx: dict, card: str):
             lib = time_ms(lib_fn)
             same = torch.equal(torch.sort(comp, stable=True).indices[:k],
                                want)
-        bnd, by = bound_ms(nbytes(mask, *[v for v, _a, _n in keys])
-                           + k * 8, 0)
+        moved, read_for = topk_bound_bytes(tk, keys, mask, want, wn)
+        bnd, by = bound_ms(moved, 0)
         lib_s = "null" if lib is None else f"{lib:.4f}"
         log(f"kernel topk_select[({name}) {len(keys)} key(s), "
             f"{mask.shape[0]:,} rows, k = {k:,}]: {ms:.4f} ms (plain "
             f"{plain:.4f} ms, library {lib_s} ms: torch.sort(stable=True) + "
             f"index_select of one packed int64 key, same rows {same}; bound "
-            f"{bnd:.4f} ms by {by}), max_abs_err 0 — {card}")
+            f"{bnd:.4f} ms by {by}: the mask, keys read for {read_for} rows "
+            f"in 32-byte sectors, {moved:,} B), max_abs_err 0 — {card}")
+        log(f"kernel topk_select[({name})]: device {dev_ms} ms a call, "
+            f"its kernels {ops} — {card}")
         out[name] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
-                         library_ms=lib, max_abs_err=0.0)
+                         library_ms=lib, max_abs_err=0.0, device_ms=dev_ms)
         del comp
     main = dict(out["k"])
     for name in ("j", "l"):
-        for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+        for key in ("ms", "plain_ms", "bound_ms", "library_ms", "device_ms"):
             main[f"{name}_{key}"] = out[name][key]
     return launches, {"topk_select": main}
 
@@ -5753,6 +5816,8 @@ def main() -> int:
         for name, n in path.items():
             launches[name] = launches.get(name, 0) + n
     kernels["group_merge"].update(kernels.pop("group_merge_prom", {}))
+    log(f"launches by shape over every main path: {json.dumps(SHAPES)}; "
+        f"by route: {json.dumps(ROUTES)}")
     line = {"kernels": []}
     for name in ("bucket_reduce", "group_merge", "group_merge_pair",
                  "prefix_scan",
@@ -5789,13 +5854,13 @@ def main() -> int:
                                          "counter_", "instant_",
                                          "regression_", "irate_", "whole_",
                                          "per_call_", "time_major_",
-                                         "copy_", "detect_"))
+                                         "copy_", "detect_", "i64max_"))
                       or key in ("solo_pairs_ms", "host_parse_ms", "on_path",
                                  "graph_ms", "library_graph_ms",
                                  "library_single_ms", "general_ms",
                                  "general_passes", "general_pass_ms",
                                  "passes", "pass_ms", "host_us",
-                                 "device_ms")})
+                                 "device_ms", "registers")})
         if name in SHAPES:
             entry["launches_by_shape"] = SHAPES[name]
         if name in ROUTES:

@@ -52,7 +52,9 @@
 // are 0..n-1), are staged through shared memory in digit order, so each
 // digit's run of the tile lands contiguously in device memory.  Keys are
 // u32 or u64 (the caller picks the narrowest that holds them); the last
-// pass may skip writing keys.  Bound: bytes, per pass the keys and
+// pass may skip writing keys.  A pass whose digit every key shares (one
+// bin of the histogram holds n) copies keys and indices as they are.
+// Bound: bytes, per pass the keys and
 // indices read and written once: 16 B/row for u32 keys, 24 for u64, 4
 // less on the first pass and on the last.
 //
@@ -521,6 +523,17 @@ __global__ void __launch_bounds__(kSortThreads)
   __shared__ unsigned sm[33];
   __shared__ unsigned long long tile_id;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // hist sums to n: a digit every key shares leaves the order as it is, so
+  // each block copies its tile and no look-back runs
+  if (__syncthreads_or(hist[tid] == (unsigned)n)) {
+    const long long base = (long long)blockIdx.x * kSortTile;
+    for (int o = tid; o < kSortTile && base + o < n; o += kSortThreads) {
+      const long long i = base + o;
+      if (key_out != nullptr) key_out[i] = key_in[i];
+      idx_out[i] = idx_in != nullptr ? idx_in[i] : (int32_t)i;
+    }
+    return;
+  }
   if (tid == 0) tile_id = atomicAdd(status, 1ull);
   for (int b = tid; b < kSortWarps * kRadixBins; b += kSortThreads) {
     (&warp_cnt[0][0])[b] = 0;

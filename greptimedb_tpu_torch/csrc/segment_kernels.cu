@@ -35,16 +35,34 @@
 //   tree, one flush) and merges its other rows by a segmented shuffle scan
 //   over consecutive equal ids; each finished segment flushes once, the
 //   last one stays open.  So a run of equal ids costs one flush per warp
-//   chunk it touches, and a boundary one warp close.  Flushes go to shared-memory
-//   accumulators when ns x C of them fit in 48 KB (privatised: each block
-//   owns a contiguous row span and adds its accumulators to device memory
-//   once at the end), else straight to device memory.  Summation order:
-//   float sums add in step order within a lane, then in a fixed shuffle
-//   tree (or scan) within the warp, then in the order the atomics land,
-//   which changes from run to run; int64 sums wrap exactly (two's
-//   complement) and counts are exact.  float/double min and max go through
-//   an order-preserving unsigned key (atomicMin/Max on the key), so -0.0 <
-//   +0.0 and the +-inf fills survive.
+//   chunk it touches, and a boundary one warp close.
+//   Loads: what bounds the kernel is bytes in flight, and the rows whose
+//   mask byte is unset need no id or value.  So a warp first reads the
+//   chunk's 1,024 mask bytes (two 16-byte loads a lane: lane l holds step
+//   l's 32 bytes as a 32-bit word, which every lane reads by one shuffle a
+//   step), then issues the ids and values of kBatch steps at once (8 for
+//   one column, 4 up to 4 columns, 2 above), each lane loading only where
+//   its row's mask byte is set: a step with no live row loads nothing and
+//   is skipped, and a 32-byte sector of ids or values whose rows are all
+//   unset is never fetched.  The register arrays are sized to the launch's
+//   columns (instances for 1, 4, 10 and 16 columns).
+//   Flushes go to shared-memory accumulators when ns x C of them fit in
+//   48 KB (privatised: each block owns a contiguous row span and adds its
+//   accumulators to device memory once at the end), else straight to
+//   device memory.  A privatised block of one column has 1,024 threads,
+//   so one copy of the accumulators (int64 min/max over 4,096 segments:
+//   48 KB) serves 32 warps (512 for more columns, whose registers 64 a
+//   thread would not hold), and its warps take the block's chunks in turn;
+//   a block flushing to device memory has 256, each warp one contiguous
+//   span of its rows (warps of a block flushing one segment at once
+//   contend for it).  The grid is one wave at the occupancy the card
+//   reports.
+//   Summation order: float sums add in step order within a lane, then in a
+//   fixed shuffle tree (or scan) within the warp, then in the order the
+//   atomics land, which changes from run to run; int64 sums wrap exactly
+//   (two's complement) and counts are exact.  float/double min and max go
+//   through an order-preserving unsigned key (atomicMin/Max on the key), so
+//   -0.0 < +0.0 and the +-inf fills survive.
 //   Bound: bytes.  The result needs every mask byte and the ids and values
 //   of the live rows only: at the TSBS wide pass (N = 35.65 M, 17.28 M
 //   live rows of the 12 h window, C = 10) ~0.80 GB, ~0.24 ms at 3.35 TB/s.
@@ -153,7 +171,9 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <mutex>
 #include <type_traits>
+#include <unordered_map>
 
 #include "scan.cuh"
 
@@ -162,7 +182,7 @@ namespace {
 enum Op { OP_SUM = 0, OP_MIN = 1, OP_MAX = 2 };
 
 constexpr int kRows = 32;          // rows folded by one thread per chunk
-constexpr int kRedThreads = 256;   // 8 warps
+constexpr int kRedThreads = 256;   // 8 warps (device-memory flushes)
 constexpr int kWarpRows = 32 * kRows;
 constexpr int kPrivBytes = 48 * 1024;
 constexpr int kWideC = 16;         // columns of one wide launch
@@ -367,15 +387,145 @@ __device__ __forceinline__ void seg_close(
   }
 }
 
+// One step of 32 rows (lane l: id, or -1 for no live row, and its
+// lifted values xv / counts xc) folded into the warp's open run; returns
+// the run open after it.  Every lane calls it.
 template <typename T, int OP, int CMAX, bool PRIV>
-__global__ void __launch_bounds__(kRedThreads) segment_reduce_kernel(
-    const Cols<T> v, int C,
-    const int32_t* __restrict__ ids, const uint8_t* __restrict__ mask,
-    long long n, int ns, long long span,
-    typename Red<T, OP>::Acc* __restrict__ acc_out, long long ldo,
-    unsigned long long* __restrict__ cnt_out) {
+__device__ __forceinline__ int seg_step(
+    int id, int run, typename Red<T, OP>::Acc* xv, unsigned int* xc,
+    typename Red<T, OP>::Acc* acc, unsigned int* cnt, int C,
+    typename Red<T, OP>::Acc* s_acc, unsigned int* s_cnt,
+    typename Red<T, OP>::Acc* acc_out, unsigned long long* cnt_out,
+    long long ldo) {
   using R = Red<T, OP>;
   using Acc = typename R::Acc;
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  if (__all_sync(full, id < 0 || id == run)) {
+    // the common case on sorted ids: the whole step continues the run
+#pragma unroll
+    for (int c = 0; c < CMAX; ++c) {
+      acc[c] = R::combine(acc[c], xv[c]);
+      cnt[c] += xc[c];
+    }
+    return run;
+  }
+  // A boundary: this step's rows of the open run join it, the run
+  // closes, and the other rows merge by a segmented shuffle scan over
+  // consecutive equal ids.  Each finished segment flushes from its
+  // last lane; the last segment of the step becomes the open run.
+  if (id >= 0 && id == run) {
+#pragma unroll
+    for (int c = 0; c < CMAX; ++c) {
+      acc[c] = R::combine(acc[c], xv[c]);
+      cnt[c] += xc[c];
+    }
+    id = -1;
+  }
+  seg_close<T, OP, CMAX, PRIV>(run, acc, cnt, C, s_acc, s_cnt, acc_out,
+                               cnt_out, ldo);
+  const unsigned rest = __ballot_sync(full, id >= 0);
+  const int last = 31 - __clz(rest);
+  const int key = id >= 0 ? id : -1 - lane;  // idle lanes never merge
+  const int prev = __shfl_up_sync(full, key, 1);
+  const unsigned heads = __ballot_sync(full, lane == 0 || prev != key);
+  const int start = 31 - __clz(heads & (full >> (31 - lane)));
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+#pragma unroll
+    for (int c = 0; c < CMAX; ++c) {
+      if (c < C) {
+        const Acc oa = __shfl_up_sync(full, xv[c], off);
+        const unsigned int oc = __shfl_up_sync(full, xc[c], off);
+        if (lane - off >= start) {
+          xv[c] = R::combine(oa, xv[c]);
+          xc[c] += oc;
+        }
+      }
+    }
+  }
+  const int next = __shfl_down_sync(full, key, 1);
+  run = __shfl_sync(full, id, last);
+  if (id >= 0 && (lane == 31 || next != key)) {
+    if (lane == last) {
+#pragma unroll
+      for (int c = 0; c < CMAX; ++c) {
+        acc[c] = xv[c];
+        cnt[c] = xc[c];
+      }
+    } else {
+      seg_flush<T, OP, CMAX, PRIV>(id, xv, xc, C, s_acc, s_cnt, acc_out,
+                                   cnt_out, ldo);
+    }
+  }
+  return run;
+}
+
+// Steps of a warp chunk whose ids and values load together.
+template <int CMAX>
+__host__ __device__ constexpr int batch_steps() {
+  return CMAX == 1 ? 8 : (CMAX <= 4 ? 4 : 2);
+}
+
+// Threads of a block: a privatised block shares one copy of the
+// accumulators among 32 warps where one register column leaves 64
+// registers a thread enough, among 16 where more columns need more; a
+// block that flushes to device memory has 8 warps.
+template <int CMAX, bool PRIV>
+__host__ __device__ constexpr int reduce_threads() {
+  return PRIV ? (CMAX == 1 ? 1024 : 512) : kRedThreads;
+}
+
+// Bit r: byte r of the 16 nonzero.
+__device__ __forceinline__ unsigned nonzero_bits16(uint4 w) {
+  const unsigned q[4] = {w.x, w.y, w.z, w.w};
+  unsigned bits = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    unsigned t = q[k] | (q[k] >> 4);
+    t |= t >> 2;
+    t |= t >> 1;
+    t &= 0x01010101u;  // bit 8 b: byte b nonzero
+    bits |= ((t | (t >> 7) | (t >> 14) | (t >> 21)) & 0xfu) << (4 * k);
+  }
+  return bits;
+}
+
+// Lane l's word of a warp chunk from row w0: bit r set when row
+// w0 + 32 l + r lies below b1 and its mask byte is set (every row below
+// b1 without a mask), so step j's rows are the bits of lane j's word.
+__device__ __forceinline__ unsigned chunk_mask_word(const uint8_t* mask,
+                                                    long long w0,
+                                                    long long b1, int lane) {
+  const long long r0 = w0 + 32LL * lane;
+  if (r0 >= b1) return 0u;
+  if (mask == nullptr) {
+    return b1 - r0 >= 32 ? 0xffffffffu : (1u << (b1 - r0)) - 1u;
+  }
+  if (r0 + 32 <= b1 && (((uintptr_t)(mask + r0)) & 15) == 0) {
+    const uint4* q = reinterpret_cast<const uint4*>(mask + r0);
+    return nonzero_bits16(q[0]) | (nonzero_bits16(q[1]) << 16);
+  }
+  unsigned bits = 0;
+  for (int r = 0; r < 32 && r0 + r < b1; ++r) {
+    if (mask[r0 + r] != 0) bits |= 1u << r;
+  }
+  return bits;
+}
+
+template <typename T, int OP, int CMAX, bool PRIV>
+__global__ void __launch_bounds__(reduce_threads<CMAX, PRIV>())
+    segment_reduce_kernel(const Cols<T> v, int C,
+                          const int32_t* __restrict__ ids,
+                          const uint8_t* __restrict__ mask, long long n,
+                          int ns, long long span,
+                          typename Red<T, OP>::Acc* __restrict__ acc_out,
+                          long long ldo,
+                          unsigned long long* __restrict__ cnt_out) {
+  using R = Red<T, OP>;
+  using Acc = typename R::Acc;
+  constexpr int kThr = reduce_threads<CMAX, PRIV>();
+  constexpr int kBatch = batch_steps<CMAX>();
   extern __shared__ __align__(16) unsigned char smem[];
   Acc* s_acc = reinterpret_cast<Acc*>(smem);
   unsigned int* s_cnt =
@@ -393,8 +543,25 @@ __global__ void __launch_bounds__(kRedThreads) segment_reduce_kernel(
   const long long b0 = (long long)blockIdx.x * span;
   const long long b1 = b0 + span < n ? b0 + span : n;
   const bool counts_only = v.p[0] == nullptr;
-  for (long long w0 = b0 + (long long)warp * kWarpRows; w0 < b1;
-       w0 += (long long)(kRedThreads / 32) * kWarpRows) {
+  // Privatised, the block's warps take its chunks in turn (neighbouring
+  // warps read neighbouring rows).  Flushing to device memory, each warp
+  // takes one contiguous span of the block's rows (whole steps), so the
+  // warps of a block seldom flush to one segment at the same time.
+  long long wfirst = b0 + (long long)warp * kWarpRows, wend = b1;
+  long long wstride = (long long)(kThr / 32) * kWarpRows;
+  if (!PRIV) {
+    const long long per_warp =
+        ((b1 - b0 + kThr / 32 - 1) / (kThr / 32) + 31) & ~31LL;
+    wfirst = b0 + (long long)warp * per_warp;
+    wend = wfirst + per_warp < b1 ? wfirst + per_warp : b1;
+    wstride = kWarpRows;
+  }
+  // the chunk's live rows first: step j's are the bits of lane j's word
+  unsigned mw_next = chunk_mask_word(mask, wfirst, wend, lane);
+  for (long long w0 = wfirst; w0 < wend; w0 += wstride) {
+    const unsigned mw = mw_next;
+    // the next chunk's mask bytes load while this chunk folds
+    mw_next = chunk_mask_word(mask, w0 + wstride, wend, lane);
     // The warp's open run (warp-uniform id) and this lane's share of it.
     int run = -1;
     Acc acc[CMAX];
@@ -404,89 +571,43 @@ __global__ void __launch_bounds__(kRedThreads) segment_reduce_kernel(
       acc[c] = R::identity();
       cnt[c] = 0u;
     }
-    for (int j = 0; j < kRows; ++j) {
-      // step j: lane l takes row w0 + 32 j + l, so every load is coalesced
-      const long long i = w0 + (long long)j * 32 + lane;
-      // all of the step's loads issue together (one memory round trip);
-      // the mask applies after them
-      int id = -1;  // -1: no live row here
-      T xr[CMAX];
-      if (i < b1) {
-        const int raw = ids[i];
-        const bool on = mask == nullptr || mask[i] != 0;
+    for (int j0 = 0; j0 < kRows; j0 += kBatch) {
+      // kBatch steps' ids and values issue together, each lane loading
+      // only a live row (step j: lane l takes row w0 + 32 j + l)
+      unsigned sw[kBatch];
+      int raw[kBatch];
+      T xr[kBatch][CMAX];
 #pragma unroll
-        for (int c = 0; c < CMAX; ++c) {
-          if (c < C && !counts_only) xr[c] = v.p[c][i * v.ld];
-        }
-        if (on && raw >= 0 && raw < ns) id = raw;
-      }
-      Acc xv[CMAX];
-      unsigned int xc[CMAX];
-#pragma unroll
-      for (int c = 0; c < CMAX; ++c) {
-        xv[c] = R::identity();
-        xc[c] = 0u;
-        if (c < C && id >= 0 && (counts_only || !is_nan(xr[c]))) {
-          if (!counts_only) xv[c] = R::lift(xr[c]);
-          xc[c] = 1u;
-        }
-      }
-      if (__all_sync(full, id < 0 || id == run)) {
-        // the common case on sorted ids: the whole step continues the run
-#pragma unroll
-        for (int c = 0; c < CMAX; ++c) {
-          acc[c] = R::combine(acc[c], xv[c]);
-          cnt[c] += xc[c];
-        }
-        continue;
-      }
-      // A boundary: this step's rows of the open run join it, the run
-      // closes, and the other rows merge by a segmented shuffle scan over
-      // consecutive equal ids.  Each finished segment flushes from its
-      // last lane; the last segment of the step becomes the open run.
-      if (id >= 0 && id == run) {
-#pragma unroll
-        for (int c = 0; c < CMAX; ++c) {
-          acc[c] = R::combine(acc[c], xv[c]);
-          cnt[c] += xc[c];
-        }
-        id = -1;
-      }
-      seg_close<T, OP, CMAX, PRIV>(run, acc, cnt, C, s_acc, s_cnt, acc_out,
-                                   cnt_out, ldo);
-      const unsigned rest = __ballot_sync(full, id >= 0);
-      const int last = 31 - __clz(rest);
-      const int key = id >= 0 ? id : -1 - lane;  // idle lanes never merge
-      const int prev = __shfl_up_sync(full, key, 1);
-      const unsigned heads = __ballot_sync(full, lane == 0 || prev != key);
-      const int start = 31 - __clz(heads & (full >> (31 - lane)));
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-#pragma unroll
-        for (int c = 0; c < CMAX; ++c) {
-          if (c < C) {
-            const Acc oa = __shfl_up_sync(full, xv[c], off);
-            const unsigned int oc = __shfl_up_sync(full, xc[c], off);
-            if (lane - off >= start) {
-              xv[c] = R::combine(oa, xv[c]);
-              xc[c] += oc;
-            }
-          }
-        }
-      }
-      const int next = __shfl_down_sync(full, key, 1);
-      run = __shfl_sync(full, id, last);
-      if (id >= 0 && (lane == 31 || next != key)) {
-        if (lane == last) {
+      for (int u = 0; u < kBatch; ++u) {
+        sw[u] = __shfl_sync(full, mw, j0 + u);
+        raw[u] = -1;
+        if ((sw[u] >> lane) & 1u) {
+          const long long i = w0 + (long long)(j0 + u) * 32 + lane;
+          raw[u] = ids[i];
 #pragma unroll
           for (int c = 0; c < CMAX; ++c) {
-            acc[c] = xv[c];
-            cnt[c] = xc[c];
+            if (c < C && !counts_only) xr[u][c] = v.p[c][i * v.ld];
           }
-        } else {
-          seg_flush<T, OP, CMAX, PRIV>(id, xv, xc, C, s_acc, s_cnt, acc_out,
-                                       cnt_out, ldo);
         }
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (sw[u] == 0u) continue;  // warp-uniform: no live row
+        const int id = raw[u] >= 0 && raw[u] < ns ? raw[u] : -1;
+        Acc xv[CMAX];
+        unsigned int xc[CMAX];
+#pragma unroll
+        for (int c = 0; c < CMAX; ++c) {
+          xv[c] = R::identity();
+          xc[c] = 0u;
+          if (c < C && id >= 0 && (counts_only || !is_nan(xr[u][c]))) {
+            if (!counts_only) xv[c] = R::lift(xr[u][c]);
+            xc[c] = 1u;
+          }
+        }
+        run = seg_step<T, OP, CMAX, PRIV>(id, run, xv, xc, acc, cnt, C,
+                                          s_acc, s_cnt, acc_out, cnt_out,
+                                          ldo);
       }
     }
     seg_close<T, OP, CMAX, PRIV>(run, acc, cnt, C, s_acc, s_cnt, acc_out,
@@ -505,13 +626,12 @@ __global__ void __launch_bounds__(kRedThreads) segment_reduce_kernel(
 }
 
 int num_sms() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
+  static const int sms = [] {  // a static's initialisation is thread-safe
+    int dev = 0, n = 0;
     cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (sms <= 0) sms = 132;
-  }
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n > 0 ? n : 132;
+  }();
   return sms;
 }
 
@@ -521,18 +641,63 @@ int launch_reduce_mode(const Cols<T>& v, int C, const int32_t* ids,
                        typename Red<T, OP>::Acc* acc, long long ldo,
                        unsigned long long* cnt, cudaStream_t st) {
   using Acc = typename Red<T, OP>::Acc;
-  const long long per_block = (long long)(kRedThreads / 32) * kWarpRows;
+  constexpr int thr = reduce_threads<CMAX, PRIV>();
+  const size_t smem = PRIV ? (sizeof(Acc) + 4) * (size_t)ns * C : 0;
+  // one wave: each privatised block flushes once.  The occupancy query
+  // costs host time, so it is kept a shared-memory size, under a lock:
+  // calls come from several host threads.
+  static std::mutex occ_lock;
+  static std::unordered_map<size_t, int> occ_by_smem;
+  int occ = 0;
+  {
+    std::lock_guard<std::mutex> hold(occ_lock);
+    const auto it = occ_by_smem.find(smem);
+    if (it != occ_by_smem.end()) {
+      occ = it->second;
+    } else {
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &occ, segment_reduce_kernel<T, OP, CMAX, PRIV>, thr, smem);
+      occ_by_smem.emplace(smem, occ);
+    }
+  }
+  const long long per_block = (long long)(thr / 32) * kWarpRows;
   long long blocks = (n + per_block - 1) / per_block;
-  const long long cap = (long long)num_sms() * (PRIV ? 4 : 8);
+  const long long cap = (long long)num_sms() * (occ > 0 ? occ : 1);
   if (blocks > cap) blocks = cap;
   if (blocks < 1) blocks = 1;
   long long span = (n + blocks - 1) / blocks;
   span = (span + kWarpRows - 1) / kWarpRows * kWarpRows;
-  const size_t smem = PRIV ? (sizeof(Acc) + 4) * (size_t)ns * C : 0;
   segment_reduce_kernel<T, OP, CMAX, PRIV>
-      <<<(unsigned)blocks, kRedThreads, smem, st>>>(
-          v, C, ids, mask, n, ns, span, acc, ldo, cnt);
+      <<<(unsigned)blocks, thr, smem, st>>>(v, C, ids, mask, n, ns, span,
+                                            acc, ldo, cnt);
   return last_error();
+}
+
+// The instance for C columns: the register arrays hold 1, 4, 10 or 16.
+template <typename T, int OP, bool PRIV>
+int launch_reduce_cols(const Cols<T>& v, int C, const int32_t* ids,
+                       const uint8_t* mask, long long n, int ns,
+                       typename Red<T, OP>::Acc* acc, long long ldo,
+                       unsigned long long* cnt, cudaStream_t st) {
+  if (C == 1) {
+    return launch_reduce_mode<T, OP, 1, PRIV>(v, C, ids, mask, n, ns, acc,
+                                              ldo, cnt, st);
+  }
+  if constexpr (std::is_same<T, float>::value) {
+    if (C <= 4) {
+      return launch_reduce_mode<T, OP, 4, PRIV>(v, C, ids, mask, n, ns, acc,
+                                                ldo, cnt, st);
+    }
+    if (C <= 10) {
+      return launch_reduce_mode<T, OP, 10, PRIV>(v, C, ids, mask, n, ns,
+                                                 acc, ldo, cnt, st);
+    }
+    if (C <= kWideC) {
+      return launch_reduce_mode<T, OP, kWideC, PRIV>(v, C, ids, mask, n, ns,
+                                                     acc, ldo, cnt, st);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T, int OP>
@@ -550,21 +715,11 @@ int launch_reduce(const Cols<T>& v, int C, const int32_t* ids,
   if (int e = last_error()) return e;
   if (n > 0) {
     const bool priv = (sizeof(Acc) + 4) * slots <= (long long)kPrivBytes;
-    int e;
-    if (C == 1) {
-      e = priv ? launch_reduce_mode<T, OP, 1, true>(v, C, ids, mask, n, ns,
-                                                    acc, ldo, cnt, st)
-               : launch_reduce_mode<T, OP, 1, false>(v, C, ids, mask, n, ns,
-                                                     acc, ldo, cnt, st);
-    } else if constexpr (std::is_same<T, float>::value) {
-      if (C > kWideC) return (int)cudaErrorInvalidValue;
-      e = priv ? launch_reduce_mode<T, OP, kWideC, true>(
-                     v, C, ids, mask, n, ns, acc, ldo, cnt, st)
-               : launch_reduce_mode<T, OP, kWideC, false>(
-                     v, C, ids, mask, n, ns, acc, ldo, cnt, st);
-    } else {
-      return (int)cudaErrorInvalidValue;
-    }
+    const int e =
+        priv ? launch_reduce_cols<T, OP, true>(v, C, ids, mask, n, ns, acc,
+                                               ldo, cnt, st)
+             : launch_reduce_cols<T, OP, false>(v, C, ids, mask, n, ns, acc,
+                                                ldo, cnt, st);
     if (e) return e;
   }
   if constexpr (R::kKeyed) {
@@ -575,6 +730,45 @@ int launch_reduce(const Cols<T>& v, int C, const int32_t* ids,
     }
   }
   return 0;
+}
+
+template <typename T, int OP, int CMAX, bool PRIV>
+int reduce_attrs(int* regs, long long* local) {
+  cudaFuncAttributes a;
+  if (int e = (int)cudaFuncGetAttributes(
+          &a, segment_reduce_kernel<T, OP, CMAX, PRIV>)) {
+    return e;
+  }
+  *regs = a.numRegs;
+  *local = (long long)a.localSizeBytes;
+  return 0;
+}
+
+template <typename T, int OP, bool PRIV>
+int reduce_attrs_cols(int cmax, int* regs, long long* local) {
+  if (cmax == 1) return reduce_attrs<T, OP, 1, PRIV>(regs, local);
+  if constexpr (std::is_same<T, float>::value) {
+    if (cmax == 4) return reduce_attrs<T, OP, 4, PRIV>(regs, local);
+    if (cmax == 10) return reduce_attrs<T, OP, 10, PRIV>(regs, local);
+    if (cmax == kWideC) return reduce_attrs<T, OP, kWideC, PRIV>(regs, local);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, int OP>
+int reduce_attrs_priv(int cmax, int priv, int* regs, long long* local) {
+  return priv ? reduce_attrs_cols<T, OP, true>(cmax, regs, local)
+              : reduce_attrs_cols<T, OP, false>(cmax, regs, local);
+}
+
+template <typename T>
+int reduce_attrs_op(int op, int cmax, int priv, int* regs, long long* local) {
+  switch (op) {
+    case OP_SUM: return reduce_attrs_priv<T, OP_SUM>(cmax, priv, regs, local);
+    case OP_MIN: return reduce_attrs_priv<T, OP_MIN>(cmax, priv, regs, local);
+    case OP_MAX: return reduce_attrs_priv<T, OP_MAX>(cmax, priv, regs, local);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -1534,6 +1728,19 @@ int gt_segment_select(const float* values, long long T,
     if (int e = launch_pass<3>(a, grid, smem, st)) return e;
   }
   return 0;
+}
+
+// Registers a thread and local (spill) bytes of the segment_reduce
+// instance of value type `type` (0 f32, 1 f64, 2 int64), op, register
+// columns cmax (1; f32 also 4, 10, 16) and privatisation.
+int gt_segment_reduce_regs(int type, int op, int cmax, int priv, int* regs,
+                           long long* local) {
+  switch (type) {
+    case 0: return reduce_attrs_op<float>(op, cmax, priv, regs, local);
+    case 1: return reduce_attrs_op<double>(op, cmax, priv, regs, local);
+    case 2: return reduce_attrs_op<long long>(op, cmax, priv, regs, local);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // cols: a host array of C (1..16) column pointers, element (i, c) at

@@ -59,7 +59,7 @@ I64_MAX = (1 << 63) - 1
 I64_MIN = -(1 << 63)
 _U64 = (1 << 64) - 1
 _OPS = {"sum": 0, "min": 1, "max": 2}
-_WIDE_C = 16  # columns of one wide segment_reduce launch (csrc kWideC)
+_WIDE_C = 16  # columns of one wide launch (csrc kWideC)
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.int64: "i64"}
 COMPACT_BLOCKS = 792  # compact's spans at most (csrc kCompactBlocksMax)
 COMPACT_STEP = 16_384  # rows a step of compact's order pass (kCompactStep)
@@ -103,6 +103,8 @@ def _load():
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = i
+        lib.gt_segment_reduce_regs.argtypes = [i, i, i, i, vp, vp]
+        lib.gt_segment_reduce_regs.restype = i
         lib.gt_segment_select_scratch.argtypes = [ll, ll, ll, i]
         lib.gt_segment_select_scratch.restype = ll
         _lib = lib
@@ -141,7 +143,10 @@ def _check_args(what, values, ids, ns, op, mask):
         if not values or any(v.dim() != 1 or v.shape[0] != n
                              or v.dtype != values[0].dtype for v in values):
             raise ValueError(f"{what}: columns must be [{n}] of one dtype")
-        values = [v.to(value_dtype(v.dtype)) for v in values]
+        dt = value_dtype(values[0].dtype)
+        # a list, converted only when it must be (.to costs host time)
+        values = (list(values) if dt == values[0].dtype
+                  else [v.to(dt) for v in values])
     elif values is not None:
         if values.dim() not in (1, 2) or values.shape[0] != n:
             raise ValueError(f"{what}: values {tuple(values.shape)} do not "
@@ -268,9 +273,11 @@ def segment_reduce(values, ids, ns: int, op: str, mask=None):
         lambda arr, ld_, c, out_p, cnt_p: fn(
             arr, ld_, c, ids.data_ptr(), _ptr(mask), n, ns, _OPS[op], out_p,
             shape[1] if len(shape) == 2 else 1, cnt_p, stream))
-    # launches by shape: value type, op and columns ("count": no values)
+    # launches by shape: value type, op and columns ("count": no values),
+    # segments and a row-count bucket
     label = ("count" if values is None else
              f"{_SUFFIX[dtype]} {op} x{1 if ptrs is None else len(ptrs)}")
+    label += f" ns={ns} {rows_bucket(n)}"
     segment_reduce.shapes[label] = (segment_reduce.shapes.get(label, 0)
                                     + segment_reduce.launches - before)
     return val, cnt
@@ -278,6 +285,23 @@ def segment_reduce(values, ids, ns: int, op: str, mask=None):
 
 segment_reduce.launches = 0
 segment_reduce.shapes = {}
+
+
+def rows_bucket(n: int) -> str:
+    """The row-count bucket of a launch in ``segment_reduce.shapes``."""
+    return "N<64K" if n < 1 << 16 else ("N<1M" if n < 1 << 20 else "N>=1M")
+
+
+def reduce_registers(dtype: torch.dtype, op: str, cols: int,
+                     privatised: bool) -> tuple[int, int]:
+    """(registers a thread, local bytes a thread: spills) of the
+    segment_reduce instance for ``cols`` register columns (1; float32 also
+    4, 10 and 16), as the card's ``cudaFuncGetAttributes`` reports them."""
+    regs, local = ctypes.c_int(), ctypes.c_longlong()
+    _check(_load().gt_segment_reduce_regs(
+        list(_SUFFIX).index(dtype), _OPS[op], cols, int(privatised),
+        ctypes.byref(regs), ctypes.byref(local)), "segment_reduce (regs)")
+    return regs.value, local.value
 
 
 # ---------------------------------------------------------------------------
@@ -561,13 +585,18 @@ def argsort_bits(lo: int, hi: int, any_valid: bool) -> tuple:
     return span + 1, False, (span + 1).bit_length()
 
 
-def radix_argsort(values, valid=None) -> torch.Tensor:
+def radix_argsort(values, valid=None, bits=None) -> torch.Tensor:
     """Stable ascending argsort (int32 row indices) of ``values`` [N]
     (integers, bools or floats, through ``order_key``); rows where
-    ``valid`` is False come last, in row order."""
+    ``valid`` is False come last, in row order.  A caller that knows its
+    int64 keys lie in [0, 2^bits) (bits <= 63, no ``valid``) passes
+    ``bits``: no min/max pass and no host sync."""
     if values.dim() != 1 or (valid is not None and (
             valid.dtype != torch.bool or valid.shape != values.shape)):
         raise ValueError("radix_argsort: values [N] and valid bool [N]")
+    if bits is not None and (valid is not None or not 0 <= bits <= 63
+                             or values.dtype != torch.int64):
+        raise ValueError("radix_argsort: bits needs int64 keys, no valid")
     keys = order_key(values).contiguous()
     if _on_cpu("radix_argsort", keys, valid):
         return radix_argsort_plain(keys, valid)
@@ -579,19 +608,23 @@ def radix_argsort(values, valid=None) -> torch.Tensor:
     lib = _load()
     stream = _stream_ptr(keys)
     valid = valid.contiguous() if valid is not None else None
-    acc = torch.empty(3, dtype=torch.int64, device=dev)
-    _check(lib.gt_argsort_minmax(keys.data_ptr(), _ptr(valid), n,
-                                 acc.data_ptr(), stream),
-           "radix_argsort (min/max)")
-    lo, hi, any_valid = acc.tolist()  # the one host sync
-    inv, full, bits = argsort_bits(lo, hi, any_valid)
+    if bits is not None:  # keys in [0, 2^bits): their own offsets
+        lo, inv, full, bits = 0, 0, False, max(bits, 1)
+    else:
+        acc = torch.empty(3, dtype=torch.int64, device=dev)
+        _check(lib.gt_argsort_minmax(keys.data_ptr(), _ptr(valid), n,
+                                     acc.data_ptr(), stream),
+               "radix_argsort (min/max)")
+        lo, hi, any_valid = acc.tolist()  # the one host sync
+        inv, full, bits = argsort_bits(lo, hi, any_valid)
+        lo = lo if any_valid else 0
     wide, shifts = cuda_build.radix_digits(bits)
     rel = torch.empty(n, dtype=torch.int64 if wide else torch.int32,
                       device=dev)
     hist = torch.empty((len(shifts), cuda_build.RADIX_BINS),
                        dtype=torch.int32, device=dev)
     _check(lib.gt_argsort_keys(keys.data_ptr(), _ptr(valid), n,
-                               lo if any_valid else 0, inv, int(wide),
+                               lo, inv, int(wide),
                                len(shifts), rel.data_ptr(), hist.data_ptr(),
                                stream),
            "radix_argsort (keys)")

@@ -376,6 +376,155 @@ def test_scan_and_radix_scratch_sizes(n):
 
 
 # ---------------------------------------------------------------------------
+# segment_reduce's mask-first loads, emulated
+# ---------------------------------------------------------------------------
+#
+# On the card a warp reads its chunk's 1,024 mask bytes first (lane l: the
+# 32 bytes of rows w0 + 32 l .. + 31 as a 32-bit word, the nonzero bytes
+# found by shifts within each 32-bit word), then loads the id and values
+# of a row only where its bit is set, and skips a step of 32 rows whose
+# word is 0.  The emulation below follows that on torch tensors, with the
+# ids and values of every unset row poisoned, and must give the plain
+# reduction.
+
+WARP_ROWS = 1024  # csrc kWarpRows: 32 steps of 32 rows
+
+
+def _nonzero_bits(words):
+    """The kernel's nonzero_bits16 on int64-held uint32 words: bit b of
+    each word's 4-bit result set when byte b is nonzero."""
+    t = words | (words >> 4)
+    t = t | (t >> 2)
+    t = t | (t >> 1)
+    t = t & 0x01010101
+    return (t | (t >> 7) | (t >> 14) | (t >> 21)) & 0xF
+
+
+def _chunk_words(mask, w0, b1):
+    """chunk_mask_word for lanes 0..31 of the warp chunk at row w0 (rows
+    at or past b1 unset; every row below it set without a mask)."""
+    rows = w0 + torch.arange(WARP_ROWS).reshape(32, 32)
+    inside = rows < b1
+    if mask is None:
+        live = inside
+    else:
+        padded = torch.zeros(b1 + WARP_ROWS, dtype=torch.uint8)
+        padded[:b1] = mask[:b1].view(torch.uint8)
+        by = padded[rows.clamp(max=b1 + WARP_ROWS - 1)].to(torch.int64)
+        # four bytes a 32-bit word, as the uint4 loads see them
+        words = (by.reshape(32, 8, 4) << torch.tensor([0, 8, 16, 24])).sum(-1)
+        nib = _nonzero_bits(words)  # [32 lanes, 8 words]
+        live = ((nib[:, :, None] >> torch.arange(4)) & 1).reshape(32, 32)
+        live = live.bool() & inside
+    return (live.to(torch.int64) << torch.arange(32)).sum(1)
+
+
+def _warp_chunks(b0, b1, warps):
+    """(first row, end) of each warp chunk of a block's rows [b0, b1): in
+    turn, 1,024 rows each (``warps`` None: a privatised block), or over
+    one contiguous span a warp, whole steps of 32 rows (a block flushing
+    to device memory, ``warps`` warps)."""
+    if warps is None:
+        return [(w0, b1) for w0 in range(b0, b1, WARP_ROWS)]
+    per = -(-(b1 - b0) // warps)
+    per = -(-per // 32) * 32
+    out = []
+    for w in range(warps):
+        first, end = b0 + w * per, min(b0 + (w + 1) * per, b1)
+        out += [(w0, end) for w0 in range(first, end, WARP_ROWS)]
+    return out
+
+
+def _emulated_loads(mask, n, blocks, warps=None):
+    """Rows whose id and values the kernel loads, the steps skipped and
+    the steps in all, over ``blocks`` spans as launch_reduce_mode cuts
+    them and the warp chunks of each (``_warp_chunks``)."""
+    span = -(-n // blocks)
+    span = -(-span // WARP_ROWS) * WARP_ROWS
+    loaded = torch.zeros(n, dtype=torch.bool)
+    skipped = steps = 0
+    for b0 in range(0, n, span):
+        b1 = min(b0 + span, n)
+        for w0, end in _warp_chunks(b0, b1, warps):
+            words = _chunk_words(mask, w0, end)
+            steps += 32
+            for j in range(32):  # step j: lane l takes row w0 + 32 j + l
+                sw = int(words[j])
+                if sw == 0:
+                    skipped += 1
+                    continue
+                for lane in range(32):
+                    if (sw >> lane) & 1:
+                        loaded[w0 + 32 * j + lane] = True
+    return loaded, skipped, steps
+
+
+def test_nonzero_bits_of_any_bytes():
+    rng = np.random.default_rng(3)
+    by = rng.integers(0, 256, (500, 4))
+    by[rng.random((500, 4)) < 0.5] = 0
+    words = torch.from_numpy((by << np.array([0, 8, 16, 24])).sum(1))
+    want = ((by != 0) << np.arange(4)).sum(1)
+    assert _nonzero_bits(words).tolist() == want.tolist()
+
+
+@pytest.mark.parametrize("warps", [None, 8])
+@pytest.mark.parametrize("blocks", [1, 3])
+@pytest.mark.parametrize("kind", ["runs", "scattered", "all_dead", "none",
+                                  "bytes"])
+def test_segment_reduce_mask_first_emulation(kind, blocks, warps):
+    """Rows loaded = rows with the mask set; whole dead steps skipped; the
+    reduction over the loaded rows alone equals the plain one, for runs
+    of live rows, scattered rows, no live row, no mask, and mask bytes
+    other than 0 and 1 (the kernel tests bytes for nonzero); with the
+    chunks of a privatised block and the warp spans of a block that
+    flushes to device memory."""
+    rng = np.random.default_rng(blocks)
+    n, ns = 5 * WARP_ROWS + 333, 37  # a ragged last chunk
+    if kind == "runs":
+        mask = torch.from_numpy((rng.random(-(-n // 97)) < 0.3)
+                                .repeat(97)[:n])
+    elif kind in ("scattered", "bytes"):
+        mask = torch.from_numpy(rng.random(n) < 0.1)
+    elif kind == "all_dead":
+        mask = torch.zeros(n, dtype=torch.bool)
+    else:
+        mask = None
+    kmask = mask
+    if kind == "bytes":  # a bool tensor's bytes as another writer left them
+        kmask = torch.from_numpy(mask.numpy().astype(np.uint8)
+                                 * rng.integers(1, 256, n).astype(np.uint8)
+                                 ).view(torch.bool)
+    loaded, skipped, steps = _emulated_loads(kmask, n, blocks, warps)
+    live = torch.ones(n, dtype=torch.bool) if mask is None else mask
+    assert torch.equal(loaded, live)
+    # a step is skipped exactly when none of its 32 rows is live (a warp
+    # span is whole steps, so steps stay the table's 32-row groups)
+    assert skipped >= steps - -(-n // 32)
+    if kind == "all_dead":
+        assert skipped == steps
+    if kind == "none":
+        assert skipped == steps - -(-n // 32)
+    ids = torch.from_numpy(np.sort(rng.integers(-1, ns + 1, n))
+                           .astype(np.int32))
+    vals = torch.from_numpy(rng.normal(0, 50, (n, 3)).astype(np.float32))
+    want = sk.segment_reduce_plain(vals, ids, ns, "sum", mask)
+    # what the kernel reads: poison every row it does not load
+    pids = torch.where(loaded, ids, 0)
+    pvals = torch.where(loaded[:, None], vals, float("inf"))
+    got = sk.segment_reduce_plain(pvals[loaded], pids[loaded], ns, "sum")
+    assert torch.equal(got[1], want[1])
+    assert torch.allclose(got[0], want[0], rtol=1e-6, atol=1e-4)
+
+
+def test_segment_reduce_shape_labels():
+    """Launches by shape name the value type, op, columns, segments and a
+    row-count bucket."""
+    assert [sk.rows_bucket(n) for n in (1, 65_535, 65_536, 1 << 20)] == [
+        "N<64K", "N<64K", "N<1M", "N>=1M"]
+
+
+# ---------------------------------------------------------------------------
 # the kernels against their plain versions, on the card
 # ---------------------------------------------------------------------------
 
@@ -746,3 +895,87 @@ def test_cuda_compact_and_rank_scatter_chain_tiles(cuda_device, n):
         for g, w in zip(got, want):
             _close(g, w, exact=True)
     torch.cuda.synchronize()
+
+
+def _edge_columns(dev):
+    """A numpy array on the card, as itself and as a view at offset 1 of a
+    buffer one element longer (unaligned pointers)."""
+    def both(a):
+        full = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        off = torch.empty((a.shape[0] + 1,) + a.shape[1:], dtype=full.dtype,
+                          device=dev)
+        off[1:] = full
+        return full, off[1:]
+    return both
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1_000_003, 4_194_305])
+@pytest.mark.parametrize("unaligned", [False, True])
+def test_cuda_segment_reduce_loads_and_edges(cuda_device, n, unaligned):
+    """The mask-first batched loads at their edges, bit for bit (counts,
+    ints, min/max) or within the atomics-order bound (float sums) against
+    the plain version: N off every vector and chunk width, views at
+    offset 1, masks of runs / scattered rows / no row / none, int64 min /
+    max at the privatisation edge (4,096 and 4,097 segments), and 1, 4,
+    10 and 16 f32 columns as a row-major [N, C] (ld = C) and as columns."""
+    rng = np.random.default_rng(n)
+    both = _edge_columns(cuda_device)
+    pick = 1 if unaligned else 0
+    masks = {
+        "runs": (rng.random(-(-n // 97)) < 0.4).repeat(97)[:n],
+        "scattered": rng.random(n) < 0.1,
+        "dead": np.zeros(n, bool),
+        "none": None,
+    }
+    for ns in (4096, 4097):
+        ids = np.sort(rng.integers(-1, ns + 1, n)).astype(np.int32)
+        ts = rng.integers(-(1 << 62), 1 << 62, n, dtype=np.int64)
+        ids_d, ts_d = both(ids)[pick], both(ts)[pick]
+        for name, m in masks.items():
+            m_d = None if m is None else both(m)[pick]
+            m_t = None if m is None else torch.from_numpy(m)
+            for op in ("max", "min"):
+                got = sk.segment_reduce(ts_d, ids_d, ns, op, m_d)
+                want = sk.segment_reduce_plain(_t(ts), _t(ids), ns, op, m_t)
+                _close(got[1], want[1], exact=True)
+                _close(got[0], want[0], exact=True)
+    ns = 65_536
+    ids = rng.integers(-2, ns + 2, n).astype(np.int32)
+    ids.sort()
+    f32 = rng.uniform(0, 100, (n, 16)).astype(np.float32)
+    f32[rng.random((n, 16)) < 0.05] = np.nan
+    ids_d = both(ids)[pick]
+    for C in (1, 4, 10, 16):
+        mat = np.ascontiguousarray(f32[:, :C])
+        for name in ("runs", "none"):
+            m = masks[name]
+            m_d = None if m is None else both(m)[pick]
+            m_t = None if m is None else torch.from_numpy(m)
+            for vals in (both(mat)[pick] if C > 1 else both(mat[:, 0])[pick],
+                         [both(np.ascontiguousarray(mat[:, c]))[pick]
+                          for c in range(C)]):
+                for op in ("sum", "max"):
+                    got = sk.segment_reduce(vals, ids_d, ns, op, m_d)
+                    want = sk.segment_reduce_plain(
+                        _t(mat if C > 1 else mat[:, 0]), _t(ids), ns, op,
+                        m_t)
+                    _close(got[1], want[1].reshape(got[1].shape), exact=True)
+                    _close(got[0], want[0].reshape(got[0].shape),
+                           exact=op != "sum")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_segment_reduce_registers(cuda_device):
+    """Every instance the row path launches reports its registers and
+    spills (cudaFuncGetAttributes)."""
+    for dtype, op, cols in ((torch.int64, "max", 1), (torch.int64, "min", 1),
+                            (torch.float32, "sum", 1),
+                            (torch.float32, "sum", 4),
+                            (torch.float32, "sum", 10),
+                            (torch.float32, "sum", 16),
+                            (torch.float64, "sum", 1)):
+        for priv in (True, False):
+            regs, local = sk.reduce_registers(dtype, op, cols, priv)
+            assert 0 < regs <= 255 and local >= 0

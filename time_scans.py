@@ -4,11 +4,24 @@ card, each checked against its plain version first.
 
 - ``scan``: compact (12 columns, N = 35,651,584, ~8 % kept scattered
   and in runs of 97 rows, beside nonzero + index_select; its host
-  microseconds a call at 4,096 rows), topk_select
-  (one int64 key DESC under a ~10 % mask, k = 10, as chip_smoke.py's
-  query (j); two keys, k = 65,536), rank_scatter and prefix_scan
-  (N = 41,943,040), with the kernels' device times of one call of compact
-  and of (j) by torch.profiler.
+  microseconds a call at 4,096 rows), topk_select at chip_smoke.py's
+  shapes (j) (one int64 key DESC under a ~10 % mask, k = 10), (k) and
+  (l) (a clipped random walk DESC / ASC with its ties at 100.0 / 0.0,
+  then ts; k = 100 / 65,536), each by events, as device time of one call
+  (``_device_ms``, torch.profiler: the call syncs the host once, so no
+  CUDA graph holds it), its kernels' split and, where the checkout counts
+  them, its route and passes over N (``_counts``); segment_reduce at its
+  two timed shapes (int64 max of ts into 4,096 hosts under the row mask;
+  the wide [N, 10] f32 sum into 65,536 groups under the 12 h window's
+  mask), by events, CUDA graph and split, and fourteen more of the row
+  path's shapes (an int64 min of the row index, a count, an f32 max, an
+  f64 sum, 4 columns, 10 columns into 600 groups; int64 min / max into
+  16,004 and 2^20 groups, min into N, f64 min / max into 2^20, 10
+  columns into 192,004) by events and CUDA graph, each beside its bound
+  (the mask, the live rows' ids and values, the outputs), with
+  each instance's registers and spill bytes where the checkout reports
+  them; then rank_scatter and
+  prefix_scan (N = 41,943,040).
 - ``scatter``: K24 at the hot tail's TSBS hour (see ``scatter``),
   grid_scatter_steps and grid_scatter, beside index_put_ and the grid
   copy.
@@ -72,6 +85,7 @@ from greptimedb_tpu_torch.ops import topk_kernels as tk  # noqa: E402
 
 dev = torch.device("cuda")
 res = {}
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet, as chip_smoke.py
 
 
 def time_ms(fn, reps=20):
@@ -104,6 +118,21 @@ def split(fn):
             k = e.key.replace("void ", "").replace("(anonymous namespace)::", "")
             rows.append((round(us / 1e3, 4), k.split("<")[0].split("(")[0][:30], e.count))
     return sorted(rows, reverse=True)[:5]
+
+
+def device_total(fn):
+    """Device time of one call (ms): the profiler's kernel and memcpy /
+    memset times summed; for calls a CUDA graph cannot hold (a host
+    sync)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return round(sum(getattr(e, "self_device_time_total", 0)
+                     for e in prof.key_averages()) / 1e3, 4)
 
 
 def graph_ms(fn, reps=20):
@@ -428,6 +457,16 @@ def windows():
     shutil.rmtree(home, ignore_errors=True)
 
 
+def topk_counts() -> dict:
+    """topk_select's launches, routes and passes over N, where the
+    checkout counts them (None where it does not)."""
+    out = {c: getattr(tk.topk_select, c, None)
+           for c in ("launches", "candidates", "rows", "full_passes")}
+    if hasattr(tk, "full_passes"):  # the rows route's levels included
+        out["full_passes"] = tk.full_passes()
+    return out
+
+
 def scan():
     g = torch.Generator(device=dev)
     g.manual_seed(3)
@@ -461,18 +500,112 @@ def scan():
     res["compact_host_us"] = host_us(lambda: sk.compact(tiny, hot[:4096]),
                                      n=200)
     del got, want, runs
-    keys = [(cols["ts"], False, None)]
-    mask = usage > 90
-    got, gn = tk.topk_select(keys, mask, 10)
-    want, wn = tk.topk_select_plain(keys, mask, 10)
-    assert gn == wn and torch.equal(got, want)
-    res["topk_j_ms"] = time_ms(lambda: tk.topk_select(keys, mask, 10))
-    res["topk_j_split"] = split(lambda: tk.topk_select(keys, mask, 10))
-    keys = [(usage, False, None), (cols["ts"], True, None)]
-    got, gn = tk.topk_select(keys, torch.ones_like(mask), 65_536)
-    want, wn = tk.topk_select_plain(keys, torch.ones_like(mask), 65_536)
-    assert gn == wn and torch.equal(got, want)
-    res["topk_l_ms"] = time_ms(lambda: tk.topk_select(keys, torch.ones_like(mask), 65_536))
+    # top-k at chip_smoke.py phase 11's shapes: (j) one int64 key DESC
+    # under a ~10 % mask, k = 10; (k) a clipped walk DESC (ties at 100.0),
+    # ts, k = 100; (l) the walk ASC (ties at 0.0), ts, k = 65,536
+    steps = 8912  # rows a host, as cols["hostname"] numbers them
+    hosts = -(-N // steps)
+    walk = (torch.rand(hosts, 1, device=dev, generator=g) * 100
+            + torch.randn(hosts, steps, device=dev, generator=g).cumsum(1)
+            ).clamp(0, 100).reshape(-1)[:N].contiguous()
+    everyone = torch.ones(N, dtype=torch.bool, device=dev)
+    shapes = {
+        "j": ([(cols["ts"], False, None)], usage > 90, 10),
+        "k": ([(walk, False, None), (cols["ts"], True, None)], everyone, 100),
+        "l": ([(walk, True, None), (cols["ts"], True, None)], everyone,
+              65_536),
+    }
+    for name, (keys, mask, k) in shapes.items():
+        got, gn = tk.topk_select(keys, mask, k)
+        want, wn = tk.topk_select_plain(keys, mask, k)
+        assert gn == wn and torch.equal(got, want)
+        counts = topk_counts()
+        tk.topk_select(keys, mask, k)
+        res[f"topk_{name}_counts"] = {
+            c: (topk_counts()[c] - v if v is not None else None)
+            for c, v in counts.items()}
+        res[f"topk_{name}_ms"] = time_ms(lambda: tk.topk_select(keys, mask,
+                                                                k))
+        res[f"topk_{name}_split"] = split(lambda: tk.topk_select(keys, mask,
+                                                                 k))
+        res[f"topk_{name}_device_ms"] = device_total(
+            lambda: tk.topk_select(keys, mask, k))
+    del walk, everyone
+    # segment_reduce at chip_smoke.py phase 7's shapes: lastpoint's int64
+    # max of ts over 4,096 hosts under the row mask (34.56 M rows set), and
+    # the wide [N, 10] f32 sum into 4,096 hosts x 16 hour buckets under the
+    # 12 h window's mask (17.28 M rows set)
+    step = torch.arange(N, device=dev) % steps
+    row_mask = step < 8640
+    hid = cols["hostname"]
+    ts = cols["ts"]
+    window = row_mask & (step >= 4320)
+    gid = (hid * 16 + torch.clamp((step - 4320) // 360, 0, 15)).to(
+        torch.int32)
+    V = [cols[f"m{m}"] for m in range(10)]
+    rows = torch.arange(N, device=dev)
+    # the two timed shapes (with their split), then the row path's other
+    # recorded shapes: segment_first_last's int64 min of the row index, a
+    # count, f32 max and f64 sum of one column into the 4,096 hosts, the
+    # wide sum of 4 columns, and 10 columns into 600 groups (privatised);
+    # then the shapes that flush to device memory: int64 min / max into
+    # 16,004 groups (a host's four 6 h runs), into 2^20 groups (runs of 34
+    # rows) and min into N groups (each row its own: every step a
+    # boundary), f64 min / max into 2^20, and 10 columns into 192,004
+    # groups (a host's 48 runs of 180 rows)
+    g16k = (hid * 4 + torch.clamp(step // 2160, 0, 3)).to(torch.int32)
+    g1m = (rows // 34).to(torch.int32)
+    every = rows.to(torch.int32)
+    g192k = (hid * 48 + torch.clamp(step // 180, 0, 47)).to(torch.int32)
+    f64 = V[1].double()
+    for name, args in (("max", (ts, hid, 4096, "max", row_mask)),
+                       ("wide", (V, gid, 65_536, "sum", window)),
+                       ("first", (rows, hid, 4096, "min", row_mask)),
+                       ("count", (None, hid, 4096, "sum", row_mask)),
+                       ("f32max", (V[0], hid, 4096, "max", row_mask)),
+                       ("f64sum", (V[1].double(), hid, 4096, "sum",
+                                   row_mask)),
+                       ("wide4", (V[:4], gid, 65_536, "sum", window)),
+                       ("wide_priv", (V, (gid % 600).contiguous(), 600,
+                                      "sum", window)),
+                       ("min16k", (rows, g16k, 16_004, "min", row_mask)),
+                       ("max16k", (ts, g16k, 16_004, "max", row_mask)),
+                       ("min1m", (rows, g1m, 1 << 20, "min", row_mask)),
+                       ("max1m", (ts, g1m, 1 << 20, "max", row_mask)),
+                       ("minN", (rows, every, N, "min", row_mask)),
+                       ("f64min1m", (f64, g1m, 1 << 20, "min", row_mask)),
+                       ("f64max1m", (f64, g1m, 1 << 20, "max", row_mask)),
+                       ("wide192k", (V, g192k, 192_004, "sum", window))):
+        got = sk.segment_reduce(*args)
+        want = sk.segment_reduce_plain(*args)
+        assert torch.equal(got[1], want[1])
+        if got[0] is not None:
+            res[f"segment_{name}_rel"] = rel_err(got[0], want[0])
+        # bound: every mask byte, the id and values of the live rows, the
+        # outputs once
+        vals, ids, ns, mask = args[0], args[1], args[2], args[4]
+        vals = vals if isinstance(vals, list) else [v for v in (vals,) if
+                                                    v is not None]
+        live = int((mask & (ids >= 0) & (ids < ns)).sum())
+        moved = sum(t.numel() * t.element_size() for t in (mask, *got)
+                    if t is not None) + live * (
+            ids.element_size() + sum(v.element_size() for v in vals))
+        res[f"segment_{name}_bound_ms"] = moved / HBM_BYTES_PER_S * 1e3
+        both(f"segment_{name}", lambda: sk.segment_reduce(*args))
+        if name in ("max", "wide"):
+            res[f"segment_{name}_split"] = split(
+                lambda: sk.segment_reduce(*args))
+        del got, want, args
+    del rows, g16k, g1m, every, g192k, f64
+    if hasattr(sk, "reduce_registers"):
+        res["segment_registers"] = {
+            f"{d} {op} x{c} {'priv' if p else 'global'}":
+            sk.reduce_registers(dt, op, c, p)
+            for d, dt in (("i64", torch.int64), ("f32", torch.float32))
+            for op in ("max", "sum")
+            for c in ((1,) if d == "i64" else (1, 4, 10, 16))
+            for p in (True, False)}
+    del V, gid, window, row_mask, step
     key = torch.where(hot, torch.floor(usage / 10).long(), sk.I64_MAX)
     order = sk.radix_argsort(key, hot)
     got = sk.rank_scatter(key, order, hot, N)
